@@ -8,7 +8,8 @@ Run from the root of a checkout.  Phases, one JSON line each:
 0. card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 1. build: the cluster merge kernel from ``veneur_tpu_torch/csrc``;
 2. kernel vs plain: ``cluster_merge`` against ``cluster_merge_plain``
-   at R = 16384, C = 616, K = 512 (ingest) and K = 616 (union):
+   at R = 16384, C = 616, K = 512 (deep ingest), K = 256 (superbatch
+   ingest), K = 616 (union) and K = 512 with unsorted state rows:
    mass, packing contract, quantiles; times with CUDA events;
 3. ``entry("cuda")`` against ``entry("cpu")`` on the same arrays;
 4. the main path: a ``MetricTable`` at the server's default sizes
@@ -17,7 +18,8 @@ Run from the root of a checkout.  Phases, one JSON line each:
    carrying 10M samples and 1024 set series x 1000 members through
    ``ingest_columns``, ``device_step`` and ``swap`` + ``Flusher.flush``;
    the flush is held against a CPU table's on the same batches, the
-   percentiles against exact ones, and the kernel launch count is read;
+   percentiles against exact ones, and the kernel launch count and the
+   (rows, K) of every merge are read;
    a third interval runs under torch.profiler for the device's busy
    share and its kernel times;
 5. the server: ``python -m veneur_tpu_torch.cli.main`` on the card,
@@ -61,8 +63,11 @@ def check(cond, msg: str) -> None:
         raise AssertionError(msg)
 
 
-def cuda_ms(fn, runs: int = 20, warmup: int = 3) -> float:
-    """Median ms of ``fn`` over ``runs`` CUDA-event-timed calls."""
+def cuda_ms(fn, runs: int = 10, reps: int = 10, warmup: int = 3) -> float:
+    """Median ms of one call of ``fn``: each of ``runs`` samples times
+    ``reps`` back-to-back calls between two CUDA events, so the host's
+    launch overhead overlaps the device's work instead of adding to
+    it."""
     import torch
     for _ in range(warmup):
         fn()
@@ -72,10 +77,11 @@ def cuda_ms(fn, runs: int = 20, warmup: int = 3) -> float:
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        fn()
+        for _ in range(reps):
+            fn()
         e1.record()
         e1.synchronize()
-        times.append(e0.elapsed_time(e1))
+        times.append(e0.elapsed_time(e1) / reps)
     return float(np.median(times))
 
 
@@ -109,18 +115,31 @@ def packing_ok(m, w) -> bool:
     return contiguous and zeros and sorted_
 
 
-def merge_bound_ms(rows: int, cap: int, k: int) -> tuple[float, str]:
+def merge_bound_ms(rows: int, cap: int, k: int,
+                   sorted_state: bool = True) -> tuple[float, str]:
     """Least time for one merge: read 2 R (C+K) f32, write 2 R C f32;
-    operations: a comparison sort of n = pow2(C+K) keys per row
-    (n log2 n) plus ~30 f32 operations per slot for the k-scale and
+    operations: a comparison sort of what arrives unsorted (the batch,
+    and the state when it is not already sorted: n log2 n for n =
+    pow2 of its width), a binary search per slot to merge the two
+    sorted runs, and ~30 f32 operations per slot for the k-scale and
     the cluster sums."""
     nbytes = 2 * rows * (cap + k) * 4 + 2 * rows * cap * 4
-    n = 1 << (cap + k - 1).bit_length()
-    ops = rows * (n * math.log2(n) + 30 * (cap + k))
+    ops = 30 * (cap + k) + (cap + k) * math.log2(max(cap, k, 2))
+    for width in ((k,) if sorted_state else (k, cap)):
+        n = 1 << max(width - 1, 1).bit_length()
+        ops += n * math.log2(n)
+    ops *= rows
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations")
+
+
+# (label, batch width K, state rows sorted): K = 512 is the deep path's
+# chunk, K = 256 the superbatch's merge, K = 616 a digest union; the
+# last case permutes every state row so the kernel sorts it too
+KERNEL_CASES = (("k512", 512, True), ("k256", 256, True),
+                ("k616", 616, True), ("k512_unsorted_state", 512, False))
 
 
 def phase_kernel(dev: str = "cuda", rows: int = 16384) -> dict:
@@ -134,9 +153,13 @@ def phase_kernel(dev: str = "cuda", rows: int = 16384) -> dict:
     rng = np.random.default_rng(7)
     qs = torch.tensor(QS, dtype=torch.float32, device=dev)
     out = {}
-    for k in (512, 616):
-        a = [torch.from_numpy(x).to(dev)
-             for x in random_case(rng, rows, cap, k)]
+    for label, k, sorted_state in KERNEL_CASES:
+        case = list(random_case(rng, rows, cap, k))
+        if not sorted_state:
+            perm = np.argsort(rng.random((rows, cap)), axis=1)
+            case[0] = np.take_along_axis(case[0], perm, 1)
+            case[1] = np.take_along_axis(case[1], perm, 1)
+        a = [torch.from_numpy(x).to(dev) for x in case]
         km, kwt = cm.cluster_merge(*a, **kw)
         pm, pwt = cm.cluster_merge_plain(*a, **kw)
         torch.cuda.synchronize()
@@ -145,14 +168,14 @@ def phase_kernel(dev: str = "cuda", rows: int = 16384) -> dict:
                         total.clamp(min=1e-30)).max())
         mass_p = float(((pwt.double().sum(1) - total).abs() /
                         total.clamp(min=1e-30)).max())
-        check(mass_k <= 1e-6, f"K={k}: kernel mass rel err {mass_k}")
-        check(mass_p <= 1e-6, f"K={k}: plain mass rel err {mass_p}")
-        check(packing_ok(km, kwt), f"K={k}: kernel packing contract")
-        check(packing_ok(pm, pwt), f"K={k}: plain packing contract")
+        check(mass_k <= 1e-6, f"{label}: kernel mass rel err {mass_k}")
+        check(mass_p <= 1e-6, f"{label}: plain mass rel err {mass_p}")
+        check(packing_ok(km, kwt), f"{label}: kernel packing contract")
+        check(packing_ok(pm, pwt), f"{label}: plain packing contract")
         qk = tdigest.quantile(km, kwt, qs)
         qp = tdigest.quantile(pm, pwt, qs)
         viol = float(((qk - qp).abs() - (1e-3 + 2e-3 * qp.abs())).max())
-        check(viol <= 0, f"K={k}: quantiles outside rtol 2e-3/atol "
+        check(viol <= 0, f"{label}: quantiles outside rtol 2e-3/atol "
                          f"1e-3 (excess {viol})")
         max_abs = float((qk - qp).abs().max())
         ms = cuda_ms(lambda: cm.cluster_merge(*a, **kw))
@@ -162,18 +185,22 @@ def phase_kernel(dev: str = "cuda", rows: int = 16384) -> dict:
         keys = torch.cat([keys, torch.full((rows, n - cap), math.inf,
                                            device=dev)], dim=1)
         sort_ms = cuda_ms(lambda: torch.sort(keys, dim=1))
-        bound, by = merge_bound_ms(rows, cap, k)
-        res = {"phase": "kernel_vs_plain", "rows": rows, "cap": cap,
-               "k": k, "n": n, "mass_rel_err_kernel": mass_k,
+        bound, by = merge_bound_ms(rows, cap, k, sorted_state)
+        res = {"phase": "kernel_vs_plain", "case": label, "rows": rows,
+               "cap": cap, "k": k, "sorted_state": sorted_state,
+               "mass_rel_err_kernel": mass_k,
                "mass_rel_err_plain": mass_p,
                "quantile_max_abs_err": max_abs, "ms": ms,
                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-               "torch_sort_ms": sort_ms, "library_ms": None,
+               "bound_share": bound / ms,
+               "torch_sort_ms": sort_ms, "sort_n": n, "library_ms": None,
+               "launch": cm.occupancy(cap, k),
                "library_note": "no single PyTorch call computes the "
                                "whole merge; torch_sort_ms is the sort "
-                               "of the same (R, n) keys, for context"}
+                               "of the same (R, sort_n) keys, for "
+                               "context"}
         emit(res)
-        out[k] = res
+        out[label] = res
         del a, km, kwt, pm, pwt, keys
     return out
 
@@ -411,11 +438,24 @@ def phase_table(dev: str = "cuda", scale: int = 1,
             torch.cuda.synchronize()
 
     table = MetricTable(TableConfig(**cfg), device=dev)
-    cluster_merge.launches = 0
-    applies0 = table.superbatch_applies
-    _, n1, st1 = run_interval(table, flusher, chunks(traffic), sync)
-    res, n2, st2 = run_interval(table, flusher, chunks(traffic), sync)
-    launches = cluster_merge.launches
+    # every merge of the two intervals, by (rows, batch width K)
+    shapes: dict = {}
+    merge = cluster_merge.cluster_merge
+
+    def recording_merge(means, weights, new_means, new_weights, **kw):
+        key = (int(means.shape[0]), int(new_means.shape[1]))
+        shapes[key] = shapes.get(key, 0) + 1
+        return merge(means, weights, new_means, new_weights, **kw)
+
+    cluster_merge.cluster_merge = recording_merge
+    try:
+        cluster_merge.launches = 0
+        applies0 = table.superbatch_applies
+        _, n1, st1 = run_interval(table, flusher, chunks(traffic), sync)
+        res, n2, st2 = run_interval(table, flusher, chunks(traffic), sync)
+        launches = cluster_merge.launches
+    finally:
+        cluster_merge.cluster_merge = merge
     check(n1 == n2 == n_total, f"processed {n1}/{n2} of {n_total}")
     applies = table.superbatch_applies - applies0
     prof = profile_interval(table, flusher, chunks(traffic), sync)
@@ -428,6 +468,8 @@ def phase_table(dev: str = "cuda", scale: int = 1,
            "samples_per_s": n_total / st2["total_s"],
            "cluster_merge_launches": launches,
            "launches_per_interval": launches / 2,
+           "merge_shapes": [{"rows": r, "k": k, "calls": c}
+                            for (r, k), c in sorted(shapes.items())],
            "superbatch_applies": applies,
            "profiled_interval": prof}
     if cpu_reference:
@@ -576,7 +618,7 @@ def main() -> int:
     table = phase_table()
     phase_server()
 
-    k = kern[512]
+    k = kern["k512"]
     emit({"kernels": [{
         "name": "cluster_merge", "route": "cuda",
         "source": "veneur_tpu_torch/csrc/cluster_merge.cu",

@@ -77,11 +77,40 @@ def _case(name: str):
         v[bw > 0] = 42.0
         bw *= rng.integers(1, 1000, bw.shape).astype(np.float32)
         return m, w, v, bw, 100.0
+    if name == "unsorted_state":         # in-kernel sort of the state
+        m, w = state(40, 616, 0.6)
+        perm = np.argsort(rng.random((40, 616)), axis=1)
+        m = np.take_along_axis(m, perm, 1)  # empties interleaved
+        w = np.take_along_axis(w, perm, 1)
+        return (m, w, *batch(40, 512), 100.0)
+    if name == "sorted_union":           # packed, sorted batch: no sort
+        m, w = state(24, 616, 0.5)
+        return (m, w, *state(24, 616, 1.0), 100.0)
+    if name == "all_empty_rows":         # every row takes the early exit
+        z = np.zeros((10, 616), np.float32)
+        zb = np.zeros((10, 512), np.float32)
+        return z, z, zb, zb, 100.0
+    if name == "unaligned_batch":        # slice at column 3: scalar loads
+        v, bw = batch(20, 1024)
+        return (*state(20, 616, 0.5), v[:, 3:515], bw[:, 3:515], 100.0)
     raise KeyError(name)
 
 
 CASES = ["ingest_full_width", "union_616", "shallow_256", "small_width",
-         "empty_batch", "empty_rows", "ties"]
+         "empty_batch", "empty_rows", "ties", "unsorted_state",
+         "sorted_union", "all_empty_rows", "unaligned_batch"]
+
+
+def _tensor(a: np.ndarray, device: str) -> torch.Tensor:
+    """``a`` on ``device``; a column slice stays a view into its whole
+    plane there, at the same offset and row stride."""
+    if a.flags.c_contiguous:
+        return torch.from_numpy(a).to(device)
+    whole = a.base
+    off = (a.__array_interface__["data"][0] -
+           whole.__array_interface__["data"][0]) // a.itemsize
+    return torch.from_numpy(whole).to(device).as_strided(
+        a.shape, (a.strides[0] // a.itemsize, 1), off)
 
 
 def _check_contract(m, w, total):
@@ -100,9 +129,8 @@ def _check_contract(m, w, total):
 
 @pytest.mark.parametrize("name", CASES)
 def test_plain_merge_contract(name):
-    m, w, bm, bw, comp = (torch.from_numpy(np.ascontiguousarray(a))
-                          if isinstance(a, np.ndarray) else a
-                          for a in _case(name))
+    *arrays, comp = _case(name)
+    m, w, bm, bw = (_tensor(a, "cpu") for a in arrays)
     om, ow = cluster_merge.cluster_merge(m, w, bm, bw, **_scale(comp))
     assert om.shape == m.shape
     _check_contract(om, ow, w.double().sum(1) + bw.double().sum(1))
@@ -114,8 +142,8 @@ def test_kernel_matches_plain(name):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU "
                     "mode")
-    m, w, bm, bw, comp = _case(name)
-    args = [torch.from_numpy(a).cuda() for a in (m, w, bm, bw)]
+    *arrays, comp = _case(name)
+    args = [_tensor(a, "cuda") for a in arrays]
     before = cluster_merge.launches
     km, kw = cluster_merge.cluster_merge(*args, **_scale(comp))
     pm, pw = cluster_merge.cluster_merge_plain(*args, **_scale(comp))
@@ -152,3 +180,13 @@ def test_kernel_strided_batch_and_bound():
     with pytest.raises(ValueError, match="2048"):
         cluster_merge.cluster_merge(wide, wide, wide, wide,
                                     **_scale(comp))
+
+
+def test_ab_tool_variants_derive_from_the_kernel_source():
+    """``tools/cluster_merge_ab.py`` builds its variants by anchored
+    edits of the kernel's source; every anchor must still match once."""
+    from veneur_tpu_torch.tools import cluster_merge_ab as ab
+    base = ab.variant_source("kernel")
+    assert base == cluster_merge.SOURCE.read_text()
+    for name in ["persistent", *ab._EDITS, *ab._STOPS]:
+        assert ab.variant_source(name) != base, name

@@ -98,7 +98,7 @@ def test_segment_matches_jax(fn):
     elif fn.startswith("histo_stats_update"):
         st0 = np.asarray(jseg.empty_histo_stats(rows))
         np.testing.assert_array_equal(
-            N(segment.empty_histo_stats(rows)), st0)
+            N(segment.empty_histo_stats(rows, "cpu")), st0)
         if fn.endswith("unit"):
             j = jseg.histo_stats_update_unit(
                 jnp.asarray(st0), jnp.asarray(rid), jnp.asarray(vals))
@@ -232,7 +232,23 @@ def test_cluster_merge_plain_matches_pallas_interpret():
     rng = np.random.default_rng(5)
     cap = tdigest.capacity_for(5.0)
     assert cap == 40
-    m, w, bm, bw = _random_case(rng, 8, cap, 24)
+    _plain_vs_pallas_interpret(*_random_case(rng, 8, cap, 24))
+
+
+def test_cluster_merge_plain_matches_pallas_interpret_unsorted_state():
+    """As above, with state rows permuted so that empty slots lie
+    between live ones (the kernel's in-row sort branch)."""
+    rng = np.random.default_rng(6)
+    m, w, bm, bw = _random_case(rng, 8, tdigest.capacity_for(5.0), 24)
+    perm = np.argsort(rng.random(m.shape), axis=1)
+    m = np.take_along_axis(m, perm, 1)
+    w = np.take_along_axis(w, perm, 1)
+    key = np.where(w > 0, m, np.inf)
+    assert (key[:, 1:] < key[:, :-1]).any()
+    _plain_vs_pallas_interpret(m, w, bm, bw)
+
+
+def _plain_vs_pallas_interpret(m, w, bm, bw):
     pm, pw = pallas_merge.merge_planes(
         jnp.asarray(m), jnp.asarray(w), jnp.asarray(bm), jnp.asarray(bw),
         interpret=True, **_scale(5.0))

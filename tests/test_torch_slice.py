@@ -338,7 +338,7 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 def test_merge_capacity_guard():
-    m, w = tdigest.empty_state(2, 40)
+    m, w = tdigest.empty_state(2, 40, "cpu")
     with pytest.raises(ValueError, match="capacity"):
         tdigest._merge_impl(m, w, m, w, compression=100.0)
     assert jtd.capacity_for(100.0) == tdigest.capacity_for(100.0)

@@ -18,12 +18,14 @@ ids clipped to the capacity, weighted per-cluster means).
   against it.
 
 ``launches`` counts kernel launches (not plain-version calls), so a run
-can show that its merges went through the kernel.
+can show that its merges went through the kernel; ``occupancy`` reports
+the kernel's launch shape on the current card.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import math
 import os
@@ -100,23 +102,45 @@ def build(verbose: bool = False) -> Path:
     return out
 
 
+def bind(path) -> ctypes.CDLL:
+    """Load a library built from the kernel's source and declare its C
+    entries' argument types."""
+    lib = ctypes.CDLL(str(path))
+    p = ctypes.c_void_p
+    f = ctypes.c_float
+    i = ctypes.c_int
+    ll = ctypes.c_longlong
+    fn = lib.cluster_merge_launch
+    fn.argtypes = [p, p, ll, p, p, ll, p, p, i, i, i, i, f, f, f, f, f, p]
+    fn.restype = i
+    occ = lib.cluster_merge_occupancy
+    occ.argtypes = [i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
+    occ.restype = i
+    return lib
+
+
 def _load():
     global _lib
     if _lib is not None:
         return _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.cluster_merge_launch
-            p = ctypes.c_void_p
-            f = ctypes.c_float
-            i = ctypes.c_int
-            ll = ctypes.c_longlong
-            fn.argtypes = [p, p, ll, p, p, ll, p, p, i, i, i, i,
-                           f, f, f, f, f, p]
-            fn.restype = ctypes.c_int
-            _lib = lib
+            _lib = bind(build())
     return _lib
+
+
+def occupancy(cap: int, batch_width: int) -> dict:
+    """The kernel's launch shape at (cap, batch width) on the current
+    card: threads and dynamic shared memory per row, and how many rows
+    (CTAs) one SM holds at once."""
+    threads = ctypes.c_int()
+    smem = ctypes.c_int()
+    per_sm = _load().cluster_merge_occupancy(
+        cap, batch_width, ctypes.byref(threads), ctypes.byref(smem))
+    if per_sm < 0:
+        raise RuntimeError("cluster_merge occupancy query failed")
+    return {"threads": threads.value, "smem_bytes": smem.value,
+            "rows_per_sm": per_sm}
 
 
 def _k_scale(q: torch.Tensor, delta: float, tail_coeff: float,
@@ -129,6 +153,18 @@ def _k_scale(q: torch.Tensor, delta: float, tail_coeff: float,
     tail = tail_coeff * torch.log(
         tail_q0 / torch.clamp(1.0 - q, min=tail_qmin))
     return body + torch.clamp(tail, min=0.0)
+
+
+@functools.lru_cache(maxsize=16)
+def _kernel_constants(delta: float, tail_coeff: float, tail_q0: float,
+                      tail_qmin: float) -> tuple[float, float]:
+    """The k-scale's f32 multiplier and k(0), as the kernel takes them
+    (computed once per scale: the merge is called on the hot path)."""
+    scale = float(torch.tensor(delta / (2.0 * math.pi),
+                               dtype=torch.float32))
+    k0 = float(_k_scale(torch.zeros((), dtype=torch.float32), delta,
+                        tail_coeff, tail_q0, tail_qmin))
+    return scale, k0
 
 
 def cluster_merge_plain(means: torch.Tensor, weights: torch.Tensor,
@@ -222,9 +258,7 @@ def cluster_merge(means: torch.Tensor, weights: torch.Tensor,
     lib = _load()
     out_m = torch.empty((num_rows, cap), dtype=torch.float32, device=dev)
     out_w = torch.empty((num_rows, cap), dtype=torch.float32, device=dev)
-    scale = float(torch.tensor(delta / (2.0 * math.pi),
-                               dtype=torch.float32))
-    k0 = float(_k_scale(torch.zeros((), dtype=torch.float32), **kw))
+    scale, k0 = _kernel_constants(**kw)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.cluster_merge_launch(

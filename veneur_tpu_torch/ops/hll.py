@@ -35,7 +35,7 @@ _RANKS = 64
 
 
 def empty_state(num_rows: int,
-                device: "str | torch.device" = "cpu") -> torch.Tensor:
+                device: "str | torch.device") -> torch.Tensor:
     return torch.zeros((num_rows, M), dtype=torch.uint8, device=device)
 
 

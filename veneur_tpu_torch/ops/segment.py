@@ -126,19 +126,19 @@ def gauge_dense_update(state: torch.Tensor, dense: torch.Tensor,
 
 
 def empty_counter_state(num_rows: int,
-                        device: "str | torch.device" = "cpu"
+                        device: "str | torch.device"
                         ) -> torch.Tensor:
     return torch.zeros((num_rows,), dtype=torch.float32, device=device)
 
 
 def empty_gauge_state(num_rows: int,
-                      device: "str | torch.device" = "cpu"
+                      device: "str | torch.device"
                       ) -> torch.Tensor:
     return torch.zeros((num_rows,), dtype=torch.float32, device=device)
 
 
 def empty_histo_stats(num_rows: int,
-                      device: "str | torch.device" = "cpu"
+                      device: "str | torch.device"
                       ) -> torch.Tensor:
     """min column +f32max, max column -f32max; weight 0 = empty row."""
     stats = torch.zeros((num_rows, HISTO_STAT_COLS), dtype=torch.float32,

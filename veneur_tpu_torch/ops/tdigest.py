@@ -48,8 +48,8 @@ def capacity_for(compression: float) -> int:
 DEFAULT_CAPACITY = capacity_for(DEFAULT_COMPRESSION)
 
 
-def empty_state(num_rows: int, capacity: int = DEFAULT_CAPACITY,
-                device: "str | torch.device" = "cpu"
+def empty_state(num_rows: int, capacity: int,
+                device: "str | torch.device"
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     means = torch.zeros((num_rows, capacity), dtype=torch.float32,
                         device=device)
