@@ -6,24 +6,31 @@
 Run from the root of a checkout.  Phases, one JSON line each:
 
 0. card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-1. build: the cluster merge kernel from ``veneur_tpu_torch/csrc``;
+1. build: the cluster merge kernel from ``veneur_tpu_torch/csrc``
+   (nvcc) and the native host library from ``veneur_tpu_torch/native``
+   (g++), both compilers started together;
 2. kernel vs plain: ``cluster_merge`` against ``cluster_merge_plain``
-   at R = 16384, C = 616, K = 512 (deep ingest), K = 256 (superbatch
-   ingest), K = 616 (union) and K = 512 with unsorted state rows:
-   mass, packing contract, quantiles; times with CUDA events;
+   at R = 16384, C = 616, K = 512 (the deep plane), K = 256, K = 616
+   (union) and K = 512 with unsorted state rows: mass, packing
+   contract, quantiles; times with CUDA events.  After phase 4 the same
+   check runs at every other (R, K) phase 4 merged at;
 3. ``entry("cuda")`` against ``entry("cpu")`` on the same arrays;
 4. the main path: a ``MetricTable`` at the server's default sizes
    (16384 counter / gauge / histo rows, 1024 set rows) takes two
-   intervals of 16k counter series, 16k gauge series, 10k timer series
-   carrying 10M samples and 1024 set series x 1000 members through
-   ``ingest_columns``, ``device_step`` and ``swap`` + ``Flusher.flush``;
-   the flush is held against a CPU table's on the same batches, the
-   percentiles against exact ones, and the kernel launch count and the
-   (rows, K) of every merge are read;
-   a third interval runs under torch.profiler for the device's busy
-   share and its kernel times;
+   intervals of DogStatsD text (16k counter series, 16k gauge series,
+   10k timer series carrying 10M samples and 1024 set series x 1000
+   members, in buffers of 1Mi lines) through ``ingest_buffer`` (native
+   parse, probe and combine), ``device_step`` (the f16 value plane and
+   the cluster merge) and ``swap`` + ``Flusher.flush``; the flush is
+   held against a CPU table's on the same text, the percentiles
+   against exact ones over the parsed values, and the stage times, the
+   route each batch took, the bytes copied to the device, the kernel
+   launch count and the (rows, K) of every merge are read; a third
+   interval runs under torch.profiler for the device's busy share and
+   its kernel times;
 5. the server: ``python -m veneur_tpu_torch.cli.main`` on the card,
-   fed over loopback UDP, its flush file checked;
+   fed over loopback UDP (single-line, multi-line, an event, a service
+   check and an oversize datagram), its flush file checked;
 6. the kernels line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -135,14 +142,24 @@ def merge_bound_ms(rows: int, cap: int, k: int,
             else "operations")
 
 
-# (label, batch width K, state rows sorted): K = 512 is the deep path's
-# chunk, K = 256 the superbatch's merge, K = 616 a digest union; the
-# last case permutes every state row so the kernel sorts it too
-KERNEL_CASES = (("k512", 512, True), ("k256", 256, True),
-                ("k616", 616, True), ("k512_unsorted_state", 512, False))
+# (label, state rows R, batch width K, state rows sorted): K = 512 is
+# the deep plane's width and chunk, K = 256 a shallow merge, K = 616 a
+# digest union; the last case permutes every state row so the kernel
+# sorts it too.  After phase 4, phase 2 also holds the kernel at every
+# other (R, K) the main path merged at (``recorded_cases``).
+KERNEL_CASES = (("k512", 16384, 512, True), ("k256", 16384, 256, True),
+                ("k616", 16384, 616, True),
+                ("k512_unsorted_state", 16384, 512, False))
 
 
-def phase_kernel(dev: str = "cuda", rows: int = 16384) -> dict:
+def recorded_cases(merge_shapes) -> tuple:
+    """Phase 4's merge shapes that KERNEL_CASES does not time."""
+    timed = {(r, k) for _, r, k, _ in KERNEL_CASES}
+    return tuple((f"r{m['rows']}_k{m['k']}", m["rows"], m["k"], True)
+                 for m in merge_shapes if (m["rows"], m["k"]) not in timed)
+
+
+def phase_kernel(dev: str = "cuda", cases=KERNEL_CASES) -> dict:
     import torch
     from veneur_tpu_torch.ops import cluster_merge as cm
     from veneur_tpu_torch.ops import tdigest
@@ -153,7 +170,7 @@ def phase_kernel(dev: str = "cuda", rows: int = 16384) -> dict:
     rng = np.random.default_rng(7)
     qs = torch.tensor(QS, dtype=torch.float32, device=dev)
     out = {}
-    for label, k, sorted_state in KERNEL_CASES:
+    for label, rows, k, sorted_state in cases:
         case = list(random_case(rng, rows, cap, k))
         if not sorted_state:
             perm = np.argsort(rng.random((rows, cap)), axis=1)
@@ -248,99 +265,72 @@ COUNTER_SAMPLES = 1_000_000
 GAUGE_SAMPLES = 1_000_000
 TIMER_SAMPLES = 10_000_000
 SET_MEMBERS = 1000
-CHUNK = 1 << 20
+CHUNK = 1 << 20  # lines per ingest_buffer call
+TAGS = b"|#env:smoke"
 
 
-def build_traffic(seed: int = 0, scale: int = 1):
-    """One interval's traffic as ParsedBatch columns (numpy, seeded):
-    counters, gauges, timers (10k series x 10M gamma(2, 30) samples,
-    uniform over series) and sets (1000 distinct members per series),
-    shuffled together."""
-    from veneur_tpu_torch.protocol import columnar
-    from veneur_tpu_torch.utils import hashing
+def build_traffic(seed: int = 0, scale: int = 1) -> list[bytes]:
+    """One interval's traffic as DogStatsD text (seeded): counters,
+    gauges, timers (10k series x 10M gamma(2, 30) samples, uniform over
+    series) and sets (1000 distinct members per series), shuffled
+    together and cut into buffers of CHUNK lines."""
     rng = np.random.default_rng(seed)
-    classes = [
-        ("c", N_COUNTER // scale, COUNTER_SAMPLES // scale,
-         columnar.CODE_COUNTER, "c"),
-        ("g", N_GAUGE // scale, GAUGE_SAMPLES // scale,
-         columnar.CODE_GAUGE, "g"),
-        ("t", N_TIMER // scale, TIMER_SAMPLES // scale,
-         columnar.CODE_TIMER, "ms"),
-        ("s", N_SET // scale, (N_SET // scale) * SET_MEMBERS,
-         columnar.CODE_SET, "s"),
-    ]
-    lines, keys, parts = [], [], []
-    base = 0
-    for prefix, n_series, n, code, tok in classes:
-        for i in range(n_series):
-            lines.append(f"{prefix}{i}:1|{tok}|#env:smoke".encode())
-            keys.append(hashing.key_hash64(f"{prefix}{i}", code,
-                                           ("env:smoke",), 0))
-        if code == columnar.CODE_SET:
-            series = np.repeat(np.arange(n_series), SET_MEMBERS)
-            vals = np.zeros(n)
-            member = rng.integers(0, 2 ** 63, n, dtype=np.uint64)
+    lines: list[bytes] = []
+    for prefix, n_series, n, tok in (
+            (b"c", N_COUNTER // scale, COUNTER_SAMPLES // scale, b"c"),
+            (b"g", N_GAUGE // scale, GAUGE_SAMPLES // scale, b"g"),
+            (b"t", N_TIMER // scale, TIMER_SAMPLES // scale, b"ms")):
+        names = [b"%s%d:" % (prefix, i) for i in range(n_series)]
+        tail = b"|" + tok + TAGS
+        series = rng.integers(0, n_series, n).tolist()
+        if tok == b"ms":
+            vals = rng.gamma(2.0, 30.0, n).tolist()
         else:
-            series = rng.integers(0, n_series, n)
-            member = np.zeros(n, np.uint64)
-            if code == columnar.CODE_TIMER:
-                vals = rng.gamma(2.0, 30.0, n).astype(np.float32)
-            else:
-                vals = rng.normal(10.0, 3.0, n).astype(np.float32)
-        parts.append((series + base, np.full(n, code, np.uint8),
-                      vals.astype(np.float64), member))
-        base += n_series
-    line_id = np.concatenate([p[0] for p in parts])
-    order = rng.permutation(len(line_id))
-    line_id = line_id[order]
-    offs = np.cumsum([0] + [len(x) + 1 for x in lines[:-1]])
-    lens = np.array([len(x) for x in lines], np.int32)
-    keys = np.array(keys, np.uint64)
-    return dict(
-        buf=b"\n".join(lines),
-        key_hash=keys[line_id],
-        type_code=np.concatenate([p[1] for p in parts])[order],
-        value=np.concatenate([p[2] for p in parts])[order],
-        member_hash=np.concatenate([p[3] for p in parts])[order],
-        line_off=offs.astype(np.int64)[line_id],
-        line_len=lens[line_id])
+            vals = rng.normal(10.0, 3.0, n).tolist()
+        lines += [b"%s%.3f%s" % (names[i], v, tail)
+                  for i, v in zip(series, vals)]
+    n_set = N_SET // scale
+    members = rng.integers(0, 2 ** 62, n_set * SET_MEMBERS).tolist()
+    lines += [b"s%d:m%d|s%s" % (i // SET_MEMBERS, m, TAGS)
+              for i, m in enumerate(members)]
+    order = rng.permutation(len(lines)).tolist()
+    return [b"\n".join(lines[j] for j in order[lo:lo + CHUNK])
+            for lo in range(0, len(order), CHUNK)]
 
 
-def chunks(traffic):
-    from veneur_tpu_torch.protocol import columnar
-    n = len(traffic["key_hash"])
-    for lo in range(0, n, CHUNK):
-        sl = slice(lo, lo + CHUNK)
-        m = len(traffic["key_hash"][sl])
-        yield columnar.ParsedBatch(
-            buf=traffic["buf"], n=m, key_hash=traffic["key_hash"][sl],
-            type_code=traffic["type_code"][sl],
-            value=traffic["value"][sl],
-            member_hash=traffic["member_hash"][sl],
-            weight=np.ones(m, np.float32), scope=np.zeros(m, np.uint8),
-            line_off=traffic["line_off"][sl],
-            line_len=traffic["line_len"][sl])
-
-
-def run_interval(table, flusher, batches, sync):
-    """Ingest every chunk (with the mid-interval device steps), swap,
-    flush.  Returns (FlushResult, seconds by stage)."""
-    t0 = time.perf_counter()
+def run_interval(table, flusher, bufs, sync):
+    """Feed every buffer through ``ingest_buffer`` with the
+    mid-interval device steps, swap, flush.  Returns (FlushResult,
+    processed, seconds by stage, what the interval did)."""
+    routes0, h2d0 = dict(table.routes), table.h2d_bytes
+    t_ingest = t_step = 0.0
     n = 0
-    for pb in batches:
-        n += table.ingest_columns(pb)[0]
+    for buf in bufs:
+        t0 = time.perf_counter()
+        processed, dropped, others = table.ingest_buffer(buf)
+        t1 = time.perf_counter()
         table.device_step()
+        t_step += time.perf_counter() - t1
+        t_ingest += t1 - t0
+        check(dropped == 0 and not others,
+              f"ingest_buffer dropped {dropped}, {len(others)} others")
+        n += processed
     t1 = time.perf_counter()
     snap = table.swap()
     sync()
     t2 = time.perf_counter()
     res = flusher.flush(snap, now=1)
     t3 = time.perf_counter()
-    return res, n, {"ingest_s": t1 - t0, "swap_s": t2 - t1,
-                    "flush_s": t3 - t2, "total_s": t3 - t0}
+    routes = {k: v - routes0.get(k, 0) for k, v in table.routes.items()
+              if v - routes0.get(k, 0)}
+    total = t_ingest + t_step + (t3 - t1)
+    return res, n, {"parse_ingest_s": t_ingest, "device_step_s": t_step,
+                    "swap_s": t2 - t1, "flush_s": t3 - t2,
+                    "total_s": total, "routes": routes,
+                    "h2d_bytes": table.h2d_bytes - h2d0}
 
 
-def profile_interval(table, flusher, batches, sync) -> dict:
+def profile_interval(table, flusher, bufs, sync) -> dict:
     """One more interval under torch.profiler: device kernel time by
     name and the device's busy share of the interval's wall time.
     Kernel times are None where the profiler saw no device activity."""
@@ -351,7 +341,7 @@ def profile_interval(table, flusher, batches, sync) -> dict:
         acts.append(ProfilerActivity.CUDA)
     t0 = time.perf_counter()
     with profile(activities=acts) as prof:
-        run_interval(table, flusher, batches, sync)
+        run_interval(table, flusher, bufs, sync)
     wall = time.perf_counter() - t0
     by_name = []
     for e in prof.key_averages():
@@ -374,13 +364,20 @@ def profile_interval(table, flusher, batches, sync) -> dict:
                             for n, ms, c in by_name[:8]]}
 
 
-def exact_quantiles(traffic, p: float):
-    """Exact per-series timer quantiles (numpy's linear rule)."""
+def exact_quantiles(bufs, p: float) -> dict:
+    """Exact per-series timer quantiles (numpy's linear rule) over the
+    values as parsed from the text: the native parser's f64, rounded
+    to the f32 the table stores.  Keyed by identity hash."""
     from veneur_tpu_torch.protocol import columnar
-    sel = traffic["type_code"] == columnar.CODE_TIMER
-    rows = traffic["line_off"][sel]
-    vals = traffic["value"][sel].astype(np.float32).astype(np.float64)
-    uniq, inv = np.unique(rows, return_inverse=True)
+    parser = columnar.ColumnarParser()
+    keys, vals = [], []
+    for buf in bufs:
+        pb = parser.parse(buf, copy=False)
+        sel = pb.type_code == columnar.CODE_TIMER
+        keys.append(pb.key_hash[sel].copy())
+        vals.append(pb.value[sel].astype(np.float32).astype(np.float64))
+    keys, vals = np.concatenate(keys), np.concatenate(vals)
+    uniq, inv = np.unique(keys, return_inverse=True)
     order = np.lexsort((vals, inv))
     sv = vals[order]
     counts = np.bincount(inv)
@@ -388,8 +385,8 @@ def exact_quantiles(traffic, p: float):
     h = (counts - 1) * p
     lo = np.floor(h).astype(np.int64)
     hi = np.minimum(lo + 1, counts - 1)
-    return uniq, sv[start + lo] + (h - lo) * (sv[start + hi] -
-                                              sv[start + lo])
+    q = sv[start + lo] + (h - lo) * (sv[start + hi] - sv[start + lo])
+    return dict(zip(uniq.tolist(), q.tolist()))
 
 
 def compare_flush(dev_metrics, cpu_metrics) -> dict:
@@ -421,10 +418,12 @@ def phase_table(dev: str = "cuda", scale: int = 1,
     from veneur_tpu_torch.core.flusher import Flusher
     from veneur_tpu_torch.core.table import MetricTable, TableConfig
     from veneur_tpu_torch.ops import cluster_merge
+    from veneur_tpu_torch.protocol import columnar
+    from veneur_tpu_torch.utils import hashing
     t0 = time.perf_counter()
-    traffic = build_traffic(0, scale)
+    bufs = build_traffic(0, scale)
     gen_s = time.perf_counter() - t0
-    n_total = len(traffic["key_hash"])
+    n_total = sum(b.count(b"\n") + 1 for b in bufs)
     cfg = dict(counter_rows=16384 // scale, gauge_rows=16384 // scale,
                histo_rows=16384 // scale, set_rows=1024 // scale,
                host_set_plane_max_bytes=0,
@@ -451,44 +450,49 @@ def phase_table(dev: str = "cuda", scale: int = 1,
     try:
         cluster_merge.launches = 0
         applies0 = table.superbatch_applies
-        _, n1, st1 = run_interval(table, flusher, chunks(traffic), sync)
-        res, n2, st2 = run_interval(table, flusher, chunks(traffic), sync)
+        _, n1, st1 = run_interval(table, flusher, bufs, sync)
+        res, n2, st2 = run_interval(table, flusher, bufs, sync)
         launches = cluster_merge.launches
     finally:
         cluster_merge.cluster_merge = merge
     check(n1 == n2 == n_total, f"processed {n1}/{n2} of {n_total}")
+    for i, st in enumerate((st1, st2)):
+        check(st["routes"].get("plane_f16", 0) >= 1,
+              f"interval {i + 1} took no f16 plane: {st['routes']}")
     applies = table.superbatch_applies - applies0
-    prof = profile_interval(table, flusher, chunks(traffic), sync)
+    prof = profile_interval(table, flusher, bufs, sync)
     if dev == "cuda":
         check(launches > 0, "the main path launched no cluster merge "
                             "kernel")
     out = {"phase": "table_interval", "device": dev,
            "samples": n_total, "timer_samples": TIMER_SAMPLES // scale,
-           "gen_s": gen_s, "interval1": st1, "interval2": st2,
+           "buffers": len(bufs), "gen_s": gen_s,
+           "interval1": st1, "interval2": st2,
            "samples_per_s": n_total / st2["total_s"],
            "cluster_merge_launches": launches,
            "launches_per_interval": launches / 2,
            "merge_shapes": [{"rows": r, "k": k, "calls": c}
                             for (r, k), c in sorted(shapes.items())],
            "superbatch_applies": applies,
-           "profiled_interval": prof}
+           "profiled_interval": prof,
+           "cut": "two intervals plus one profiled; sets forced onto the "
+                  "device (host_set_plane_max_bytes = 0)"}
     if cpu_reference:
         ctable = MetricTable(TableConfig(**cfg), device="cpu")
         cres, _, cst = run_interval(ctable, Flusher(**kw, device="cpu"),
-                                    chunks(traffic),
-                                    lambda: None)
+                                    bufs, lambda: None)
         out["cpu_interval"] = cst
         out["vs_cpu"] = compare_flush(res.metrics, cres.metrics)
-    uniq, exact = exact_quantiles(traffic, 0.99)
+    exact = exact_quantiles(bufs, 0.99)
     est = {}
     for m in res.metrics:
         if m.name.endswith(".99percentile") and m.name.startswith("t"):
-            est[m.name[:-len(".99percentile")]] = m.value
-    names = [traffic["buf"][int(o):].split(b":", 1)[0].decode()
-             for o in uniq]
-    rel = np.array([abs(est[nm] - ex) / abs(ex)
-                    for nm, ex in zip(names, exact)])
-    check(len(est) == len(uniq), "missing timer series in the flush")
+            name = m.name[:-len(".99percentile")]
+            est[hashing.key_hash64(name, columnar.CODE_TIMER,
+                                   ("env:smoke",), 0)] = m.value
+    check(est.keys() == exact.keys(), "timer series differ between the "
+                                      "flush and the parsed text")
+    rel = np.array([abs(est[k] - ex) / abs(ex) for k, ex in exact.items()])
     out["p99_rel_err_median"] = float(np.median(rel))
     out["p99_rel_err_max"] = float(rel.max())
     check(out["p99_rel_err_median"] < 0.01, "median p99 error >= 1%")
@@ -544,6 +548,12 @@ def phase_server(dev: str = "cuda") -> dict:
             msgs = [b"hits:1|c"] * 3 + [b"temp:42|g"]
             msgs += [f"lat:{v}|ms".encode() for v in range(200)]
             msgs += [f"uniq:u{i}|s".encode() for i in range(300)]
+            # one multi-line datagram, an event, a service check, and a
+            # datagram over metric_max_length (rejected whole)
+            msgs += [b"multi.a:1|c\nmulti.b:2|c\nmulti.g:3|g",
+                     b"_e{5,4}:title|text|#a:b",
+                     b"_sc|smoke.check|1|#chk:yes|m:hello",
+                     b"evil:1|c\n" + b"x" * 5000]
             for m in msgs:
                 s.sendto(m, ("127.0.0.1", port))
                 time.sleep(0.0005)  # stay inside the receive buffer
@@ -576,15 +586,49 @@ def phase_server(dev: str = "cuda") -> dict:
           f"lat.99percentile = {vals.get('lat.99percentile')!r}")
     check(abs(vals.get("uniq", 0) - 300) <= 15,
           f"uniq = {vals.get('uniq')}")
+    multi = {k: vals.get(k) for k in ("multi.a", "multi.b", "multi.g")}
+    check(multi == {"multi.a": 1.0, "multi.b": 2.0, "multi.g": 3.0},
+          f"multi-line datagram flushed {multi}")
+    check(not any(k.startswith("evil") for k in vals),
+          "a series of the oversize datagram flushed")
+    check(vals.get("smoke.check") == 1.0 and any(
+        r[0] == "smoke.check" and r[2] == "status" for r in rows),
+        f"service check = {vals.get('smoke.check')}")
     res = {"phase": "server", "startup_s": startup,
            "hits": vals["hits"], "lat.count": vals["lat.count"],
            "lat.99percentile": vals["lat.99percentile"],
-           "uniq": vals["uniq"]}
+           "uniq": vals["uniq"], "multi_line": multi,
+           "service_check": vals["smoke.check"],
+           "oversize_rejected": True}
     emit(res)
     return res
 
 
 # ---- main --------------------------------------------------------------------
+
+def phase_build() -> dict:
+    """Build the CUDA kernel (nvcc) and the native host library (g++)
+    at once, one compiler process each."""
+    from concurrent.futures import ThreadPoolExecutor
+    from veneur_tpu_torch import native
+    from veneur_tpu_torch.ops import cluster_merge
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        path = fn()
+        return os.path.relpath(path, HERE), time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        kern = pool.submit(timed, lambda: cluster_merge.build(verbose=True))
+        host = pool.submit(timed, native.build)
+        (kern_lib, kern_s), (host_lib, host_s) = kern.result(), host.result()
+    native.load()
+    res = {"phase": "build", "seconds": time.perf_counter() - t0,
+           "kernel_library": kern_lib, "kernel_seconds": kern_s,
+           "native_library": host_lib, "native_seconds": host_s}
+    emit(res)
+    return res
+
 
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "veneur_tpu_torch")):
@@ -607,18 +651,17 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device_count": torch.cuda.device_count()})
 
-    from veneur_tpu_torch.ops import cluster_merge
-    t0 = time.perf_counter()
-    lib = cluster_merge.build(verbose=True)
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": os.path.relpath(lib, HERE)})
-
+    phase_build()
     kern = phase_kernel()
     phase_entry()
     table = phase_table()
+    kern.update(phase_kernel(cases=recorded_cases(table["merge_shapes"])))
     phase_server()
 
-    k = kern["k512"]
+    # the kernel line reports the shape the main path launched most
+    top = max(table["merge_shapes"], key=lambda m: m["calls"])
+    k = next(r for r in kern.values()
+             if (r["rows"], r["k"]) == (top["rows"], top["k"]))
     emit({"kernels": [{
         "name": "cluster_merge", "route": "cuda",
         "source": "veneur_tpu_torch/csrc/cluster_merge.cu",
@@ -626,7 +669,8 @@ def main() -> int:
         "launches": table["cluster_merge_launches"],
         "max_abs_err": k["quantile_max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": k["bound_by"], "library_ms": None}]})
+        "bound_by": k["bound_by"], "library_ms": None,
+        "rows": k["rows"], "k": k["k"]}]})
     check("jax" not in sys.modules, "something imported jax")
     check(not any(m.startswith("veneur_tpu.") for m in sys.modules),
           "something imported the JAX package")

@@ -1,0 +1,463 @@
+"""The port's native library against the JAX package's, entry by entry.
+
+The port builds its own copy of the reference's C++ parser
+(``veneur_tpu_torch/native/dsd_parse.cpp``) with g++; every bound entry
+is called here on the same seeded inputs as the reference library
+(``veneur_tpu.native``, which only the tests may load) and must agree
+bit for bit, and the per-array entries must equal their numpy plain
+versions.  The table's fused ingest must stage exactly what the JAX
+table with its native library stages.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import socket
+
+import numpy as np
+import pytest
+
+from veneur_tpu import native as jnative
+from veneur_tpu.core.table import MetricTable as JTable
+from veneur_tpu.core.table import TableConfig as JConfig
+from veneur_tpu.protocol import columnar as jcol
+from veneur_tpu.utils import intern as jintern
+from veneur_tpu_torch import native
+from veneur_tpu_torch.core.table import MetricTable, TableConfig
+from veneur_tpu_torch.ops import hll
+from veneur_tpu_torch.protocol import columnar
+from veneur_tpu_torch.utils import hashing, intern
+
+
+@pytest.fixture(scope="module")
+def libs():
+    jlib = jnative.load()
+    assert jlib is not None, "the reference's native library must build"
+    return native.load(), jlib
+
+
+def _p(a, ctype):
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def _text(rng, n=3000) -> list[bytes]:
+    """Every line kind the grammar knows: each metric type, sample
+    rates, tags, both scope tags, long lines (the general parse path),
+    events, service checks and malformed lines."""
+    kinds = ["c", "g", "ms", "h", "d", "s"]
+    out = []
+    for i in range(n):
+        k = kinds[i % len(kinds)]
+        name = f"m{rng.integers(0, 40)}.{k}"
+        if k == "s":
+            val = f"user{rng.integers(0, 500)}"
+        else:
+            val = f"{rng.normal(50, 30):.{rng.integers(0, 6)}f}"
+        line = f"{name}:{val}|{k}"
+        r = rng.random()
+        if r < 0.2 and k not in ("g",):
+            line += f"|@{rng.choice([0.5, 0.25, 0.1])}"
+        if rng.random() < 0.6:
+            tags = [f"t{j}:{rng.integers(0, 5)}"
+                    for j in range(rng.integers(1, 4))]
+            if rng.random() < 0.1:
+                tags.append("veneurlocalonly")
+            elif rng.random() < 0.1:
+                tags.append("veneurglobalonly")
+            if rng.random() < 0.05:
+                tags.append("long:" + "x" * 80)
+            line += "|#" + ",".join(tags)
+        out.append(line.encode())
+    out += [b"_e{5,4}:title|text|#a:b", b"_sc|svc.check|1|#x:y",
+            b"no_colon|c", b"v:|c", b"v:1|q", b"v:1|c|@2", b"v:abc|c",
+            b"v:1|g|@0.5", b"|c", b":1|c", b"a|b:1|c"]
+    order = rng.permutation(len(out))
+    return [out[i] for i in order]
+
+
+# ---- the batch parser -------------------------------------------------
+
+def test_parse_batch_bit_equal(libs):
+    lines = _text(np.random.default_rng(1))
+    buf = b"\n".join(lines) + b"\n\n"
+    # small scratch: both parsers take the -(needed) retry
+    tb = columnar.ColumnarParser(max_lines=8).parse(buf)
+    jb = jcol.ColumnarParser(max_lines=8).parse(buf)
+    assert tb.n == jb.n == len(lines)
+    for col in ("type_code", "line_off", "line_len"):
+        np.testing.assert_array_equal(getattr(tb, col), getattr(jb, col))
+    codes = set(tb.type_code.tolist())
+    assert {0, 1, 2, 3, 4, 250, 251, 255} <= codes
+    metric = tb.type_code <= columnar.CODE_SET
+    for col in ("key_hash", "weight", "scope"):
+        np.testing.assert_array_equal(getattr(tb, col)[metric],
+                                      getattr(jb, col)[metric])
+    sets = tb.type_code == columnar.CODE_SET
+    vals = metric & ~sets
+    np.testing.assert_array_equal(tb.value[vals], jb.value[vals])
+    np.testing.assert_array_equal(tb.member_hash[sets],
+                                  jb.member_hash[sets])
+    assert set(tb.scope[metric].tolist()) == {0, 1, 2}
+    # the identity hash is utils/hashing.key_hash64's
+    i = int(np.nonzero(tb.type_code == columnar.CODE_COUNTER)[0][0])
+    from veneur_tpu_torch.protocol import dogstatsd as dsd
+    s = dsd.parse_metric(tb.line(i))
+    assert int(tb.key_hash[i]) == hashing.key_hash64(
+        s.name, 0, s.tags, columnar.SCOPE_CODES.index(s.scope))
+
+
+def test_parse_batch_views_are_scratch():
+    parser = columnar.ColumnarParser(max_lines=16)
+    a = parser.parse(b"a:1|c\nb:2|c", copy=False)
+    assert np.shares_memory(a.value, parser._val)
+    b = parser.parse(b"a:1|c\nb:2|c")
+    assert not np.shares_memory(b.value, parser._val)
+
+
+def test_hash_members_bit_equal(libs):
+    rng = np.random.default_rng(2)
+    members = [bytes(rng.integers(0, 256, rng.integers(0, 40),
+                                  dtype=np.uint8)) for _ in range(300)]
+    buf = np.frombuffer(b"".join(members) or b"\0", np.uint8)
+    lens = np.array([len(m) for m in members], np.int64)
+    offs = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
+    outs = []
+    for lib in libs:
+        out = np.empty(len(members), np.uint64)
+        lib.vtpu_hash_members(_p(buf, ctypes.c_uint8),
+                              _p(offs, ctypes.c_int64),
+                              _p(lens, ctypes.c_int64), len(members),
+                              _p(out, ctypes.c_uint64))
+        outs.append(out)
+    np.testing.assert_array_equal(outs[0], outs[1])
+    np.testing.assert_array_equal(outs[0], hashing.hash64(members))
+
+
+def test_recv_drain_bit_equal(libs):
+    """The same datagrams, drained once by each library: the same
+    newline-joined bytes, the same counts, the oversize one rejected."""
+    rx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    rx.bind(("127.0.0.1", 0))
+    tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    dgrams = [b"a:1|c", b"b:2|g\nc:3|ms", b"x" * 300, b"", b"d:4|s"]
+    results = []
+    try:
+        for lib in libs:
+            for d in dgrams:
+                tx.sendto(d, rx.getsockname())
+            out = np.zeros(16 * 257, np.uint8)
+            n_msgs, n_over = ctypes.c_int32(0), ctypes.c_int32(0)
+            for _ in range(200):  # loopback delivery is asynchronous
+                nbytes = lib.vtpu_recv_drain(
+                    rx.fileno(), _p(out, ctypes.c_uint8), out.nbytes, 16,
+                    256, ctypes.byref(n_msgs), ctypes.byref(n_over))
+                if nbytes:
+                    break
+            results.append((out[:nbytes].tobytes(), n_msgs.value,
+                            n_over.value))
+    finally:
+        rx.close()
+        tx.close()
+    assert results[0] == results[1]
+    data, kept, over = results[0]
+    assert over == 1 and kept == 3
+    assert data == b"a:1|c\nb:2|g\nc:3|ms\nd:4|s\n"
+
+
+# ---- rank, dense plane, HLL planes, gather -------------------------------
+
+def _rows(rng, n, num_rows):
+    # includes out-of-range rows (skipped / rank 0 by contract)
+    return rng.integers(-2, num_rows + 2, n).astype(np.int32)
+
+
+def test_rank_bit_equal(libs):
+    rng = np.random.default_rng(3)
+    rows = _rows(rng, 5000, 50)
+    outs = []
+    for lib in libs:
+        counts = np.zeros(50, np.int32)
+        rank = np.empty(len(rows), np.int32)
+        lib.vtpu_rank(_p(rows, ctypes.c_int32), len(rows), 50,
+                      _p(counts, ctypes.c_int32), _p(rank, ctypes.c_int32))
+        outs.append((rank, counts))
+    np.testing.assert_array_equal(outs[0][0], outs[1][0])
+    np.testing.assert_array_equal(outs[0][1], outs[1][1])
+    rank, mx = native.rank(rows, 50)
+    prank, pmx = native.rank_plain(rows, 50)
+    np.testing.assert_array_equal(rank, outs[0][0])
+    np.testing.assert_array_equal(rank, prank)
+    assert mx == pmx == int(outs[0][1].max())
+
+
+@pytest.mark.parametrize("unit", [True, False])
+def test_dense_plane_bit_equal(libs, unit):
+    rng = np.random.default_rng(4 + unit)
+    R, width, n = 40, 32, 3000
+    rows = _rows(rng, n, R)
+    vals = rng.gamma(2.0, 30.0, n).astype(np.float32)
+    vals[::13] = 0.0
+    wts = None if unit else rng.choice([1.0, 2.0, 10.0], n).astype(
+        np.float32)
+    outs = []
+    for lib in libs:
+        pv = np.zeros((R, width), np.float32)
+        pw = None if unit else np.zeros((R, width), np.float32)
+        counts = np.zeros(R, np.int32)
+        ovr = np.empty(n, np.int32)
+        ovv = np.empty(n, np.float32)
+        ovw = None if unit else np.empty(n, np.float32)
+        st = native._empty_stats(R)
+        f32 = ctypes.c_float
+        spill = lib.vtpu_dense_plane(
+            _p(rows, ctypes.c_int32), _p(vals, f32),
+            None if unit else _p(wts, f32), n, R, width, _p(pv, f32),
+            None if unit else _p(pw, f32), _p(counts, ctypes.c_int32),
+            _p(ovr, ctypes.c_int32), _p(ovv, f32),
+            None if unit else _p(ovw, f32), _p(st, ctypes.c_double))
+        outs.append((pv, pw, counts, ovr[:spill], ovv[:spill],
+                     None if unit else ovw[:spill], st))
+    for a, b in zip(*outs):
+        if a is not None:
+            np.testing.assert_array_equal(a, b)
+    tv, tw, tc, (tor, tov, tow), ts = native.dense_plane(rows, vals, wts,
+                                                         R, width)
+    pv, pw, pc, (por, pov, pow_), ps = native.dense_plane_plain(
+        rows, vals, wts, R, width)
+    assert len(outs[0][3]) > 0  # some rows spilled
+    for got, ref, plain in ((tv, outs[0][0], pv), (tc, outs[0][2], pc),
+                            (tor, outs[0][3], por), (tov, outs[0][4], pov),
+                            (ts, outs[0][6], ps)):
+        np.testing.assert_array_equal(got, ref)
+        np.testing.assert_array_equal(got, plain)
+    if not unit:
+        np.testing.assert_array_equal(tw, outs[0][1])
+        np.testing.assert_array_equal(tw, pw)
+        np.testing.assert_array_equal(tow, pow_)
+
+
+def _packed(rng, n):
+    return hll.pack_positions(rng.integers(0, hll.M, n),
+                              rng.integers(1, 40, n))
+
+
+def test_hll_plane_bit_equal(libs):
+    rng = np.random.default_rng(6)
+    R, n = 6, 20000
+    rows = _rows(rng, n, R)
+    pk = _packed(rng, n)
+    planes = []
+    for lib in libs:
+        plane = np.zeros((R, hll.M), np.uint8)
+        lib.vtpu_hll_plane(_p(rows, ctypes.c_int32),
+                           _p(pk, ctypes.c_int32), n, R, hll.M,
+                           _p(plane, ctypes.c_uint8))
+        planes.append(plane)
+    np.testing.assert_array_equal(planes[0], planes[1])
+    mine = np.zeros((R, hll.M), np.uint8)
+    native.hll_plane(rows, pk, mine)
+    plain = np.zeros((R, hll.M), np.uint8)
+    native.hll_plane_plain(rows, pk, plain)
+    np.testing.assert_array_equal(mine, planes[0])
+    np.testing.assert_array_equal(mine, plain)
+
+
+def test_hll_plane_stats_bit_equal(libs):
+    R, n = 5, 30000
+    out = []
+    for lib in libs:
+        r2 = np.random.default_rng(8)
+        plane = np.zeros((R, hll.M), np.uint8)
+        ez = np.full(R, hll.M, np.int32)
+        inv = np.full(R, float(hll.M), np.float64)
+        for _ in range(3):  # incremental folds
+            rows = _rows(r2, n // 3, R)
+            pk = _packed(r2, n // 3)
+            lib.vtpu_hll_plane_stats(
+                _p(rows, ctypes.c_int32), _p(pk, ctypes.c_int32), len(rows),
+                R, hll.M, _p(plane, ctypes.c_uint8),
+                _p(inv, ctypes.c_double), _p(ez, ctypes.c_int32))
+        out.append((plane, ez, inv))
+    for a, b in zip(*out):
+        np.testing.assert_array_equal(a, b)
+    plane, ez, inv = out[0]
+    np.testing.assert_array_equal(ez, (plane == 0).sum(axis=1))
+    plain_inv = np.exp2(-plane.astype(np.float64)).sum(axis=1)
+    np.testing.assert_allclose(inv, plain_inv, rtol=1e-12)
+    np.testing.assert_allclose(hll.estimate_from_stats(ez, inv),
+                               hll.estimate_np(plane), rtol=1e-6)
+    # the wrapper folds the same plane
+    mine = np.zeros((R, hll.M), np.uint8)
+    mez = np.full(R, hll.M, np.int32)
+    minv = np.full(R, float(hll.M), np.float64)
+    r2 = np.random.default_rng(8)
+    for _ in range(3):
+        native.hll_plane_stats(_rows(r2, n // 3, R), _packed(r2, n // 3),
+                               mine, minv, mez)
+    np.testing.assert_array_equal(mine, plane)
+    np.testing.assert_array_equal(mez, ez)
+    np.testing.assert_array_equal(minv, inv)
+
+
+@pytest.mark.parametrize("cap", [100, 37])  # padded, and cut short
+def test_sb_gather_bit_equal(libs, cap):
+    rng = np.random.default_rng(9)
+    parts = [rng.integers(-5, 1000, k).astype(np.int32)
+             for k in (0, 17, 3, 40)]
+    outs = []
+    for lib in libs:
+        dst = np.empty(cap, np.int32)
+        k = len(parts)
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        ptrs = (i32p * k)(*(_p(p, ctypes.c_int32) for p in parts))
+        lens = (ctypes.c_int64 * k)(*(len(p) for p in parts))
+        lib.vtpu_sb_gather_i32(ptrs, lens, k, _p(dst, ctypes.c_int32),
+                               cap, -7)
+        outs.append(dst)
+    np.testing.assert_array_equal(outs[0], outs[1])
+    mine = np.empty(cap, np.int32)
+    native.sb_gather_i32(parts, mine, -7)
+    plain = np.full(cap, -7, np.int32)
+    cat = np.concatenate(parts)[:cap]
+    plain[:len(cat)] = cat
+    np.testing.assert_array_equal(mine, outs[0])
+    np.testing.assert_array_equal(mine, plain)
+
+
+# ---- the identity index ------------------------------------------------
+
+def test_native_index_matches_hash_index(libs):
+    rng = np.random.default_rng(10)
+    keys = rng.integers(1, 2 ** 63, 5000, dtype=np.uint64)
+    keys[7] = 0  # the zero key, aliased in both
+    vals = rng.integers(0, 1000, len(keys)).astype(np.int32)
+    vals[::11] = intern.DROPPED
+    nat = intern.NativeHashIndex(libs[0], capacity=1024)  # grows
+    ref = intern.HashIndex(capacity=1024)
+    jnat = jintern.NativeHashIndex(libs[1], capacity=1024)
+    for k, v in zip(keys, vals):
+        nat.insert(int(k), int(v))
+        ref.insert(int(k), int(v))
+        jnat.insert(int(k), int(v))
+    probe = np.concatenate([keys, rng.integers(1, 2 ** 63, 3000,
+                                               dtype=np.uint64),
+                            np.array([0, 2 ** 64 - 1], np.uint64)])
+    got = nat.lookup(probe)
+    np.testing.assert_array_equal(got, ref.lookup(probe))
+    np.testing.assert_array_equal(got, jnat.lookup(probe))
+    assert (got[len(keys):-2] == intern.MISSING).all()
+    assert got[7] == vals[7]
+    assert (got[:len(keys)][::11] == intern.DROPPED).all()
+    assert nat.count == ref.count == len(np.unique(keys))
+    nat.insert(0, 5)  # overwrite
+    assert nat.lookup(np.array([0], np.uint64))[0] == 5
+    nat.clear()
+    assert nat.count == 0
+    assert (nat.lookup(keys) == intern.MISSING).all()
+
+
+# ---- the table's fused ingest ------------------------------------------
+
+_SIZES = dict(counter_rows=48, gauge_rows=48, histo_rows=64, set_rows=8)
+
+
+def _tables(**extra):
+    jt = JTable(JConfig(**_SIZES, **extra))
+    assert jt._lib is not None
+    return jt, MetricTable(TableConfig(**_SIZES, **extra), device="cpu")
+
+
+def _staging(t):
+    h = t._histo_stage
+    return dict(
+        counter=t._counter_dense.copy(), gauge=t._gauge_dense.copy(),
+        gauge_mask=t._gauge_mask.copy(),
+        touched=[i.touched.copy() for i in (t.counter_idx, t.gauge_idx,
+                                            t.histo_idx, t.set_idx)],
+        drops=[i.overflow for i in (t.counter_idx, t.gauge_idx,
+                                    t.histo_idx, t.set_idx)],
+        meta=[[(m.name, m.tags, m.scope, m.key_hash) for m in i.meta]
+              for i in (t.counter_idx, t.gauge_idx, t.histo_idx,
+                        t.set_idx)],
+        histo=[np.concatenate(x) if x else None
+               for x in (h.rows, h.values, h.weights)],
+        sets=[np.concatenate(x) if x else None
+              for x in (t._set_pos_rows, t._set_pos)],
+        staged=t.staged())
+
+
+def _assert_same_staging(tt, jt):
+    a, b = _staging(tt), _staging(jt)
+    for k in a:
+        if k in ("touched", "histo", "sets"):
+            for x, y in zip(a[k], b[k]):
+                np.testing.assert_array_equal(x, y, err_msg=k)
+        elif isinstance(a[k], np.ndarray):
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        else:
+            assert a[k] == b[k], k
+
+
+@pytest.mark.parametrize("how", ["buffer", "columns"])
+def test_ingest_matches_jax_table(how):
+    """Two buffers (new series, then mostly known ones) through the
+    port's fused ingest and the JAX table's: the same (processed,
+    dropped, others) and the same staging, byte for byte — including
+    drops once the small tables fill."""
+    rng = np.random.default_rng(11)
+    jt, tt = _tables()
+    for _ in range(2):
+        buf = b"\n".join(_text(rng, 2000))
+        if how == "buffer":
+            got, want = tt.ingest_buffer(buf), jt.ingest_buffer(buf)
+            assert got == want
+            assert got[2], "event/service-check/error lines reported"
+        else:
+            tb = columnar.ColumnarParser().parse(buf)
+            jb = jcol.ColumnarParser().parse(buf)
+            assert tt.ingest_columns(tb) == jt.ingest_columns(jb)
+        _assert_same_staging(tt, jt)
+    assert any(i.overflow for i in (tt.counter_idx, tt.histo_idx)), \
+        "the small tables overflowed"
+
+
+def test_compaction_then_ingest_buffer_hits_renumbered_rows():
+    """Idle series compact away at the swap and the native key index is
+    rebuilt: the survivors' lines then hit their NEW rows (no miss, no
+    new row), in both tables alike."""
+    jt, tt = _tables()
+    for t in (jt, tt):
+        t.ingest_buffer(b"\n".join(f"old{i}:1|c".encode()
+                                   for i in range(40)))
+        t.ingest_buffer(b"keep:1|c\nkeep2:1|c")
+        t.swap()
+        t.ingest_buffer(b"keep:2|c\nkeep2:3|c")
+        t.swap()  # old* idle for an interval: compacted here
+    names = [m.name for m in tt.counter_idx.meta]
+    assert sorted(names) == ["keep", "keep2"]
+    assert names == [m.name for m in jt.counter_idx.meta]
+    for t in (jt, tt):
+        before = t.key_index.count
+        assert t.ingest_buffer(b"keep2:5|c\nkeep:4|c")[:2] == (2, 0)
+        assert t.key_index.count == before  # no miss resolved
+        assert len(t.counter_idx.meta) == 2
+    want = {"keep": 4.0, "keep2": 5.0}
+    np.testing.assert_array_equal(tt._counter_dense[:2],
+                                  [want[n] for n in names])
+    _assert_same_staging(tt, jt)
+
+
+def test_failed_build_raises(tmp_path, monkeypatch):
+    """No fallback: a source that does not compile raises, naming the
+    compiler's error, and the table cannot be built without it."""
+    bad = tmp_path / "dsd_parse.cpp"
+    bad.write_text("this is not C++ at all;\n")
+    monkeypatch.setattr(native, "SOURCE", bad)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(native, "_lib", None)
+    with pytest.raises(RuntimeError, match="native library build failed"):
+        native.load()
+    with pytest.raises(RuntimeError, match="error"):
+        MetricTable(TableConfig(**_SIZES), device="cpu")
+    with pytest.raises(RuntimeError):
+        columnar.ColumnarParser()

@@ -371,6 +371,52 @@ def test_tdigest_deep_scan_matches_jax(name):
     _quantiles_close(j[0], j[1], t[0], t[1])
 
 
+@pytest.mark.parametrize("name,vdtype", [
+    ("ingest_plane_pre_unit", np.float16),
+    ("ingest_plane_pre_unit", np.float32),
+    ("ingest_plane_pre", np.float32)])
+def test_tdigest_plane_pre_matches_jax(name, vdtype):
+    """Host-densified plane ingest: the value plane (f16 or f32) is
+    widened on the device, the unit weight plane rebuilt from counts,
+    the host stats folded in; the same arrays through both packages."""
+    rng = np.random.default_rng(len(name) + int(vdtype == np.float16))
+    rows, width, cap = 24, 128, tdigest.DEFAULT_CAPACITY
+    m0, w0, _, _ = _random_case(rng, rows, cap, 1)
+    stats0 = np.asarray(jseg.empty_histo_stats(rows))
+    counts = rng.integers(0, width + 1, rows).astype(np.int32)
+    counts[3] = 0  # an untouched row
+    live = np.arange(width)[None, :] < counts[:, None]
+    pv = np.where(live, rng.gamma(2.0, 30.0, (rows, width)),
+                  0.0).astype(vdtype)
+    pw = np.where(live, rng.choice([1.0, 2.0, 5.0], (rows, width)),
+                  0.0).astype(np.float32)
+    batch = np.asarray(jseg.empty_histo_stats(rows)).copy()
+    v64 = pv.astype(np.float64)
+    w64 = pw.astype(np.float64) if name == "ingest_plane_pre" else (
+        live.astype(np.float64))
+    batch[:, segment.STAT_WEIGHT] = w64.sum(1)
+    batch[:, segment.STAT_SUM] = (v64 * w64).sum(1)
+    batch[:, segment.STAT_RSUM] = np.where(
+        v64 > 0, w64 / np.where(v64 > 0, v64, 1.0), 0.0).sum(1)
+    touched = counts > 0
+    batch[touched, segment.STAT_MIN] = np.where(
+        live, v64, np.inf).min(1)[touched]
+    batch[touched, segment.STAT_MAX] = np.where(
+        live, v64, -np.inf).max(1)[touched]
+    batch = batch.astype(np.float32)
+    if name == "ingest_plane_pre_unit":
+        args = [m0, w0, stats0, batch, counts, pv]
+    else:
+        args = [m0, w0, stats0, batch, pv, pw]
+    j = getattr(jtd, name)(*[jnp.asarray(a) for a in args],
+                           compression=100.0)
+    t = getattr(tdigest, name)(*[T(a) for a in args], compression=100.0)
+    np.testing.assert_allclose(N(t[1]).sum(1), N(j[1]).sum(1), rtol=1e-6)
+    _packing_ok(t[0], t[1])
+    _quantiles_close(j[0], j[1], t[0], t[1])
+    np.testing.assert_array_equal(N(t[2]), N(j[2]))  # elementwise fold
+
+
 @pytest.mark.parametrize("method", ["interp", "reference"])
 def test_tdigest_readout_matches_jax(method):
     """Quantile readout on identical centroid planes: the same

@@ -22,10 +22,10 @@ import pytest
 import torch
 
 import __graft_entry__
-from veneur_tpu import native
 from veneur_tpu.core.flusher import Flusher as JFlusher
 from veneur_tpu.core.table import MetricTable as JTable
 from veneur_tpu.core.table import TableConfig as JConfig
+from veneur_tpu.ops import superbatch as jsb
 from veneur_tpu.ops import tdigest as jtd
 from veneur_tpu.protocol import columnar as jcol
 from veneur_tpu_torch import convert
@@ -34,7 +34,7 @@ from veneur_tpu_torch.core.flusher import Flusher
 from veneur_tpu_torch.core.server import Server
 from veneur_tpu_torch.core.table import MetricTable, TableConfig
 from veneur_tpu_torch.entry import entry
-from veneur_tpu_torch.ops import cluster_merge, tdigest
+from veneur_tpu_torch.ops import cluster_merge, superbatch, tdigest
 from veneur_tpu_torch.protocol import columnar, dogstatsd as dsd
 from veneur_tpu_torch.sinks.simple import CaptureSink
 from veneur_tpu_torch.utils import hashing
@@ -152,12 +152,90 @@ def _assert_same_flush(tm, jm):
 _SIZES = dict(counter_rows=32, gauge_rows=32, histo_rows=64, set_rows=8)
 
 
-def _tables(monkeypatch, **extra):
-    monkeypatch.setattr(native, "load", lambda: None)
-    jt = JTable(JConfig(**_SIZES, **extra))
-    assert jt._lib is None
-    tt = MetricTable(TableConfig(**_SIZES, **extra), device="cpu")
+def _tables(sizes=_SIZES, **extra):
+    """The JAX table with its native library (the port always has
+    its own) and the port's, on the same configuration."""
+    jt = JTable(JConfig(**sizes, **extra))
+    assert jt._lib is not None
+    tt = MetricTable(TableConfig(**sizes, **extra), device="cpu")
     return jt, tt
+
+
+class _Routes:
+    """Spies, in both packages alike, on which route each histogram
+    and set batch took: ``events[pkg]`` lists (route, detail) in call
+    order, and ``steps[pkg]`` counts superbatch steps."""
+
+    def __init__(self, monkeypatch):
+        self.events = {"jax": [], "torch": []}
+        self.steps = {"jax": 0, "torch": 0}
+        pkgs = (("jax", jtd, jsb, JTable), ("torch", tdigest, superbatch,
+                                            MetricTable))
+        for pkg, td, sb, table in pkgs:
+            self._spy_plane(monkeypatch, pkg, td, "ingest_plane_pre_unit",
+                            5, "unit")
+            self._spy_plane(monkeypatch, pkg, td, "ingest_plane_pre", 4,
+                            "weighted")
+            self._spy_step(monkeypatch, pkg, sb)
+            self._spy_table(monkeypatch, pkg, table)
+
+    def _spy_plane(self, mp, pkg, td, name, v_arg, kind):
+        fn = getattr(td, name)
+
+        def spy(*a, **kw):
+            dt = "f16" if "16" in str(a[v_arg].dtype) else "f32"
+            self.events[pkg].append(("plane", f"{kind}_{dt}"))
+            return fn(*a, **kw)
+        mp.setattr(td, name, spy)
+
+    def _spy_step(self, mp, pkg, sb):
+        fn = sb.step
+
+        def spy(*a, **kw):
+            self.steps[pkg] += 1
+            return fn(*a, **kw)
+        mp.setattr(sb, "step", spy)
+
+    def _spy_table(self, mp, pkg, table):
+        ev = self.events[pkg]
+        plane, merge, scan = (table._histo_plane_step, table._digest_merge,
+                              table._digest_merge_scan)
+        set_pack, host_fold = table._sb_set_pack, table._hll_host_fold
+
+        def plane_spy(t, *a, **kw):
+            handled, spill = plane(t, *a, **kw)
+            if spill is not None:
+                ev.append(("spill", len(spill[0])))
+            return handled, spill
+
+        def merge_spy(t, st, rows, vals, wts, rank, unit, with_stats):
+            ev.append(("ranked", "stats" if with_stats else "digest"))
+            return merge(t, st, rows, vals, wts, rank, unit, with_stats)
+
+        def scan_spy(t, *a, **kw):
+            ev.append(("deep_scan", "digest"))
+            return scan(t, *a, **kw)
+
+        def set_spy(t, parts):
+            out = set_pack(t, parts)
+            if out is not None:
+                ev.append(("set", out[0]))
+            return out
+
+        def fold_spy(t, st, rows, pos):
+            ev.append(("set", "host_fold"))
+            return host_fold(t, st, rows, pos)
+        for name, spy in (("_histo_plane_step", plane_spy),
+                          ("_digest_merge", merge_spy),
+                          ("_digest_merge_scan", scan_spy),
+                          ("_sb_set_pack", set_spy),
+                          ("_hll_host_fold", fold_spy)):
+            mp.setattr(table, name, spy)
+
+    def same(self) -> list:
+        assert self.events["torch"] == self.events["jax"]
+        assert self.steps["torch"] == self.steps["jax"]
+        return self.events["torch"]
 
 
 @pytest.mark.parametrize("path,extra,deep", [
@@ -168,14 +246,15 @@ def _tables(monkeypatch, **extra):
     ("columns", {"histo_slots": 128}, True),
 ])
 def test_interval_matches_jax(monkeypatch, path, extra, deep):
-    """The same lines through the JAX table (no native library) +
-    flusher and through the port's: slow-path samples or a columnar
+    """The same lines through the JAX table (with its native library)
+    + flusher and through the port's: slow-path samples or a columnar
     batch; host-folded or device sets; a histogram batch that fits one
-    merge width (the superbatch arm) or one with a row deeper than it
-    (host stats fold + one merge per chunk)."""
+    merge width or one with a row deeper than it.  Both packages take
+    the same route for every batch."""
     rng = np.random.default_rng(21)
     lines = _lines(rng, deep)
-    jt, tt = _tables(monkeypatch, **extra)
+    jt, tt = _tables(**extra)
+    routes = _Routes(monkeypatch)
     if path == "samples":
         for line in lines:
             s = dsd.parse_metric(line)
@@ -187,7 +266,8 @@ def test_interval_matches_jax(monkeypatch, path, extra, deep):
     before = cluster_merge.launches
     jsnap, tsnap = jt.swap(), tt.swap()
     assert cluster_merge.launches == before  # CPU: plain version only
-    assert tt.superbatch_applies == 1
+    routes.same()
+    assert tt.superbatch_applies == routes.steps["torch"] == 1
     kw = dict(percentiles=PCTS, aggregates=AGGS, hostname="h")
     jr = JFlusher(is_local=False, **kw).flush(jsnap, now=1)
     tr = Flusher(**kw, device="cpu").flush(tsnap, now=1)
@@ -197,10 +277,109 @@ def test_interval_matches_jax(monkeypatch, path, extra, deep):
                         if k in tr.tally}
 
 
-def test_two_intervals_and_compaction(monkeypatch):
+def _route_lines(rng, case: str) -> tuple[list[bytes], dict, dict]:
+    """Text for one route case: (lines, table sizes, extra config).
+    Every case also carries counters and gauges for the superbatch."""
+    out = [f"c{i}:{i}|c".encode() for i in range(10)]
+    out += [f"g{i}:{i * 0.5}|g".encode() for i in range(10)]
+    sizes, extra = dict(_SIZES), {}
+    if case == "plane_f16":
+        # 40 timer rows x 60 unit samples: dense enough for the plane,
+        # values inside f16's normal range
+        for i in range(40):
+            out += [f"p{i}:{v:.3f}|ms".encode()
+                    for v in rng.gamma(2.0, 30.0, 60)]
+    elif case == "plane_f32_weighted":
+        # every histo row x 100 samples, half of them at @0.5: weights
+        # ship, both planes f32
+        for i in range(sizes["histo_rows"]):
+            for j, v in enumerate(rng.gamma(2.0, 30.0, 100)):
+                rate = "|@0.5" if j % 2 else ""
+                out.append(f"w{i}:{v:.3f}|h{rate}".encode())
+    elif case in ("spill_ranked", "spill_deep"):
+        # 255 rows of 40 set the plane width (128); the hot row spills
+        # its samples past it digest-only, through the ranked merge or,
+        # past one merge width, the deep scan
+        sizes["histo_rows"] = 256
+        for i in range(255):
+            out += [f"s{i}:{v:.3f}|ms".encode()
+                    for v in rng.gamma(2.0, 30.0, 40)]
+        hot = 600 if case == "spill_ranked" else 2000
+        out += [f"hot:{v:.3f}|ms".encode()
+                for v in rng.gamma(2.0, 30.0, hot)]
+    elif case == "hll_compact_plane":
+        # two set rows x 8000 members: a compact 8-row plane is the
+        # smaller transfer
+        extra["host_set_plane_max_bytes"] = 0
+        for i in range(2):
+            out += [f"u{i}:m{j}|s".encode() for j in range(8000)]
+    elif case == "hll_full_plane":
+        # six rows x 500 members: on the CPU a full plane's elementwise
+        # max beats the scatter
+        extra["host_set_plane_max_bytes"] = 0
+        for i in range(6):
+            out += [f"u{i}:m{j}|s".encode() for j in range(500)]
+    elif case == "host_sets":
+        # the default bound: sets fold on the host, estimated from the
+        # fold's (ez, inv) statistics
+        for i in range(6):
+            out += [f"u{i}:m{j}|s".encode() for j in range(40 * (i + 1))]
+    return out, sizes, extra
+
+
+_ROUTE_CASES = {
+    "plane_f16": ("plane", "unit_f16"),
+    "plane_f32_weighted": ("plane", "weighted_f32"),
+    "spill_ranked": ("ranked", "digest"),
+    "spill_deep": ("deep_scan", "digest"),
+    "hll_compact_plane": ("set", "plane"),
+    "hll_full_plane": ("set", "plane_full"),
+    "host_sets": ("set", "host_fold"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_ROUTE_CASES))
+def test_ingest_buffer_interval_matches_jax(monkeypatch, case):
+    """DogStatsD text through ``ingest_buffer`` in both tables (two
+    buffers, with a device step between them), then swap and flush:
+    both packages take the intended route for every batch, spied on in
+    each, and flush the same values within the stated tolerances."""
+    rng = np.random.default_rng(len(case))
+    lines, sizes, extra = _route_lines(rng, case)
+    lines = [lines[i] for i in rng.permutation(len(lines))]
+    jt, tt = _tables(sizes=sizes, **extra)
+    routes = _Routes(monkeypatch)
+    half = len(lines) // 2
+    for part in (lines[:half], lines[half:]):
+        buf = b"\n".join(part)
+        assert tt.ingest_buffer(buf) == jt.ingest_buffer(buf)
+        jt.device_step()
+        tt.device_step()
+    jsnap, tsnap = jt.swap(), tt.swap()
+    events = routes.same()
+    assert _ROUTE_CASES[case] in events, events
+    if case.startswith("spill"):
+        assert ("spill", 600 - 128 if case == "spill_ranked"
+                else 2000 - 128) in events
+    if case == "host_sets":
+        assert tsnap.host_only_sets and jsnap.host_only_sets
+        assert tsnap.hll_host_ez is not None
+        np.testing.assert_array_equal(tsnap.hll_host_ez, jsnap.hll_host_ez)
+        np.testing.assert_array_equal(tsnap.hll_host_inv,
+                                      jsnap.hll_host_inv)
+        np.testing.assert_array_equal(tsnap.host_set_estimates(),
+                                      jsnap.host_set_estimates())
+    kw = dict(percentiles=PCTS, aggregates=AGGS, hostname="h")
+    jr = JFlusher(is_local=False, **kw).flush(jsnap, now=1)
+    tr = Flusher(**kw, device="cpu").flush(tsnap, now=1)
+    assert len(tr.metrics) >= 20
+    _assert_same_flush(tr.metrics, jr.metrics)
+
+
+def test_two_intervals_and_compaction():
     """Rows persist across intervals; idle rows compact away at the
     swap in both tables the same way."""
-    jt, tt = _tables(monkeypatch)
+    jt, tt = _tables()
     kw = dict(percentiles=PCTS, aggregates=AGGS)
     for interval in range(3):
         lines = [f"c{interval}_{i}:1|c".encode() for i in range(20)]
@@ -216,11 +395,11 @@ def test_two_intervals_and_compaction(monkeypatch):
                 [m.name for m in jt.counter_idx.meta])
 
 
-def test_snapshot_carried_across(monkeypatch):
+def test_snapshot_carried_across():
     """A JAX interval's planes + row metadata, converted, flush through
     the port's Flusher as through the JAX one."""
     rng = np.random.default_rng(3)
-    jt, _ = _tables(monkeypatch, host_set_plane_max_bytes=0)
+    jt, _ = _tables(host_set_plane_max_bytes=0)
     for line in _lines(rng):
         jt.ingest(dsd.parse_metric(line))
     snap = jt.swap()
@@ -263,14 +442,20 @@ def test_server_udp_flush_file(tmp_path):
         msgs += [b"\n".join(f"uniq:u{i}|s".encode()
                             for i in range(j, j + 50))
                  for j in range(0, 300, 50)]
+        # an event (not a metric), a service check, and a datagram over
+        # metric_max_length: rejected whole, a packet error
+        msgs += [b"_e{5,4}:title|text|#a:b", b"_sc|svc.up|1|#x:y",
+                 b"evil:1|c\n" + b"x" * 5000]
         for m in msgs:
             s.sendto(m, ("127.0.0.1", port))
         s.close()
         deadline = time.monotonic() + 20
-        while (srv.stats["metrics_processed"] < 504 and
+        while ((srv.stats["metrics_processed"] < 505 or
+                srv.stats["packet_errors"] < 1) and
                time.monotonic() < deadline):
             time.sleep(0.02)
-        assert srv.stats["metrics_processed"] == 504
+        assert srv.stats["metrics_processed"] == 505
+        assert srv.stats["packet_errors"] == 1
         srv.flush_once()
     finally:
         srv.shutdown()
@@ -282,6 +467,8 @@ def test_server_udp_flush_file(tmp_path):
     # the value the JAX server flushes for this stream
     assert repr(vals["lat.99percentile"]) == "197.00999450683594"
     assert abs(vals["uniq"] - 300) <= 15
+    assert vals["svc.up"] == 1.0
+    assert not any(name.startswith("evil") for name in vals)
     assert {m.name: m.value for m in cap.metrics}["hits"] == 3.0
     assert not any(t.is_alive() for t in threads)
 
@@ -295,12 +482,25 @@ def test_config_refuses_unknown_keys(tmp_path):
     assert read_config(str(p)).percentiles == [0.5]
 
 
+@pytest.mark.parametrize("key,default", [
+    ("metric_max_length", 4096), ("reader_batch_packets", 512),
+    ("tpu_histo_slots", 512)])
+def test_config_reader_keys(key, default):
+    """The reader's and the table's keys keep the reference's names and
+    defaults, and refuse non-positive values."""
+    assert getattr(read_config(data={}), key) == default
+    assert getattr(read_config(data={key: 77}), key) == 77
+    with pytest.raises(ValueError, match=key):
+        read_config(data={key: 0})
+
+
 # ---- the port's rules ------------------------------------------------------
 
 def test_port_imports_no_jax():
-    """Importing the package and every module loads neither jax nor
-    any veneur_tpu module (checked in a fresh interpreter: this test
-    process has imported both)."""
+    """Importing the package and every module, and building a table,
+    loads neither jax nor any veneur_tpu module, and maps the port's
+    own native library, never the JAX package's (checked in a fresh
+    interpreter: this test process has imported both)."""
     code = """
 import importlib, pkgutil, sys
 import veneur_tpu_torch
@@ -308,9 +508,15 @@ names = [m.name for m in pkgutil.walk_packages(
     veneur_tpu_torch.__path__, "veneur_tpu_torch.")]
 for n in names:
     importlib.import_module(n)
+from veneur_tpu_torch.core.table import MetricTable, TableConfig
+MetricTable(TableConfig(histo_rows=8), device="cpu")
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib",
                                             "veneur_tpu.")))
+with open("/proc/self/maps") as f:
+    libs = {ln.split()[-1] for ln in f if ".so" in ln}
+bad += sorted(p for p in libs if "/veneur_tpu/native/" in p)
+assert any("/veneur_tpu_torch/_build/libdsd_parse-" in p for p in libs)
 print(len(names), bad)
 assert not bad, bad
 """

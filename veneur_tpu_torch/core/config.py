@@ -41,6 +41,12 @@ class Config:
     tpu_gauge_rows: int = 16384
     tpu_histo_rows: int = 16384
     tpu_set_rows: int = 1024
+    # samples per row per digest merge (the table's histo_slots)
+    tpu_histo_slots: int = 512
+    # a datagram longer than this is rejected whole as a packet error
+    metric_max_length: int = 4096
+    # datagrams a reader drains per batch (one recvmmsg sweep, <= 512)
+    reader_batch_packets: int = 512
 
     def interval_seconds(self) -> float:
         return parse_duration(self.interval)
@@ -64,7 +70,8 @@ class Config:
             problems.append(
                 "flush_file_format must be 'native' or 'reference'")
         for n in ("tpu_counter_rows", "tpu_gauge_rows", "tpu_histo_rows",
-                  "tpu_set_rows"):
+                  "tpu_set_rows", "tpu_histo_slots", "metric_max_length",
+                  "reader_batch_packets"):
             if getattr(self, n) <= 0:
                 problems.append(f"{n} must be positive")
         for addr in self.statsd_listen_addresses:

@@ -1,24 +1,30 @@
 """The server: UDP DogStatsD in, interval flushes out to the sinks.
 
-Port of the single-node path of ``veneur_tpu/core/server.py``: one
-reader thread per ``udp://`` statsd address parses each datagram with
-the pure-Python DogStatsD parser and ingests it into the table
-(``handle_packet``); a flush thread swaps the table every interval and
-emits the flushed InterMetrics to the flush-file plugin and any extra
-sinks (``flush_once``).  ``shutdown`` stops and joins every thread and
-closes every socket.
+Port of the single-reader path of ``veneur_tpu/core/server.py``: one
+reader thread per ``udp://`` statsd address blocks on its first
+datagram, then drains whatever else is queued with one native recvmmsg
+sweep (``vtpu_recv_drain``; datagrams over ``metric_max_length`` are
+rejected whole and counted as packet errors) and hands the batch to
+``handle_packet_batch``: one fused native parse + probe + combine pass
+(``MetricTable.ingest_buffer``) under the table lock.  Events, service
+checks and malformed lines take the per-line parser.  A flush thread
+swaps the table every interval and emits the flushed InterMetrics to
+the flush-file plugin and any extra sinks (``flush_once``).
+``shutdown`` stops and joins every thread and closes every socket.
 """
 
 from __future__ import annotations
 
+import ctypes
 import logging
 import socket
 import threading
 import time
 
+import numpy as np
 import torch
 
-from veneur_tpu_torch import resolve_device
+from veneur_tpu_torch import native, resolve_device
 from veneur_tpu_torch.core import metrics as im
 from veneur_tpu_torch.core.config import Config
 from veneur_tpu_torch.core.flusher import FlushResult, Flusher
@@ -30,7 +36,8 @@ from veneur_tpu_torch.sinks.simple import LocalFilePlugin
 
 log = logging.getLogger("veneur_tpu_torch.server")
 
-_RECV_BYTES = 65536
+# drain sweep bound: vtpu_recv_drain takes at most this many datagrams
+_DRAIN_MAX = 512
 # socket receive buffer: the reference's read_buffer_size_bytes default
 _RCVBUF_BYTES = 2 * 1048576
 
@@ -46,7 +53,8 @@ class Server:
             counter_rows=config.tpu_counter_rows,
             gauge_rows=config.tpu_gauge_rows,
             histo_rows=config.tpu_histo_rows,
-            set_rows=config.tpu_set_rows), device=self.device)
+            set_rows=config.tpu_set_rows,
+            histo_slots=config.tpu_histo_slots), device=self.device)
         self.flusher = Flusher(
             percentiles=tuple(config.percentiles),
             aggregates=tuple(config.aggregates),
@@ -91,47 +99,96 @@ class Server:
         return [s.getsockname()[1] for s in self.sockets]
 
     def _udp_reader(self, sock: socket.socket) -> None:
+        lib = native.load()
+        max_len = self.config.metric_max_length
+        # one byte past the limit: a longer datagram arrives truncated
+        # to max_len + 1 and is rejected
+        bufsize = max_len + 1
+        sweep = min(self.config.reader_batch_packets - 1, _DRAIN_MAX)
+        drain_buf = np.empty(max(1, sweep) * (bufsize + 1), np.uint8)
+        drain_ptr = native.ptr(drain_buf, ctypes.c_uint8)
+        n_msgs = ctypes.c_int32(0)
+        n_over = ctypes.c_int32(0)
         while not self._shutdown.is_set():
             try:
-                data = sock.recv(_RECV_BYTES)
+                data = sock.recv(bufsize)
             except socket.timeout:
                 continue
             except OSError:
                 return
-            self.handle_packet(data)
+            if not data:
+                continue
+            # the first read blocks (shutdown and socket errors surface
+            # here); the rest of the queue comes in one recvmmsg sweep
+            nbytes = lib.vtpu_recv_drain(
+                sock.fileno(), drain_ptr, drain_buf.nbytes, sweep, max_len,
+                ctypes.byref(n_msgs), ctypes.byref(n_over))
+            self.handle_packet_batch(
+                [data], drained=drain_buf[:nbytes].tobytes() if nbytes
+                else None,
+                drained_pkts=int(n_msgs.value) if nbytes else 0,
+                oversize=int(n_over.value))
 
     def handle_packet(self, data: bytes) -> None:
-        """Parse one datagram (possibly multi-line) into the table: the
-        lines parse outside the lock, then one lock round ingests them
-        and counts the packet."""
-        samples = []
-        errors = 0
-        for line in dsd.split_packet(data):
+        """Ingest one datagram (possibly multi-line)."""
+        self.handle_packet_batch([data])
+
+    def handle_packet_batch(self, packets: list[bytes],
+                            drained: bytes | None = None,
+                            drained_pkts: int = 0,
+                            oversize: int = 0) -> int:
+        """Ingest many datagrams with one native pass under one lock
+        round.  ``drained`` is the recvmmsg sweep's newline-joined
+        chunk of ``drained_pkts`` datagrams, already length-checked;
+        ``oversize`` counts datagrams the sweep rejected.  Returns the
+        processed sample count."""
+        errors = oversize
+        good = []
+        for p in packets:
+            if len(p) > self.config.metric_max_length:
+                errors += 1
+            else:
+                good.append(p)
+        n_pkts = len(good) + drained_pkts
+        if drained is not None:
+            good.append(drained)
+        buf = b"\n".join(good)
+        with self.lock:
+            processed, dropped, others = self.table.ingest_buffer(buf)
+            self._maybe_device_step()
+        # events, service checks and malformed lines: per-line parse
+        slow = []
+        for off, ln, _kind in others:
             try:
-                parsed = dsd.parse_line(line)
+                parsed = dsd.parse_line(buf[off:off + ln])
             except dsd.ParseError:
                 errors += 1
                 continue
             if isinstance(parsed, dsd.Sample):
-                samples.append(parsed)
+                slow.append(parsed)
             elif isinstance(parsed, dsd.ServiceCheck):
-                samples.append(dsd.Sample(
+                slow.append(dsd.Sample(
                     name=parsed.name, type=dsd.STATUS,
                     value=float(parsed.status), tags=parsed.tags,
                     message=parsed.message))
-        dropped = 0
         with self.lock:
-            for s in samples:
-                if not self.table.ingest(s):
+            for sample in slow:
+                if not self.table.ingest(sample):
                     dropped += 1
-            # bound host staging between flushes
-            if (self.table.staged() >=
-                    self.table.config.histo_merge_samples):
-                self.table.device_step()
-            self.stats["packets_received"] += 1
+            if slow:
+                self._maybe_device_step()
+            processed += len(slow)
+            self.stats["packets_received"] += n_pkts
             self.stats["packet_errors"] += errors
-            self.stats["metrics_processed"] += len(samples)
+            self.stats["metrics_processed"] += processed
             self.stats["metrics_dropped"] += dropped
+        return processed
+
+    def _maybe_device_step(self) -> None:
+        """Bound host staging between flushes.  Caller holds the lock."""
+        if (self.table.staged() >=
+                self.table.config.histo_merge_samples):
+            self.table.device_step()
 
     # ------------------------------------------------------------------
 

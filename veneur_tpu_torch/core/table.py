@@ -10,23 +10,31 @@ device, addressed by a dense row id that the host allocates per key:
   histo     f32[R,5] stats + f32[R,C] digest planes t-digest merge
   set       u8[R,16384] HLL registers               scatter-max
 
-Ingest appends to host-side staging buffers; ``device_step`` ships the
-staging to the device, and ``swap()`` at the interval boundary hands
-the planes to the flusher and starts fresh ones.  Each apply cycle
-packs everything it can into one superbatch buffer (ops/superbatch):
-one host-to-device copy and one fused step.  Batches whose rows carry
-more samples than one merge width take the deep path (host stats fold
-+ one merge per chunk).
+Ingest runs in the port's native library (``veneur_tpu_torch/native``):
+``ingest_buffer`` parses raw DogStatsD text, probes the C++ key index
+and combines into host staging in one pass (dense counter/gauge
+accumulators, histo and set append columns); ``ingest_columns`` does
+the same for an already-parsed batch.  Only never-seen series take a
+per-line Python parse, once each.
 
-The port carries no native library: ingest is the pure-Python parse
-and the numpy columnar path, ranks come from a numpy pass, raw set
-members fold into a host register plane (or, past
-``host_set_plane_max_bytes``, scatter on the device) — the reference
-table's ``self._lib is None`` branches.
+``device_step`` ships the staging to the device, and ``swap()`` at the
+interval boundary hands the planes to the flusher and starts fresh
+ones.  Each apply cycle packs what it can into one superbatch buffer
+(ops/superbatch): one host-to-device copy and one fused step.
+Histogram batches dense enough for it take the host-densified plane
+(``vtpu_dense_plane``: exact f64 per-row stats on the host, the value
+plane shipped as f16 when its range allows, ``ingest_plane_pre*`` on
+the device); rows past the plane width spill to the ranked merge.
+Sparse batches whose rows carry more samples than one merge width
+take the deep path (host stats fold + one merge per chunk).  Raw set
+members fold into a host register plane with running estimate
+statistics (or, past ``host_set_plane_max_bytes``, ride the
+superbatch as a compact plane, a full plane or packed positions).
 """
 
 from __future__ import annotations
 
+import ctypes
 import threading
 from dataclasses import dataclass, field
 from typing import Any
@@ -34,7 +42,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from veneur_tpu_torch import resolve_device
+from veneur_tpu_torch import native, resolve_device
 from veneur_tpu_torch.ops import cluster_merge, hll, segment, superbatch
 from veneur_tpu_torch.ops import tdigest
 from veneur_tpu_torch.protocol import columnar, dogstatsd as dsd
@@ -135,10 +143,6 @@ class _ClassIndex:
         self.touched[row] = True
         return row
 
-    def touch_rows(self, rows: np.ndarray, gen: int) -> None:
-        self.touched[rows] = True
-        self.last_gen[rows] = gen
-
     def occupancy(self) -> int:
         return len(self.meta)
 
@@ -199,12 +203,16 @@ class _IntervalState:
 
     __slots__ = ("gen", "fresh", "counters", "gauges", "histo_stats",
                  "histo_import_stats", "histo_means", "histo_weights",
-                 "hll_regs", "hll_host_plane", "hll_device_touched")
+                 "hll_regs", "hll_host_plane", "hll_host_ez",
+                 "hll_host_inv", "hll_device_touched")
 
     def __init__(self, gen: int):
         self.gen = gen
         self.fresh: set = set()
         self.hll_host_plane: np.ndarray | None = None
+        # per-row LogLog-Beta statistics kept by the native fold
+        self.hll_host_ez: np.ndarray | None = None
+        self.hll_host_inv: np.ndarray | None = None
         self.hll_device_touched = False
 
 
@@ -223,6 +231,23 @@ class _PendingSwap:
                  "gauge_meta", "gauge_touched", "histo_meta",
                  "histo_touched", "set_meta", "set_touched",
                  "overflow", "ingested")
+
+
+class _MissLines:
+    """ParsedBatch-shaped view over the fused pass's compact miss
+    columns: just the surface ``_resolve_misses`` reads (line bytes and
+    type codes)."""
+
+    def __init__(self, buf: np.ndarray, off: np.ndarray,
+                 ln: np.ndarray, types: np.ndarray):
+        self._buf = buf
+        self._off = off
+        self._len = ln
+        self.type_code = types
+
+    def line(self, i: int) -> bytes:
+        o = int(self._off[i])
+        return self._buf[o:o + int(self._len[i])].tobytes()
 
 
 @dataclass
@@ -250,6 +275,10 @@ class Snapshot:
     # touched the DEVICE registers
     hll_host_plane: np.ndarray | None = None
     hll_device_touched: bool = False
+    # the native fold's per-row statistics for the host plane (None
+    # for a plane from elsewhere, e.g. ``convert``)
+    hll_host_ez: np.ndarray | None = None
+    hll_host_inv: np.ndarray | None = None
     overflow: dict[str, int] = field(default_factory=dict)
     ingested: int = 0
 
@@ -259,6 +288,11 @@ class Snapshot:
                 not self.hll_device_touched)
 
     def host_set_estimates(self) -> np.ndarray:
+        """Estimates for a host-only-sets interval: O(rows) from the
+        fold's statistics when present, else a rescan of the plane."""
+        if self.hll_host_ez is not None:
+            return hll.estimate_from_stats(self.hll_host_ez,
+                                           self.hll_host_inv)
         return hll.estimate_np(self.hll_host_plane)
 
 
@@ -294,7 +328,12 @@ class MetricTable:
         # columnar set staging: packed (idx << 6) | rank per member
         self._set_pos_rows: list[np.ndarray] = []
         self._set_pos: list[np.ndarray] = []
-        self.key_index = intern.HashIndex()
+        # the native library (raises if it cannot be built) and its
+        # identity index: key hash -> row, probed inside the C++ pass
+        self._lib = native.load()
+        self.key_index = intern.NativeHashIndex(self._lib)
+        # fused parse+ingest scratch (see ingest_buffer), grow-only
+        self._fused_scratch: dict | None = None
         self.status: dict[tuple, tuple[float, str, tuple[str, ...]]] = {}
 
         # merge chunk width, capped so state + chunk stays inside the
@@ -308,8 +347,16 @@ class MetricTable:
 
         self._sb_bufs = superbatch.DoubleBuffer(
             pin=self.device.type == "cuda")
+        self._sb_plane_factor = superbatch.plane_scatter_factor(
+            self.device.type)
         # fused superbatch applies (one host-to-device copy each)
         self.superbatch_applies = 0
+        # batches by the route they took: histograms (superbatch,
+        # plane_f16, plane_f32, spill, ranked, deep_scan, precluster) and
+        # sets (set_plane, set_plane_full, set_pos, set_host_fold); and
+        # bytes handed to the device (a copy on the card)
+        self.routes: dict[str, int] = {}
+        self.h2d_bytes = 0
         self._device_lock = threading.Lock()
         self._init_state()
 
@@ -426,68 +473,173 @@ class MetricTable:
             self.key_index.insert(
                 k, row if row is not None else intern.DROPPED)
 
-    def ingest_columns(self, pb: columnar.ParsedBatch
-                       ) -> tuple[int, int]:
-        """Batch ingest of a parsed buffer's metric lines (type codes
-        0-4) in a handful of vectorized numpy passes.  Returns
-        (processed, dropped)."""
-        tc = pb.type_code
-        sel = np.nonzero(tc <= columnar.CODE_SET)[0]
-        if len(sel) == 0:
-            return 0, 0
-        keys = pb.key_hash[sel]
-        rows = self.key_index.lookup(keys)
-        miss = rows == intern.MISSING
-        if miss.any():
-            self._resolve_misses(pb, sel[miss], keys[miss])
-            rows = self.key_index.lookup(keys)
-        live = rows >= 0
-        dropped = int((~live).sum())
+    def _touch_ptrs(self) -> dict:
+        """Staging pointers the native combine writes through: the
+        dense counter/gauge accumulators and each class's touched mask
+        (bool arrays viewed as u8 in place)."""
+        u8 = ctypes.c_uint8
+        return dict(
+            counter_dense=native.ptr(self._counter_dense, ctypes.c_double),
+            counter_touch=native.ptr(
+                self.counter_idx.touched.view(np.uint8), u8),
+            gauge_dense=native.ptr(self._gauge_dense, ctypes.c_float),
+            gauge_mask=native.ptr(self._gauge_mask, u8),
+            gauge_touch=native.ptr(self.gauge_idx.touched.view(np.uint8),
+                                   u8),
+            histo_touch=native.ptr(self.histo_idx.touched.view(np.uint8),
+                                   u8),
+            set_touch=native.ptr(self.set_idx.touched.view(np.uint8), u8))
+
+    def _ingest_pass(self, t: dict, keys, types, vals, members, wts,
+                     n: int, miss: np.ndarray, subset_n: int, hr, hv, hw,
+                     sr, sp, meta: np.ndarray) -> None:
+        """One vtpu_ingest pass: probe each metric line's key and
+        combine it into staging; misses are recorded in ``miss``."""
+        i64 = ctypes.c_int64
+        self._lib.vtpu_ingest(
+            self.key_index.handle,
+            native.ptr(keys, ctypes.c_uint64),
+            native.ptr(types, ctypes.c_uint8),
+            native.ptr(vals, ctypes.c_double),
+            native.ptr(members, ctypes.c_uint64),
+            native.ptr(wts, ctypes.c_float), n,
+            native.ptr(miss, i64), subset_n, hashing.HLL_P,
+            t["counter_dense"], t["counter_touch"], t["gauge_dense"],
+            t["gauge_mask"], t["gauge_touch"],
+            native.ptr(hr, ctypes.c_int32), native.ptr(hv, ctypes.c_float),
+            native.ptr(hw, ctypes.c_float), t["histo_touch"],
+            native.ptr(sr, ctypes.c_int32), native.ptr(sp, ctypes.c_int32),
+            t["set_touch"], native.ptr(miss, i64), native.ptr(meta, i64))
+
+    def _commit_pass(self, meta: np.ndarray, hr, hv, hw, sr, sp
+                     ) -> tuple[int, int]:
+        """Book one native pass: drops per class, dirty flags, and the
+        histo/set append columns into staging.  Returns (processed,
+        dropped)."""
+        processed = int(meta[3])
+        dropped = int(meta[6:11].sum())
         if dropped:
-            for code in np.unique(tc[sel][~live]):
-                self._class_for_code(int(code)).drops.add(int(
-                    ((tc[sel] == code) & ~live).sum()))
-
-        codes = tc[sel]
-        vals = pb.value[sel]
-        wts = pb.weight[sel]
-
-        cmask = (codes == columnar.CODE_COUNTER) & live
-        if cmask.any():
-            r = rows[cmask]
-            self._counter_dense += np.bincount(
-                r, weights=vals[cmask] * wts[cmask],
-                minlength=self.config.counter_rows)
+            self.counter_idx.drops.add(int(meta[6]))
+            self.gauge_idx.drops.add(int(meta[7]))
+            self.histo_idx.drops.add(int(meta[8] + meta[9]))
+            self.set_idx.drops.add(int(meta[10]))
+        if meta[4]:
             self._counter_dirty = True
-            self.counter_idx.touch_rows(r, self.gen)
-
-        gmask = (codes == columnar.CODE_GAUGE) & live
-        if gmask.any():
-            r = rows[gmask]
-            # fancy assignment applies in index order: last write wins
-            self._gauge_dense[r] = vals[gmask]
-            self._gauge_mask[r] = 1
+        if meta[5]:
             self._gauge_dirty = True
-            self.gauge_idx.touch_rows(r, self.gen)
-
-        hmask = ((codes == columnar.CODE_TIMER) |
-                 (codes == columnar.CODE_HISTOGRAM)) & live
-        if hmask.any():
-            r = rows[hmask]
-            self._histo_stage.append(r, vals[hmask], wts[hmask])
-            self.histo_idx.touch_rows(r, self.gen)
-
-        smask = (codes == columnar.CODE_SET) & live
-        if smask.any():
-            r = rows[smask]
-            idx, rank = hashing.hll_position(pb.member_hash[sel][smask])
-            self._set_pos_rows.append(np.asarray(r, np.int32))
-            self._set_pos.append(hll.pack_positions(idx, rank))
-            self.set_idx.touch_rows(r, self.gen)
-
-        processed = len(sel)
+        # copies: the scratch is per-line sized and reused by the next
+        # call, while staging holds its parts until the swap
+        hn = int(meta[0])
+        if hn:
+            self._histo_stage.append(hr[:hn].copy(), hv[:hn].copy(),
+                                     hw[:hn].copy())
+        sn = int(meta[1])
+        if sn:
+            self._set_pos_rows.append(sr[:sn].copy())
+            self._set_pos.append(sp[:sn].copy())
         self._note_staged(processed - dropped)
         return processed, dropped
+
+    def ingest_columns(self, pb: columnar.ParsedBatch
+                       ) -> tuple[int, int]:
+        """Ingest a parsed buffer's metric lines (type codes 0-4; the
+        others are the caller's per-line business) in one native pass
+        (vtpu_ingest): probe + combine.  Never-seen keys are resolved
+        in Python, then a second pass runs over just those lines.
+        Returns (processed, dropped)."""
+        n = pb.n
+        if n == 0:
+            return 0, 0
+        hr = np.empty(n, np.int32)
+        hv = np.empty(n, np.float32)
+        hw = np.empty(n, np.float32)
+        sr = np.empty(n, np.int32)
+        sp = np.empty(n, np.int32)
+        miss = np.empty(n, np.int64)
+        meta = np.zeros(11, np.int64)
+        t = self._touch_ptrs()
+        cols = (np.ascontiguousarray(pb.key_hash[:n], np.uint64),
+                np.ascontiguousarray(pb.type_code[:n], np.uint8),
+                np.ascontiguousarray(pb.value[:n], np.float64),
+                np.ascontiguousarray(pb.member_hash[:n], np.uint64),
+                np.ascontiguousarray(pb.weight[:n], np.float32))
+        self._ingest_pass(t, *cols, n, miss, -1, hr, hv, hw, sr, sp, meta)
+        n_miss = int(meta[2])
+        if n_miss:
+            miss_lines = miss[:n_miss].copy()
+            self._resolve_misses(pb, miss_lines, cols[0][miss_lines])
+            # resolved keys now hit; unparseable ones are DROPPED
+            self._ingest_pass(t, *cols, n, miss, n_miss, hr, hv, hw, sr,
+                              sp, meta)
+        return self._commit_pass(meta, hr, hv, hw, sr, sp)
+
+    def ingest_buffer(self, buf
+                      ) -> tuple[int, int, list[tuple[int, int, int]]]:
+        """Fused parse + probe + combine over a raw newline-separated
+        buffer (vtpu_parse_ingest): no columns between the grammar and
+        the table.  Misses resolve in Python and replay through
+        vtpu_ingest into the same staging.
+
+        Returns (processed, dropped, others): others is
+        [(offset, length, type_code)] for event, service-check and
+        malformed lines, the caller's per-line business."""
+        buf_b = buf if isinstance(buf, bytes) else bytes(buf)
+        buf_np = np.frombuffer(buf_b, np.uint8)
+        n_est = buf_b.count(b"\n") + 1
+        sc = self._fused_scratch
+        if sc is None or len(sc["hr"]) < n_est:
+            cap = max(n_est, 4096)
+            sc = self._fused_scratch = {
+                "hr": np.empty(cap, np.int32),
+                "hv": np.empty(cap, np.float32),
+                "hw": np.empty(cap, np.float32),
+                "sr": np.empty(cap, np.int32),
+                "sp": np.empty(cap, np.int32),
+                "mk": np.empty(cap, np.uint64),
+                "mt": np.empty(cap, np.uint8),
+                "mv": np.empty(cap, np.float64),
+                "mm": np.empty(cap, np.uint64),
+                "mw": np.empty(cap, np.float32),
+                "mo": np.empty(cap, np.int64),
+                "ml": np.empty(cap, np.int32),
+                "oo": np.empty(cap, np.int64),
+                "ol": np.empty(cap, np.int32),
+                "ok": np.empty(cap, np.uint8),
+            }
+        meta = np.zeros(12, np.int64)
+        t = self._touch_ptrs()
+
+        def p(name, ctype):
+            return native.ptr(sc[name], ctype)
+
+        i32, i64, u8 = ctypes.c_int32, ctypes.c_int64, ctypes.c_uint8
+        f32, f64, u64 = ctypes.c_float, ctypes.c_double, ctypes.c_uint64
+        self._lib.vtpu_parse_ingest(
+            native.ptr(buf_np, u8), len(buf_np), self.key_index.handle,
+            hashing.HLL_P,
+            t["counter_dense"], t["counter_touch"], t["gauge_dense"],
+            t["gauge_mask"], t["gauge_touch"],
+            p("hr", i32), p("hv", f32), p("hw", f32), t["histo_touch"],
+            p("sr", i32), p("sp", i32), t["set_touch"],
+            p("mk", u64), p("mt", u8), p("mv", f64), p("mm", u64),
+            p("mw", f32), p("mo", i64), p("ml", i32),
+            p("oo", i64), p("ol", i32), p("ok", u8),
+            native.ptr(meta, i64))
+        n_miss = int(meta[2])
+        if n_miss:
+            shim = _MissLines(buf_np, sc["mo"], sc["ml"], sc["mt"])
+            self._resolve_misses(shim, np.arange(n_miss),
+                                 sc["mk"][:n_miss])
+            miss2 = np.empty(n_miss, np.int64)
+            self._ingest_pass(t, sc["mk"], sc["mt"], sc["mv"], sc["mm"],
+                              sc["mw"], n_miss, miss2, -1, sc["hr"],
+                              sc["hv"], sc["hw"], sc["sr"], sc["sp"], meta)
+        processed, dropped = self._commit_pass(
+            meta, sc["hr"], sc["hv"], sc["hw"], sc["sr"], sc["sp"])
+        n_other = int(meta[11])
+        others = [(int(sc["oo"][i]), int(sc["ol"][i]), int(sc["ok"][i]))
+                  for i in range(n_other)]
+        return processed, dropped, others
 
     def staged(self) -> int:
         return self._staged_n
@@ -552,14 +704,18 @@ class MetricTable:
         if w.set_parts is not None:
             # the superbatch left the sets: the plane fits the host
             # bound, so they fold into the host register plane
-            set_rows, set_members, pos_rows, pos = w.set_parts
-            srows, spos = self._set_positions(set_rows, set_members,
-                                              pos_rows, pos)
-            if len(srows):
-                self._hll_host_fold(st, srows, spos)
+            parts_rows, parts_pos = self._set_parts(w.set_parts)
+            if parts_rows:
+                self._route("set_host_fold")
+                self._hll_host_fold(st, np.concatenate(parts_rows),
+                                    np.concatenate(parts_pos))
 
     @staticmethod
-    def _set_positions(set_rows, set_members, pos_rows, pos):
+    def _set_parts(set_parts) -> tuple[list, list]:
+        """Staged set members as lists of (rows, packed positions)
+        parts: slow-path members hashed here, native-ingest positions
+        as staged."""
+        set_rows, set_members, pos_rows, pos = set_parts
         parts_rows, parts_pos = [], []
         if set_rows:
             idx, rank = hashing.hash_members(set_members)
@@ -568,9 +724,7 @@ class MetricTable:
         parts_rows.extend(np.ascontiguousarray(p, np.int32)
                           for p in pos_rows)
         parts_pos.extend(np.ascontiguousarray(p, np.int32) for p in pos)
-        if not parts_rows:
-            return np.zeros(0, np.int32), np.zeros(0, np.int32)
-        return np.concatenate(parts_rows), np.concatenate(parts_pos)
+        return parts_rows, parts_pos
 
     # ------------------------------------------------------------------
     # superbatch apply: one packed host buffer, one copy, one fused step
@@ -602,10 +756,10 @@ class MetricTable:
                 c.set_rows * hll.M > c.host_set_plane_max_bytes):
             # the host-fold route (small pools) never touches the
             # device, so it keeps w.set_parts
-            srows, spos = self._set_positions(*w.set_parts)
+            sets = self._sb_set_pack(w.set_parts)
             w.set_parts = None
-            if len(srows):
-                sets = (srows, spos)
+            if sets is not None:
+                self._route("set_" + sets[0])
         if (counter is None and gauge is None and histo is None
                 and sets is None):
             return
@@ -617,7 +771,7 @@ class MetricTable:
         if histo is not None:
             kw.update(histo[0])
         if sets is not None:
-            kw["pos_n"] = _bucket_len(len(sets[0]))
+            kw.update(sets[1])
         spec = superbatch.SBSpec(**kw)
         off = superbatch.layout(spec)
         tbuf = self._sb_bufs.take_tensor(off["total"])
@@ -634,20 +788,17 @@ class MetricTable:
         if histo is not None:
             self._sb_fill_histo(buf, off, spec, histo)
         if sets is not None:
-            o = off["pos_rows"]
-            buf[o:o + spec.pos_n] = _pad_np(sets[0], spec.pos_n,
-                                            c.set_rows)
-            o = off["pos_pk"]
-            buf[o:o + spec.pos_n] = _pad_np(sets[1], spec.pos_n, 0)
+            self._sb_fill_set(buf, off, spec, sets)
         if spec.counter_rows:
             self._ensure_fresh(st, "counter")
         if spec.gauge_rows:
             self._ensure_fresh(st, "gauge")
         if spec.histo_n:
             self._ensure_fresh(st, "histo")
-        if spec.pos_n:
+        if spec.pos_n or spec.plane_rows:
             self._ensure_fresh(st, "hll")
             st.hll_device_touched = True
+        self.h2d_bytes += tbuf.numel() * 4
         dbuf = superbatch.to_device(tbuf, self.device, self._sb_bufs)
         out = superbatch.step(spec, st.counters, st.gauges,
                               st.histo_means, st.histo_weights,
@@ -659,7 +810,7 @@ class MetricTable:
             st.gauges = out[1]
         if spec.histo_n:
             st.histo_means, st.histo_weights, st.histo_stats = out[2:5]
-        if spec.pos_n:
+        if spec.pos_n or spec.plane_rows:
             st.hll_regs = out[5]
 
     def _sb_histo_pack(self, st, rows, vals, wts):
@@ -673,10 +824,17 @@ class MetricTable:
         unit = bool(np.all(wts == 1.0))
         rows = np.ascontiguousarray(rows, np.int32)
         vals = np.ascontiguousarray(vals, np.float32)
+        # batches the host-densified plane takes leave the superbatch
+        # (the plane and the deep scan ship fewer bytes in their own
+        # shapes); the thresholds are _histo_device_step's own
+        if self._plane_choice(rows, vals, unit, n)[2]:
+            self._histo_device_step(st, rows, vals, wts, with_stats=True)
+            return None
         rank, max_count = self._rank(rows)
         if max_count > self._eff_histo_slots:
             self._histo_device_step(st, rows, vals, wts, with_stats=True)
             return None
+        self._route("superbatch")
         b = _bucket_len(n)
         slots = min(self._eff_histo_slots, _bucket_len(max_count))
         uniq = np.unique(rows)
@@ -711,24 +869,107 @@ class MetricTable:
             o = off["histo_idx"]
             buf[o:o + spec.histo_sub] = idx_seg
 
+    def _sb_set_pack(self, set_parts):
+        """Choose the superbatch's set arm for the cycle's staged
+        members, cheapest device operation first: a compact PLANE
+        (touched rows folded on the host into a T-row register plane;
+        the device takes a row max) when it is the smaller transfer; a
+        full PLANE (one elementwise max) where a scattered member costs
+        more than ``plane_scatter_factor`` plane bytes and the plane
+        fits that budget; else packed POSITIONS (a scatter-max).  All
+        arms give the same registers (byte max is order-free).
+        Returns (arm, spec_kw, parts_rows, parts_pos, touched) or None
+        when nothing is staged."""
+        parts_rows, parts_pos = self._set_parts(set_parts)
+        n = sum(len(p) for p in parts_rows)
+        if not n:
+            return None
+        pool = self.config.set_rows
+        nb = _bucket_len(n)
+        counts = np.zeros(pool, np.int64)
+        for pr in parts_rows:
+            counts += np.bincount(pr, minlength=pool)[:pool]
+        touched = np.nonzero(counts)[0].astype(np.int32)
+        tb = _bucket_len(len(touched), wide=True)
+        if tb * hll.M <= 8 * nb:
+            return ("plane", dict(plane_rows=tb), parts_rows, parts_pos,
+                    touched)
+        if (self._sb_plane_factor > 1 and
+                pool * hll.M <= self._sb_plane_factor * 8 * nb):
+            return ("plane_full", dict(plane_rows=pool, plane_full=True),
+                    parts_rows, parts_pos, None)
+        return ("pos", dict(pos_n=nb), parts_rows, parts_pos, None)
+
+    def _sb_fill_set(self, buf, off, spec, sets) -> None:
+        _arm, _kw, parts_rows, parts_pos, touched = sets
+        pool = self.config.set_rows
+        if spec.pos_n:
+            native.sb_gather_i32(
+                parts_rows, buf[off["pos_rows"]:off["pos_rows"] +
+                                spec.pos_n], pool)
+            native.sb_gather_i32(
+                parts_pos, buf[off["pos_pk"]:off["pos_pk"] + spec.pos_n],
+                0)
+            return
+        # plane arms: zero the register segment, then fold every staged
+        # part straight into it (no intermediate concatenate)
+        words = spec.plane_rows * (hll.M // 4)
+        seg = buf[off["plane_regs"]:off["plane_regs"] + words]
+        seg[:] = 0
+        plane = seg.view(np.uint8).reshape(spec.plane_rows, hll.M)
+        remap = None
+        if not spec.plane_full:
+            t = len(touched)
+            remap = np.full(pool, -1, np.int32)
+            remap[touched] = np.arange(t, dtype=np.int32)
+            o = off["plane_idx"]
+            buf[o:o + t] = touched
+            # pad sentinel = pool rows: merge_rows drops them
+            buf[o + t:o + spec.plane_rows] = pool
+        for pr, pp in zip(parts_rows, parts_pos):
+            if remap is not None:
+                pr = remap[pr]
+            native.hll_plane(pr, pp, plane)
+
     # ------------------------------------------------------------------
     # histogram steps outside the superbatch
 
     def _dev(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        arr = np.ascontiguousarray(arr)
+        self.h2d_bytes += arr.nbytes
+        return torch.from_numpy(arr).to(self.device)
+
+    def _route(self, name: str) -> None:
+        self.routes[name] = self.routes.get(name, 0) + 1
 
     def _histo_device_step(self, st: _IntervalState, rows: np.ndarray,
                            vals: np.ndarray, wts: np.ndarray,
                            with_stats: bool = True) -> None:
-        """Histo ingest: a batch that fits one merge width merges in one
-        ranked pass; a deep batch folds its local aggregates on the
-        host (exact) and merges digest-only, one chunk width at a time
-        (or, past 64 chunk widths in one row, pre-clusters on the host
-        first)."""
+        """Histo ingest.  A batch dense enough takes the host-densified
+        plane first (``_histo_plane_step``); its rows past the plane
+        width spill back here digest-only, since the plane step's host
+        stats already counted them.  A batch that fits one merge width
+        merges in one ranked pass; a deep batch folds its local
+        aggregates on the host (exact) and merges digest-only, one
+        chunk width at a time (or, past 64 chunk widths in one row,
+        pre-clusters on the host first)."""
         unit = bool(np.all(wts == 1.0))
+        spilled = False
+        if with_stats and len(rows):
+            handled, spill = self._histo_plane_step(st, rows, vals, wts,
+                                                    unit)
+            if handled:
+                if spill is None:
+                    return
+                # the ranked path chunks iteratively: a plane retry
+                # would strip only `width` samples of a hot row per level
+                rows, vals, wts = spill
+                with_stats = False
+                spilled = True
         rank, max_count = self._rank(rows)
         eff = self._eff_histo_slots
         if max_count <= eff:
+            self._route("spill" if spilled else "ranked")
             self._digest_merge(st, rows, vals, wts, rank, unit,
                                with_stats)
             return
@@ -740,10 +981,12 @@ class MetricTable:
             rows, vals, wts = self._host_precluster(rows, vals, wts)
             rank, max_count = self._rank(rows)
             if max_count <= eff:
+                self._route("precluster")
                 self._digest_merge(st, rows, vals, wts, rank, False,
                                    False)
                 return
             n_chunks = -(-max_count // eff)
+        self._route("deep_scan")
         self._digest_merge_scan(st, rows, vals, wts, rank, n_chunks)
 
     def _host_stats_fold(self, st, rows, vals, wts) -> None:
@@ -796,38 +1039,105 @@ class MetricTable:
                 (cwv / np.maximum(cw_sum, 1e-30)).astype(np.float32),
                 cw_sum.astype(np.float32))
 
+    def _plane_choice(self, rows, vals, unit, n):
+        """Width / f16 / engagement of the host-densified plane for one
+        batch, shared by _histo_plane_step and the superbatch router so
+        the two never disagree.  Returns (width, f16, engage); width 0
+        means the batch touched no rows."""
+        c = self.config
+        counts_full = np.bincount(rows, minlength=c.histo_rows)
+        occupied = counts_full[counts_full > 0]
+        if not len(occupied):
+            return 0, False, True
+        w_hi = int(occupied.max())
+        w_p99 = int(np.percentile(occupied, 99.5))
+        # width at 128-lane granularity around the p99.5 row count; the
+        # hotter rows spill instead of padding every row
+        width = min(max(128, -(-w_p99 // 128) * 128),
+                    _bucket_len(w_hi, wide=True),
+                    self._eff_histo_slots)
+        # f16 only for unit-weight batches whose nonzero values all sit
+        # in f16's normal range (relative quantization 2^-11); the stats
+        # stay exact either way
+        f16 = False
+        if unit:
+            av = np.abs(vals)
+            vmax = float(av.max(initial=0.0))
+            nz = av[av > 0]
+            vmin_nz = float(nz.min()) if len(nz) else 1.0
+            f16 = vmax < 6.0e4 and vmin_nz >= 6.2e-5
+        vbytes = 2 if f16 else 4
+        planes = 1 if unit else 2
+        engage = c.histo_rows * width * vbytes * planes <= 12 * n
+        return width, f16, engage
+
+    def _histo_plane_step(self, st, rows, vals, wts, unit):
+        """Host-densified plane ingest (vtpu_dense_plane, then
+        tdigest.ingest_plane_pre*): ships an (R, width) value plane,
+        as f16 when the range allows, instead of 12 bytes a sample.
+        The native pass accumulates exact f64 per-row stats over every
+        sample, spilled ones included.
+
+        Returns (handled, spill): handled False when the batch is too
+        sparse for the plane to be the smaller transfer; spill holds
+        the samples of rows past the plane width, for the caller to
+        merge digest-only."""
+        c = self.config
+        n = len(rows)
+        rows = np.ascontiguousarray(rows, np.int32)
+        vals = np.ascontiguousarray(vals, np.float32)
+        width, f16, engage = self._plane_choice(rows, vals, unit, n)
+        if width == 0:
+            return True, None
+        if not engage:
+            return False, None
+        plane_v, plane_w, counts, ov, batch_stats = native.dense_plane(
+            rows, vals, None if unit else wts, c.histo_rows, width)
+        batch_stats = batch_stats.astype(np.float32)
+        if f16:
+            plane_v = plane_v.astype(np.float16)
+        self._route("plane_f16" if f16 else "plane_f32")
+        self._ensure_fresh(st, "histo")
+        if unit:
+            (st.histo_means, st.histo_weights,
+             st.histo_stats) = tdigest.ingest_plane_pre_unit(
+                st.histo_means, st.histo_weights, st.histo_stats,
+                self._dev(batch_stats), self._dev(counts),
+                self._dev(plane_v), compression=c.compression)
+        else:
+            (st.histo_means, st.histo_weights,
+             st.histo_stats) = tdigest.ingest_plane_pre(
+                st.histo_means, st.histo_weights, st.histo_stats,
+                self._dev(batch_stats), self._dev(plane_v),
+                self._dev(plane_w), compression=c.compression)
+        ov_rows, ov_vals, ov_wts = ov
+        if len(ov_rows):
+            return True, (ov_rows, ov_vals,
+                          np.ones(len(ov_rows), np.float32) if unit
+                          else ov_wts)
+        return True, None
+
     def _ensure_host_plane(self, st: _IntervalState) -> None:
         if st.hll_host_plane is None:
-            st.hll_host_plane = np.zeros((self.config.set_rows, hll.M),
-                                         np.uint8)
+            pool = self.config.set_rows
+            st.hll_host_plane = np.zeros((pool, hll.M), np.uint8)
+            # all-zero rows: every register counts in ez and adds 2^0
+            # to the inverse-power sum
+            st.hll_host_ez = np.full(pool, hll.M, np.int32)
+            st.hll_host_inv = np.full(pool, float(hll.M), np.float64)
 
     def _hll_host_fold(self, st: _IntervalState, rows: np.ndarray,
                        pos: np.ndarray) -> None:
         """Fold packed member positions into the interval's host
-        register plane — no device work at all."""
+        register plane and its per-row estimate statistics
+        (vtpu_hll_plane_stats) — no device work at all."""
         self._ensure_host_plane(st)
-        pool = self.config.set_rows
-        rows = np.ascontiguousarray(rows, np.int32)
-        pos = np.ascontiguousarray(pos, np.int32)
-        idx = pos >> 6
-        rank = (pos & 0x3F).astype(np.uint8)
-        live = (rows >= 0) & (rows < pool)
-        np.maximum.at(st.hll_host_plane,
-                      (rows[live], idx[live]), rank[live])
+        native.hll_plane_stats(rows, pos, st.hll_host_plane,
+                               st.hll_host_inv, st.hll_host_ez)
 
-    def _rank(self, rows: np.ndarray,
-              num_rows: int | None = None) -> tuple[np.ndarray, int]:
-        """Within-row occurrence rank + max per-row count."""
-        n = len(rows)
-        rows = np.ascontiguousarray(rows, np.int32)
-        order = np.argsort(rows, kind="stable")
-        sorted_rows = rows[order]
-        first = np.ones(n, dtype=bool)
-        first[1:] = sorted_rows[1:] != sorted_rows[:-1]
-        start = np.maximum.accumulate(np.where(first, np.arange(n), 0))
-        rank = np.empty(n, np.int32)
-        rank[order] = np.arange(n) - start
-        return rank, int(rank.max(initial=-1)) + 1
+    def _rank(self, rows: np.ndarray) -> tuple[np.ndarray, int]:
+        """Within-row occurrence rank + max per-row count (vtpu_rank)."""
+        return native.rank(rows, self.config.histo_rows)
 
     def _digest_merge(self, st, rows, vals, wts, rank, unit,
                       with_stats) -> None:
@@ -935,6 +1245,11 @@ class MetricTable:
         pend = _PendingSwap()
         pend.work = work
         pend.state = st
+        # the native ingest marks touched[] but not last_gen (the
+        # generation is constant within an interval): stamp it here
+        for idx in (self.counter_idx, self.gauge_idx, self.histo_idx,
+                    self.set_idx):
+            idx.last_gen[idx.touched] = self.gen
         pend.counter_meta = list(self.counter_idx.meta)
         pend.counter_touched = self.counter_idx.touched.copy()
         pend.gauge_meta = list(self.gauge_idx.meta)
@@ -1017,6 +1332,8 @@ class MetricTable:
             set_touched=pend.set_touched,
             hll_host_plane=st.hll_host_plane,
             hll_device_touched=st.hll_device_touched,
+            hll_host_ez=st.hll_host_ez,
+            hll_host_inv=st.hll_host_inv,
             overflow=pend.overflow,
             ingested=pend.ingested,
         )

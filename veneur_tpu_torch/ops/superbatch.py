@@ -33,6 +33,14 @@ _MAGIC = 0x53425631  # "SBV1"
 HEADER_WORDS = 8
 
 
+def plane_scatter_factor(device_type: str) -> int:
+    """How many plane bytes one scatter byte is worth when the table
+    chooses a set arm: on the CPU a scattered member costs far more than
+    a byte of elementwise max (16, the reference's measured factor); on
+    the card the copy is what costs, so bytes compare 1:1."""
+    return 16 if device_type == "cpu" else 1
+
+
 class SBSpec(NamedTuple):
     """Superbatch schema: segment lengths and the histo merge variant.
     A zero length means the class is absent this cycle."""

@@ -232,6 +232,34 @@ def ingest_ranked_unit(means, weights, stats, row_ids, ranks, values,
     return m, w, stats
 
 
+def ingest_plane_pre_unit(means, weights, stats, batch_stats, counts,
+                          dense_v,
+                          compression: float = DEFAULT_COMPRESSION):
+    """Histo plane ingest with the local aggregates pre-computed on the
+    host over every sample (``batch_stats`` f32[R, 5]), so the value
+    plane may arrive as f16: it is widened to f32 here, and the unit
+    weight plane is rebuilt from the per-row ``counts``.  The digest
+    means absorb the f16 quantization; min/max/sum stay exact."""
+    width = dense_v.shape[1]
+    dense_v = dense_v.to(torch.float32)
+    slot = torch.arange(width, dtype=torch.int32, device=dense_v.device)
+    dense_w = (slot[None, :] < counts[:, None]).to(torch.float32)
+    stats = _combine_row_stats(stats, batch_stats)
+    m, w = _merge_impl(means, weights, dense_v, dense_w, compression)
+    return m, w, stats
+
+
+def ingest_plane_pre(means, weights, stats, batch_stats, dense_v, dense_w,
+                     compression: float = DEFAULT_COMPRESSION):
+    """ingest_plane_pre_unit for weighted samples: the weight plane
+    arrives too (both planes f32)."""
+    dense_v = dense_v.to(torch.float32)
+    dense_w = dense_w.to(torch.float32)
+    stats = _combine_row_stats(stats, batch_stats)
+    m, w = _merge_impl(means, weights, dense_v, dense_w, compression)
+    return m, w, stats
+
+
 # ---- touched-row-subset variants -----------------------------------
 # ``row_idx`` is the padded array of ABSOLUTE row ids (pad entries are
 # out of range: gathers read zeros, the scatter-back drops them);

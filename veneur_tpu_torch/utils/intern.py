@@ -10,9 +10,16 @@ fall back to the caller's slow path exactly once per novel key.
 Values are i32: row ids >= 0, or DROPPED (-2) marking keys whose class
 table is full so later samples are counted as dropped without re-taking
 the slow path.  MISSING (-1) means "not present".
+
+``NativeHashIndex`` is the same contract backed by the C++ table of the
+port's native library, so the fused ingest can probe it without
+crossing into Python; the table's key index is the native one.
+``HashIndex`` stays as its plain version.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 
@@ -117,3 +124,41 @@ class HashIndex:
         self.keys[:] = _EMPTY
         self.vals[:] = MISSING
         self.count = 0
+
+
+class NativeHashIndex:
+    """Same contract as HashIndex (sentinels, zero-key alias), backed by
+    the C++ table in ``veneur_tpu_torch/native/dsd_parse.cpp``.
+    Mutations (insert/clear) are serialized by the caller."""
+
+    def __init__(self, lib, capacity: int = 1 << 16):
+        self._lib = lib
+        self.handle = lib.vtpu_index_new(capacity)
+
+    def __del__(self):
+        h = getattr(self, "handle", None)
+        if h:
+            self._lib.vtpu_index_free(h)
+            self.handle = None
+
+    @property
+    def count(self) -> int:
+        return int(self._lib.vtpu_index_count(self.handle))
+
+    def lookup(self, keys: np.ndarray) -> np.ndarray:
+        keys = np.ascontiguousarray(keys, np.uint64)
+        out = np.empty(len(keys), np.int32)
+        if len(keys):
+            self._lib.vtpu_index_lookup(
+                self.handle,
+                keys.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+                len(keys),
+                out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+        return out
+
+    def insert(self, key: int, val: int) -> None:
+        self._lib.vtpu_index_insert(self.handle, ctypes.c_uint64(int(key)),
+                                    ctypes.c_int32(int(val)))
+
+    def clear(self) -> None:
+        self._lib.vtpu_index_clear(self.handle)
