@@ -6,14 +6,16 @@
 Run from the root of a checkout.  Phases, one JSON line each:
 
 0. card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
+   env: whether ``grpc`` and ``google.protobuf`` import on this host;
 1. build: the cluster merge kernel from ``veneur_tpu_torch/csrc``
    (nvcc) and the native host library from ``veneur_tpu_torch/native``
    (g++), both compilers started together;
 2. kernel vs plain: ``cluster_merge`` against ``cluster_merge_plain``
    at R = 16384, C = 616, K = 512 (the deep plane), K = 256, K = 616
    (union) and K = 512 with unsorted state rows: mass, packing
-   contract, quantiles; times with CUDA events.  After phase 4 the same
-   check runs at every other (R, K) phase 4 merged at;
+   contract, quantiles; times with CUDA events.  After phases 4 and 6
+   the same check runs at every other (R, K) they merged at (phase 6's
+   global folds with weighted centroids);
 3. ``entry("cuda")`` against ``entry("cpu")`` on the same arrays;
 4. the main path: a ``MetricTable`` at the server's default sizes
    (16384 counter / gauge / histo rows, 1024 set rows) takes two
@@ -31,7 +33,21 @@ Run from the root of a checkout.  Phases, one JSON line each:
 5. the server: ``python -m veneur_tpu_torch.cli.main`` on the card,
    fed over loopback UDP (single-line, multi-line, an event, a service
    check and an oversize datagram), its flush file checked;
-6. the kernels line, then the last line
+6. the global tier at BASELINE config 5's size: 64 locals' wires (each
+   the local-role flush of a table on the card that took a 1/64 share
+   of phase 4's timer and set traffic, plus global-only counters,
+   gauges and timers; 16 of them in the reference's gob schema) built
+   once, then decoded and merged into a global table per interval
+   (``decode_body`` + ``apply_import``, ``device_step`` at the staging
+   bound, ``swap`` + flush): 10,000 timer series (the flat fold) over
+   two intervals plus one profiled, and 4,096 series (the stacked fold,
+   one kernel launch per wire); each held against a CPU global on the
+   same bodies and against the exact p99 of every local's samples;
+7. the chain: a global and two locals (one per /import schema) as
+   server processes on the card, over UDP and HTTP: the global flushes
+   the JAX chain's ``lat.99percentile``; a garbage /import is answered
+   400 and counted;
+8. the kernels line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero before the last
@@ -94,9 +110,11 @@ def cuda_ms(fn, runs: int = 10, reps: int = 10, warmup: int = 3) -> float:
 
 # ---- phase 2: kernel vs plain -------------------------------------------
 
-def random_case(rng, rows, cap, slots):
+def random_case(rng, rows, cap, slots, weighted=False):
     """The reference's tests/test_pallas_merge.py generator: mean-sorted
-    state rows up to half full, a batch with 80% live slots."""
+    state rows up to half full, a batch with 80% live slots (unit
+    samples; ``weighted``: a forwarded wire's centroids, a mean-sorted
+    prefix of weights 1-59 per row)."""
     occ = rng.integers(0, cap // 2, size=rows)
     live = np.arange(cap)[None, :] < occ[:, None]
     means = np.sort(np.where(live, rng.normal(200.0, 40.0, (rows, cap)),
@@ -104,6 +122,16 @@ def random_case(rng, rows, cap, slots):
     means = np.where(live, means, 0.0).astype(np.float32)
     weights = np.where(live, rng.integers(1, 50, (rows, cap)),
                        0).astype(np.float32)
+    if weighted:
+        n = rng.integers(0, slots + 1, size=rows)
+        blive = np.arange(slots)[None, :] < n[:, None]
+        bm = np.sort(np.where(blive, rng.normal(200.0, 40.0,
+                                                (rows, slots)), np.inf),
+                     axis=1)
+        bm = np.where(blive, bm, 0.0).astype(np.float32)
+        bw = np.where(blive, rng.integers(1, 60, (rows, slots)),
+                      0).astype(np.float32)
+        return means, weights, bm, bw
     bm = rng.normal(200.0, 40.0, (rows, slots)).astype(np.float32)
     bw = (rng.random((rows, slots)) < 0.8).astype(np.float32)
     bm = np.where(bw > 0, bm, 0.0).astype(np.float32)
@@ -142,21 +170,58 @@ def merge_bound_ms(rows: int, cap: int, k: int,
             else "operations")
 
 
-# (label, state rows R, batch width K, state rows sorted): K = 512 is
-# the deep plane's width and chunk, K = 256 a shallow merge, K = 616 a
-# digest union; the last case permutes every state row so the kernel
-# sorts it too.  After phase 4, phase 2 also holds the kernel at every
-# other (R, K) the main path merged at (``recorded_cases``).
-KERNEL_CASES = (("k512", 16384, 512, True), ("k256", 16384, 256, True),
-                ("k616", 16384, 616, True),
-                ("k512_unsorted_state", 16384, 512, False))
+# (label, state rows R, batch width K, state rows sorted, weighted
+# batch): K = 512 is the deep plane's width and chunk, K = 256 a
+# shallow merge, K = 616 a digest union; the unsorted case permutes
+# every state row so the kernel sorts it too.  After phases 4 and 6,
+# phase 2 also holds the kernel at every other (R, K) those paths
+# merged at (``recorded_cases``), with weighted batches for phase 6's.
+KERNEL_CASES = (("k512", 16384, 512, True, False),
+                ("k256", 16384, 256, True, False),
+                ("k616", 16384, 616, True, False),
+                ("k512_unsorted_state", 16384, 512, False, False))
 
 
-def recorded_cases(merge_shapes) -> tuple:
-    """Phase 4's merge shapes that KERNEL_CASES does not time."""
-    timed = {(r, k) for _, r, k, _ in KERNEL_CASES}
-    return tuple((f"r{m['rows']}_k{m['k']}", m["rows"], m["k"], True)
-                 for m in merge_shapes if (m["rows"], m["k"]) not in timed)
+def recorded_cases(merge_shapes, weighted=False, timed=()) -> tuple:
+    """Merge shapes of a path that KERNEL_CASES and ``timed`` (labels
+    already run) do not time."""
+    done = {(r, k, w) for _, r, k, _, w in KERNEL_CASES}
+    done |= {(r, k, w) for _, r, k, _, w in timed}
+    tag = "_weighted" if weighted else ""
+    return tuple((f"r{m['rows']}_k{m['k']}{tag}", m["rows"], m["k"], True,
+                  weighted)
+                 for m in merge_shapes
+                 if (m["rows"], m["k"], weighted) not in done)
+
+
+class MergeRecorder:
+    """Counts every cluster merge by (rows, batch width K) while it is
+    entered, and the kernel launches made meanwhile (the wrapper's
+    counter, set to 0 on entry)."""
+
+    def __enter__(self):
+        from veneur_tpu_torch.ops import cluster_merge
+        self._cm = cluster_merge
+        self._merge = cluster_merge.cluster_merge
+        self.shapes: dict = {}
+
+        def recording_merge(means, weights, new_means, new_weights, **kw):
+            key = (int(means.shape[0]), int(new_means.shape[1]))
+            self.shapes[key] = self.shapes.get(key, 0) + 1
+            return self._merge(means, weights, new_means, new_weights,
+                               **kw)
+        cluster_merge.cluster_merge = recording_merge
+        cluster_merge.launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        self.launches = self._cm.launches
+        self._cm.cluster_merge = self._merge
+        return False
+
+    def table(self) -> list:
+        return [{"rows": r, "k": k, "calls": c}
+                for (r, k), c in sorted(self.shapes.items())]
 
 
 def phase_kernel(dev: str = "cuda", cases=KERNEL_CASES) -> dict:
@@ -170,8 +235,8 @@ def phase_kernel(dev: str = "cuda", cases=KERNEL_CASES) -> dict:
     rng = np.random.default_rng(7)
     qs = torch.tensor(QS, dtype=torch.float32, device=dev)
     out = {}
-    for label, rows, k, sorted_state in cases:
-        case = list(random_case(rng, rows, cap, k))
+    for label, rows, k, sorted_state, weighted in cases:
+        case = list(random_case(rng, rows, cap, k, weighted))
         if not sorted_state:
             perm = np.argsort(rng.random((rows, cap)), axis=1)
             case[0] = np.take_along_axis(case[0], perm, 1)
@@ -191,10 +256,15 @@ def phase_kernel(dev: str = "cuda", cases=KERNEL_CASES) -> dict:
         check(packing_ok(pm, pwt), f"{label}: plain packing contract")
         qk = tdigest.quantile(km, kwt, qs)
         qp = tdigest.quantile(pm, pwt, qs)
-        viol = float(((qk - qp).abs() - (1e-3 + 2e-3 * qp.abs())).max())
+        # rows with no weight at all read NaN in both
+        both = ~torch.isnan(qp)
+        check(torch.equal(torch.isnan(qk), ~both),
+              f"{label}: kernel and plain differ in empty rows")
+        viol = float(((qk - qp).abs() - (1e-3 + 2e-3 * qp.abs()))[both]
+                     .max())
         check(viol <= 0, f"{label}: quantiles outside rtol 2e-3/atol "
                          f"1e-3 (excess {viol})")
-        max_abs = float((qk - qp).abs().max())
+        max_abs = float((qk - qp).abs()[both].max())
         ms = cuda_ms(lambda: cm.cluster_merge(*a, **kw))
         plain_ms = cuda_ms(lambda: cm.cluster_merge_plain(*a, **kw))
         n = 1 << (cap + k - 1).bit_length()
@@ -205,6 +275,7 @@ def phase_kernel(dev: str = "cuda", cases=KERNEL_CASES) -> dict:
         bound, by = merge_bound_ms(rows, cap, k, sorted_state)
         res = {"phase": "kernel_vs_plain", "case": label, "rows": rows,
                "cap": cap, "k": k, "sorted_state": sorted_state,
+               "weighted_batch": weighted,
                "mass_rel_err_kernel": mass_k,
                "mass_rel_err_plain": mass_p,
                "quantile_max_abs_err": max_abs, "ms": ms,
@@ -330,9 +401,9 @@ def run_interval(table, flusher, bufs, sync):
                     "h2d_bytes": table.h2d_bytes - h2d0}
 
 
-def profile_interval(table, flusher, bufs, sync) -> dict:
-    """One more interval under torch.profiler: device kernel time by
-    name and the device's busy share of the interval's wall time.
+def profile_device(fn) -> dict:
+    """Run ``fn`` (one more interval) under torch.profiler: device
+    kernel time by name and the device's busy share of the wall time.
     Kernel times are None where the profiler saw no device activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -341,7 +412,7 @@ def profile_interval(table, flusher, bufs, sync) -> dict:
         acts.append(ProfilerActivity.CUDA)
     t0 = time.perf_counter()
     with profile(activities=acts) as prof:
-        run_interval(table, flusher, bufs, sync)
+        fn()
     wall = time.perf_counter() - t0
     by_name = []
     for e in prof.key_averages():
@@ -365,17 +436,21 @@ def profile_interval(table, flusher, bufs, sync) -> dict:
 
 
 def exact_quantiles(bufs, p: float) -> dict:
-    """Exact per-series timer quantiles (numpy's linear rule) over the
-    values as parsed from the text: the native parser's f64, rounded
-    to the f32 the table stores.  Keyed by identity hash."""
+    """Exact per-series quantiles (numpy's linear rule) of the timer
+    series whose names start with ``t``, over the values as parsed from
+    the text: the native parser's f64, rounded to the f32 the table
+    stores.  Keyed by identity hash."""
     from veneur_tpu_torch.protocol import columnar
     parser = columnar.ColumnarParser()
     keys, vals = [], []
     for buf in bufs:
         pb = parser.parse(buf, copy=False)
-        sel = pb.type_code == columnar.CODE_TIMER
-        keys.append(pb.key_hash[sel].copy())
-        vals.append(pb.value[sel].astype(np.float32).astype(np.float64))
+        first = np.frombuffer(buf, np.uint8)[pb.line_off[:pb.n]]
+        sel = ((pb.type_code[:pb.n] == columnar.CODE_TIMER) &
+               (first == ord("t")))
+        keys.append(pb.key_hash[:pb.n][sel].copy())
+        vals.append(pb.value[:pb.n][sel].astype(np.float32)
+                    .astype(np.float64))
     keys, vals = np.concatenate(keys), np.concatenate(vals)
     uniq, inv = np.unique(keys, return_inverse=True)
     order = np.lexsort((vals, inv))
@@ -387,6 +462,23 @@ def exact_quantiles(bufs, p: float) -> dict:
     hi = np.minimum(lo + 1, counts - 1)
     q = sv[start + lo] + (h - lo) * (sv[start + hi] - sv[start + lo])
     return dict(zip(uniq.tolist(), q.tolist()))
+
+
+def p99_errors(metrics, bufs) -> np.ndarray:
+    """Relative error of every flushed p99 of a ``t<i>`` timer series
+    (tagged ``env:smoke``) against the exact p99 of the text's values."""
+    from veneur_tpu_torch.protocol import columnar
+    from veneur_tpu_torch.utils import hashing
+    exact = exact_quantiles(bufs, 0.99)
+    est = {}
+    for m in metrics:
+        if m.name.startswith("t") and m.name.endswith(".99percentile"):
+            name = m.name[:-len(".99percentile")]
+            est[hashing.key_hash64(name, columnar.CODE_TIMER,
+                                   ("env:smoke",), 0)] = m.value
+    check(est.keys() == exact.keys(), "timer series differ between the "
+                                      "flush and the parsed text")
+    return np.array([abs(est[k] - ex) / abs(ex) for k, ex in exact.items()])
 
 
 def compare_flush(dev_metrics, cpu_metrics) -> dict:
@@ -417,9 +509,6 @@ def phase_table(dev: str = "cuda", scale: int = 1,
     import torch
     from veneur_tpu_torch.core.flusher import Flusher
     from veneur_tpu_torch.core.table import MetricTable, TableConfig
-    from veneur_tpu_torch.ops import cluster_merge
-    from veneur_tpu_torch.protocol import columnar
-    from veneur_tpu_torch.utils import hashing
     t0 = time.perf_counter()
     bufs = build_traffic(0, scale)
     gen_s = time.perf_counter() - t0
@@ -438,29 +527,17 @@ def phase_table(dev: str = "cuda", scale: int = 1,
 
     table = MetricTable(TableConfig(**cfg), device=dev)
     # every merge of the two intervals, by (rows, batch width K)
-    shapes: dict = {}
-    merge = cluster_merge.cluster_merge
-
-    def recording_merge(means, weights, new_means, new_weights, **kw):
-        key = (int(means.shape[0]), int(new_means.shape[1]))
-        shapes[key] = shapes.get(key, 0) + 1
-        return merge(means, weights, new_means, new_weights, **kw)
-
-    cluster_merge.cluster_merge = recording_merge
-    try:
-        cluster_merge.launches = 0
+    with MergeRecorder() as rec:
         applies0 = table.superbatch_applies
         _, n1, st1 = run_interval(table, flusher, bufs, sync)
         res, n2, st2 = run_interval(table, flusher, bufs, sync)
-        launches = cluster_merge.launches
-    finally:
-        cluster_merge.cluster_merge = merge
+    launches = rec.launches
     check(n1 == n2 == n_total, f"processed {n1}/{n2} of {n_total}")
     for i, st in enumerate((st1, st2)):
         check(st["routes"].get("plane_f16", 0) >= 1,
               f"interval {i + 1} took no f16 plane: {st['routes']}")
     applies = table.superbatch_applies - applies0
-    prof = profile_interval(table, flusher, bufs, sync)
+    prof = profile_device(lambda: run_interval(table, flusher, bufs, sync))
     if dev == "cuda":
         check(launches > 0, "the main path launched no cluster merge "
                             "kernel")
@@ -471,8 +548,7 @@ def phase_table(dev: str = "cuda", scale: int = 1,
            "samples_per_s": n_total / st2["total_s"],
            "cluster_merge_launches": launches,
            "launches_per_interval": launches / 2,
-           "merge_shapes": [{"rows": r, "k": k, "calls": c}
-                            for (r, k), c in sorted(shapes.items())],
+           "merge_shapes": rec.table(),
            "superbatch_applies": applies,
            "profiled_interval": prof,
            "cut": "two intervals plus one profiled; sets forced onto the "
@@ -483,16 +559,7 @@ def phase_table(dev: str = "cuda", scale: int = 1,
                                     bufs, lambda: None)
         out["cpu_interval"] = cst
         out["vs_cpu"] = compare_flush(res.metrics, cres.metrics)
-    exact = exact_quantiles(bufs, 0.99)
-    est = {}
-    for m in res.metrics:
-        if m.name.endswith(".99percentile") and m.name.startswith("t"):
-            name = m.name[:-len(".99percentile")]
-            est[hashing.key_hash64(name, columnar.CODE_TIMER,
-                                   ("env:smoke",), 0)] = m.value
-    check(est.keys() == exact.keys(), "timer series differ between the "
-                                      "flush and the parsed text")
-    rel = np.array([abs(est[k] - ex) / abs(ex) for k, ex in exact.items()])
+    rel = p99_errors(res.metrics, bufs)
     out["p99_rel_err_median"] = float(np.median(rel))
     out["p99_rel_err_max"] = float(rel.max())
     check(out["p99_rel_err_median"] < 0.01, "median p99 error >= 1%")
@@ -500,10 +567,255 @@ def phase_table(dev: str = "cuda", scale: int = 1,
     return out
 
 
+# ---- phase 6: the global tier -------------------------------------------------
+
+# BASELINE config 5: 64 locals forwarding to one global.  Every fourth
+# wire speaks the reference's gob schema, the rest the native one.
+N_WIRES, REF_EVERY = 64, 4
+N_GLOBAL_TIMER = 256   # #veneurglobalonly timers: counted at the global
+N_FWD_SCALAR = 1024    # #veneurglobalonly counter and gauge series
+FWD_SCALAR_SAMPLES = 16_000  # of each, per local
+GTAGS = b"|#env:smoke,veneurglobalonly"
+
+
+def local_traffic(i: int, n_timer: int, n_global_timer: int, seed: int,
+                  scale: int = 1) -> bytes:
+    """Local ``i``'s interval as one DogStatsD buffer: a seeded 1/64
+    share of phase 4's timer traffic (gamma(2, 30)) over ``n_timer``
+    series and of its set traffic over 1024 series, plus global-only
+    timers (``n_global_timer`` series), counters and gauges."""
+    rng = np.random.default_rng([seed, i])
+    lines: list[bytes] = []
+    n = TIMER_SAMPLES // N_WIRES // scale
+    for prefix, n_series, n_samp, tail in (
+            (b"t", n_timer, n, b"|ms" + TAGS),
+            (b"gt", n_global_timer, n // 40, b"|ms" + GTAGS)):
+        if not n_series:
+            continue
+        names = [b"%s%d:" % (prefix, j) for j in range(n_series)]
+        series = rng.integers(0, n_series, n_samp).tolist()
+        vals = rng.gamma(2.0, 30.0, n_samp).tolist()
+        lines += [b"%s%.3f%s" % (names[s], v, tail)
+                  for s, v in zip(series, vals)]
+    n_fwd = N_FWD_SCALAR // scale
+    m = FWD_SCALAR_SAMPLES // scale
+    lines += [b"gc%d:%d|c%s" % (s, v, GTAGS) for s, v in zip(
+        rng.integers(0, n_fwd, m).tolist(), rng.integers(1, 10, m).tolist())]
+    lines += [b"gg%d:%.3f|g%s" % (s, v, GTAGS) for s, v in zip(
+        rng.integers(0, n_fwd, m).tolist(),
+        rng.normal(10.0, 3.0, m).tolist())]
+    n_set = N_SET // scale
+    members = rng.integers(0, 2 ** 62, n_set * SET_MEMBERS // N_WIRES)
+    lines += [b"s%d:m%d|s%s" % (j % n_set, mem, TAGS)
+              for j, mem in enumerate(members.tolist())]
+    order = rng.permutation(len(lines)).tolist()
+    return b"\n".join(lines[j] for j in order)
+
+
+def table_sizes(scale: int = 1) -> dict:
+    """The server's default table sizes."""
+    return dict(counter_rows=16384 // scale, gauge_rows=16384 // scale,
+                histo_rows=16384 // scale, set_rows=1024 // scale)
+
+
+FLUSH_KW = dict(percentiles=(0.5, 0.9, 0.99),
+                aggregates=("min", "max", "count", "sum"))
+
+
+def build_wires(dev: str, n_timer: int, n_global_timer: int, seed: int,
+                scale: int = 1, n_wires: int = N_WIRES
+                ) -> tuple[list, list, dict]:
+    """``n_wires`` distinct /import bodies, each the local-role flush of
+    a port table on ``dev`` that took one local's traffic, encoded in
+    the native schema or (every REF_EVERY-th) the reference's.
+    Returns (wires, the locals' texts, timings)."""
+    from veneur_tpu_torch.core.flusher import Flusher
+    from veneur_tpu_torch.core.table import MetricTable, TableConfig
+    from veneur_tpu_torch.forward import http_import
+    table = MetricTable(TableConfig(**table_sizes(scale)), device=dev)
+    flusher = Flusher(is_local=True, **FLUSH_KW, device=dev)
+    wires, texts = [], []
+    t = {"gen_s": 0.0, "local_s": 0.0, "encode_s": 0.0}
+    for i in range(n_wires):
+        t0 = time.perf_counter()
+        text = local_traffic(i, n_timer, n_global_timer, seed, scale)
+        t1 = time.perf_counter()
+        processed, dropped, others = table.ingest_buffer(text)
+        check(dropped == 0 and not others, f"local {i} dropped {dropped}")
+        res = flusher.flush(table.swap(), now=1)
+        t2 = time.perf_counter()
+        schema = ("reference" if i % REF_EVERY == REF_EVERY - 1
+                  else "native")
+        if schema == "reference":
+            body, hdr = http_import.encode_rows_reference(res.forward)
+        else:
+            body, hdr = http_import.encode_rows(res.forward)
+        t3 = time.perf_counter()
+        cents = sum(int((r.weights > 0).sum()) for r in res.forward
+                    if r.kind == "histo")
+        wires.append({"schema": schema, "body": body,
+                      "encoding": hdr.get("Content-Encoding", ""),
+                      "items": len(res.forward), "centroids": cents})
+        texts.append(text)
+        t["gen_s"] += t1 - t0
+        t["local_s"] += t2 - t1
+        t["encode_s"] += t3 - t2
+    t["body_bytes"] = sum(len(w["body"]) for w in wires)
+    return wires, texts, t
+
+
+def run_global_interval(table, flusher, wires, sync):
+    """One global interval: every wire's body through ``decode_body`` +
+    ``apply_import`` (a ``device_step`` whenever staging passes the
+    server's bound), then swap and flush.  Returns (FlushResult, seconds
+    by stage and what the interval did)."""
+    from veneur_tpu_torch.forward import http_import
+    routes0, h2d0 = dict(table.routes), table.h2d_bytes
+    t = {"decode_s": 0.0, "apply_s": 0.0, "device_step_s": 0.0}
+    by_schema = {s: {"wires": 0, "decode_s": 0.0, "apply_s": 0.0}
+                 for s in ("native", "reference")}
+    acc = dropped = 0
+    steps = 0
+    for w in wires:
+        t0 = time.perf_counter()
+        items = http_import.decode_body(w["body"], w["encoding"])
+        t1 = time.perf_counter()
+        a, d = http_import.apply_import(table, items)
+        t2 = time.perf_counter()
+        acc += a
+        dropped += d
+        if table.staged() >= table.config.histo_merge_samples:
+            table.device_step()
+            sync()
+            steps += 1
+        t3 = time.perf_counter()
+        t["decode_s"] += t1 - t0
+        t["apply_s"] += t2 - t1
+        t["device_step_s"] += t3 - t2
+        s = by_schema[w["schema"]]
+        s["wires"] += 1
+        s["decode_s"] += t1 - t0
+        s["apply_s"] += t2 - t1
+    n_items = sum(w["items"] for w in wires)
+    check(acc == n_items and dropped == 0,
+          f"global accepted {acc} of {n_items} items, dropped {dropped}")
+    t0 = time.perf_counter()
+    snap = table.swap()
+    sync()
+    t1 = time.perf_counter()
+    res = flusher.flush(snap, now=1)
+    t2 = time.perf_counter()
+    t["swap_s"], t["flush_s"] = t1 - t0, t2 - t1
+    t["total_s"] = sum(t.values())
+    cents = sum(w["centroids"] for w in wires)
+    t.update({"items": n_items, "centroids": cents,
+              "items_per_s": n_items / t["total_s"],
+              "centroids_per_s": cents / t["total_s"],
+              "mid_interval_device_steps": steps,
+              "by_schema": by_schema,
+              "routes": {k: v - routes0.get(k, 0)
+                         for k, v in table.routes.items()
+                         if v - routes0.get(k, 0)},
+              "h2d_bytes": table.h2d_bytes - h2d0})
+    return res, t
+
+
+def phase_global(dev: str = "cuda", scale: int = 1, n_wires: int = N_WIRES,
+                 intervals: int = 2, profiled: bool = True,
+                 cpu_reference: bool = True) -> dict:
+    """The global tier at BASELINE config 5's size: ``n_wires`` wires of
+    10,000 timer series (the union-row bucket is past half the plane,
+    so the fold takes the flat path) timed over ``intervals`` intervals
+    plus one profiled, held against a CPU global on the same bodies and
+    against the exact p99 of every local's samples; then 4,096 timer
+    series, whose fold takes the stacked path: one kernel launch per
+    wire at (4096, K)."""
+    import torch
+    from veneur_tpu_torch.core.flusher import Flusher
+    from veneur_tpu_torch.core.table import MetricTable, TableConfig
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    out = {"phase": "global_tier", "device": dev, "wires": n_wires,
+           "reference_schema_wires": n_wires // REF_EVERY}
+    shapes = {}
+    # the stacked shape has no global-only timers: a reference-schema
+    # wire carries no scope, so their rows would double in the union
+    for label, n_timer, n_gt, seed, route, n_int in (
+            ("flat", N_TIMER // scale, N_GLOBAL_TIMER // scale, 1,
+             "wire_flat", intervals),
+            ("stack", 4096 // scale, 0, 2, "wire_stack", 1)):
+        with MergeRecorder() as lrec:
+            wires, texts, wt = build_wires(dev, n_timer, n_gt, seed, scale,
+                                           n_wires)
+        table = MetricTable(TableConfig(**table_sizes(scale)), device=dev)
+        flusher = Flusher(**FLUSH_KW, device=dev)
+        with MergeRecorder() as rec:
+            runs = [run_global_interval(table, flusher, wires, sync)
+                    for _ in range(n_int)]
+        res = runs[-1][0]
+        for _, st in runs:
+            check(st["routes"].get(route, 0) >= 1,
+                  f"{label}: the fold took no {route}: {st['routes']}")
+        if dev == "cuda":
+            check(rec.launches > 0, f"{label}: the global launched no "
+                                    "cluster merge kernel")
+        r = {"timer_series": n_timer, "wire_build": wt,
+             "local_cluster_merge_launches": lrec.launches,
+             "local_merge_shapes": lrec.table(),
+             "intervals": [st for _, st in runs],
+             "cluster_merge_launches": rec.launches,
+             "merge_shapes": rec.table()}
+        if label == "stack":
+            mb = 4096 // scale
+            per_wire = sum(c for (rr, _k), c in rec.shapes.items()
+                           if rr == mb)
+            check(per_wire == n_wires, f"stack: {per_wire} merges at "
+                                       f"{mb} rows for {n_wires} wires")
+        if profiled and label == "flat":
+            r["profiled_interval"] = profile_device(
+                lambda: run_global_interval(table, flusher, wires, sync))
+        if cpu_reference:
+            ctable = MetricTable(TableConfig(**table_sizes(scale)),
+                                 device="cpu")
+            # the CPU global runs the card's fold (auto resolves to the
+            # flat path on the CPU)
+            ctable.fused_import_mode = table.import_mode()
+            cres, cst = run_global_interval(
+                ctable, Flusher(**FLUSH_KW, device="cpu"), wires,
+                lambda: None)
+            r["cpu_interval"] = cst
+            r["vs_cpu"] = compare_flush(res.metrics, cres.metrics)
+        rel = p99_errors(res.metrics, texts)
+        r["p99_rel_err_median"] = float(np.median(rel))
+        r["p99_rel_err_max"] = float(rel.max())
+        check(r["p99_rel_err_median"] <= 0.01,
+              f"{label}: median p99 error > 1%")
+        out[label] = r
+        shapes[label] = (lrec.table(), rec.table())
+        del wires, texts, table, res, runs
+    out["cut"] = ("the flat shape two intervals plus one profiled, the "
+                  "stacked shape one; the wires are built once, outside "
+                  "the timed window")
+    emit(out)
+    out["shapes"] = shapes
+    return out
+
+
 # ---- phase 5: the server ----------------------------------------------------
 
 def free_udp_port() -> int:
     s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def free_tcp_port() -> int:
+    s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
     s.bind(("127.0.0.1", 0))
     port = s.getsockname()[1]
     s.close()
@@ -604,6 +916,151 @@ def phase_server(dev: str = "cuda") -> dict:
     return res
 
 
+# ---- phase 7: local -> global over UDP and HTTP --------------------------
+
+def http_get(port: int, path: str) -> bytes:
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=10) as r:
+        return r.read()
+
+
+def http_post_status(port: int, path: str, body: bytes) -> int:
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=body, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=10) as r:
+            return r.status
+    except urllib.error.HTTPError as e:
+        return e.code
+
+
+def flushed_values(path: str) -> dict:
+    """name -> value of the last row of each name in a flush file."""
+    if not os.path.exists(path):
+        return {}
+    with open(path) as f:
+        return {r[0]: float(r[5]) for r in
+                (ln.split("\t") for ln in f.read().splitlines())}
+
+
+def phase_chain(dev: str = "cuda") -> dict:
+    """Three server processes on the card: a global (``http_address``)
+    and two locals forwarding to it, one in each /import schema.
+    ``lat:{0..199}|ms`` into the native-schema local and
+    ``latref:{0..199}|ms`` into the reference-schema one must flush the
+    JAX chain's p99 at the global; a garbage /import body is answered
+    400 and counted, and the metrics sent after it still flush."""
+    gport = free_tcp_port()
+    lports = [free_udp_port(), free_udp_port()]
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke-") as tmp:
+        base = {"interval": "2s", "percentiles": [0.5, 0.99]}
+        cfgs = {"global": dict(base, hostname="global",
+                               http_address=f"127.0.0.1:{gport}")}
+        for name, port, schema in (("local", lports[0], "native"),
+                                   ("localref", lports[1], "reference")):
+            cfgs[name] = dict(
+                base, hostname=name,
+                statsd_listen_addresses=[f"udp://127.0.0.1:{port}"],
+                forward_address=f"http://127.0.0.1:{gport}",
+                forward_json_schema=schema)
+        procs, logs, flush = {}, {}, {}
+        try:
+            for name, cfg in cfgs.items():
+                flush[name] = os.path.join(tmp, f"{name}.tsv")
+                path = os.path.join(tmp, f"{name}.yaml")
+                with open(path, "w") as f:
+                    json.dump(dict(cfg, flush_file=flush[name]), f)
+                logs[name] = open(os.path.join(tmp, f"{name}.log"), "w")
+                procs[name] = subprocess.Popen(
+                    [sys.executable, "-m", "veneur_tpu_torch.cli.main",
+                     "-f", path, "--device", dev], cwd=HERE,
+                    stdout=logs[name], stderr=subprocess.STDOUT)
+            t0 = time.perf_counter()
+            for name in cfgs:
+                wait_for(lambda n=name: os.path.exists(flush[n]), 60,
+                         f"{name}'s first flush", procs[name])
+            startup = time.perf_counter() - t0
+            check(http_get(gport, "/healthcheck") == b"ok", "healthcheck")
+            garbage = http_post_status(gport, "/import", b"\x00garbage")
+            check(garbage == 400, f"garbage /import answered {garbage}")
+            # one multi-line datagram per local: it cannot straddle the
+            # local's flush, so each stream reaches the global as one wire
+            s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+            for port, name in zip(lports, ("lat", "latref")):
+                msgs = [f"{name}:{v}|ms".encode() for v in range(200)]
+                msgs.append(f"{name}.hits:2|c|#veneurglobalonly".encode())
+                s.sendto(b"\n".join(msgs), ("127.0.0.1", port))
+            s.close()
+            t1 = time.perf_counter()
+
+            def arrived():
+                v = flushed_values(flush["global"])
+                return ("lat.99percentile" in v and
+                        "latref.99percentile" in v)
+            wait_for(arrived, 30, "the global's percentiles",
+                     procs["global"])
+            latency = time.perf_counter() - t1
+            stats = json.loads(http_get(gport, "/debug/vars"))["stats"]
+        finally:
+            for p in procs.values():
+                p.terminate()
+            for p in procs.values():
+                try:
+                    p.wait(timeout=20)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+            for f in logs.values():
+                f.close()
+        vals = {n: flushed_values(flush[n]) for n in cfgs}
+        server_logs = {}
+        for name in cfgs:
+            with open(os.path.join(tmp, f"{name}.log")) as f:
+                server_logs[name] = f.read()
+    for name, p in procs.items():
+        check(p.returncode == 0, f"{name} exit code {p.returncode}: "
+                                 f"{server_logs[name][-2000:]}")
+    g = vals["global"]
+    for name in ("lat", "latref"):
+        check(repr(g.get(f"{name}.99percentile")) == "197.00999450683594",
+              f"global {name}.99percentile = "
+              f"{g.get(f'{name}.99percentile')!r}")
+        check(g.get(f"{name}.hits") == 2.0,
+              f"global {name}.hits = {g.get(f'{name}.hits')}")
+    for name, metric in (("local", "lat"), ("localref", "latref")):
+        lv = vals[name]
+        check(lv.get(f"{metric}.count") == 200.0 and
+              f"{metric}.99percentile" not in lv,
+              f"{name} flushed {sorted(lv)}")
+    check(stats["import_errors"] == 1, f"import_errors {stats}")
+    check(stats["imports_received"] >= 4, f"imports_received {stats}")
+    res = {"phase": "chain", "startup_s": startup,
+           "send_to_global_flush_s": latency,
+           "lat.99percentile": g["lat.99percentile"],
+           "latref.99percentile": g["latref.99percentile"],
+           "garbage_import_status": garbage, "global_stats": stats}
+    emit(res)
+    return res
+
+
+def phase_env() -> dict:
+    """Whether the gRPC transport's packages import on this host."""
+    import importlib
+    got = {}
+    for mod in ("grpc", "google.protobuf"):
+        try:
+            importlib.import_module(mod)
+            got[mod] = True
+        except ImportError:
+            got[mod] = False
+    res = {"phase": "env", "imports": got}
+    emit(res)
+    return res
+
+
 # ---- main --------------------------------------------------------------------
 
 def phase_build() -> dict:
@@ -651,22 +1108,37 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device_count": torch.cuda.device_count()})
 
+    phase_env()
     phase_build()
     kern = phase_kernel()
     phase_entry()
     table = phase_table()
-    kern.update(phase_kernel(cases=recorded_cases(table["merge_shapes"])))
+    glob = phase_global()
+    # phase 2 again, at every other shape phases 4 and 6 merged at: the
+    # locals' sample batches unit-weight, the global's wires weighted
+    cases = recorded_cases(table["merge_shapes"])
+    for label in ("flat", "stack"):
+        local_shapes, global_shapes = glob["shapes"][label]
+        cases += recorded_cases(local_shapes, timed=cases)
+        cases += recorded_cases(global_shapes, weighted=True,
+                                timed=cases)
+    kern.update(phase_kernel(cases=cases))
     phase_server()
+    phase_chain()
 
     # the kernel line reports the shape the main path launched most
     top = max(table["merge_shapes"], key=lambda m: m["calls"])
     k = next(r for r in kern.values()
              if (r["rows"], r["k"]) == (top["rows"], top["k"]))
+    by_path = {"table_interval": table["cluster_merge_launches"],
+               "global_tier": sum(glob[s]["cluster_merge_launches"]
+                                  for s in ("flat", "stack"))}
     emit({"kernels": [{
         "name": "cluster_merge", "route": "cuda",
         "source": "veneur_tpu_torch/csrc/cluster_merge.cu",
         "replaces": "veneur_tpu/ops/pallas_merge.py:192",
-        "launches": table["cluster_merge_launches"],
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
         "max_abs_err": k["quantile_max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None,

@@ -51,6 +51,17 @@ def _case(name: str):
         v = np.where(w > 0, rng.gamma(2.0, 30.0, (rows, k)), 0)
         return v.astype(np.float32), w
 
+    def wire(rows, k):
+        """One forwarded wire's centroids per row: a mean-sorted prefix
+        of weighted centroids, padding after."""
+        n = rng.integers(0, k + 1, rows)
+        live = np.arange(k)[None, :] < n[:, None]
+        v = np.sort(np.where(live, rng.gamma(2.0, 30.0, (rows, k)),
+                             np.inf), axis=1)
+        w = np.where(live, rng.integers(1, 60, (rows, k)), 0)
+        return (np.where(live, v, 0).astype(np.float32),
+                w.astype(np.float32))
+
     if name == "ingest_full_width":      # n = 2048, the deep path
         return (*state(64, 616, 0.5), *batch(64, 512), 100.0)
     if name == "union_616":              # digest-vs-digest, n = 2048
@@ -93,12 +104,24 @@ def _case(name: str):
     if name == "unaligned_batch":        # slice at column 3: scalar loads
         v, bw = batch(20, 1024)
         return (*state(20, 616, 0.5), v[:, 3:515], bw[:, 3:515], 100.0)
+    # the global tier's per-wire folds: narrow weighted batches against
+    # a full-size state (n = pow2(616 + K) = 1024), the composite sort
+    if name == "wire_k8":
+        return (*state(64, 616, 0.7), *wire(64, 8), 100.0)
+    if name == "wire_k32":
+        return (*state(64, 616, 0.7), *wire(64, 32), 100.0)
+    if name == "wire_k64_unsorted":      # weighted, arrival order
+        v, w = wire(64, 64)
+        perm = np.argsort(rng.random((64, 64)), axis=1)
+        return (*state(64, 616, 0.9), np.take_along_axis(v, perm, 1),
+                np.take_along_axis(w, perm, 1), 100.0)
     raise KeyError(name)
 
 
 CASES = ["ingest_full_width", "union_616", "shallow_256", "small_width",
          "empty_batch", "empty_rows", "ties", "unsorted_state",
-         "sorted_union", "all_empty_rows", "unaligned_batch"]
+         "sorted_union", "all_empty_rows", "unaligned_batch", "wire_k8",
+         "wire_k32", "wire_k64_unsorted"]
 
 
 def _tensor(a: np.ndarray, device: str) -> torch.Tensor:

@@ -324,6 +324,87 @@ def test_sb_gather_bit_equal(libs, cap):
     np.testing.assert_array_equal(mine, plain)
 
 
+# ---- the reference-schema /import value decode ---------------------------
+
+def _gob_items(rng):
+    """(payloads, kinds): digests (debug-free, empty, cut before its
+    trailing float messages), LE counters and gauges, and malformed
+    items — truncated, garbage, wrong length, unknown kinds."""
+    from veneur_tpu_torch.forward import gob_codec
+    out = []
+    for n in (30, 0, 200, 7):
+        m = np.sort(rng.gamma(2.0, 30.0, n)).astype(np.float32)
+        w = rng.integers(1, 4, n).astype(np.float32)
+        out.append((gob_codec.encode_digest(
+            m, w, 100.0, float(m.min(initial=0)), float(m.max(initial=0)),
+            0.5), 3))
+    full = out[0][0]
+    out += [(full[:-12], 3), (full[:9], 3), (b"\xff\xfe\xfd", 3), (b"", 3),
+            (gob_codec.encode_counter(-42.0), 1),
+            (gob_codec.encode_gauge(2.5), 2), (b"\x01\x02", 1),
+            (b"\x00" * 8, 0), (b"\x00" * 8, 4), (full, 1)]
+    order = rng.permutation(len(out))
+    return [out[i][0] for i in order], np.array(
+        [out[i][1] for i in order], np.uint8)
+
+
+def _gob_decode(lib, payloads, kinds, cap):
+    n = len(payloads)
+    lens = np.array([len(p) for p in payloads], np.int64)
+    off = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
+    buf = np.frombuffer(b"".join(payloads), np.uint8).copy()
+    out = dict(scalar=np.zeros(n), dstats=np.zeros((n, 4)),
+               start=np.zeros(n, np.int64), cnt=np.zeros(n, np.int32),
+               means=np.full(cap, -1, np.float32),
+               weights=np.full(cap, -1, np.float32),
+               err=np.zeros(n, np.uint8), needed=np.zeros(1, np.int64))
+    c = ctypes
+    out["rc"] = lib.vtpu_gob_decode(
+        _p(buf, c.c_uint8), len(buf), n, _p(off, c.c_int64),
+        _p(lens, c.c_int64), _p(kinds, c.c_uint8), cap,
+        _p(out["scalar"], c.c_double), _p(out["dstats"], c.c_double),
+        _p(out["start"], c.c_int64), _p(out["cnt"], c.c_int32),
+        _p(out["means"], c.c_float), _p(out["weights"], c.c_float),
+        _p(out["err"], c.c_uint8), _p(out["needed"], c.c_int64))
+    return out
+
+
+@pytest.mark.parametrize("cap", [4096, 40])  # fits; forces -2
+def test_gob_decode_bit_equal(libs, cap):
+    """vtpu_gob_decode in both libraries on the same items, malformed
+    and truncated ones included: every output column bit-equal; a too
+    small centroid buffer returns -2 with the exact need, and one retry
+    at that need decodes everything."""
+    payloads, kinds = _gob_items(np.random.default_rng(12))
+    mine, ref = (_gob_decode(lib, payloads, kinds, cap) for lib in libs)
+    for k in mine:
+        np.testing.assert_array_equal(mine[k], ref[k], err_msg=k)
+    from veneur_tpu.forward import gob_codec as jgob
+    from veneur_tpu_torch.forward import gob_codec
+
+    def per_item(p, k):  # the per-item codec: malformed iff it raises
+        fn = {1: gob_codec.decode_counter, 2: gob_codec.decode_gauge,
+              3: gob_codec.decode_digest}.get(int(k))
+        try:
+            return 0 if fn is not None and fn(p) is not None else 1
+        except ValueError:
+            return 1
+    expect_err = [per_item(p, k) for p, k in zip(payloads, kinds)]
+    np.testing.assert_array_equal(mine["err"], expect_err)
+    assert sum(expect_err) == 8
+    need = int(mine["needed"][0])
+    assert need == 30 + 200 + 7  # the well-formed digests' centroids
+    assert mine["rc"] == (need if cap >= need else -2)
+    retry = _gob_decode(libs[0], payloads, kinds, need)
+    assert retry["rc"] == need
+    if cap >= need:
+        np.testing.assert_array_equal(retry["means"], mine["means"][:need])
+    t = gob_codec.decode_batch(payloads, kinds)
+    j = jgob.decode_batch(payloads, kinds)
+    for k in t:
+        np.testing.assert_array_equal(t[k], j[k], err_msg=k)
+
+
 # ---- the identity index ------------------------------------------------
 
 def test_native_index_matches_hash_index(libs):

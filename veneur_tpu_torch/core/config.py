@@ -47,9 +47,25 @@ class Config:
     metric_max_length: int = 4096
     # datagrams a reader drains per batch (one recvmmsg sweep, <= 512)
     reader_batch_packets: int = 512
+    # HTTP listener ("host:port"): /healthcheck, /debug/vars and
+    # POST /import
+    http_address: str = ""
+    # a global's HTTP address: set, this node is a local and POSTs its
+    # mergeable state there after every flush
+    forward_address: str = ""
+    # the /import body a local sends: "native" (carries scope) or
+    # "reference" (the Go JSONMetric wire: gob digests)
+    forward_json_schema: str = "native"
+    # t-digest compression of the histogram planes
+    tpu_compression: float = 100.0
 
     def interval_seconds(self) -> float:
         return parse_duration(self.interval)
+
+    def is_local(self) -> bool:
+        """A node with a forward destination is a local (reference
+        server.go:1609 IsLocal)."""
+        return bool(self.forward_address)
 
     def validate(self) -> list[str]:
         problems = []
@@ -78,6 +94,17 @@ class Config:
             if not addr.startswith("udp://"):
                 problems.append(
                     f"only udp:// statsd listeners are supported: {addr}")
+        if self.forward_json_schema not in ("reference", "native"):
+            problems.append(
+                "forward_json_schema must be 'reference' or 'native'")
+        if "," in self.forward_address:
+            problems.append("forward_address takes one destination")
+        if self.http_address and not self.http_address.rpartition(
+                ":")[2].isdigit():
+            problems.append(
+                f"http_address needs host:port: {self.http_address}")
+        if self.tpu_compression <= 0:
+            problems.append("tpu_compression must be positive")
         return problems
 
 

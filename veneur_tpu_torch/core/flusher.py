@@ -1,12 +1,19 @@
-"""Flush: table snapshot -> InterMetrics.
+"""Flush: table snapshot -> InterMetrics and forwarded state.
 
-Port of ``veneur_tpu/core/flusher.py`` for the global (non-forwarding)
-role: every touched row is emitted here.  The device work is a handful
-of readouts over whole planes — counter/gauge vectors, the combined
-histo stats plus the quantile readout over the touched digest rows,
-the HLL estimate over the register plane — followed by one readback
-and host-side assembly of InterMetrics from row metadata (the
-reference's per-row emit path).
+Port of ``veneur_tpu/core/flusher.py`` (the per-row emit path).  The
+device work is a handful of readouts over whole planes — counter/gauge
+vectors, the combined histo stats plus the quantile readout over the
+touched digest rows, the HLL estimate over the register plane, and on a
+local the digest and register rows it forwards — followed by one
+readback and host-side assembly from row metadata.
+
+Two roles, as in the reference: a **global** (``is_local=False``)
+emits every touched row, percentiles included; a **local**
+(``is_local=True``, a node with a forward address) emits local
+aggregates without percentiles and hands mergeable state to the
+forward path as ``ForwardRow``s: global-scope counters and gauges,
+every non-local-scope digest (whose local aggregates it still emits)
+and every non-local-scope set.
 
 Histo aggregate emission matches the reference: .min .max .sum .avg
 .count .median .hmean (count is a counter) plus ``.<p>percentile``
@@ -82,23 +89,37 @@ def _percentile_suffix(p: float) -> str:
 
 
 @dataclass
+class ForwardRow:
+    """One row of mergeable state bound for the global tier."""
+    meta: RowMeta
+    kind: str  # counter | gauge | histo | set
+    value: float = 0.0
+    stats: np.ndarray | None = None  # f32[5]
+    means: np.ndarray | None = None  # f32[C]
+    weights: np.ndarray | None = None  # f32[C]
+    regs: np.ndarray | None = None  # u8[M]
+
+
+@dataclass
 class FlushResult:
     metrics: list[im.InterMetric] = field(default_factory=list)
+    forward: list[ForwardRow] = field(default_factory=list)
     tally: dict[str, int] = field(default_factory=dict)
 
 
 class Flusher:
-    """Global-role flusher: emits every touched row.  Its readouts run
-    on ``device`` (default ``"cuda"``; raises without CUDA unless the
-    caller passes ``"cpu"``); snapshot planes elsewhere are moved
-    there first."""
+    """Emits a snapshot's touched rows and, when ``is_local``, collects
+    the rows it forwards.  Its readouts run on ``device`` (default
+    ``"cuda"``; raises without CUDA unless the caller passes
+    ``"cpu"``); snapshot planes elsewhere are moved there first."""
 
-    def __init__(self,
+    def __init__(self, is_local: bool = False,
                  percentiles: tuple[float, ...] = DEFAULT_PERCENTILES,
                  aggregates: tuple[str, ...] = DEFAULT_AGGREGATES,
                  hostname: str = "",
                  device: "str | torch.device" = "cuda"):
         self.device = resolve_device(device)
+        self.is_local = is_local
         self.percentiles = tuple(percentiles)
         self.aggregates = tuple(aggregates)
         self.hostname = hostname
@@ -160,48 +181,92 @@ class Flusher:
             all_pcts = tuple(self.percentiles) + (
                 (0.5,) if "median" in self.aggregates else ())
             pre["all_pcts"] = all_pcts
+            # a local emits no percentiles, so it reads quantiles only
+            # for a median or a local-only series
+            need_q = bool(all_pcts) and (
+                not self.is_local or "median" in self.aggregates or
+                any(snap.histo_meta[r].scope == dsd.SCOPE_LOCAL
+                    for r in histo_rows))
             qs = torch.tensor(all_pcts, dtype=torch.float32, device=dev)
             stats, imp, means, weights = (
                 t.to(dev) for t in (snap.histo_stats,
                                     snap.histo_import_stats,
                                     snap.histo_means, snap.histo_weights))
             R = stats.shape[0]
-            if all_pcts and len(histo_rows) * 2 < R:
+            shape5 = (R, segment.HISTO_STAT_COLS)
+            if len(histo_rows) * 2 < R:
                 idx = torch.as_tensor(histo_rows, device=dev)
-                st_g, comb_g, qvals_g = _histo_readout_rows(
-                    stats, imp, means, weights, qs, idx)
-                devs["qvals_g"] = qvals_g
+                if need_q:
+                    st_g, comb_g, qvals_g = _histo_readout_rows(
+                        stats, imp, means, weights, qs, idx)
+                    devs["qvals_g"] = qvals_g
+                    expand.append(("qvals_g", "qvals", histo_rows,
+                                   (R, len(all_pcts))))
+                else:
+                    st_g = _gather_rows(stats, idx)
+                    comb_g = _combine_stats_fn(st_g,
+                                               _gather_rows(imp, idx))
                 devs["stats_g"] = st_g
                 devs["comb_g"] = comb_g
-                shape5 = (R, segment.HISTO_STAT_COLS)
-                expand.append(("qvals_g", "qvals", histo_rows,
-                               (R, len(all_pcts))))
                 expand.append(("stats_g", "stats", histo_rows, shape5))
                 expand.append(("comb_g", "comb", histo_rows, shape5))
-            elif all_pcts:
-                comb, qvals = _histo_readout(stats, imp, means, weights,
-                                             qs)
-                devs["qvals"] = qvals
+            else:
+                if need_q:
+                    comb, devs["qvals"] = _histo_readout(
+                        stats, imp, means, weights, qs)
+                else:
+                    comb = _combine_stats_fn(stats, imp)
                 devs["stats"] = stats
                 devs["comb"] = comb
-            else:
-                devs["stats"] = stats
-                devs["comb"] = _combine_stats_fn(stats, imp)
+            fwd = [int(r) for r in histo_rows
+                   if self._forwardable(snap.histo_meta[r], always=True)]
+            pre["histo_fwd"] = fwd
+            if fwd:
+                idx = torch.as_tensor(fwd, device=dev)
+                devs["fwd_means"] = _gather_rows(means, idx)
+                devs["fwd_weights"] = _gather_rows(weights, idx)
 
         set_rows = np.nonzero(snap.set_touched[:len(snap.set_meta)])[0]
         pre["set_rows"] = set_rows
         if len(set_rows):
+            fwd = [int(r) for r in set_rows
+                   if self._forwardable(snap.set_meta[r], always=True)]
+            pre["set_fwd"] = fwd
+            fwd_set = set(fwd)
+            need_est = any(int(r) not in fwd_set and
+                           self._emit_local(snap.set_meta[r])
+                           for r in set_rows)
             if snap.host_only_sets:
-                pre["ests"] = snap.host_set_estimates()
+                # the interval's sets live on the host: no device work
+                if fwd:
+                    pre["fwd_regs"] = snap.hll_host_plane[
+                        np.asarray(fwd, np.int64)]
+                if need_est:
+                    pre["ests"] = snap.host_set_estimates()
             else:
                 regs = snap.hll_regs.to(dev)
                 if snap.hll_host_plane is not None:
                     regs = hll.union(regs, torch.from_numpy(
                         snap.hll_host_plane).to(dev))
-                devs["ests"] = hll.estimate(regs)
+                if fwd:
+                    devs["fwd_regs"] = _gather_rows(
+                        regs, torch.as_tensor(fwd, device=dev))
+                if need_est:
+                    devs["ests"] = hll.estimate(regs)
         return devs, pre, expand
 
     # ------------------------------------------------------------------
+
+    def _emit_local(self, meta: RowMeta) -> bool:
+        return meta.scope != dsd.SCOPE_GLOBAL or not self.is_local
+
+    def _forwardable(self, meta: RowMeta, always: bool) -> bool:
+        """Whether a local forwards the row: never local-scope rows;
+        digests and sets always, counters and gauges when global-scope
+        (``always`` False)."""
+        if not self.is_local or meta.scope == dsd.SCOPE_LOCAL:
+            return False
+        return always or meta.scope == dsd.SCOPE_GLOBAL
 
     def _mk(self, name: str, ts: int, value: float, meta: RowMeta,
             mtype: str) -> im.InterMetric:
@@ -209,34 +274,40 @@ class Flusher:
                               tags=meta.tags,
                               type=mtype, hostname=self.hostname)
 
-    def _flush_counters(self, snap, ts, res, pre) -> None:
-        vals = pre.get("counters")
+    def _flush_scalars(self, snap, ts, res, pre, key, kind, mtype
+                       ) -> None:
+        """Counters or gauges: forward global-scope rows on a local,
+        emit the rest."""
+        vals = pre.get(key + "s")
         if vals is None:
             return
-        for row in np.nonzero(
-                snap.counter_touched[:len(snap.counter_meta)])[0]:
-            meta = snap.counter_meta[row]
-            res.metrics.append(self._mk(meta.name, ts, float(vals[row]),
-                                        meta, im.COUNTER))
-        res.tally["counters"] = int(
-            snap.counter_touched[:len(snap.counter_meta)].sum())
+        meta_all = getattr(snap, key + "_meta")
+        touched = getattr(snap, key + "_touched")[:len(meta_all)]
+        for row in np.nonzero(touched)[0]:
+            meta = meta_all[row]
+            v = float(vals[row])
+            if self._forwardable(meta, always=False):
+                res.forward.append(ForwardRow(meta, kind, value=v))
+            elif self._emit_local(meta):
+                res.metrics.append(self._mk(meta.name, ts, v, meta, mtype))
+        res.tally[key + "s"] = int(touched.sum())
+
+    def _flush_counters(self, snap, ts, res, pre) -> None:
+        self._flush_scalars(snap, ts, res, pre, "counter", "counter",
+                            im.COUNTER)
 
     def _flush_gauges(self, snap, ts, res, pre) -> None:
-        vals = pre.get("gauges")
-        if vals is None:
-            return
-        for row in np.nonzero(
-                snap.gauge_touched[:len(snap.gauge_meta)])[0]:
-            meta = snap.gauge_meta[row]
-            res.metrics.append(self._mk(meta.name, ts, float(vals[row]),
-                                        meta, im.GAUGE))
-        res.tally["gauges"] = int(
-            snap.gauge_touched[:len(snap.gauge_meta)].sum())
+        self._flush_scalars(snap, ts, res, pre, "gauge", "gauge",
+                            im.GAUGE)
 
     def _flush_histos(self, snap, ts, res, pre) -> None:
         """Aggregates for mixed-scope rows come from the local-sample
-        plane; global-scope rows use the combined plane (the
-        reference's ``global`` flush mode)."""
+        plane (emitting them from merged state would double-count
+        against the local tier's own emission); global-scope rows on a
+        global use the combined plane (the reference's ``global``
+        flush mode).  A local forwards every non-local-scope digest,
+        still emits a mixed-scope row's local aggregates, and emits
+        percentiles only for local-scope rows."""
         rows = pre["histo_rows"]
         if not len(rows):
             return
@@ -244,17 +315,31 @@ class Flusher:
         comb = pre["comb"]
         qvals = pre.get("qvals")
         all_pcts = pre["all_pcts"]
+        fwd_pos = {r: i for i, r in enumerate(pre["histo_fwd"])}
         for row in rows:
             meta = snap.histo_meta[row]
-            global_mode = meta.scope == dsd.SCOPE_GLOBAL
-            self._emit_histo_row(res, meta, ts,
-                                 comb[row] if global_mode else stats[row],
-                                 qvals, row, all_pcts, global_mode)
+            st = stats[row]
+            pos = fwd_pos.get(int(row))
+            if pos is not None:
+                res.forward.append(ForwardRow(
+                    meta, "histo", stats=st.copy(),
+                    means=pre["fwd_means"][pos].copy(),
+                    weights=pre["fwd_weights"][pos].copy()))
+            if meta.scope == dsd.SCOPE_GLOBAL and self.is_local:
+                continue
+            global_mode = (meta.scope == dsd.SCOPE_GLOBAL and
+                           not self.is_local)
+            self._emit_histo_row(
+                res, meta, ts, comb[row] if global_mode else st, qvals,
+                row, all_pcts,
+                with_percentiles=(not self.is_local or
+                                  meta.scope == dsd.SCOPE_LOCAL),
+                global_mode=global_mode)
         res.tally["histograms"] = int(
             snap.histo_touched[:len(snap.histo_meta)].sum())
 
     def _emit_histo_row(self, res, meta, ts, st, qvals, row, all_pcts,
-                        global_mode=False):
+                        with_percentiles=True, global_mode=False):
         agg = set(self.aggregates)
         out = res.metrics
         weight = float(st[segment.STAT_WEIGHT])
@@ -287,7 +372,7 @@ class Flusher:
             out.append(self._mk(f"{meta.name}.median", ts,
                                 float(qvals[row, len(all_pcts) - 1]),
                                 meta, im.GAUGE))
-        if qvals is not None:
+        if with_percentiles and qvals is not None:
             for pi, p in enumerate(self.percentiles):
                 out.append(self._mk(
                     f"{meta.name}.{_percentile_suffix(p)}",
@@ -297,10 +382,16 @@ class Flusher:
         rows = pre["set_rows"]
         if not len(rows):
             return
-        ests = pre["ests"]
+        ests = pre.get("ests")
+        fwd_pos = {r: i for i, r in enumerate(pre.get("set_fwd", ()))}
         for row in rows:
             meta = snap.set_meta[row]
-            res.metrics.append(self._mk(meta.name, ts,
-                                        float(round(ests[row])), meta,
-                                        im.GAUGE))
+            pos = fwd_pos.get(int(row))
+            if pos is not None:
+                res.forward.append(ForwardRow(
+                    meta, "set", regs=pre["fwd_regs"][pos].copy()))
+            elif self._emit_local(meta):
+                res.metrics.append(self._mk(meta.name, ts,
+                                            float(round(ests[row])), meta,
+                                            im.GAUGE))
         res.tally["sets"] = int(snap.set_touched[:len(snap.set_meta)].sum())

@@ -1,4 +1,4 @@
-"""The server: UDP DogStatsD in, interval flushes out to the sinks.
+"""The server: UDP DogStatsD and HTTP /import in, interval flushes out.
 
 Port of the single-reader path of ``veneur_tpu/core/server.py``: one
 reader thread per ``udp://`` statsd address blocks on its first
@@ -10,16 +10,30 @@ rejected whole and counted as packet errors) and hands the batch to
 checks and malformed lines take the per-line parser.  A flush thread
 swaps the table every interval and emits the flushed InterMetrics to
 the flush-file plugin and any extra sinks (``flush_once``).
-``shutdown`` stops and joins every thread and closes every socket.
+
+With ``http_address`` set, a ``ThreadingHTTPServer`` answers
+``/healthcheck``, ``/debug/vars`` (the server's counters) and ``POST
+/import``: each body is decoded, merged
+into the table under the table lock (``http_import.apply_import``) and
+may trigger a device step; a malformed body is answered 400 and
+counted.  With ``forward_address`` set the node is a local: its
+flusher forwards mergeable state, POSTed to the global's ``/import``
+after every flush (a failed send is counted and logged, never
+retried).  ``shutdown`` stops and joins every thread and closes every
+socket.
 """
 
 from __future__ import annotations
 
 import ctypes
+import http.server
+import json
 import logging
 import socket
 import threading
 import time
+import urllib.request
+import zlib
 
 import numpy as np
 import torch
@@ -27,8 +41,9 @@ import torch
 from veneur_tpu_torch import native, resolve_device
 from veneur_tpu_torch.core import metrics as im
 from veneur_tpu_torch.core.config import Config
-from veneur_tpu_torch.core.flusher import FlushResult, Flusher
+from veneur_tpu_torch.core.flusher import FlushResult, Flusher, ForwardRow
 from veneur_tpu_torch.core.table import MetricTable, TableConfig
+from veneur_tpu_torch.forward import http_import
 from veneur_tpu_torch.protocol import addr as addrmod
 from veneur_tpu_torch.protocol import dogstatsd as dsd
 from veneur_tpu_torch.sinks.base import route
@@ -54,8 +69,11 @@ class Server:
             gauge_rows=config.tpu_gauge_rows,
             histo_rows=config.tpu_histo_rows,
             set_rows=config.tpu_set_rows,
+            compression=float(config.tpu_compression),
             histo_slots=config.tpu_histo_slots), device=self.device)
+        self.is_local = config.is_local()
         self.flusher = Flusher(
+            is_local=self.is_local,
             percentiles=tuple(config.percentiles),
             aggregates=tuple(config.aggregates),
             hostname=config.hostname or socket.gethostname(),
@@ -71,9 +89,13 @@ class Server:
         self._shutdown = threading.Event()
         self._threads: list[threading.Thread] = []
         self.sockets: list[socket.socket] = []
+        self._httpd: http.server.ThreadingHTTPServer | None = None
+        self.http_port: int | None = None
         self.stats = {"packets_received": 0, "packet_errors": 0,
                       "metrics_processed": 0, "metrics_dropped": 0,
-                      "flushes": 0}
+                      "flushes": 0, "imports_received": 0,
+                      "import_errors": 0, "import_flagged_wires": 0,
+                      "forward_errors": 0, "forwarded_rows": 0}
 
     # ------------------------------------------------------------------
 
@@ -88,7 +110,81 @@ class Server:
             self.sockets.append(sock)
             self._spawn(f"udp-reader-{len(self.sockets) - 1}",
                         self._udp_reader, sock)
+        if self.config.http_address:
+            self._start_http(self.config.http_address)
         self._spawn("flush-loop", self._flush_loop)
+
+    def _start_http(self, address: str) -> None:
+        host, _, port = address.rpartition(":")
+        server = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def _ok(self, body: bytes = b"ok",
+                    ctype: str = "text/plain") -> None:
+                self.send_response(200)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                if self.path == "/healthcheck":
+                    self._ok()
+                elif self.path == "/debug/vars":
+                    # the reference's expvar page, cut to the counters
+                    with server.lock:
+                        body = json.dumps({"stats": server.stats})
+                    self._ok(body.encode(), "application/json")
+                else:
+                    self.send_error(404)
+
+            def do_POST(self):
+                if self.path != "/import":
+                    self.send_error(404)
+                    return
+                body = self.rfile.read(
+                    int(self.headers.get("Content-Length", 0)))
+                try:
+                    acc = server.handle_import(
+                        body, self.headers.get("Content-Encoding", ""),
+                        self.headers)
+                except (ValueError, zlib.error) as e:
+                    with server.lock:
+                        server.stats["import_errors"] += 1
+                    self.send_error(400, str(e))
+                    return
+                self._ok(json.dumps({"accepted": acc}).encode(),
+                         "application/json")
+
+        self._httpd = http.server.ThreadingHTTPServer(
+            (host or "127.0.0.1", int(port)), Handler)
+        self._httpd.daemon_threads = True
+        self.http_port = self._httpd.server_port
+        self._spawn("http", self._httpd.serve_forever)
+
+    def handle_import(self, body: bytes, content_encoding: str = "",
+                      headers=None) -> int:
+        """Decode one ``/import`` body and merge it into the table under
+        the table lock, then run a device step if staging passed its
+        bound.  The trace, drain, replay, recovery and handoff headers
+        are decoded and otherwise ignored: the ledger, spool,
+        checkpoints and handoff they feed are not in this server.
+        Raises ValueError (or zlib.error) on a malformed body, before
+        anything is merged.  Returns the accepted item count."""
+        items = http_import.decode_body(body, content_encoding)
+        flags = http_import.decode_headers(headers or {})
+        flagged = any(flags[k] for k in ("drain", "replay", "recovery",
+                                         "handoff"))
+        with self.lock:
+            acc, dropped = http_import.apply_import(self.table, items)
+            self._maybe_device_step()
+            self.stats["imports_received"] += acc
+            self.stats["metrics_dropped"] += dropped
+            self.stats["import_flagged_wires"] += int(flagged)
+        return acc
 
     def _spawn(self, name: str, fn, *args) -> None:
         t = threading.Thread(target=fn, args=args, name=name, daemon=True)
@@ -220,11 +316,43 @@ class Server:
                 sink.flush(route(res.metrics, sink.name, sink))
             for plugin in self.plugins:
                 plugin.flush(res.metrics, self.flusher.hostname)
+            if self.is_local and res.forward:
+                self._forward_http(res.forward)
             self.stats["flushes"] += 1
             return res
 
+    def _forward_http(self, rows: list[ForwardRow]) -> None:
+        """POST a flush's forward rows to the global's /import (the
+        reference's flusher.go flushForward); a failed send drops and
+        counts the rows and logs, as the reference does."""
+        try:
+            if self.config.forward_json_schema == "reference":
+                body, headers = http_import.encode_rows_reference(
+                    rows, compression=float(self.config.tpu_compression))
+            else:
+                body, headers = http_import.encode_rows(rows)
+            url = self.config.forward_address.rstrip("/") + "/import"
+            if not url.startswith("http"):
+                url = "http://" + url
+            req = urllib.request.Request(url, data=body, headers=headers,
+                                         method="POST")
+            with urllib.request.urlopen(req, timeout=10.0) as r:
+                r.read()
+        except Exception as e:  # forwarding never aborts the flush
+            with self.lock:
+                self.stats["metrics_dropped"] += len(rows)
+                self.stats["forward_errors"] += 1
+            log.warning("forward failed: %s", e)
+            return
+        with self.lock:
+            self.stats["forwarded_rows"] += len(rows)
+
     def shutdown(self) -> None:
         self._shutdown.set()
+        if self._httpd is not None:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+            self._httpd = None
         for sock in self.sockets:
             sock.close()
         for t in self._threads:

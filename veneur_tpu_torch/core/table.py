@@ -17,6 +17,13 @@ accumulators, histo and set append columns); ``ingest_columns`` does
 the same for an already-parsed batch.  Only never-seen series take a
 per-line Python parse, once each.
 
+A global node also takes forwarded state through the ``import_*``
+entry points (``forward/http_import``): counters and gauges join the
+dense accumulators, forwarded stat rows merge into their own plane
+(``histo_import_stats``), register rows max into a host import plane,
+and each wire's centroids stage as one part that the apply folds into
+the digests through the cluster merge (``_wire_digest_step``).
+
 ``device_step`` ships the staging to the device, and ``swap()`` at the
 interval boundary hands the planes to the flusher and starts fresh
 ones.  Each apply cycle packs what it can into one superbatch buffer
@@ -35,6 +42,7 @@ superbatch as a compact plane, a full plane or packed positions).
 from __future__ import annotations
 
 import ctypes
+import os
 import threading
 from dataclasses import dataclass, field
 from typing import Any
@@ -67,6 +75,38 @@ def _pad_np(arr: np.ndarray, length: int, fill) -> np.ndarray:
     out = np.full(length, fill, arr.dtype)
     out[:len(arr)] = arr
     return out
+
+
+def _ladder_floor(n: int) -> int:
+    """Largest wide-ladder bucket <= n (inverse of _bucket_len): the
+    per-wire spill threshold of the stacked merge is itself a ladder
+    value, so bucketing the observed depth never rounds the stack width
+    past it."""
+    b = best = _MIN_BUCKET_WIDE
+    while b <= n:
+        best = b
+        if b + b // 2 <= n:
+            best = b + b // 2
+        b *= 2
+    return best
+
+
+def _fused_import_mode() -> str:
+    """VENEUR_TPU_FUSED_IMPORT, read as the reference reads it:
+    unset/"auto" resolves per device at apply time (``stack`` on the
+    card, where every wire's merge is one launch of the hand kernel;
+    ``legacy`` on the CPU, as the reference resolves there); "1"/
+    "stack" forces one stacked fold per cycle; "0"/"perwire" folds one
+    wire per call (bit-identical to the stack); "legacy" interleaves
+    every wire's centroids into one flat ranked merge."""
+    raw = os.environ.get("VENEUR_TPU_FUSED_IMPORT", "auto").lower()
+    if raw in ("0", "false", "off", "perwire", "per-wire"):
+        return "perwire"
+    if raw == "legacy":
+        return "legacy"
+    if raw in ("", "auto"):
+        return "auto"
+    return "stack"
 
 
 @dataclass
@@ -142,6 +182,11 @@ class _ClassIndex:
         self.last_gen[row] = gen
         self.touched[row] = True
         return row
+
+    def touch_rows(self, rows: np.ndarray, gen: int) -> None:
+        """Vectorized touch for batch imports."""
+        self.touched[rows] = True
+        self.last_gen[rows] = gen
 
     def occupancy(self) -> int:
         return len(self.meta)
@@ -219,7 +264,8 @@ class _IntervalState:
 class _StagedWork:
     """Staging buffers detached for one apply."""
 
-    __slots__ = ("state", "counter", "gauge", "histo", "set_parts",
+    __slots__ = ("state", "counter", "gauge", "histo", "digest",
+                 "wire_parts", "set_parts", "stats_parts", "set_import",
                  "empty")
 
 
@@ -345,6 +391,25 @@ class MetricTable:
         self._staged_n = 0
         self._interval_ingested = 0
 
+        # global-tier import staging: forwarded digests merged item by
+        # item (digest-only samples), forwarded stat rows, register rows
+        # folded into a host import plane, and one centroid part per
+        # decoded wire, stacked at apply time (_wire_digest_step)
+        self._digest_stage = _Staging()
+        self._stats_import_parts: list[tuple[np.ndarray, np.ndarray]] = []
+        self._set_import_plane: np.ndarray | None = None
+        self._set_import_touched: np.ndarray | None = None
+        self._wire_digest_parts: list[tuple] = []
+        self._wire_digest_n = 0
+        self.fused_import_mode = _fused_import_mode()
+        # widest ladder bucket the stacked merge may use per wire; rows
+        # deeper than this in one wire spill to the ranked path
+        self._wire_stack_kmax = _ladder_floor(self._eff_histo_slots)
+        # reference-schema /import row plans (forward/http_import),
+        # stamped with the epoch a compaction bumps
+        self._http_plan_cache: dict = {}
+        self._reindex_epoch = 0
+
         self._sb_bufs = superbatch.DoubleBuffer(
             pin=self.device.type == "cuda")
         self._sb_plane_factor = superbatch.plane_scatter_factor(
@@ -352,9 +417,11 @@ class MetricTable:
         # fused superbatch applies (one host-to-device copy each)
         self.superbatch_applies = 0
         # batches by the route they took: histograms (superbatch,
-        # plane_f16, plane_f32, spill, ranked, deep_scan, precluster) and
-        # sets (set_plane, set_plane_full, set_pos, set_host_fold); and
-        # bytes handed to the device (a copy on the card)
+        # plane_f16, plane_f32, spill, ranked, deep_scan, precluster),
+        # wire folds (wire_stack, wire_perwire, wire_flat), sets
+        # (set_plane, set_plane_full, set_pos, set_host_fold,
+        # set_import); and bytes handed to the device (a copy on the
+        # card)
         self.routes: dict[str, int] = {}
         self.h2d_bytes = 0
         self._device_lock = threading.Lock()
@@ -649,6 +716,170 @@ class MetricTable:
         self._interval_ingested += n
 
     # ------------------------------------------------------------------
+    # global-tier import (merge of forwarded mergeable state).  Imported
+    # counters and gauges are forced to global scope (the reference's
+    # worker.go:445-447); histograms and sets keep the wire's scope.
+
+    def import_counter_row(self, name: str,
+                           tags: tuple[str, ...]) -> int | None:
+        key = (name, dsd.COUNTER, tags, dsd.SCOPE_GLOBAL)
+        return self.counter_idx.lookup(key, name, tags, dsd.SCOPE_GLOBAL,
+                                       dsd.COUNTER, self.gen)
+
+    def import_gauge_row(self, name: str,
+                         tags: tuple[str, ...]) -> int | None:
+        key = (name, dsd.GAUGE, tags, dsd.SCOPE_GLOBAL)
+        return self.gauge_idx.lookup(key, name, tags, dsd.SCOPE_GLOBAL,
+                                     dsd.GAUGE, self.gen)
+
+    def import_set_row(self, name: str, tags: tuple[str, ...],
+                       scope: str = dsd.SCOPE_DEFAULT) -> int | None:
+        key = (name, dsd.SET, tags, scope)
+        return self.set_idx.lookup(key, name, tags, scope, dsd.SET,
+                                   self.gen)
+
+    def import_histo_row(self, name: str, mtype: str,
+                         tags: tuple[str, ...],
+                         scope: str = dsd.SCOPE_DEFAULT) -> int | None:
+        key = (name, mtype, tags, scope)
+        return self.histo_idx.lookup(key, name, tags, scope, mtype,
+                                     self.gen)
+
+    def import_counter_batch(self, rows: np.ndarray,
+                             values: np.ndarray) -> None:
+        """Vectorized import_counter over resolved rows (+=; duplicate
+        rows accumulate)."""
+        rows = np.ascontiguousarray(rows, np.int64)
+        np.add.at(self._counter_dense, rows,
+                  np.asarray(values, np.float64))
+        self.counter_idx.touch_rows(rows, self.gen)
+        self._counter_dirty = True
+        self._note_staged(len(rows))
+
+    def import_gauge_batch(self, rows: np.ndarray,
+                           values: np.ndarray) -> None:
+        """Vectorized import_gauge: last write wins in wire order (the
+        last occurrence of a duplicate row, chosen explicitly)."""
+        rows = np.ascontiguousarray(rows, np.int64)
+        values = np.asarray(values, np.float64)
+        rev_u, rev_first = np.unique(rows[::-1], return_index=True)
+        last = len(rows) - 1 - rev_first
+        self._gauge_dense[rev_u] = values[last]
+        self._gauge_mask[rev_u] = 1
+        self.gauge_idx.touch_rows(rows, self.gen)
+        self._gauge_dirty = True
+        self._note_staged(len(rows))
+
+    def import_set_at(self, row: int, regs: np.ndarray) -> None:
+        """Max one register row into the host import plane (Set.Merge,
+        samplers/samplers.go:423) for a resolved row."""
+        regs = np.asarray(regs, np.uint8)
+        if regs.shape != (hll.M,):
+            raise ValueError(f"bad register plane shape {regs.shape}")
+        if self._set_import_plane is None:
+            c = self.config
+            self._set_import_plane = np.zeros((c.set_rows, hll.M),
+                                              np.uint8)
+            self._set_import_touched = np.zeros(c.set_rows, bool)
+        prow = self._set_import_plane[row]
+        np.maximum(prow, regs, out=prow)
+        self._set_import_touched[row] = True
+        self.set_idx.touched[row] = True
+        self.set_idx.last_gen[row] = self.gen
+        self._note_staged(1)
+
+    def import_counter(self, name: str, tags: tuple[str, ...],
+                       value: float) -> bool:
+        """Merge a forwarded counter total (+=, samplers.go:208)."""
+        row = self.import_counter_row(name, tags)
+        if row is None:
+            return False
+        self._counter_dense[row] += value
+        self._counter_dirty = True
+        self._note_staged(1)
+        return True
+
+    def import_gauge(self, name: str, tags: tuple[str, ...],
+                     value: float) -> bool:
+        row = self.import_gauge_row(name, tags)
+        if row is None:
+            return False
+        self._gauge_dense[row] = value
+        self._gauge_mask[row] = 1
+        self._gauge_dirty = True
+        self._note_staged(1)
+        return True
+
+    def import_histo(self, name: str, mtype: str, tags: tuple[str, ...],
+                     stats: np.ndarray, means: np.ndarray,
+                     weights: np.ndarray,
+                     scope: str = dsd.SCOPE_DEFAULT) -> bool:
+        """Merge one forwarded digest: its live centroids re-enter as
+        weighted samples through the digest-only merge, its stat row
+        merges into the import stat plane.  Shapes are checked before
+        anything stages (a bad entry staged would fail every later
+        device step)."""
+        stats = np.asarray(stats, np.float32)
+        means = np.asarray(means, np.float32)
+        weights = np.asarray(weights, np.float32)
+        if stats.shape != (segment.HISTO_STAT_COLS,):
+            raise ValueError(f"bad stats shape {stats.shape}")
+        if means.shape != weights.shape or means.ndim != 1:
+            raise ValueError(
+                f"centroid shape mismatch {means.shape}/{weights.shape}")
+        row = self.import_histo_row(name, mtype, tags, scope)
+        if row is None:
+            return False
+        self._stats_import_parts.append(
+            (np.asarray([row], np.int32), stats[None, :]))
+        self._note_staged(1)
+        live = weights > 0
+        if live.any():
+            n_live = int(live.sum())
+            self._digest_stage.append(np.full(n_live, row, np.int32),
+                                      means[live], weights[live])
+            # every staged centroid counts toward the staging bound
+            self._staged_n += n_live
+        return True
+
+    def import_histo_batch(self, rows: np.ndarray, stats: np.ndarray,
+                           cent_rows: np.ndarray, cent_means: np.ndarray,
+                           cent_weights: np.ndarray) -> None:
+        """A whole wire's digests in one staging append: row-aligned
+        ``rows``/``stats`` (N,)/(N, 5) and its live centroids with
+        their target rows.  The caller has dropped malformed items."""
+        if len(rows):
+            self._stats_import_parts.append(
+                (np.ascontiguousarray(rows, np.int32),
+                 np.ascontiguousarray(stats, np.float32)))
+            self.histo_idx.touch_rows(np.asarray(rows, np.int64),
+                                      self.gen)
+            self._note_staged(len(rows))
+        if len(cent_rows):
+            part = (np.ascontiguousarray(cent_rows, np.int32),
+                    np.ascontiguousarray(cent_means, np.float32),
+                    np.ascontiguousarray(cent_weights, np.float32))
+            if self.fused_import_mode == "legacy":
+                self._digest_stage.append(*part)
+            else:
+                self._wire_digest_parts.append(part)
+                self._wire_digest_n += len(cent_rows)
+            self._staged_n += len(cent_rows)
+
+    def import_set(self, name: str, tags: tuple[str, ...],
+                   regs: np.ndarray,
+                   scope: str = dsd.SCOPE_DEFAULT) -> bool:
+        """Merge a forwarded HLL register row (union by max)."""
+        regs = np.asarray(regs, np.uint8)
+        if regs.shape != (hll.M,):
+            raise ValueError(f"bad register plane shape {regs.shape}")
+        row = self.import_set_row(name, tags, scope)
+        if row is None:
+            return False
+        self.import_set_at(row, regs)
+        return True
+
+    # ------------------------------------------------------------------
     # device step
 
     def device_step(self, final: bool = False) -> None:
@@ -666,7 +897,8 @@ class MetricTable:
         c = self.config
         w = _StagedWork()
         w.state = self._state
-        w.counter = w.gauge = w.histo = w.set_parts = None
+        w.counter = w.gauge = w.histo = w.digest = None
+        w.wire_parts = w.set_parts = w.stats_parts = w.set_import = None
         self._staged_n = 0
         if self._counter_dirty and final:
             w.counter = self._counter_dense
@@ -682,6 +914,16 @@ class MetricTable:
                 len(self._histo_stage) >= c.histo_merge_samples):
             w.histo = self._histo_stage
             self._histo_stage = _Staging()
+        if self._digest_stage.rows and (
+                final or
+                len(self._digest_stage) >= c.histo_merge_samples):
+            w.digest = self._digest_stage
+            self._digest_stage = _Staging()
+        if self._wire_digest_parts and (
+                final or self._wire_digest_n >= c.histo_merge_samples):
+            w.wire_parts = self._wire_digest_parts
+            self._wire_digest_parts = []
+            self._wire_digest_n = 0
         staged_sets = (len(self._set_rows) +
                        sum(len(r) for r in self._set_pos_rows))
         if (staged_sets and
@@ -690,8 +932,26 @@ class MetricTable:
                            self._set_pos_rows, self._set_pos)
             self._set_rows, self._set_members = [], []
             self._set_pos_rows, self._set_pos = [], []
+        # import stat rows and register rows ship at the swap (a global
+        # taking K wires a cycle would otherwise pay K small applies;
+        # register rows of one series from K wires dedupe on the host),
+        # stat rows also past a size bound
+        if self._stats_import_parts and (
+                final or
+                sum(len(p[0]) for p in self._stats_import_parts)
+                >= (1 << 16)):
+            w.stats_parts = self._stats_import_parts
+            self._stats_import_parts = []
+        if (final and self._set_import_touched is not None and
+                self._set_import_touched.any()):
+            w.set_import = (self._set_import_plane,
+                            self._set_import_touched)
+            self._set_import_plane = None
+            self._set_import_touched = None
         w.empty = (w.counter is None and w.gauge is None and
-                   w.histo is None and w.set_parts is None)
+                   w.histo is None and w.digest is None and
+                   w.wire_parts is None and w.set_parts is None and
+                   w.stats_parts is None and w.set_import is None)
         return w
 
     def _apply_work(self, w: _StagedWork) -> None:
@@ -700,7 +960,14 @@ class MetricTable:
         the host set fold run on their own.  Caller holds
         _device_lock."""
         st = w.state
+        c = self.config
         self._superbatch_apply(w)
+        if w.digest is not None:
+            batch = w.digest.take()
+            if batch is not None:
+                self._histo_device_step(st, *batch, with_stats=False)
+        if w.wire_parts:
+            self._wire_digest_step(st, w.wire_parts)
         if w.set_parts is not None:
             # the superbatch left the sets: the plane fits the host
             # bound, so they fold into the host register plane
@@ -709,6 +976,33 @@ class MetricTable:
                 self._route("set_host_fold")
                 self._hll_host_fold(st, np.concatenate(parts_rows),
                                     np.concatenate(parts_pos))
+        if w.stats_parts is not None:
+            rows = np.concatenate([p[0] for p in w.stats_parts])
+            vals = np.concatenate([p[1] for p in w.stats_parts])
+            # pad rows (== histo_rows) are masked out by the merge
+            b = _bucket_len(len(rows), wide=True)
+            padded = np.zeros((b, vals.shape[1]), np.float32)
+            padded[:len(vals)] = vals
+            self._ensure_fresh(st, "histo")
+            st.histo_import_stats = segment.merge_histo_stats(
+                st.histo_import_stats,
+                self._dev(_pad_np(rows, b, c.histo_rows)),
+                self._dev(padded))
+        if w.set_import is not None:
+            plane, touched = w.set_import
+            # imports folded into the host plane at receive time: the
+            # swap ships each touched series once, however many wires
+            # carried it
+            rows = np.nonzero(touched)[0].astype(np.int32)
+            b = _bucket_len(len(rows), wide=True)
+            padded = np.zeros((b, hll.M), np.uint8)
+            padded[:len(rows)] = plane[rows]
+            self._route("set_import")
+            self._ensure_fresh(st, "hll")
+            st.hll_device_touched = True
+            st.hll_regs = hll.merge_rows(
+                st.hll_regs, self._dev(_pad_np(rows, b, c.set_rows)),
+                self._dev(padded))
 
     @staticmethod
     def _set_parts(set_parts) -> tuple[list, list]:
@@ -1135,9 +1429,13 @@ class MetricTable:
         native.hll_plane_stats(rows, pos, st.hll_host_plane,
                                st.hll_host_inv, st.hll_host_ez)
 
-    def _rank(self, rows: np.ndarray) -> tuple[np.ndarray, int]:
-        """Within-row occurrence rank + max per-row count (vtpu_rank)."""
-        return native.rank(rows, self.config.histo_rows)
+    def _rank(self, rows: np.ndarray,
+              num_rows: int | None = None) -> tuple[np.ndarray, int]:
+        """Within-row occurrence rank + max per-row count (vtpu_rank).
+        ``rows`` may be local (union-row) indices bounded by
+        ``num_rows``."""
+        return native.rank(rows, self.config.histo_rows
+                           if num_rows is None else num_rows)
 
     def _digest_merge(self, st, rows, vals, wts, rank, unit,
                       with_stats) -> None:
@@ -1228,6 +1526,105 @@ class MetricTable:
             st.histo_means, st.histo_weights, *pre, rows_dev, rank_dev,
             vals_dev, wts_dev, **kw)
 
+    def import_mode(self) -> str:
+        """The fused-import mode this table's applies use: ``auto``
+        resolves to ``stack`` on the card and ``legacy`` on the CPU."""
+        mode = self.fused_import_mode
+        if mode == "auto":
+            return "stack" if self.device.type == "cuda" else "legacy"
+        return mode
+
+    def _wire_digest_step(self, st: _IntervalState,
+                          parts: list[tuple]) -> None:
+        """Fold a cycle's decoded wire digests — one (rows, means,
+        weights) part per forwarded wire — into the digest planes.
+
+        ``stack`` builds (wires, union_rows, K) centroid planes and
+        folds them with ``tdigest.merge_wire_stack_rows``: one cluster
+        merge per live wire, in wire order, on the gathered union rows.
+        ``perwire`` makes the same merges one call per wire, on the
+        same union rows and width, so the two are bit-identical.  Rows
+        deeper than the stack width within one wire spill to the flat
+        ranked path.  ``legacy``, a single wire, or a union-row bucket
+        past half the plane take the flat path: every wire's centroids
+        in one digest-only ranked (or deep) merge."""
+        c = self.config
+        parts = [p for p in parts if len(p[0])]
+        if not parts:
+            return
+        mode = self.import_mode()
+
+        def _flat() -> None:
+            self._route("wire_flat")
+            self._histo_device_step(
+                st, np.concatenate([p[0] for p in parts]),
+                np.concatenate([p[1] for p in parts]),
+                np.concatenate([p[2] for p in parts]),
+                with_stats=False)
+
+        if mode == "legacy" or len(parts) == 1:
+            _flat()
+            return
+        uniq = np.unique(np.concatenate([p[0] for p in parts]))
+        mb = _bucket_len(len(uniq))
+        if mb * 2 > c.histo_rows:
+            _flat()
+            return
+        kmax = self._wire_stack_kmax
+        built = []
+        spill = _Staging()
+        kdeep = 0
+        for rows, means, wts in parts:
+            rows = np.ascontiguousarray(rows, np.int32)
+            local = np.searchsorted(uniq, rows).astype(np.int32)
+            rank, maxc = self._rank(local, num_rows=len(uniq))
+            if maxc > kmax:
+                over = rank >= kmax
+                spill.append(rows[over], means[over], wts[over])
+                keep = ~over
+                local, rank = local[keep], rank[keep]
+                means, wts = means[keep], wts[keep]
+                maxc = kmax
+            built.append((local, rank, means, wts))
+            kdeep = max(kdeep, maxc)
+        K = _bucket_len(kdeep, wide=True)
+        idx_dev = self._dev(_pad_np(uniq.astype(np.int32), mb,
+                                    c.histo_rows))
+        self._ensure_fresh(st, "histo")
+        if mode == "stack":
+            self._route("wire_stack")
+            wb = _bucket_len(len(built), wide=True)
+            stack_m = np.zeros((wb, mb, K), np.float32)
+            stack_w = np.zeros((wb, mb, K), np.float32)
+            live = np.zeros(wb, bool)
+            for i, (local, rank, means, wts) in enumerate(built):
+                stack_m[i, local, rank] = means
+                stack_w[i, local, rank] = wts
+                live[i] = True
+            st.histo_means, st.histo_weights = \
+                tdigest.merge_wire_stack_rows(
+                    st.histo_means, st.histo_weights, idx_dev,
+                    self._dev(stack_m), self._dev(stack_w), live,
+                    compression=c.compression)
+        else:
+            # one wire per call: a one-wire stack (the reference pads it
+            # to 8 dead wires, which are skipped either way)
+            self._route("wire_perwire")
+            live = np.ones(1, bool)
+            for local, rank, means, wts in built:
+                stack_m = np.zeros((1, mb, K), np.float32)
+                stack_w = np.zeros((1, mb, K), np.float32)
+                stack_m[0, local, rank] = means
+                stack_w[0, local, rank] = wts
+                st.histo_means, st.histo_weights = \
+                    tdigest.merge_wire_stack_rows(
+                        st.histo_means, st.histo_weights, idx_dev,
+                        self._dev(stack_m), self._dev(stack_w), live,
+                        compression=c.compression)
+        batch = spill.take()
+        if batch is not None:
+            self._histo_device_step(st, *batch, with_stats=False)
+
     # ------------------------------------------------------------------
     # flush boundary
 
@@ -1304,6 +1701,10 @@ class MetricTable:
                 for row, m in enumerate(idx.meta):
                     if m.key_hash:
                         self.key_index.insert(m.key_hash, row)
+            # /import row plans name the old rows: the epoch stamp
+            # invalidates them, and dropping them frees the row vectors
+            self._reindex_epoch += 1
+            self._http_plan_cache.clear()
         return pend
 
     def complete_swap(self, pend: _PendingSwap) -> Snapshot:

@@ -1,0 +1,123 @@
+"""axiomhq/hyperloglog binary codec: dense register planes <-> the
+``SetValue.hyper_log_log`` bytes a Go veneur forwards.
+
+Port of ``veneur_tpu/forward/hll_codec.py`` (numpy only).
+
+Wire format (reference vendor/github.com/axiomhq/hyperloglog,
+hyperloglog.go:273 ``MarshalBinary`` / :321 ``UnmarshalBinary``):
+
+  [version=1][p][b][sparse?]
+  dense:  [m/2 be32][m/2 nibble-packed bytes]     (reg = b + nibble,
+          even register in the HIGH nibble, tailcut-saturated at b+15)
+  sparse: [tmpset_n be32][tmpset u32 be...]
+          [list_count be32][list_last be32][varbytes_n be32][varbytes]
+          where varbytes are 7-bit little-varint DELTAS of sorted
+          encoded hashes (compressed.go:155 decode / :167 Append)
+
+Sparse hash encoding (sparse.go:15 encodeHash, pp=25): hashes whose
+rank is derivable from the 25-bit prefix store ``idx25 << 1``; others
+store ``idx25 << 7 | rank6 << 1 | 1``.
+
+Encoding out we always emit the dense form with b=0 and
+``min(register, 15)`` nibbles — exactly the state an axiomhq sketch
+holds after the same inserts while its base never rebased (b stays 0
+while any register is 0, which at p=14 is essentially always).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+P = 14
+M = 1 << P
+PP = 25
+
+
+class HLLCodecError(ValueError):
+    pass
+
+
+def encode_dense(regs: np.ndarray) -> bytes:
+    """u8[16384] register plane -> dense axiomhq sketch bytes."""
+    regs = np.asarray(regs, np.uint8)
+    if regs.shape != (M,):
+        raise HLLCodecError(f"bad register shape {regs.shape}")
+    nib = np.minimum(regs, 15).astype(np.uint8)
+    # even registers in the high nibble (registers.go:16 set offset 0)
+    packed = (nib[0::2] << 4) | nib[1::2]
+    header = bytes([1, P, 0, 0])
+    sz = (M // 2).to_bytes(4, "big")
+    return header + sz + packed.tobytes()
+
+
+def _decode_sparse_key(k: int) -> tuple[int, int]:
+    """Encoded 32-bit sparse hash -> (register index, rank)
+    (sparse.go:25 decodeHash with p=14, pp=25)."""
+    if k & 1:
+        r = ((k >> 1) & 0x3F) + PP - P
+        idx = (k >> (32 - P)) & (M - 1)
+    else:
+        idx = (k >> (PP - P + 1)) & (M - 1)
+        w = (k << (32 - PP + P - 1)) & 0xFFFFFFFF
+        if w == 0:
+            raise HLLCodecError("zero sparse hash word")
+        r = (32 - w.bit_length()) + 1  # clz32 + 1
+    return idx, r
+
+
+def decode(data: bytes) -> np.ndarray:
+    """axiomhq sketch bytes (dense or sparse) -> u8[16384] registers."""
+    if len(data) < 4:
+        raise HLLCodecError("sketch too short")
+    p, b, sparse = data[1], data[2], data[3]
+    if p != P:
+        raise HLLCodecError(f"precision {p} != {P}")
+    if sparse == 1:
+        regs = np.zeros(M, np.uint8)
+        if len(data) < 8:
+            raise HLLCodecError("sparse sketch truncated")
+        tn = int.from_bytes(data[4:8], "big")
+        off = 8
+        end = off + 4 * tn
+        if len(data) < end + 12:
+            raise HLLCodecError("sparse sketch truncated")
+        keys = list(np.frombuffer(data[off:end], ">u4"))
+        # compressed list: count, last, then varint deltas
+        count = int.from_bytes(data[end:end + 4], "big")
+        vb_n = int.from_bytes(data[end + 8:end + 12], "big")
+        vb = data[end + 12:end + 12 + vb_n]
+        if len(vb) != vb_n:
+            raise HLLCodecError("sparse varbytes truncated")
+        last = 0
+        i = 0
+        for _ in range(count):
+            x = 0
+            shift = 0
+            while True:
+                if i >= len(vb):
+                    raise HLLCodecError("varint truncated")
+                byte = vb[i]
+                x |= (byte & 0x7F) << shift
+                i += 1
+                shift += 7
+                if not byte & 0x80:
+                    break
+            last = (last + x) & 0xFFFFFFFF
+            keys.append(last)
+        for k in keys:
+            idx, r = _decode_sparse_key(int(k))
+            if r > regs[idx]:
+                regs[idx] = r
+        return regs
+    # dense
+    sz = int.from_bytes(data[4:8], "big")
+    if sz * 2 != M:
+        raise HLLCodecError(f"dense size {sz * 2} != {M}")
+    packed = np.frombuffer(data[8:8 + sz], np.uint8)
+    if len(packed) != sz:
+        raise HLLCodecError("dense registers truncated")
+    nib = np.empty(M, np.uint8)
+    nib[0::2] = packed >> 4
+    nib[1::2] = packed & 0x0F
+    # reg = b + nibble (tailcut base; registers.go rebase semantics)
+    return (nib + np.uint8(b)).astype(np.uint8)

@@ -1,0 +1,551 @@
+"""HTTP /import forwarding codec: local tier -> global tier.
+
+Port of ``veneur_tpu/forward/http_import.py``.  A local POSTs its
+mergeable per-series state to a global's ``/import`` (the reference's
+flusher.go:363 ``flushForward`` -> handlers_global.go:60
+``handleImport``).  Two schemas are spoken: the native one below
+(explicit JSON with base64 payloads, carries scope), and the
+reference's own JSONMetric wire (gob digests, LE int64 counters, LE
+float64 gauges, axiomhq HLL sets — ``encode_rows_reference`` /
+``_apply_reference_batch``), which inbound /import always accepts and
+``forward_json_schema: reference`` emits:
+
+    {"name", "type", "tags": [...], "scope",
+     "value":        <float>            (counter/gauge)
+     "stats":        [w,min,max,sum,rsum]  (histo)
+     "means"/"weights": <b64 f32 LE>        (histo centroids)
+     "regs":         <b64 u8, zlib>         (set HLL registers)}
+
+Bodies are JSON arrays, optionally zlib-deflated.  Reference-schema
+items decode in one native call per body (``vtpu_gob_decode`` through
+``gob_codec.decode_batch``); the per-item codec
+(``_apply_reference_fallback``) is kept as the batch path's oracle for
+the tests and is not a runtime path.
+"""
+
+from __future__ import annotations
+
+import base64
+import json
+import logging
+import zlib
+
+import numpy as np
+
+from veneur_tpu_torch.core.flusher import ForwardRow
+from veneur_tpu_torch.core.table import MetricTable
+from veneur_tpu_torch.forward import gob_codec, hll_codec
+from veneur_tpu_torch.ops import segment
+from veneur_tpu_torch.protocol import dogstatsd as dsd
+
+log = logging.getLogger("veneur_tpu_torch.forward")
+
+# Request headers the reference's tiers exchange beside the body.  The
+# port decodes them and ignores their effects: what they feed (the
+# conservation ledger, the spool, checkpoints, arc handoff) is not
+# ported yet.  Each decoder fails open: a bad or missing header never
+# rejects the import.
+TRACE_HEADER = "X-Veneur-Trace"
+DRAIN_HEADER = "X-Veneur-Drain"
+REPLAY_HEADER = "X-Veneur-Replay"
+RECOVERY_HEADER = "X-Veneur-Recovery"
+HANDOFF_HEADER = "X-Veneur-Handoff"
+
+
+def decode_drain_header(value: str | None) -> bool:
+    """True when the request is a shutdown drain handoff."""
+    return value == "1"
+
+
+def decode_replay_header(value: str | None) -> bool:
+    """True when the request is a spool replay after an outage."""
+    return value == "1"
+
+
+def decode_recovery_header(value: str | None) -> str:
+    """The request's recovery id (``incarnation:seq``) or ""."""
+    return value if value and ":" in value else ""
+
+
+def decode_handoff_header(value: str | None) -> bool:
+    """True when the request is a scale-out arc handoff."""
+    return value == "1"
+
+
+def encode_trace_header(trace_id: int, span_id: int) -> str:
+    """``<trace_id>:<span_id>`` — both positive 63-bit decimal ints."""
+    return f"{int(trace_id)}:{int(span_id)}"
+
+
+def decode_trace_header(value: str | None) -> tuple[int, int]:
+    """Parse a trace header; (0, 0) on absent/malformed."""
+    if not value:
+        return 0, 0
+    tid_s, sep, sid_s = value.partition(":")
+    if not sep:
+        return 0, 0
+    try:
+        tid, sid = int(tid_s), int(sid_s)
+    except ValueError:
+        return 0, 0
+    if tid <= 0 or sid <= 0:
+        return 0, 0
+    return tid, sid
+
+
+def decode_headers(headers) -> dict:
+    """Every import header of a request (a mapping with ``get``),
+    decoded."""
+    return {
+        "trace": decode_trace_header(headers.get(TRACE_HEADER)),
+        "drain": decode_drain_header(headers.get(DRAIN_HEADER)),
+        "replay": decode_replay_header(headers.get(REPLAY_HEADER)),
+        "recovery": decode_recovery_header(headers.get(RECOVERY_HEADER)),
+        "handoff": decode_handoff_header(headers.get(HANDOFF_HEADER)),
+    }
+
+
+def _b64(arr: np.ndarray) -> str:
+    return base64.b64encode(arr.tobytes()).decode()
+
+
+def _unb64(text: str, dtype) -> np.ndarray:
+    return np.frombuffer(base64.b64decode(text), dtype=dtype)
+
+
+def encode_rows(rows: list[ForwardRow], deflate: bool = True) -> tuple[
+        bytes, dict[str, str]]:
+    """ForwardRows -> (body, headers) for POST /import."""
+    items = []
+    for r in rows:
+        item: dict = {"name": r.meta.name, "type": r.meta.type,
+                      "tags": list(r.meta.tags), "scope": r.meta.scope,
+                      "kind": r.kind}
+        if r.kind in ("counter", "gauge"):
+            item["value"] = r.value
+        elif r.kind == "histo":
+            item["stats"] = [float(x) for x in r.stats]
+            item["means"] = _b64(np.asarray(r.means, np.float32))
+            item["weights"] = _b64(np.asarray(r.weights, np.float32))
+        elif r.kind == "set":
+            item["regs"] = base64.b64encode(
+                zlib.compress(np.asarray(r.regs, np.uint8).tobytes())
+            ).decode()
+        items.append(item)
+    return _finish_body(items, deflate)
+
+
+def _finish_body(items: list[dict], deflate: bool) -> tuple[
+        bytes, dict[str, str]]:
+    body = json.dumps(items).encode()
+    headers = {"Content-Type": "application/json"}
+    if deflate:
+        body = zlib.compress(body)
+        headers["Content-Encoding"] = "deflate"
+    return body, headers
+
+
+def encode_rows_reference(rows: list[ForwardRow],
+                          deflate: bool = True,
+                          compression: float = 100.0) -> tuple[
+        bytes, dict[str, str]]:
+    """ForwardRows -> the REFERENCE's JSONMetric wire format
+    (samplers/samplers.go:95, Export methods :162/:278/:455/:678):
+    counter = LE int64, gauge = LE float64, set = axiomhq HLL binary,
+    histogram = gob MergingDigest.  The schema carries no scope field."""
+    items = []
+    for r in rows:
+        item: dict = {"name": r.meta.name,
+                      "type": (r.meta.type if r.kind == "histo"
+                               else r.kind),
+                      "tags": list(r.meta.tags),
+                      "tagstring": ",".join(r.meta.tags)}
+        if r.kind == "counter":
+            val = gob_codec.encode_counter(r.value)
+        elif r.kind == "gauge":
+            val = gob_codec.encode_gauge(r.value)
+        elif r.kind == "histo":
+            st = np.asarray(r.stats, np.float32)
+            val = gob_codec.encode_digest(
+                r.means, r.weights, compression,
+                float(st[segment.STAT_MIN]),
+                float(st[segment.STAT_MAX]),
+                float(st[segment.STAT_RSUM]))
+        elif r.kind == "set":
+            val = hll_codec.encode_dense(np.asarray(r.regs, np.uint8))
+        else:
+            continue
+        item["value"] = base64.b64encode(val).decode()
+        items.append(item)
+    return _finish_body(items, deflate)
+
+
+def decode_body(body: bytes, content_encoding: str = "") -> list[dict]:
+    if content_encoding == "deflate":
+        body = zlib.decompress(body)
+    items = json.loads(body)
+    if not isinstance(items, list):
+        raise ValueError("import body must be a JSON array")
+    return items
+
+
+class _WireBatch:
+    """One decoded /import body = one wire: its histo items accumulate
+    here and stage as a SINGLE ``import_histo_batch`` part, so a
+    cycle's wires stack into one fused merge (table._wire_digest_step)
+    instead of one merge per series.  Validation matches
+    ``import_histo`` item for item — a malformed item raises out of
+    ``add`` before anything is recorded."""
+
+    def __init__(self, table: MetricTable):
+        self._table = table
+        self._rows: list[int] = []
+        self._stats: list[np.ndarray] = []
+        self._crows: list[np.ndarray] = []
+        self._means: list[np.ndarray] = []
+        self._weights: list[np.ndarray] = []
+
+    def add(self, name: str, mtype: str, tags: tuple[str, ...],
+            stats: np.ndarray, means: np.ndarray, weights: np.ndarray,
+            scope: str = dsd.SCOPE_DEFAULT) -> bool:
+        stats = np.asarray(stats, np.float32)
+        means = np.asarray(means, np.float32)
+        weights = np.asarray(weights, np.float32)
+        if stats.shape != (segment.HISTO_STAT_COLS,):
+            raise ValueError(f"bad stats shape {stats.shape}")
+        if means.shape != weights.shape or means.ndim != 1:
+            raise ValueError(
+                f"centroid shape mismatch {means.shape}/{weights.shape}")
+        row = self._table.import_histo_row(name, mtype, tags, scope)
+        if row is None:
+            return False
+        self._rows.append(row)
+        self._stats.append(stats)
+        live = weights > 0
+        if live.any():
+            self._crows.append(
+                np.full(int(live.sum()), row, np.int32))
+            self._means.append(means[live])
+            self._weights.append(weights[live])
+        return True
+
+    def add_columns(self, rows: np.ndarray, stats: np.ndarray,
+                    crows: np.ndarray, means: np.ndarray,
+                    weights: np.ndarray) -> None:
+        """Bulk pre-validated histo columns (the native batched decode
+        path): joins this wire's single staged part."""
+        if len(rows):
+            self._rows.extend(int(r) for r in rows)
+            self._stats.extend(np.asarray(stats, np.float32))
+        if len(crows):
+            self._crows.append(np.asarray(crows, np.int32))
+            self._means.append(np.asarray(means, np.float32))
+            self._weights.append(np.asarray(weights, np.float32))
+
+    def stage(self) -> None:
+        if not self._rows:
+            return
+        empty_i = np.empty(0, np.int32)
+        empty_f = np.empty(0, np.float32)
+        self._table.import_histo_batch(
+            np.asarray(self._rows, np.int32),
+            np.stack(self._stats),
+            np.concatenate(self._crows) if self._crows else empty_i,
+            np.concatenate(self._means) if self._means else empty_f,
+            np.concatenate(self._weights) if self._weights
+            else empty_f)
+
+
+def _ref_tags(it: dict) -> tuple[str, ...]:
+    tags = it.get("tags") or ()
+    if not tags and it.get("tagstring"):
+        tags = it["tagstring"].split(",")
+    return tuple(tags)
+
+
+def _apply_reference_item(table: MetricTable, it: dict,
+                          batch: "_WireBatch | None" = None) -> bool:
+    """Merge one REFERENCE-schema JSONMetric (opaque base64 value) with
+    the per-item codec: the oracle ``_apply_reference_batch`` is held
+    against."""
+    name = it["name"]
+    mtype = it.get("type", "")
+    tags = _ref_tags(it)
+    val = base64.b64decode(it["value"])
+    if mtype == "counter":
+        v = gob_codec.decode_counter(val)
+        if not np.isfinite(v):
+            raise ValueError("non-finite counter value in gob import")
+        return table.import_counter(name, tags, v)
+    if mtype == "gauge":
+        v = gob_codec.decode_gauge(val)
+        if not np.isfinite(v):
+            raise ValueError("non-finite gauge value in gob import")
+        return table.import_gauge(name, tags, v)
+    if mtype in ("histogram", "timer"):
+        d = gob_codec.decode_digest(val)
+        # non-finite state poisons a whole row's aggregates: the same
+        # gate as the DogStatsD parse (decode_digest fails open to
+        # +-inf min/max when the sub-messages are absent, which is fine
+        # only for empty digests)
+        if not (np.isfinite(d["means"]).all()
+                and np.isfinite(d["weights"]).all()
+                and (d["weights"] >= 0).all()):
+            raise ValueError("non-finite centroids in gob import")
+        w = float(d["weights"].sum())
+        if w and not (np.isfinite(d["min"]) and np.isfinite(d["max"])
+                      and np.isfinite(d["rsum"])):
+            raise ValueError("non-finite digest stats in gob import")
+        stats = np.asarray(
+            [w,
+             d["min"] if w else segment.STAT_MIN_EMPTY,
+             d["max"] if w else segment.STAT_MAX_EMPTY,
+             float((d["means"] * d["weights"]).sum()),
+             d["rsum"] if w else 0.0], np.float32)
+        add = batch.add if batch is not None else table.import_histo
+        return add(
+            name, dsd.TIMER if mtype == "timer" else dsd.HISTOGRAM,
+            tags, stats, d["means"], d["weights"])
+    if mtype == "set":
+        return table.import_set(name, tags, hll_codec.decode(val))
+    raise ValueError(f"unknown reference import type {mtype!r}")
+
+
+# ---------------------------------------------------------------------
+# Batched reference-schema decode: one native vtpu_gob_decode call per
+# body, with a wire-schema -> row-plan cache on the table so a local
+# re-forwarding the same series every interval skips the per-item name
+# and tag walk.
+
+_PLAN_CACHE_MAX = 64
+
+# kind codes shared with the native decoder (gob_codec.KIND_*); 4 is
+# host-only (sets decode via hll_codec, not gob)
+_K_COUNTER, _K_GAUGE, _K_DIGEST, _K_SET = 1, 2, 3, 4
+
+
+def _ref_row_plan(table: MetricTable, items: list[dict]) -> tuple[
+        np.ndarray, np.ndarray]:
+    """Resolve every item's (kind, row), cached on the body's identity
+    schema.  Row -1 = unresolvable (overflow or malformed identity);
+    the value appliers drop-and-count those."""
+    parts = []
+    for it in items:
+        try:
+            ts = it.get("tagstring")
+            if ts is None:
+                ts = ",".join(it.get("tags") or ())
+            parts.append(f'{it["name"]}\x1f{it.get("type", "")}\x1f{ts}')
+        except (KeyError, TypeError):
+            parts.append("\x00bad")
+    key = "\x1e".join(parts)
+    # plans live ON the table: rows are table-specific
+    cache = table._http_plan_cache
+    epoch = table._reindex_epoch
+    hit = cache.get(key)
+    if hit is not None and hit[0] == epoch:
+        return hit[1], hit[2]
+    n = len(items)
+    kcode = np.zeros(n, np.uint8)
+    rows = np.full(n, -1, np.int32)
+    for i, it in enumerate(items):
+        try:
+            name = it["name"]
+            mtype = it.get("type", "")
+            tags = _ref_tags(it)
+            if mtype == "counter":
+                kcode[i] = _K_COUNTER
+                r = table.import_counter_row(name, tags)
+            elif mtype == "gauge":
+                kcode[i] = _K_GAUGE
+                r = table.import_gauge_row(name, tags)
+            elif mtype in ("histogram", "timer"):
+                kcode[i] = _K_DIGEST
+                r = table.import_histo_row(
+                    name, dsd.TIMER if mtype == "timer"
+                    else dsd.HISTOGRAM, tags)
+            elif mtype == "set":
+                kcode[i] = _K_SET
+                r = table.import_set_row(name, tags)
+            else:
+                continue  # unknown type: kcode 0, dropped
+            rows[i] = -1 if r is None else r
+        except (KeyError, TypeError):
+            kcode[i] = 0
+    if len(cache) >= _PLAN_CACHE_MAX:
+        cache.clear()
+    cache[key] = (epoch, kcode, rows)
+    return kcode, rows
+
+
+def _seg_sum(vals: np.ndarray, starts: np.ndarray,
+             cnts: np.ndarray) -> np.ndarray:
+    """Per-item sums over contiguous adjacent slices (zero-length
+    segments yield 0; plain reduceat would misread those as the
+    element at the start index)."""
+    out = np.zeros(len(cnts), vals.dtype)
+    nz = cnts > 0
+    if nz.any():
+        out[nz] = np.add.reduceat(vals, starts[nz])
+    return out
+
+
+def _apply_reference_batch(table: MetricTable, items: list[dict],
+                           batch: _WireBatch) -> tuple[int, int]:
+    """Columnar apply of a body's reference-schema items: one native
+    gob decode call + vectorized gates and staging.  Semantics match
+    ``_apply_reference_item`` item for item (same drops, same gates);
+    sets stay per-item (HLL binary is not gob)."""
+    n = len(items)
+    kcode, rows = _ref_row_plan(table, items)
+    payloads: list[bytes] = []
+    b64_bad = np.zeros(n, bool)
+    for i, it in enumerate(items):
+        try:
+            payloads.append(base64.b64decode(it["value"]))
+        except (ValueError, KeyError, TypeError):
+            payloads.append(b"")
+            b64_bad[i] = True
+    # sets (kind 4) and unknown kinds (0) are malformed to the gob
+    # decoder (err=1) and handled below
+    wire_kind = np.where(kcode <= _K_DIGEST, kcode, 0).astype(np.uint8)
+    cols = gob_codec.decode_batch(payloads, wire_kind)
+    err = (cols["err"] != 0) | b64_bad
+    scalar = cols["scalar"]
+    accepted = dropped = 0
+
+    cmask = (kcode == _K_COUNTER)
+    ok = cmask & ~err & np.isfinite(scalar) & (rows >= 0)
+    if ok.any():
+        table.import_counter_batch(rows[ok], scalar[ok])
+    accepted += int(ok.sum())
+    dropped += int((cmask & ~ok).sum())
+
+    gmask = (kcode == _K_GAUGE)
+    ok = gmask & ~err & np.isfinite(scalar) & (rows >= 0)
+    if ok.any():
+        table.import_gauge_batch(rows[ok], scalar[ok])
+    accepted += int(ok.sum())
+    dropped += int((gmask & ~ok).sum())
+
+    hmask = (kcode == _K_DIGEST) & ~err & (rows >= 0)
+    if (kcode == _K_DIGEST).any():
+        starts, cnts = cols["cent_start"], cols["cent_cnt"]
+        means = cols["means"].astype(np.float64)
+        wts = cols["weights"].astype(np.float64)
+        bad_c = (~np.isfinite(means)) | (~np.isfinite(wts)) | (wts < 0)
+        w = _seg_sum(wts, starts, cnts)
+        msum = _seg_sum(means * wts, starts, cnts)
+        n_bad = _seg_sum(bad_c.astype(np.float64), starts, cnts)
+        dmin, dmax, drsum = (cols["dstats"][:, 0], cols["dstats"][:, 1],
+                             cols["dstats"][:, 2])
+        has_w = w != 0
+        stat_ok = ~has_w | (np.isfinite(dmin) & np.isfinite(dmax)
+                            & np.isfinite(drsum))
+        ok = hmask & (n_bad == 0) & stat_ok
+        if ok.any():
+            stats = np.stack(
+                [w,
+                 np.where(has_w, dmin, segment.STAT_MIN_EMPTY),
+                 np.where(has_w, dmax, segment.STAT_MAX_EMPTY),
+                 msum,
+                 np.where(has_w, drsum, 0.0)], axis=1)[ok]
+            item_of = np.repeat(np.arange(n), cnts)
+            live = (cols["weights"] > 0) & ok[item_of]
+            batch.add_columns(
+                rows[ok], stats.astype(np.float32),
+                rows[item_of][live].astype(np.int32),
+                cols["means"][live], cols["weights"][live])
+        accepted += int(ok.sum())
+        dropped += int(((kcode == _K_DIGEST) & ~ok).sum())
+
+    for i in np.flatnonzero(kcode == _K_SET):
+        try:
+            if b64_bad[i] or rows[i] < 0:
+                dropped += 1
+                continue
+            table.import_set_at(int(rows[i]),
+                                hll_codec.decode(payloads[i]))
+            accepted += 1
+        except (ValueError, KeyError, TypeError) as e:
+            log.warning("dropping malformed import item: %s", e)
+            dropped += 1
+
+    dropped += int((kcode == 0).sum())
+    return accepted, dropped
+
+
+def _apply_reference_fallback(table: MetricTable, items: list[dict],
+                              batch: _WireBatch) -> tuple[int, int]:
+    """Per-item reference apply: the batched path's oracle (tests)."""
+    accepted = dropped = 0
+    for it in items:
+        try:
+            ok = _apply_reference_item(table, it, batch)
+        except (ValueError, KeyError, TypeError, zlib.error) as e:
+            log.warning("dropping malformed import item: %s", e)
+            dropped += 1
+            continue
+        accepted += int(ok)
+        dropped += int(not ok)
+    return accepted, dropped
+
+
+def apply_import(table: MetricTable, items: list[dict]) -> tuple[int, int]:
+    """Merge decoded import items into a (global) table.  Returns
+    (accepted, dropped).  The receiving half of reference http.go:63
+    ImportMetrics.  One malformed item is dropped-and-counted without
+    aborting the rest of the body."""
+    accepted = dropped = 0
+    # this body is one forwarded wire: histo items accumulate into a
+    # single staged part (fused global merge)
+    batch = _WireBatch(table)
+    # reference-schema items batch into one columnar decode; within a
+    # mixed-schema body they apply after the native-schema items (gauge
+    # last-write-wins order is preserved within each schema)
+    ref_items: list[dict] = []
+    for it in items:
+        try:
+            if "kind" not in it and isinstance(it.get("value"), str):
+                # reference JSONMetric: opaque base64 value bytes and
+                # no "kind" field (native items always carry one, and
+                # their counter/gauge "value" is a JSON number)
+                ref_items.append(it)
+                continue
+            tags = tuple(it.get("tags", ()))
+            kind = it.get("kind") or it.get("type")
+            name = it["name"]
+            ok = False
+            if kind == "counter":
+                ok = table.import_counter(name, tags, float(it["value"]))
+            elif kind == "gauge":
+                ok = table.import_gauge(name, tags, float(it["value"]))
+            elif kind == "histo":
+                means = _unb64(it["means"], np.float32)
+                weights = _unb64(it["weights"], np.float32)
+                ok = batch.add(
+                    name, it.get("type", dsd.HISTOGRAM), tags,
+                    np.asarray(it["stats"], np.float32), means, weights,
+                    scope=it.get("scope", dsd.SCOPE_DEFAULT))
+            elif kind == "set":
+                regs = np.frombuffer(
+                    zlib.decompress(base64.b64decode(it["regs"])),
+                    np.uint8)
+                ok = table.import_set(
+                    name, tags, regs,
+                    scope=it.get("scope", dsd.SCOPE_DEFAULT))
+            else:
+                raise ValueError(f"unknown import kind {kind!r}")
+        except (ValueError, KeyError, TypeError, AttributeError,
+                zlib.error) as e:  # a non-object item has no .get
+            log.warning("dropping malformed import item: %s", e)
+            dropped += 1
+            continue
+        accepted += int(ok)
+        dropped += int(not ok)
+    if ref_items:
+        a, d = _apply_reference_batch(table, ref_items, batch)
+        accepted += a
+        dropped += d
+    batch.stage()
+    return accepted, dropped

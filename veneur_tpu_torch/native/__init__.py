@@ -1,4 +1,5 @@
-"""The port's native (C++) host library: parse, ingest, rank, planes.
+"""The port's native (C++) host library: parse, ingest, rank, planes and
+the reference-schema /import value decode.
 
 ``dsd_parse.cpp`` beside this file is the port's own copy of the entries
 it runs from the reference package's native parser.  ``load()`` compiles
@@ -124,6 +125,16 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.vtpu_hll_plane_stats.restype = None
     lib.vtpu_hll_plane_stats.argtypes = [
         i32p, i32p, i64, i32, i32, u8p, f64p, i32p]
+    lib.vtpu_gob_decode.restype = i64
+    lib.vtpu_gob_decode.argtypes = [
+        u8p, i64, i64,
+        i64p, i64p, u8p,
+        i64,
+        f64p, f64p,
+        i64p, i32p,
+        f32p, f32p,
+        u8p,
+        i64p]
     return lib
 
 

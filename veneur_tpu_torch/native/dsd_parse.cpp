@@ -8,7 +8,9 @@
 // (vtpu_ingest), the fused parse + probe + combine pass
 // (vtpu_parse_ingest), the within-row rank, the host-densified value
 // plane (vtpu_dense_plane), the HLL register folds (vtpu_hll_plane,
-// vtpu_hll_plane_stats) and the superbatch segment gather.  Everything
+// vtpu_hll_plane_stats), the superbatch segment gather and the batched
+// gob value decode of the reference-schema /import wire
+// (vtpu_gob_decode).  Everything
 // kept is byte for byte the reference's, so identity hashes stay
 // bit-identical to utils/hashing.key_hash64 and member hashes to
 // utils/hashing.hash64.
@@ -1299,5 +1301,190 @@ void vtpu_hll_plane_stats(const int32_t* rows, const int32_t* packed,
   }
 }
 
+
+// ---------------------------------------------------------------------
+// Batched gob/binary value decode for the reference HTTP /import wire
+// (forward/gob_codec.py).  One call turns a whole import body's opaque
+// value payloads into flat columns: counter (LE int64), gauge
+// (LE float64) and the MergingDigest gob stream (centroid slice +
+// compression/min/max/reciprocalSum messages, fail-open when the
+// trailing float messages are absent — merging_digest.go:434).
+//
+// Per-item isolation: a malformed value sets err[i]=1 and decoding
+// continues (the caller drops-and-counts per item, exactly like the
+// Python codec's exception path).  Centroid capacity overflow keeps
+// COUNTING without writing and returns -2 with the exact need in
+// out_needed[0], so one retry always fits.  Returns the number of
+// centroids written.
+
+namespace {
+
+// gob unsigned int: one byte if < 128, else 256-n then n BE bytes.
+// Bounded by ``limit`` the way the Python _read_uint is bounded by the
+// whole buffer (the per-message end is enforced by the message jump,
+// not per-read).
+inline bool gob_uint(const uint8_t* b, int64_t limit, int64_t* pos,
+                     uint64_t* out) {
+  if (*pos >= limit) return false;
+  uint8_t c = b[(*pos)++];
+  if (c < 0x80) { *out = c; return true; }
+  int n = 256 - c;
+  if (n > 8 || *pos + n > limit) return false;
+  uint64_t v = 0;
+  for (int i = 0; i < n; i++) v = (v << 8) | b[(*pos)++];
+  *out = v;
+  return true;
+}
+
+// gob float64: the IEEE754 bits byte-reversed, carried as an unsigned
+// int (Python: unpack("<d", u.to_bytes(8, "big"))).
+inline bool gob_float(const uint8_t* b, int64_t limit, int64_t* pos,
+                      double* out) {
+  uint64_t u;
+  if (!gob_uint(b, limit, pos, &u)) return false;
+  uint64_t bits = __builtin_bswap64(u);
+  memcpy(out, &bits, 8);
+  return true;
+}
+
+// Decode one MergingDigest gob stream.  Mirrors
+// gob_codec.decode_digest message for message; centroids are COUNTED
+// always and written only while *nc < cap (the caller turns the
+// overflow into a -2 grow-retry).  Returns false on malformed.
+inline bool gob_digest(const uint8_t* b, int64_t n,
+                       double* ds /* [4] min,max,rsum,comp */,
+                       int64_t cap, float* means, float* weights,
+                       int64_t* nc, int64_t* counted, bool* over) {
+  int64_t pos = 0;
+  bool got_slice = false;
+  int n_floats = 0;
+  double floats[4] = {0, 0, 0, 0};
+  while (pos < n) {
+    uint64_t msg_len;
+    if (!gob_uint(b, n, &pos, &msg_len)) return false;
+    if (msg_len > (uint64_t)(n - pos)) return false;
+    const int64_t end = pos + (int64_t)msg_len;
+    uint64_t tid_u;
+    int64_t p = pos;
+    if (!gob_uint(b, n, &p, &tid_u)) return false;
+    const int64_t tid = (int64_t)(tid_u >> 1) ^ -(int64_t)(tid_u & 1);
+    if (tid < 0) { pos = end; continue; }  // typedef: fixed prologue
+    if (p >= end || b[p] != 0) return false;  // top-level delta byte
+    p++;
+    if (!got_slice) {
+      if (tid < 64) return false;  // expected the centroid slice
+      uint64_t count;
+      if (!gob_uint(b, n, &p, &count)) return false;
+      if (count > (1u << 20)) return false;
+      for (uint64_t i = 0; i < count; i++) {
+        double mean = 0.0, weight = 0.0;
+        int64_t field = -1;
+        for (;;) {
+          uint64_t delta;
+          if (!gob_uint(b, n, &p, &delta)) return false;
+          if (delta == 0) break;
+          field += (int64_t)delta;
+          if (field == 0) {
+            if (!gob_float(b, n, &p, &mean)) return false;
+          } else if (field == 1) {
+            if (!gob_float(b, n, &p, &weight)) return false;
+          } else if (field == 2) {  // Samples []float64 (debug mode)
+            uint64_t ns;
+            if (!gob_uint(b, n, &p, &ns)) return false;
+            double tmp;
+            for (uint64_t j = 0; j < ns; j++)
+              if (!gob_float(b, n, &p, &tmp)) return false;
+          } else {
+            return false;  // unknown centroid field
+          }
+        }
+        if (*nc < cap) {
+          means[*nc] = (float)mean;
+          weights[*nc] = (float)weight;
+          (*nc)++;
+        } else {
+          *over = true;
+        }
+        (*counted)++;
+      }
+      got_slice = true;
+    } else {
+      double v;
+      if (!gob_float(b, n, &p, &v)) return false;
+      if (n_floats < 4) floats[n_floats] = v;
+      n_floats++;
+    }
+    pos = end;
+  }
+  if (!got_slice) return false;
+  // encode order: compression, min, max, reciprocalSum; older streams
+  // fail open (missing min/max read ±inf like the reference decoder)
+  const double comp = n_floats > 0 ? floats[0] : 100.0;
+  const double vmin = n_floats > 1 ? floats[1] : HUGE_VAL;
+  const double vmax = n_floats > 2 ? floats[2] : -HUGE_VAL;
+  const double rsum = n_floats > 3 ? floats[3] : 0.0;
+  ds[0] = vmin; ds[1] = vmax; ds[2] = rsum; ds[3] = comp;
+  return true;
+}
+
+}  // namespace
+
+int64_t vtpu_gob_decode(
+    const uint8_t* buf, int64_t buf_len, int64_t n_items,
+    const int64_t* off, const int64_t* vlen,
+    const uint8_t* kind,  // 1 counter, 2 gauge, 3 digest
+    int64_t cap_cents,
+    double* scalar,       // [n] counter/gauge value
+    double* dstats,       // [n, 4]: min, max, rsum, compression
+    int64_t* cent_start, int32_t* cent_cnt,
+    float* means, float* weights,
+    uint8_t* err,         // [n]: 0 ok, 1 malformed
+    int64_t* out_needed /* [1]: total centroids */) {
+  int64_t nc = 0, counted = 0;
+  bool over = false;
+  for (int64_t i = 0; i < n_items; i++) {
+    scalar[i] = 0.0;
+    double* ds = dstats + i * 4;
+    ds[0] = 0.0; ds[1] = 0.0; ds[2] = 0.0; ds[3] = 0.0;
+    cent_start[i] = nc;
+    cent_cnt[i] = 0;
+    err[i] = 1;
+    const int64_t o = off[i], l = vlen[i];
+    if (o < 0 || l < 0 || o + l > buf_len) continue;
+    const uint8_t* v = buf + o;
+    switch (kind[i]) {
+      case 1: {  // counter: LE int64 (samplers.go:162 Counter.Export)
+        if (l != 8) break;
+        int64_t iv;
+        memcpy(&iv, v, 8);
+        scalar[i] = (double)iv;
+        err[i] = 0;
+        break;
+      }
+      case 2: {  // gauge: LE float64
+        if (l != 8) break;
+        memcpy(scalar + i, v, 8);
+        err[i] = 0;
+        break;
+      }
+      case 3: {  // histogram/timer: MergingDigest gob stream
+        const int64_t before = nc, counted_before = counted;
+        if (gob_digest(v, l, ds, cap_cents, means, weights, &nc,
+                       &counted, &over)) {
+          cent_cnt[i] = (int32_t)(counted - counted_before);
+          err[i] = 0;
+        } else {
+          nc = before;  // discard the partial item's centroids
+          counted = counted_before;
+        }
+        break;
+      }
+      default:
+        break;  // unknown kind: malformed
+    }
+  }
+  out_needed[0] = counted;
+  return over ? -2 : nc;
+}
 
 }  // extern "C"

@@ -76,13 +76,18 @@ def gauge_update(state: torch.Tensor, row_ids: torch.Tensor,
 
 def merge_histo_stats(stats: torch.Tensor, row_ids: torch.Tensor,
                       incoming: torch.Tensor) -> torch.Tensor:
-    """Merge (weight, min, max, sum, rsum) rows into the table."""
+    """Merge (weight, min, max, sum, rsum) rows into the table.  The
+    additive columns sum their f32 addends in f64 and round once, as
+    ``counter_update`` does: a global folding many wires into one row
+    gets the same bits on the CPU and on the card, whatever order the
+    device's scatter-add runs in."""
     live = _live(row_ids, stats.shape[0])
     rows = row_ids[live].long()
     inc = incoming[live]
     out = stats.clone()
     for col in (STAT_WEIGHT, STAT_SUM, STAT_RSUM):
-        out[:, col] = stats[:, col].index_add(0, rows, inc[:, col])
+        out[:, col] = stats[:, col].double().index_add(
+            0, rows, inc[:, col].double()).to(torch.float32)
     out[:, STAT_MIN] = stats[:, STAT_MIN].scatter_reduce(
         0, rows, inc[:, STAT_MIN], "amin", include_self=True)
     out[:, STAT_MAX] = stats[:, STAT_MAX].scatter_reduce(

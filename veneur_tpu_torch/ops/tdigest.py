@@ -370,6 +370,24 @@ def merge_dense_scan_rows(means, weights, row_idx, plane_v, plane_w,
             _put_rows(weights, row_idx, sub_w))
 
 
+def merge_wire_stack_rows(means, weights, row_idx, stack_m, stack_w,
+                          live,
+                          compression: float = DEFAULT_COMPRESSION):
+    """Fused global merge: fold a stack of per-wire centroid planes
+    f32[W, U, K] into the gathered row subset, one merge per LIVE wire
+    in wire order.  ``live`` (a host bool[W] array) marks the real
+    wires: W is bucketed, and a dead (padding) wire is skipped, never
+    merged as zeros — merging an all-empty batch is not a no-op (the
+    k-scale cluster pass may still re-cluster adjacent centroids)."""
+    sub_m = _take_rows(means, row_idx)
+    sub_w = _take_rows(weights, row_idx)
+    for i in np.flatnonzero(np.asarray(live, bool)):
+        sub_m, sub_w = _merge_impl(sub_m, sub_w, stack_m[i], stack_w[i],
+                                   compression)
+    return (_put_rows(means, row_idx, sub_m),
+            _put_rows(weights, row_idx, sub_w))
+
+
 # ---- readout --------------------------------------------------------
 
 def _sorted_planes(means, weights):
