@@ -6,15 +6,16 @@
 Run from the root of a checkout.  Phases, one JSON line each:
 
 0. card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-   env: whether ``grpc`` and ``google.protobuf`` import on this host;
+   env: the ``grpc`` and ``google.protobuf`` versions on this host (the
+   port's generated modules and gRPC tier must import);
 1. build: the cluster merge kernel from ``veneur_tpu_torch/csrc``
    (nvcc) and the native host library from ``veneur_tpu_torch/native``
    (g++), both compilers started together;
 2. kernel vs plain: ``cluster_merge`` against ``cluster_merge_plain``
    at R = 16384, C = 616, K = 512 (the deep plane), K = 256, K = 616
    (union) and K = 512 with unsorted state rows: mass, packing
-   contract, quantiles; times with CUDA events.  After phases 4 and 6
-   the same check runs at every other (R, K) they merged at (phase 6's
+   contract, quantiles; times with CUDA events.  After phases 4, 6 and
+   8 the same check runs at every other (R, K) they merged at (the
    global folds with weighted centroids);
 3. ``entry("cuda")`` against ``entry("cpu")`` on the same arrays;
 4. the main path: a ``MetricTable`` at the server's default sizes
@@ -43,11 +44,22 @@ Run from the root of a checkout.  Phases, one JSON line each:
    two intervals plus one profiled, and 4,096 series (the stacked fold,
    one kernel launch per wire); each held against a CPU global on the
    same bodies and against the exact p99 of every local's samples;
-7. the chain: a global and two locals (one per /import schema) as
-   server processes on the card, over UDP and HTTP: the global flushes
-   the JAX chain's ``lat.99percentile``; a garbage /import is answered
-   400 and counted;
-8. the kernels line, then the last line
+8. the global tier over gRPC (run right after phase 6): the flat
+   shape's 64 locals' rows also serialized as MetricLists, each wire
+   through ``decode_metric_list`` (the lock-free native decode) and
+   ``apply_decoded`` (row and wire-plan caches, vectorized staging),
+   ``device_step`` at the staging bound, ``swap`` + flush; two
+   intervals (the second must resolve every wire from the wire-plan
+   cache) plus one profiled; held against a CPU global on the same
+   bytes, against phase 6's HTTP global and against the exact p99;
+7. the chain: a global (HTTP and gRPC listeners) and three locals (one
+   per /import schema, one forwarding over gRPC) as server processes on
+   the card: the global flushes the JAX chain's ``lat.99percentile``
+   from each; Health/Check, a multi-line SendPacket and the frozen
+   Go-side MetricList fixture through SendMetrics; a garbage /import is
+   answered 400 and a garbage SendMetrics INVALID_ARGUMENT, both
+   counted;
+9. the kernels line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero before the last
@@ -623,19 +635,21 @@ FLUSH_KW = dict(percentiles=(0.5, 0.9, 0.99),
 
 
 def build_wires(dev: str, n_timer: int, n_global_timer: int, seed: int,
-                scale: int = 1, n_wires: int = N_WIRES
-                ) -> tuple[list, list, dict]:
+                scale: int = 1, n_wires: int = N_WIRES,
+                with_grpc: bool = False) -> tuple[list, list, dict]:
     """``n_wires`` distinct /import bodies, each the local-role flush of
     a port table on ``dev`` that took one local's traffic, encoded in
-    the native schema or (every REF_EVERY-th) the reference's.
-    Returns (wires, the locals' texts, timings)."""
+    the native schema or (every REF_EVERY-th) the reference's; with
+    ``with_grpc`` the same rows also as a serialized MetricList
+    (``"grpc"``).  Returns (wires, the locals' texts, timings)."""
     from veneur_tpu_torch.core.flusher import Flusher
     from veneur_tpu_torch.core.table import MetricTable, TableConfig
-    from veneur_tpu_torch.forward import http_import
+    from veneur_tpu_torch.forward import grpc_forward, http_import
     table = MetricTable(TableConfig(**table_sizes(scale)), device=dev)
     flusher = Flusher(is_local=True, **FLUSH_KW, device=dev)
     wires, texts = [], []
-    t = {"gen_s": 0.0, "local_s": 0.0, "encode_s": 0.0}
+    t = {"gen_s": 0.0, "local_s": 0.0, "encode_s": 0.0,
+         "grpc_encode_s": 0.0}
     for i in range(n_wires):
         t0 = time.perf_counter()
         text = local_traffic(i, n_timer, n_global_timer, seed, scale)
@@ -656,11 +670,18 @@ def build_wires(dev: str, n_timer: int, n_global_timer: int, seed: int,
         wires.append({"schema": schema, "body": body,
                       "encoding": hdr.get("Content-Encoding", ""),
                       "items": len(res.forward), "centroids": cents})
+        if with_grpc:
+            wires[-1]["grpc"] = grpc_forward.rows_to_metric_list(
+                res.forward).SerializeToString()
+        t4 = time.perf_counter()
         texts.append(text)
         t["gen_s"] += t1 - t0
         t["local_s"] += t2 - t1
         t["encode_s"] += t3 - t2
+        t["grpc_encode_s"] += t4 - t3
     t["body_bytes"] = sum(len(w["body"]) for w in wires)
+    if with_grpc:
+        t["grpc_bytes"] = sum(len(w["grpc"]) for w in wires)
     return wires, texts, t
 
 
@@ -722,14 +743,16 @@ def run_global_interval(table, flusher, wires, sync):
 
 def phase_global(dev: str = "cuda", scale: int = 1, n_wires: int = N_WIRES,
                  intervals: int = 2, profiled: bool = True,
-                 cpu_reference: bool = True) -> dict:
+                 cpu_reference: bool = True, with_grpc: bool = True) -> dict:
     """The global tier at BASELINE config 5's size: ``n_wires`` wires of
     10,000 timer series (the union-row bucket is past half the plane,
     so the fold takes the flat path) timed over ``intervals`` intervals
     plus one profiled, held against a CPU global on the same bodies and
     against the exact p99 of every local's samples; then 4,096 timer
     series, whose fold takes the stacked path: one kernel launch per
-    wire at (4096, K)."""
+    wire at (4096, K).  With ``with_grpc`` the flat shape's locals are
+    also encoded as MetricLists, kept with their texts and the HTTP
+    global's flush under ``"grpc_input"`` for phase 8."""
     import torch
     from veneur_tpu_torch.core.flusher import Flusher
     from veneur_tpu_torch.core.table import MetricTable, TableConfig
@@ -748,8 +771,9 @@ def phase_global(dev: str = "cuda", scale: int = 1, n_wires: int = N_WIRES,
              "wire_flat", intervals),
             ("stack", 4096 // scale, 0, 2, "wire_stack", 1)):
         with MergeRecorder() as lrec:
-            wires, texts, wt = build_wires(dev, n_timer, n_gt, seed, scale,
-                                           n_wires)
+            wires, texts, wt = build_wires(
+                dev, n_timer, n_gt, seed, scale, n_wires,
+                with_grpc=with_grpc and label == "flat")
         table = MetricTable(TableConfig(**table_sizes(scale)), device=dev)
         flusher = Flusher(**FLUSH_KW, device=dev)
         with MergeRecorder() as rec:
@@ -795,12 +819,176 @@ def phase_global(dev: str = "cuda", scale: int = 1, n_wires: int = N_WIRES,
               f"{label}: median p99 error > 1%")
         out[label] = r
         shapes[label] = (lrec.table(), rec.table())
+        if with_grpc and label == "flat":
+            grpc_input = {"wires": [{"body": w["grpc"], "items": w["items"],
+                                     "centroids": w["centroids"]}
+                                    for w in wires],
+                          "texts": texts, "http_metrics": res.metrics,
+                          "encode_s": wt["grpc_encode_s"],
+                          "bytes": wt["grpc_bytes"]}
         del wires, texts, table, res, runs
     out["cut"] = ("the flat shape two intervals plus one profiled, the "
                   "stacked shape one; the wires are built once, outside "
                   "the timed window")
     emit(out)
     out["shapes"] = shapes
+    if with_grpc:
+        out["grpc_input"] = grpc_input
+    return out
+
+
+# ---- phase 8: the global tier over gRPC ----------------------------------
+
+def run_grpc_interval(table, flusher, wires, sync):
+    """One global interval over gRPC wires: each wire's bytes through
+    ``decode_metric_list`` (the half a handler runs outside the server's
+    lock) and ``apply_decoded`` (the locked half), a ``device_step``
+    whenever staging passes the server's bound, then swap and flush.
+    Returns (FlushResult, seconds by stage and what the interval did)."""
+    from veneur_tpu_torch.forward import grpc_forward
+    routes0, h2d0 = dict(table.routes), table.h2d_bytes
+    hits0, misses0 = table.wire_plan_hits, table.wire_plan_misses
+    t = {"decode_s": 0.0, "apply_s": 0.0, "device_step_s": 0.0}
+    acc = dropped = steps = 0
+    for w in wires:
+        t0 = time.perf_counter()
+        cols = grpc_forward.decode_metric_list(w["body"])
+        t1 = time.perf_counter()
+        check(cols is not None, "the native walker refused a wire")
+        a, d = grpc_forward.apply_decoded(table, w["body"], cols)
+        t2 = time.perf_counter()
+        acc += a
+        dropped += d
+        if table.staged() >= table.config.histo_merge_samples:
+            table.device_step()
+            sync()
+            steps += 1
+        t3 = time.perf_counter()
+        t["decode_s"] += t1 - t0
+        t["apply_s"] += t2 - t1
+        t["device_step_s"] += t3 - t2
+    n_items = sum(w["items"] for w in wires)
+    check(acc == n_items and dropped == 0,
+          f"gRPC global accepted {acc} of {n_items} items, dropped "
+          f"{dropped}")
+    check(table.overflow_total() == 0, "the gRPC global overflowed")
+    t0 = time.perf_counter()
+    snap = table.swap()
+    sync()
+    t1 = time.perf_counter()
+    res = flusher.flush(snap, now=1)
+    t2 = time.perf_counter()
+    t["swap_s"], t["flush_s"] = t1 - t0, t2 - t1
+    t["total_s"] = sum(t.values())
+    cents = sum(w["centroids"] for w in wires)
+    t.update({"items": n_items, "centroids": cents,
+              "items_per_s": n_items / t["total_s"],
+              "centroids_per_s": cents / t["total_s"],
+              "mid_interval_device_steps": steps,
+              "wire_plan_hits": table.wire_plan_hits - hits0,
+              "wire_plan_misses": table.wire_plan_misses - misses0,
+              "routes": {k: v - routes0.get(k, 0)
+                         for k, v in table.routes.items()
+                         if v - routes0.get(k, 0)},
+              "h2d_bytes": table.h2d_bytes - h2d0})
+    return res, t
+
+
+def hll_decode_seconds(wires) -> tuple[float, int]:
+    """Seconds that ``hll_codec.decode`` alone takes over every set item
+    of ``wires`` (the per-item part of ``apply_decoded``), and the item
+    count."""
+    from veneur_tpu_torch.forward import grpc_forward, hll_codec
+    spans = []
+    for w in wires:
+        cols = grpc_forward.decode_metric_list(w["body"])
+        sel = np.nonzero(cols["kind"][:cols["n"]] == 4)[0]
+        spans.append((w["body"], cols["hll_off"][sel].tolist(),
+                      cols["hll_len"][sel].tolist()))
+    t0 = time.perf_counter()
+    n = 0
+    for body, offs, lens in spans:
+        for o, ln in zip(offs, lens):
+            hll_codec.decode(body[o:o + ln])
+            n += 1
+    return time.perf_counter() - t0, n
+
+
+def without_gt(metrics) -> list:
+    """The flush minus the global-only timers (``gt<i>``): a
+    reference-schema /import wire carries no scope, so phase 6's HTTP
+    global keeps those series on two rows where the gRPC wire's scope
+    keeps one."""
+    return [m for m in metrics if not m.name.startswith("gt")]
+
+
+def phase_global_grpc(grpc_input: dict, dev: str = "cuda", scale: int = 1,
+                      intervals: int = 2, profiled: bool = True,
+                      cpu_reference: bool = True) -> dict:
+    """Phase 6's flat shape (64 locals, 10,000 timer series) over gRPC:
+    the same locals' rows as serialized MetricLists, decoded and merged
+    by a fresh global table for ``intervals`` intervals plus one
+    profiled; the second interval resends the same wires and must
+    resolve every wire from the wire-plan cache.  Held against a CPU
+    global on the same bytes, against phase 6's HTTP global and against
+    the exact p99 of every local's samples."""
+    import torch
+    from veneur_tpu_torch.core.flusher import Flusher
+    from veneur_tpu_torch.core.table import MetricTable, TableConfig
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    wires, texts = grpc_input["wires"], grpc_input["texts"]
+    table = MetricTable(TableConfig(**table_sizes(scale)), device=dev)
+    flusher = Flusher(**FLUSH_KW, device=dev)
+    with MergeRecorder() as rec:
+        runs = [run_grpc_interval(table, flusher, wires, sync)
+                for _ in range(intervals)]
+    res = runs[-1][0]
+    for _, st in runs:
+        check(st["routes"].get("wire_flat", 0) >= 1,
+              f"the gRPC fold took no wire_flat: {st['routes']}")
+    last = runs[-1][1]
+    check(last["wire_plan_hits"] == len(wires) and
+          last["wire_plan_misses"] == 0,
+          f"interval {intervals} missed the wire-plan cache: "
+          f"{last['wire_plan_hits']} hits, {last['wire_plan_misses']} misses")
+    if dev == "cuda":
+        check(rec.launches > 0, "the gRPC global launched no cluster merge "
+                                "kernel")
+    out = {"phase": "global_tier_grpc", "device": dev, "wires": len(wires),
+           "timer_series": N_TIMER // scale,
+           "wire_bytes": grpc_input["bytes"],
+           "grpc_encode_s": grpc_input["encode_s"],
+           "intervals": [st for _, st in runs],
+           "cluster_merge_launches": rec.launches,
+           "merge_shapes": rec.table()}
+    out["hll_decode_s"], out["hll_items"] = hll_decode_seconds(wires)
+    if profiled:
+        out["profiled_interval"] = profile_device(
+            lambda: run_grpc_interval(table, flusher, wires, sync))
+    if cpu_reference:
+        ctable = MetricTable(TableConfig(**table_sizes(scale)),
+                             device="cpu")
+        ctable.fused_import_mode = table.import_mode()
+        cres, cst = run_grpc_interval(
+            ctable, Flusher(**FLUSH_KW, device="cpu"), wires, lambda: None)
+        out["cpu_interval"] = cst
+        out["vs_cpu"] = compare_flush(res.metrics, cres.metrics)
+    out["vs_http"] = compare_flush(without_gt(res.metrics),
+                                   without_gt(grpc_input["http_metrics"]))
+    check(any(m.name.startswith("gt") for m in res.metrics),
+          "the gRPC global flushed no global-only timer")
+    rel = p99_errors(res.metrics, texts)
+    out["p99_rel_err_median"] = float(np.median(rel))
+    out["p99_rel_err_max"] = float(rel.max())
+    check(out["p99_rel_err_median"] <= 0.01, "gRPC: median p99 error > 1%")
+    out["cut"] = ("two intervals plus one profiled; the MetricLists are "
+                  "encoded once from phase 6's locals, outside the timed "
+                  "window")
+    emit(out)
     return out
 
 
@@ -946,19 +1134,75 @@ def flushed_values(path: str) -> dict:
                 (ln.split("\t") for ln in f.read().splitlines())}
 
 
+def drive_grpc(port: int) -> dict:
+    """Against the global's gRPC listener: Health/Check for "" and
+    "veneur", one multi-line SendPacket, a garbage SendMetrics (must
+    fail with INVALID_ARGUMENT), then the frozen Go-side wire
+    ``tests/testdata/forward_fixture.b64`` through the port's client."""
+    import base64
+
+    import grpc
+    from veneur_tpu_torch.forward import grpc_forward
+    from veneur_tpu_torch.protocol.gen import dogstatsd_grpc_pb2, health_pb2
+    chan = grpc.insecure_channel(f"127.0.0.1:{port}")
+    client = grpc_forward.ForwardClient(f"127.0.0.1:{port}", timeout=30)
+    try:
+        check_call = chan.unary_unary(
+            "/grpc.health.v1.Health/Check",
+            request_serializer=health_pb2.HealthCheckRequest
+            .SerializeToString,
+            response_deserializer=health_pb2.HealthCheckResponse.FromString)
+        health = {}
+        for svc in ("", "veneur"):
+            resp = check_call(health_pb2.HealthCheckRequest(service=svc),
+                              timeout=30, wait_for_ready=True)
+            health[svc] = health_pb2.HealthCheckResponse.ServingStatus.Name(
+                resp.status)
+        check(health == {"": "SERVING", "veneur": "SERVING"},
+              f"health {health}")
+        chan.unary_unary(
+            "/dogstatsd.DogstatsdGRPC/SendPacket",
+            request_serializer=dogstatsd_grpc_pb2.DogstatsdPacket
+            .SerializeToString,
+            response_deserializer=dogstatsd_grpc_pb2.Empty.FromString)(
+                dogstatsd_grpc_pb2.DogstatsdPacket(
+                    packetBytes=b"pkt.a:1|c\npkt.b:2|c\npkt.g:3|g"),
+                timeout=30)
+        try:
+            client.send_wire(b"\xff\xff\xff\x01garbage")
+            garbage = "OK"
+        except grpc.RpcError as e:
+            garbage = e.code().name
+        check(garbage == "INVALID_ARGUMENT",
+              f"garbage SendMetrics answered {garbage}")
+        path = os.path.join(HERE, "tests", "testdata", "forward_fixture.b64")
+        with open(path, "rb") as f:
+            client.send_wire(base64.b64decode(f.read()))
+    finally:
+        client.close()
+        chan.close()
+    return {"health": health, "garbage_send_metrics": garbage}
+
+
 def phase_chain(dev: str = "cuda") -> dict:
-    """Three server processes on the card: a global (``http_address``)
-    and two locals forwarding to it, one in each /import schema.
-    ``lat:{0..199}|ms`` into the native-schema local and
-    ``latref:{0..199}|ms`` into the reference-schema one must flush the
-    JAX chain's p99 at the global; a garbage /import body is answered
-    400 and counted, and the metrics sent after it still flush."""
-    gport = free_tcp_port()
-    lports = [free_udp_port(), free_udp_port()]
+    """Four server processes on the card: a global (``http_address`` and
+    a gRPC listener) and three locals forwarding to it, one in each
+    /import schema and one with ``forward_use_grpc``.
+    ``lat:{0..199}|ms`` into the native-schema local,
+    ``latref:{0..199}|ms`` into the reference-schema one and
+    ``latgrpc:{0..199}|ms`` into the gRPC one must each flush the JAX
+    chain's p99 at the global.  The gRPC listener answers Health/Check
+    SERVING, a SendPacket's lines flush, the frozen Go-side wire flushes
+    what tests/test_grpc_forward.py asserts of it; a garbage /import
+    body is answered 400, a garbage SendMetrics INVALID_ARGUMENT, both
+    are counted, and the metrics sent after them still flush."""
+    gport, grpc_port = free_tcp_port(), free_tcp_port()
+    lports = [free_udp_port(), free_udp_port(), free_udp_port()]
     with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke-") as tmp:
         base = {"interval": "2s", "percentiles": [0.5, 0.99]}
-        cfgs = {"global": dict(base, hostname="global",
-                               http_address=f"127.0.0.1:{gport}")}
+        cfgs = {"global": dict(
+            base, hostname="global", http_address=f"127.0.0.1:{gport}",
+            grpc_listen_addresses=[f"tcp://127.0.0.1:{grpc_port}"])}
         for name, port, schema in (("local", lports[0], "native"),
                                    ("localref", lports[1], "reference")):
             cfgs[name] = dict(
@@ -966,6 +1210,11 @@ def phase_chain(dev: str = "cuda") -> dict:
                 statsd_listen_addresses=[f"udp://127.0.0.1:{port}"],
                 forward_address=f"http://127.0.0.1:{gport}",
                 forward_json_schema=schema)
+        cfgs["localgrpc"] = dict(
+            base, hostname="localgrpc",
+            statsd_listen_addresses=[f"udp://127.0.0.1:{lports[2]}"],
+            forward_address=f"127.0.0.1:{grpc_port}",
+            forward_use_grpc=True)
         procs, logs, flush = {}, {}, {}
         try:
             for name, cfg in cfgs.items():
@@ -986,10 +1235,11 @@ def phase_chain(dev: str = "cuda") -> dict:
             check(http_get(gport, "/healthcheck") == b"ok", "healthcheck")
             garbage = http_post_status(gport, "/import", b"\x00garbage")
             check(garbage == 400, f"garbage /import answered {garbage}")
+            grpc_res = drive_grpc(grpc_port)
             # one multi-line datagram per local: it cannot straddle the
             # local's flush, so each stream reaches the global as one wire
             s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
-            for port, name in zip(lports, ("lat", "latref")):
+            for port, name in zip(lports, ("lat", "latref", "latgrpc")):
                 msgs = [f"{name}:{v}|ms".encode() for v in range(200)]
                 msgs.append(f"{name}.hits:2|c|#veneurglobalonly".encode())
                 s.sendto(b"\n".join(msgs), ("127.0.0.1", port))
@@ -998,8 +1248,8 @@ def phase_chain(dev: str = "cuda") -> dict:
 
             def arrived():
                 v = flushed_values(flush["global"])
-                return ("lat.99percentile" in v and
-                        "latref.99percentile" in v)
+                return all(f"{n}.99percentile" in v
+                           for n in ("lat", "latref", "latgrpc"))
             wait_for(arrived, 30, "the global's percentiles",
                      procs["global"])
             latency = time.perf_counter() - t1
@@ -1024,39 +1274,54 @@ def phase_chain(dev: str = "cuda") -> dict:
         check(p.returncode == 0, f"{name} exit code {p.returncode}: "
                                  f"{server_logs[name][-2000:]}")
     g = vals["global"]
-    for name in ("lat", "latref"):
+    for name in ("lat", "latref", "latgrpc"):
         check(repr(g.get(f"{name}.99percentile")) == "197.00999450683594",
               f"global {name}.99percentile = "
               f"{g.get(f'{name}.99percentile')!r}")
         check(g.get(f"{name}.hits") == 2.0,
               f"global {name}.hits = {g.get(f'{name}.hits')}")
-    for name, metric in (("local", "lat"), ("localref", "latref")):
+    for name, metric in (("local", "lat"), ("localref", "latref"),
+                         ("localgrpc", "latgrpc")):
         lv = vals[name]
         check(lv.get(f"{metric}.count") == 200.0 and
               f"{metric}.99percentile" not in lv,
               f"{name} flushed {sorted(lv)}")
-    check(stats["import_errors"] == 1, f"import_errors {stats}")
-    check(stats["imports_received"] >= 4, f"imports_received {stats}")
+    pkt = {k: g.get(k) for k in ("pkt.a", "pkt.b", "pkt.g")}
+    check(pkt == {"pkt.a": 1.0, "pkt.b": 2.0, "pkt.g": 3.0},
+          f"SendPacket flushed {pkt}")
+    # tests/test_grpc_forward.py's assertions on the frozen wire
+    check(g.get("fix.total") == 7.0 and g.get("fix.depth") == 3.5 and
+          "fix.lat.count" not in g and
+          abs(g.get("fix.lat.50percentile", 0) - 52.87) <= 0.05 * 52.87 and
+          abs(g.get("fix.users", 0) - 250) <= 0.05 * 250,
+          f"fixture flushed {({k: v for k, v in g.items() if k.startswith('fix')})}")
+    check(stats["import_errors"] == 2, f"import_errors {stats}")
+    check(stats["imports_received"] >= 10, f"imports_received {stats}")
+    check(stats["received_grpc"] >= 6, f"received_grpc {stats}")
+    check(stats["received_dogstatsd-grpc"] == 1, f"SendPacket {stats}")
     res = {"phase": "chain", "startup_s": startup,
            "send_to_global_flush_s": latency,
            "lat.99percentile": g["lat.99percentile"],
            "latref.99percentile": g["latref.99percentile"],
-           "garbage_import_status": garbage, "global_stats": stats}
+           "latgrpc.99percentile": g["latgrpc.99percentile"],
+           "garbage_import_status": garbage, **grpc_res,
+           "fixture": {k: v for k, v in g.items() if k.startswith("fix")},
+           "global_stats": stats}
     emit(res)
     return res
 
 
 def phase_env() -> dict:
-    """Whether the gRPC transport's packages import on this host."""
-    import importlib
-    got = {}
-    for mod in ("grpc", "google.protobuf"):
-        try:
-            importlib.import_module(mod)
-            got[mod] = True
-        except ImportError:
-            got[mod] = False
-    res = {"phase": "env", "imports": got}
+    """The gRPC transport's package versions on this host; importing the
+    port's generated protobuf modules (they need protobuf >= 3.20) and
+    its gRPC tier must succeed."""
+    import google.protobuf
+    import grpc
+    from veneur_tpu_torch.forward import grpc_forward
+    from veneur_tpu_torch.forward.gen import forward_pb2
+    check(grpc_forward.forward_pb2 is forward_pb2, "generated modules")
+    res = {"phase": "env", "grpc": grpc.__version__,
+           "protobuf": google.protobuf.__version__}
     emit(res)
     return res
 
@@ -1114,14 +1379,17 @@ def main() -> int:
     phase_entry()
     table = phase_table()
     glob = phase_global()
-    # phase 2 again, at every other shape phases 4 and 6 merged at: the
-    # locals' sample batches unit-weight, the global's wires weighted
+    grpc_glob = phase_global_grpc(glob.pop("grpc_input"))
+    # phase 2 again, at every other shape phases 4, 6 and 8 merged at:
+    # the locals' sample batches unit-weight, the globals' wires weighted
     cases = recorded_cases(table["merge_shapes"])
     for label in ("flat", "stack"):
         local_shapes, global_shapes = glob["shapes"][label]
         cases += recorded_cases(local_shapes, timed=cases)
         cases += recorded_cases(global_shapes, weighted=True,
                                 timed=cases)
+    cases += recorded_cases(grpc_glob["merge_shapes"], weighted=True,
+                            timed=cases)
     kern.update(phase_kernel(cases=cases))
     phase_server()
     phase_chain()
@@ -1132,7 +1400,8 @@ def main() -> int:
              if (r["rows"], r["k"]) == (top["rows"], top["k"]))
     by_path = {"table_interval": table["cluster_merge_launches"],
                "global_tier": sum(glob[s]["cluster_merge_launches"]
-                                  for s in ("flat", "stack"))}
+                                  for s in ("flat", "stack")),
+               "global_tier_grpc": grpc_glob["cluster_merge_launches"]}
     emit({"kernels": [{
         "name": "cluster_merge", "route": "cuda",
         "source": "veneur_tpu_torch/csrc/cluster_merge.cu",

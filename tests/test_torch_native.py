@@ -405,6 +405,166 @@ def test_gob_decode_bit_equal(libs, cap):
         np.testing.assert_array_equal(t[k], j[k], err_msg=k)
 
 
+# ---- the gRPC MetricList walker ----------------------------------------
+
+def _varint(v: int) -> bytes:
+    out = bytearray()
+    while v > 0x7F:
+        out.append((v & 0x7F) | 0x80)
+        v >>= 7
+    out.append(v)
+    return bytes(out)
+
+
+def _field(num: int, payload: bytes) -> bytes:
+    """One length-delimited field."""
+    return _varint(num << 3 | 2) + _varint(len(payload)) + payload
+
+
+def _fleet_metrics(rng, n=12):
+    """Metric messages of every kind, type and scope, with 0-2 tags."""
+    from veneur_tpu_torch.forward.gen import metric_pb2
+    out = []
+    for i in range(n):
+        m = metric_pb2.Metric(
+            name=f"fleet.{i}", tags=["host:h%d" % (i % 3), "dc:x"][:i % 3],
+            type=(metric_pb2.Counter, metric_pb2.Gauge,
+                  (metric_pb2.Histogram, metric_pb2.Timer)[i // 4 % 2],
+                  metric_pb2.Set)[i % 4], scope=i % 3)
+        if i % 4 == 0:
+            m.counter.value = int(rng.integers(-5, 10 ** 9))
+        elif i % 4 == 1:
+            m.gauge.value = float(rng.normal(0, 1e3))
+        elif i % 4 == 2:
+            d = m.histogram.t_digest
+            d.compression, d.min, d.max, d.reciprocalSum = 100, 1, 90, 0.3
+            for v in np.sort(rng.gamma(2.0, 30.0, int(rng.integers(0, 40)))):
+                c = d.main_centroids.add()
+                c.mean, c.weight = float(v), float(rng.integers(1, 4))
+        else:
+            m.set.hyper_log_log = bytes(rng.integers(0, 255, 40, np.uint8))
+        out.append(m)
+    return out
+
+
+def _ml_wires(rng) -> dict[str, bytes]:
+    """Serialized MetricLists: a fleet wire; the same with unknown fields
+    at every level (list, metric, value and digest messages); a
+    histogram whose oneof a later counter field overwrites (proto3
+    last-one-wins leaves its centroids orphaned in the columns); an
+    empty list; truncations of the fleet wire; garbage."""
+    from veneur_tpu_torch.forward.gen import forward_pb2
+    ms = _fleet_metrics(rng)
+    fleet = forward_pb2.MetricList(metrics=ms).SerializeToString()
+    unknown = []
+    for m in ms:
+        b = m.SerializeToString()
+        b += b"\x78\x05" + b"\x81\x01" + bytes(8) + b"\x8d\x01" + bytes(4)
+        b += _field(18, b"abc")
+        if m.WhichOneof("value") == "counter":
+            b += _field(5, b"\x08\x07\x10\x01")  # value 7, field 2 unknown
+        elif m.WhichOneof("value") == "histogram":
+            # a second histogram field merges in one more centroid
+            cent = b"\x09" + np.float64(5.5).tobytes() + b"\x11" + \
+                np.float64(2).tobytes() + b"\x19" + bytes(8)
+            b += _field(7, _field(1, b"\x48\x03" + _field(1, cent)))
+        unknown.append(b"\x10\x05" + _field(1, b))
+    hist = next(m for m in ms if m.WhichOneof("value") == "histogram"
+                and len(m.histogram.t_digest.main_centroids))
+    orphan = _field(1, hist.SerializeToString() + _field(5, b"\x08\x03"))
+    return {"fleet": fleet,
+            "unknown_fields": b"".join(unknown),
+            "orphaned": (_field(1, ms[2].SerializeToString()) + orphan +
+                         _field(1, ms[6].SerializeToString())),
+            "empty": b"",
+            "garbage": b"\xff\xff\xff\x01garbage",
+            **{f"cut{k}": fleet[:len(fleet) * k // 7] for k in range(1, 7)}}
+
+
+def _ml_decode(lib, data: bytes, caps=(64, 4096, 256)):
+    from veneur_tpu_torch.forward import grpc_forward as gf
+    cols = {k: np.zeros_like(v) for k, v in gf._alloc_cols(*caps).items()}
+    needed = np.zeros(3, np.int64)
+    rc = gf._decode_call(lib, np.frombuffer(data, np.uint8), cols, needed)
+    return rc, needed, cols
+
+
+def _ml_keyhash(lib, data: bytes, cols, n: int) -> np.ndarray:
+    out = np.zeros(n, np.uint64)
+    c = ctypes
+    lib.vtpu_metriclist_keyhash(
+        _p(np.frombuffer(data, np.uint8), c.c_uint8), n,
+        _p(cols["name_off"], c.c_int64), _p(cols["name_len"], c.c_int32),
+        _p(cols["kind"], c.c_uint8), _p(cols["mtype"], c.c_int32),
+        _p(cols["scope"], c.c_int32), _p(cols["tag_start"], c.c_int64),
+        _p(cols["tag_cnt"], c.c_int32), _p(cols["tag_off"], c.c_int64),
+        _p(cols["tag_len"], c.c_int32), _p(out, c.c_uint64))
+    return out
+
+
+@pytest.mark.parametrize("wire", ["fleet", "unknown_fields", "orphaned",
+                                  "empty", "garbage", "cut1", "cut2",
+                                  "cut3", "cut4", "cut5", "cut6"])
+def test_metriclist_decode_bit_equal(libs, wire):
+    """vtpu_metriclist_decode and vtpu_metriclist_keyhash in both
+    libraries on the same wire: the return code, the need triple, every
+    column and every identity hash bit-equal; a wire is malformed (-1)
+    exactly when protobuf refuses it."""
+    from google.protobuf.message import DecodeError
+
+    from veneur_tpu_torch.forward.gen import forward_pb2
+    data = _ml_wires(np.random.default_rng(31))[wire]
+    (rc, need, mine), (jrc, jneed, ref) = (_ml_decode(lib, data)
+                                           for lib in libs)
+    assert rc == jrc
+    np.testing.assert_array_equal(need, jneed)
+    for k in mine:
+        np.testing.assert_array_equal(mine[k], ref[k], err_msg=k)
+    try:
+        n_pb = len(forward_pb2.MetricList.FromString(data).metrics)
+    except DecodeError:
+        n_pb = -1
+    assert rc == n_pb
+    if rc > 0:
+        np.testing.assert_array_equal(_ml_keyhash(libs[0], data, mine, rc),
+                                      _ml_keyhash(libs[1], data, ref, rc))
+    if wire == "unknown_fields":
+        # the unknown fields change no column of the known ones
+        _, _, clean = _ml_decode(libs[0], _ml_wires(
+            np.random.default_rng(31))["fleet"])
+        for k in ("name_len", "mtype", "scope", "tag_cnt", "hll_len"):
+            np.testing.assert_array_equal(mine[k], clean[k], err_msg=k)
+        kinds = mine["kind"][:rc]
+        scalar, clean_scalar = mine["scalar"][:rc], clean["scalar"][:rc]
+        np.testing.assert_array_equal(scalar[kinds == 1], 7.0)
+        np.testing.assert_array_equal(scalar[kinds == 2],
+                                      clean_scalar[kinds == 2])
+        # each digest gained the one centroid appended to it
+        np.testing.assert_array_equal(
+            mine["cent_cnt"][:rc], clean["cent_cnt"][:rc] + (kinds == 3))
+    if wire == "orphaned":
+        assert list(mine["kind"][:3]) == [3, 1, 3]
+        assert mine["cent_cnt"][1] > 0 and mine["scalar"][1] == 3.0
+
+
+def test_metriclist_decode_grow_and_retry(libs):
+    """Buffers too small for the wire: both libraries return -2 with the
+    same exact need, and one retry at that need decodes what large
+    buffers decode."""
+    data = _ml_wires(np.random.default_rng(31))["fleet"]
+    rc, need, _ = _ml_decode(libs[0], data, caps=(3, 5, 2))
+    jrc, jneed, _ = _ml_decode(libs[1], data, caps=(3, 5, 2))
+    assert rc == jrc == -2
+    np.testing.assert_array_equal(need, jneed)
+    assert need[0] == 12
+    rc, _, exact = _ml_decode(libs[0], data, caps=tuple(int(x) for x in need))
+    rc2, _, big = _ml_decode(libs[0], data)
+    assert rc == rc2 == 12
+    for k in exact:
+        n = len(exact[k])
+        np.testing.assert_array_equal(exact[k], big[k][:n], err_msg=k)
+
+
 # ---- the identity index ------------------------------------------------
 
 def test_native_index_matches_hash_index(libs):

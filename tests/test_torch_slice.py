@@ -474,10 +474,10 @@ def test_server_udp_flush_file(tmp_path):
 
 
 def test_config_refuses_unknown_keys(tmp_path):
-    # the gRPC forward is not in the port yet: its key is refused
-    with pytest.raises(ValueError, match="forward_use_grpc"):
+    # TLS for the gRPC forward is not in the port yet: its key is refused
+    with pytest.raises(ValueError, match="forward_grpc_tls"):
         read_config(data={"interval": "2s",
-                          "forward_use_grpc": True})
+                          "forward_grpc_tls": True})
     p = tmp_path / "c.yaml"
     p.write_text(json.dumps({"interval": "2s", "percentiles": [0.5]}))
     assert read_config(str(p)).percentiles == [0.5]
@@ -511,11 +511,16 @@ for n in names:
     importlib.import_module(n)
 assert {"veneur_tpu_torch.forward.http_import",
         "veneur_tpu_torch.forward.gob_codec",
-        "veneur_tpu_torch.forward.hll_codec"} <= set(names)
+        "veneur_tpu_torch.forward.hll_codec",
+        "veneur_tpu_torch.forward.grpc_forward",
+        "veneur_tpu_torch.forward.gen.forward_pb2",
+        "veneur_tpu_torch.protocol.gen.health_pb2"} <= set(names)
 from veneur_tpu_torch.core.table import MetricTable, TableConfig
 from veneur_tpu_torch.forward import gob_codec
 MetricTable(TableConfig(histo_rows=8), device="cpu")
 gob_codec.decode_batch([gob_codec.encode_counter(1)], [1])
+from veneur_tpu_torch.forward import grpc_forward
+assert grpc_forward.decode_metric_list(b"")["n"] == 0
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib",
                                             "veneur_tpu.")))

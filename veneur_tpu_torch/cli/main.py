@@ -39,8 +39,9 @@ def main(argv: list[str] | None = None) -> int:
     signal.signal(signal.SIGTERM, _stop)
     srv.start()
     logging.getLogger("veneur_tpu_torch").info(
-        "listening on %s, http %s, device %s, %s",
-        cfg.statsd_listen_addresses, srv.http_port, srv.device,
+        "listening on %s, http %s, grpc %s, device %s, %s",
+        cfg.statsd_listen_addresses, srv.http_port, srv.grpc_ports,
+        srv.device,
         f"local forwarding to {cfg.forward_address}" if cfg.is_local()
         else "global")
     stop.wait()

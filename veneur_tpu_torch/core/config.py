@@ -50,9 +50,18 @@ class Config:
     # HTTP listener ("host:port"): /healthcheck, /debug/vars and
     # POST /import
     http_address: str = ""
-    # a global's HTTP address: set, this node is a local and POSTs its
+    # gRPC listeners ("tcp://host:port"): forward import, DogStatsD
+    # packets and grpc health on one port each
+    grpc_listen_addresses: list[str] = field(default_factory=list)
+    # deprecated single-listener alias of grpc_listen_addresses
+    # (reference config.go GrpcAddress), folded in by resolve_aliases
+    grpc_address: str = ""
+    # a global's address: set, this node is a local and sends its
     # mergeable state there after every flush
     forward_address: str = ""
+    # send it as a gRPC MetricList (forward_address is host:port) instead
+    # of an HTTP /import POST
+    forward_use_grpc: bool = False
     # the /import body a local sends: "native" (carries scope) or
     # "reference" (the Go JSONMetric wire: gob digests)
     forward_json_schema: str = "native"
@@ -66,6 +75,15 @@ class Config:
         """A node with a forward destination is a local (reference
         server.go:1609 IsLocal)."""
         return bool(self.forward_address)
+
+    def resolve_aliases(self) -> None:
+        """Fold the deprecated ``grpc_address`` into
+        ``grpc_listen_addresses`` when that is still empty."""
+        if self.grpc_address and not self.grpc_listen_addresses:
+            addr = self.grpc_address
+            if "://" not in addr:
+                addr = "tcp://" + addr
+            self.grpc_listen_addresses = [addr]
 
     def validate(self) -> list[str]:
         problems = []
@@ -94,6 +112,10 @@ class Config:
             if not addr.startswith("udp://"):
                 problems.append(
                     f"only udp:// statsd listeners are supported: {addr}")
+        for addr in self.grpc_listen_addresses:
+            if not addr.startswith("tcp://"):
+                problems.append(
+                    f"grpc listener must be tcp://: {addr}")
         if self.forward_json_schema not in ("reference", "native"):
             problems.append(
                 "forward_json_schema must be 'reference' or 'native'")
@@ -135,6 +157,7 @@ def read_config(path: str | None = None,
     for key, value in raw.items():
         if value is not None:
             setattr(cfg, key, value)
+    cfg.resolve_aliases()
     problems = cfg.validate()
     if problems:
         raise ValueError("; ".join(problems))

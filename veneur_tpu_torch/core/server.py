@@ -16,11 +16,17 @@ With ``http_address`` set, a ``ThreadingHTTPServer`` answers
 /import``: each body is decoded, merged
 into the table under the table lock (``http_import.apply_import``) and
 may trigger a device step; a malformed body is answered 400 and
-counted.  With ``forward_address`` set the node is a local: its
-flusher forwards mergeable state, POSTed to the global's ``/import``
-after every flush (a failed send is counted and logged, never
-retried).  ``shutdown`` stops and joins every thread and closes every
-socket.
+counted.  Each ``grpc_listen_addresses`` entry starts an
+``ImportServer`` (``forward/grpc_forward.py``): ``forwardrpc.Forward/
+SendMetrics`` decodes each wire natively outside the table lock and
+merges it under the lock, ``dogstatsd.DogstatsdGRPC/SendPacket`` feeds
+``handle_packet``, and ``grpc.health.v1.Health/Check`` answers.  With
+``forward_address`` set the node is a local: its flusher forwards
+mergeable state after every flush, POSTed to the global's ``/import``
+or, with ``forward_use_grpc``, sent as one MetricList through a client
+dialled once (a failed send is counted and logged, never retried).
+``shutdown`` stops every listener, joins every thread and closes every
+socket and channel.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import time
 import urllib.request
 import zlib
 
+import grpc
 import numpy as np
 import torch
 
@@ -43,7 +50,7 @@ from veneur_tpu_torch.core import metrics as im
 from veneur_tpu_torch.core.config import Config
 from veneur_tpu_torch.core.flusher import FlushResult, Flusher, ForwardRow
 from veneur_tpu_torch.core.table import MetricTable, TableConfig
-from veneur_tpu_torch.forward import http_import
+from veneur_tpu_torch.forward import grpc_forward, http_import
 from veneur_tpu_torch.protocol import addr as addrmod
 from veneur_tpu_torch.protocol import dogstatsd as dsd
 from veneur_tpu_torch.sinks.base import route
@@ -91,10 +98,14 @@ class Server:
         self.sockets: list[socket.socket] = []
         self._httpd: http.server.ThreadingHTTPServer | None = None
         self.http_port: int | None = None
+        self.grpc_servers: list[grpc_forward.ImportServer] = []
+        self.grpc_ports: list[int] = []
+        self._grpc_client: grpc_forward.ForwardClient | None = None
         self.stats = {"packets_received": 0, "packet_errors": 0,
                       "metrics_processed": 0, "metrics_dropped": 0,
                       "flushes": 0, "imports_received": 0,
                       "import_errors": 0, "import_flagged_wires": 0,
+                      "received_grpc": 0, "received_dogstatsd-grpc": 0,
                       "forward_errors": 0, "forwarded_rows": 0}
 
     # ------------------------------------------------------------------
@@ -112,6 +123,12 @@ class Server:
                         self._udp_reader, sock)
         if self.config.http_address:
             self._start_http(self.config.http_address)
+        for a in self.config.grpc_listen_addresses:
+            _, host, port, _ = addrmod.parse_addr(a)
+            srv = grpc_forward.ImportServer(self, f"{host}:{port}")
+            srv.start()
+            self.grpc_servers.append(srv)
+            self.grpc_ports.append(srv.port)
         self._spawn("flush-loop", self._flush_loop)
 
     def _start_http(self, address: str) -> None:
@@ -136,7 +153,12 @@ class Server:
                 elif self.path == "/debug/vars":
                     # the reference's expvar page, cut to the counters
                     with server.lock:
-                        body = json.dumps({"stats": server.stats})
+                        body = json.dumps({
+                            "stats": server.stats,
+                            # per-thread native decode scratch kept by
+                            # the gRPC import handlers
+                            "forward": {"decode_scratch_bytes":
+                                        grpc_forward.decode_scratch_bytes()}})
                     self._ok(body.encode(), "application/json")
                 else:
                     self.send_error(404)
@@ -192,7 +214,8 @@ class Server:
         self._threads.append(t)
 
     def bound_ports(self) -> list[int]:
-        return [s.getsockname()[1] for s in self.sockets]
+        """The statsd sockets' ports, then the gRPC listeners'."""
+        return [s.getsockname()[1] for s in self.sockets] + self.grpc_ports
 
     def _udp_reader(self, sock: socket.socket) -> None:
         lib = native.load()
@@ -317,7 +340,10 @@ class Server:
             for plugin in self.plugins:
                 plugin.flush(res.metrics, self.flusher.hostname)
             if self.is_local and res.forward:
-                self._forward_http(res.forward)
+                if self.config.forward_use_grpc:
+                    self._forward_grpc(res.forward)
+                else:
+                    self._forward_http(res.forward)
             self.stats["flushes"] += 1
             return res
 
@@ -347,15 +373,40 @@ class Server:
         with self.lock:
             self.stats["forwarded_rows"] += len(rows)
 
+    def _forward_grpc(self, rows: list[ForwardRow]) -> None:
+        """Send a flush's forward rows to the global's Forward service
+        through a client dialled once (flusher.go:499 forwardGRPC); a
+        failed send drops and counts the rows and logs, never retried."""
+        if self._grpc_client is None:
+            self._grpc_client = grpc_forward.ForwardClient(
+                self.config.forward_address,
+                compression=float(self.config.tpu_compression))
+        try:
+            self._grpc_client.send(rows)
+        except grpc.RpcError as e:
+            with self.lock:
+                self.stats["metrics_dropped"] += len(rows)
+                self.stats["forward_errors"] += 1
+            log.warning("grpc forward failed: %s", e)
+            return
+        with self.lock:
+            self.stats["forwarded_rows"] += len(rows)
+
     def shutdown(self) -> None:
         self._shutdown.set()
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()
             self._httpd = None
+        for g in self.grpc_servers:
+            g.stop()
+        self.grpc_servers = []
         for sock in self.sockets:
             sock.close()
         for t in self._threads:
             t.join(timeout=5.0)
         self._threads = []
         self.sockets = []
+        if self._grpc_client is not None:
+            self._grpc_client.close()
+            self._grpc_client = None

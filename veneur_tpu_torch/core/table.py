@@ -409,6 +409,18 @@ class MetricTable:
         # stamped with the epoch a compaction bumps
         self._http_plan_cache: dict = {}
         self._reindex_epoch = 0
+        # gRPC import (forward/grpc_forward): native import-identity
+        # hash -> (name length << 32) | row, or -1 (overflow) / -2
+        # (malformed); cleared on compaction and at its size bound
+        self.import_row_cache: dict[int, int] = {}
+        self.import_row_cache_limit = 4 * (
+            c.counter_rows + c.gauge_rows + c.histo_rows +
+            c.set_rows) + 1024
+        # a whole MetricList's hash vector (bytes) -> (epoch, rows,
+        # per-class overflow counts), and how often it served a wire
+        self._wire_plan_cache: dict[bytes, tuple] = {}
+        self.wire_plan_hits = 0
+        self.wire_plan_misses = 0
 
         self._sb_bufs = superbatch.DoubleBuffer(
             pin=self.device.type == "cuda")
@@ -710,6 +722,11 @@ class MetricTable:
 
     def staged(self) -> int:
         return self._staged_n
+
+    def overflow_total(self) -> int:
+        """Interval overflow drops summed over the classes."""
+        return (self.counter_idx.overflow + self.gauge_idx.overflow +
+                self.histo_idx.overflow + self.set_idx.overflow)
 
     def _note_staged(self, n: int) -> None:
         self._staged_n += n
@@ -1701,10 +1718,13 @@ class MetricTable:
                 for row, m in enumerate(idx.meta):
                     if m.key_hash:
                         self.key_index.insert(m.key_hash, row)
-            # /import row plans name the old rows: the epoch stamp
-            # invalidates them, and dropping them frees the row vectors
+            # /import and gRPC row plans and the gRPC row cache name the
+            # old rows: the epoch stamp invalidates the plans, and
+            # dropping them frees the row vectors
             self._reindex_epoch += 1
             self._http_plan_cache.clear()
+            self._wire_plan_cache.clear()
+            self.import_row_cache.clear()
         return pend
 
     def complete_swap(self, pend: _PendingSwap) -> Snapshot:

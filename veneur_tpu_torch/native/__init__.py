@@ -1,5 +1,5 @@
-"""The port's native (C++) host library: parse, ingest, rank, planes and
-the reference-schema /import value decode.
+"""The port's native (C++) host library: parse, ingest, rank, planes, the
+reference-schema /import value decode and the gRPC MetricList decode.
 
 ``dsd_parse.cpp`` beside this file is the port's own copy of the entries
 it runs from the reference package's native parser.  ``load()`` compiles
@@ -135,6 +135,26 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         f32p, f32p,
         u8p,
         i64p]
+    lib.vtpu_metriclist_decode.restype = i64
+    lib.vtpu_metriclist_decode.argtypes = [
+        u8p, i64, i64, i64, i64,
+        i64p, i32p,
+        u8p, i32p, i32p, f64p,
+        f64p,
+        i64p, i32p,
+        f32p, f32p,
+        i64p, i32p,
+        i64p, i32p,
+        i64p, i32p,
+        i64p]
+    lib.vtpu_metriclist_keyhash.restype = None
+    lib.vtpu_metriclist_keyhash.argtypes = [
+        u8p, i64,
+        i64p, i32p,
+        u8p, i32p, i32p,
+        i64p, i32p,
+        i64p, i32p,
+        u64p]
     return lib
 
 
