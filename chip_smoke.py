@@ -13,11 +13,16 @@ Run from the root of a checkout.  Phases, one JSON line each:
    (g++), both compilers started together;
 2. kernel vs plain: ``cluster_merge`` against ``cluster_merge_plain``
    at R = 16384, C = 616, K = 512 (the deep plane), K = 256, K = 616
-   (union) and K = 512 with unsorted state rows: mass, packing
-   contract, quantiles; times with CUDA events.  After phases 4, 6 and
-   8 the same check runs at every other (R, K) they merged at (the
+   (union), K = 512 with unsorted state rows and K = 512 with f32
+   subnormal keys and weights: mass, packing contract, no subnormal
+   written, quantiles; times with CUDA events.  After phases 4, 6, 8
+   and 9 the same check runs at every other (R, K) they merged at (the
    global folds with weighted centroids);
-3. ``entry("cuda")`` against ``entry("cpu")`` on the same arrays;
+3. ``entry("cuda")`` against ``entry("cpu")`` on the same arrays, then
+   F1: f32 subnormal samples on every histogram path, a subnormal
+   counter and a subnormal gauge through the table on the card and on
+   the CPU, bit-equal, the subnormals flushed to zero (the gauge
+   kept);
 4. the main path: a ``MetricTable`` at the server's default sizes
    (16384 counter / gauge / histo rows, 1024 set rows) takes two
    intervals of DogStatsD text (16k counter series, 16k gauge series,
@@ -28,12 +33,23 @@ Run from the root of a checkout.  Phases, one JSON line each:
    held against a CPU table's on the same text, the percentiles
    against exact ones over the parsed values, and the stage times, the
    route each batch took, the bytes copied to the device, the kernel
-   launch count and the (rows, K) of every merge are read; a third
-   interval runs under torch.profiler for the device's busy share and
-   its kernel times;
-5. the server: ``python -m veneur_tpu_torch.cli.main`` on the card,
-   fed over loopback UDP (single-line, multi-line, an event, a service
-   check and an oversize datagram), its flush file checked;
+   launch count and the (rows, K) of every merge are read; the second
+   interval flushes through the columnar frame and, on the same
+   snapshot, through the per-row emit (bit-equal lists, both times
+   reported); a third interval runs under torch.profiler for the
+   device's busy share and its kernel times;
+9. multi-reader ingest (run right after phase 4): phase 4's text cut
+   into 65,536-line batches through a port server's
+   ``handle_packet_batch`` from 1 reader (``ingest_buffer``) and from 2
+   and 4 reader threads (a ReaderShard each), with the pipelined
+   device step at 65,536 staged samples, then swap and flush: samples/s,
+   lock-free parse and locked commit time, apply, swap and flush time,
+   the merges by (rows, K); every flush held to the 1-reader flush
+   (gauges: one of the values sent) and to the exact p99s;
+5. the server: ``python -m veneur_tpu_torch.cli.main`` on the card with
+   ``num_readers: 4``, fed over loopback UDP from eight source sockets
+   (single-line, multi-line, an event, a service check and an
+   oversize datagram), its flush file checked;
 6. the global tier at BASELINE config 5's size: 64 locals' wires (each
    the local-role flush of a table on the card that took a 1/64 share
    of phase 4's timer and set traffic, plus global-only counters,
@@ -59,8 +75,8 @@ Run from the root of a checkout.  Phases, one JSON line each:
    Go-side MetricList fixture through SendMetrics; a garbage /import is
    answered 400 and a garbage SendMetrics INVALID_ARGUMENT, both
    counted;
-9. the kernels line, then the last line
-   ``{"ok": true, "device": {...}}``.
+10. the kernels line, then the last line
+    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero before the last
 line.  Without CUDA, or without the package beside it, it exits 2 and
@@ -121,6 +137,21 @@ def cuda_ms(fn, runs: int = 10, reps: int = 10, warmup: int = 3) -> float:
 
 
 # ---- phase 2: kernel vs plain -------------------------------------------
+
+def with_subnormals(case: list) -> list:
+    """F1's merge case: f32 subnormal keys (of both signs) in every
+    third state row and every other batch row, and subnormal weights
+    (which the merge reads as empty slots) in the batch of every fifth
+    row."""
+    m, w, bm, bw = (x.copy() for x in case)
+    tiny = np.float32(1e-40)
+    m[::3, 0] = np.where(w[::3, 0] > 0, tiny, 0.0)
+    bm[::2, :3] = np.where(bw[::2, :3] > 0,
+                           np.array([tiny, -tiny, 3 * tiny], np.float32),
+                           0.0)
+    bw[::5, 8:16] = np.where(bw[::5, 8:16] > 0, tiny, 0.0)
+    return [m, w, bm, bw]
+
 
 def random_case(rng, rows, cap, slots, weighted=False):
     """The reference's tests/test_pallas_merge.py generator: mean-sorted
@@ -185,13 +216,16 @@ def merge_bound_ms(rows: int, cap: int, k: int,
 # (label, state rows R, batch width K, state rows sorted, weighted
 # batch): K = 512 is the deep plane's width and chunk, K = 256 a
 # shallow merge, K = 616 a digest union; the unsorted case permutes
-# every state row so the kernel sorts it too.  After phases 4 and 6,
-# phase 2 also holds the kernel at every other (R, K) those paths
-# merged at (``recorded_cases``), with weighted batches for phase 6's.
+# every state row so the kernel sorts it too; the subnormal case
+# carries f32 subnormal keys and weights (``with_subnormals``).  After
+# phases 4, 6, 8 and 9, phase 2 also holds the kernel at every other
+# (R, K) those paths merged at (``recorded_cases``), with weighted
+# batches for the globals'.
 KERNEL_CASES = (("k512", 16384, 512, True, False),
                 ("k256", 16384, 256, True, False),
                 ("k616", 16384, 616, True, False),
-                ("k512_unsorted_state", 16384, 512, False, False))
+                ("k512_unsorted_state", 16384, 512, False, False),
+                ("k512_subnormal", 16384, 512, True, False))
 
 
 def recorded_cases(merge_shapes, weighted=False, timed=()) -> tuple:
@@ -239,8 +273,9 @@ class MergeRecorder:
 def phase_kernel(dev: str = "cuda", cases=KERNEL_CASES) -> dict:
     import torch
     from veneur_tpu_torch.ops import cluster_merge as cm
-    from veneur_tpu_torch.ops import tdigest
+    from veneur_tpu_torch.ops import segment, tdigest
     cap = tdigest.DEFAULT_CAPACITY
+    tiny = torch.finfo(torch.float32).tiny
     kw = dict(delta=tdigest._SCALE_MULT * 100.0,
               tail_coeff=tdigest._TAIL_MULT * 100.0,
               tail_q0=tdigest._TAIL_Q0, tail_qmin=tdigest._TAIL_QMIN)
@@ -253,11 +288,18 @@ def phase_kernel(dev: str = "cuda", cases=KERNEL_CASES) -> dict:
             perm = np.argsort(rng.random((rows, cap)), axis=1)
             case[0] = np.take_along_axis(case[0], perm, 1)
             case[1] = np.take_along_axis(case[1], perm, 1)
+        if label.endswith("_subnormal"):
+            case = with_subnormals(case)
         a = [torch.from_numpy(x).to(dev) for x in case]
         km, kwt = cm.cluster_merge(*a, **kw)
         pm, pwt = cm.cluster_merge_plain(*a, **kw)
         torch.cuda.synchronize()
-        total = (a[1].double().sum(1) + a[3].double().sum(1))
+        # the mass the merge keeps: subnormal weights read as empty
+        total = (segment.ftz(a[1]).double().sum(1) +
+                 segment.ftz(a[3]).double().sum(1))
+        for name, t in (("means", km), ("weights", kwt)):
+            check(not bool(((t.abs() < tiny) & (t != 0)).any()),
+                  f"{label}: the kernel wrote a subnormal {name} slot")
         mass_k = float(((kwt.double().sum(1) - total).abs() /
                         total.clamp(min=1e-30)).max())
         mass_p = float(((pwt.double().sum(1) - total).abs() /
@@ -381,9 +423,18 @@ def build_traffic(seed: int = 0, scale: int = 1) -> list[bytes]:
             for lo in range(0, len(order), CHUNK)]
 
 
-def run_interval(table, flusher, bufs, sync):
+def metric_keys(metrics) -> list:
+    return sorted((m.name, m.timestamp, m.value, m.tags, m.type,
+                   m.hostname) for m in metrics)
+
+
+def run_interval(table, flusher, bufs, sync, oracle=None):
     """Feed every buffer through ``ingest_buffer`` with the
-    mid-interval device steps, swap, flush.  Returns (FlushResult,
+    mid-interval device steps, swap, flush through the frame
+    (``retain_frame``, as the server flushes; ``materialize_s`` is the
+    list built from it).  With ``oracle`` (a per-row Flusher) the same
+    snapshot also goes through the per-row emit, and the two lists must
+    be bit-equal.  Returns (FlushResult with the frame materialized,
     processed, seconds by stage, what the interval did)."""
     routes0, h2d0 = dict(table.routes), table.h2d_bytes
     t_ingest = t_step = 0.0
@@ -402,15 +453,27 @@ def run_interval(table, flusher, bufs, sync):
     snap = table.swap()
     sync()
     t2 = time.perf_counter()
-    res = flusher.flush(snap, now=1)
+    res = flusher.flush(snap, now=1, retain_frame=True)
     t3 = time.perf_counter()
+    res.metrics = res.all_metrics()
+    t4 = time.perf_counter()
+    res.frame = None
     routes = {k: v - routes0.get(k, 0) for k, v in table.routes.items()
               if v - routes0.get(k, 0)}
     total = t_ingest + t_step + (t3 - t1)
-    return res, n, {"parse_ingest_s": t_ingest, "device_step_s": t_step,
-                    "swap_s": t2 - t1, "flush_s": t3 - t2,
-                    "total_s": total, "routes": routes,
-                    "h2d_bytes": table.h2d_bytes - h2d0}
+    out = {"parse_ingest_s": t_ingest, "device_step_s": t_step,
+           "swap_s": t2 - t1, "flush_s": t3 - t2,
+           "materialize_s": t4 - t3, "total_s": total, "routes": routes,
+           "h2d_bytes": table.h2d_bytes - h2d0}
+    if oracle is not None:
+        t5 = time.perf_counter()
+        per_row = oracle.flush(snap, now=1)
+        out["per_row_flush_s"] = time.perf_counter() - t5
+        check(metric_keys(per_row.metrics) == metric_keys(res.metrics),
+              "the frame's list and the per-row emit differ")
+        out["frame_equals_per_row"] = True
+        out["metrics"] = len(res.metrics)
+    return res, n, out
 
 
 def profile_device(fn) -> dict:
@@ -476,12 +539,14 @@ def exact_quantiles(bufs, p: float) -> dict:
     return dict(zip(uniq.tolist(), q.tolist()))
 
 
-def p99_errors(metrics, bufs) -> np.ndarray:
+def p99_errors(metrics, bufs, exact=None) -> np.ndarray:
     """Relative error of every flushed p99 of a ``t<i>`` timer series
-    (tagged ``env:smoke``) against the exact p99 of the text's values."""
+    (tagged ``env:smoke``) against the exact p99 of the text's values
+    (``exact``, when the caller has it already)."""
     from veneur_tpu_torch.protocol import columnar
     from veneur_tpu_torch.utils import hashing
-    exact = exact_quantiles(bufs, 0.99)
+    if exact is None:
+        exact = exact_quantiles(bufs, 0.99)
     est = {}
     for m in metrics:
         if m.name.startswith("t") and m.name.endswith(".99percentile"):
@@ -532,6 +597,7 @@ def phase_table(dev: str = "cuda", scale: int = 1,
     kw = dict(percentiles=(0.5, 0.9, 0.99),
               aggregates=("min", "max", "count", "sum"))
     flusher = Flusher(**kw, device=dev)
+    oracle = Flusher(**kw, device=dev, columnar=False)
 
     def sync():
         if dev == "cuda":
@@ -542,7 +608,8 @@ def phase_table(dev: str = "cuda", scale: int = 1,
     with MergeRecorder() as rec:
         applies0 = table.superbatch_applies
         _, n1, st1 = run_interval(table, flusher, bufs, sync)
-        res, n2, st2 = run_interval(table, flusher, bufs, sync)
+        res, n2, st2 = run_interval(table, flusher, bufs, sync,
+                                    oracle=oracle)
     launches = rec.launches
     check(n1 == n2 == n_total, f"processed {n1}/{n2} of {n_total}")
     for i, st in enumerate((st1, st2)):
@@ -571,10 +638,346 @@ def phase_table(dev: str = "cuda", scale: int = 1,
                                     bufs, lambda: None)
         out["cpu_interval"] = cst
         out["vs_cpu"] = compare_flush(res.metrics, cres.metrics)
-    rel = p99_errors(res.metrics, bufs)
+    exact = exact_quantiles(bufs, 0.99)
+    rel = p99_errors(res.metrics, bufs, exact)
     out["p99_rel_err_median"] = float(np.median(rel))
     out["p99_rel_err_max"] = float(rel.max())
     check(out["p99_rel_err_median"] < 0.01, "median p99 error >= 1%")
+    emit(out)
+    # phase 9 takes the same text, its exact p99s and this flush
+    out.update(bufs=bufs, exact_p99=exact, metrics=res.metrics, cfg=cfg)
+    return out
+
+
+# ---- F1 on the card ------------------------------------------------------
+
+def f1_cases() -> list:
+    """ROADMAP Queue 3's F1 inputs, f32 subnormal samples on each path
+    (a counter, the superbatch's ranked merge, a min beside a normal
+    sample, weighted samples, a dense f32 plane row), and a 1e-40
+    gauge, a select that keeps it, as the control."""
+    rng = np.random.default_rng(1)
+    plane = [b"p%d:%.3f|ms" % (i, v) for i in range(40)
+             for v in rng.gamma(2.0, 30.0, 60)] + [b"p0:1e-40|ms"]
+    return [("counter", [b"tc:1e-40|c"]), ("gauge", [b"tg:1e-40|g"]),
+            ("ranked", [b"tiny:1e-40|ms"] * 2),
+            ("min_hmean", [b"mm:1e-40|ms", b"mm:5|ms"]),
+            ("weighted", [b"tw:1e-40|ms|@0.5", b"tw:2e-40|ms|@0.5"]),
+            ("dense_plane", plane)]
+
+
+def phase_f1(dev: str = "cuda") -> dict:
+    """The F1 inputs through the port's table on ``dev`` and on the CPU:
+    every flushed value bit-equal (the dense plane's percentiles, built
+    from normal samples by the kernel on one side and its plain version
+    on the other, to the merge tolerance), the subnormal samples
+    flushed to zero and the gauge kept."""
+    from veneur_tpu_torch.core.flusher import Flusher
+    from veneur_tpu_torch.core.table import MetricTable, TableConfig
+    sizes = dict(counter_rows=32, gauge_rows=32, histo_rows=64,
+                 set_rows=8)
+    kw = dict(percentiles=(0.5, 0.9, 0.99), hostname="h",
+              aggregates=("min", "max", "count", "sum", "avg", "median",
+                          "hmean"))
+    out = {"phase": "f1_subnormals", "device": dev, "cases": {}}
+    for case, lines in f1_cases():
+        got = {}
+        for d in (dev, "cpu"):
+            t = MetricTable(TableConfig(**sizes), device=d)
+            t.ingest_buffer(b"\n".join(lines))
+            got[d] = {(m.name, m.tags): m.value for m in Flusher(
+                **kw, device=d).flush(t.swap(), now=1).metrics}
+        check(got[dev].keys() == got["cpu"].keys(),
+              f"F1 {case}: card and CPU flush different metrics")
+        for key, cv in got["cpu"].items():
+            dv = got[dev][key]
+            if case == "dense_plane" and key[0].endswith(
+                    ("percentile", ".median")):
+                check(abs(dv - cv) <= 1e-3 + 2e-3 * abs(cv),
+                      f"F1 {key}: {dv} vs {cv}")
+            else:
+                check(np.float64(dv).tobytes() == np.float64(cv).tobytes(),
+                      f"F1 {key}: {dv!r} vs {cv!r} not bit-equal")
+        out["cases"][case] = {k[0]: v for k, v in sorted(got[dev].items())
+                              if not k[0].startswith("p") or
+                              k[0].startswith("p0.")}
+    c = out["cases"]
+    check(c["counter"]["tc"] == 0.0, "tc:1e-40|c did not flush to 0")
+    check(c["gauge"]["tg"] == float(np.float32(1e-40)),
+          "the 1e-40 gauge did not keep its value")
+    check(c["ranked"]["tiny.max"] == 0.0 and
+          "tiny.hmean" not in c["ranked"], f"tiny: {c['ranked']}")
+    check(c["min_hmean"]["mm.min"] == 0.0 and
+          "mm.hmean" in c["min_hmean"], f"mm: {c['min_hmean']}")
+    check(c["weighted"]["tw.max"] == 0.0, f"tw: {c['weighted']}")
+    check(c["dense_plane"]["p0.min"] == 0.0, "p0.min did not flush to 0")
+    emit(out)
+    return out
+
+
+# ---- phase 9: multi-reader ingest ---------------------------------------
+
+READER_BATCH_LINES = 65536  # ~ one 512-datagram sweep of 4 KiB datagrams
+STAGE_FLUSH_SAMPLES = 65536
+
+
+def recut(bufs, per: int = READER_BATCH_LINES) -> list[bytes]:
+    """Phase 4's buffers cut into batches of ``per`` lines."""
+    out = []
+    for buf in bufs:
+        nl = np.flatnonzero(np.frombuffer(buf, np.uint8) == 10)
+        ends = nl[per - 1::per].tolist() + [len(buf)]
+        start = 0
+        for e in ends:
+            out.append(buf[start:e])
+            start = e + 1
+    return out
+
+
+class TimedShard:
+    """A ReaderShard whose lock-free ``parse`` and locked ``commit``
+    are timed, and whose commits append their batch's index to
+    ``order`` (under the server's lock: the commit order)."""
+
+    def __init__(self, shard, index_of: dict, order: list):
+        self.shard = shard
+        self.parse_s = self.commit_s = 0.0
+        self._index_of = index_of
+        self._order = order
+        self._batch = -1
+
+    def parse(self, buf):
+        self._batch = self._index_of[id(buf)]
+        t0 = time.perf_counter()
+        self.shard.parse(buf)
+        self.parse_s += time.perf_counter() - t0
+
+    def commit(self):
+        t0 = time.perf_counter()
+        out = self.shard.commit()
+        self.commit_s += time.perf_counter() - t0
+        self._order.append(self._batch)
+        return out
+
+    def reset(self):
+        self.shard.reset()
+
+
+def run_readers(dev: str, n_readers: int, batches, table_cfg: dict,
+                sync) -> tuple:
+    """One interval of ``batches`` through a port server's own
+    ``handle_packet_batch`` from ``n_readers`` threads (one: the
+    single-reader ``ingest_buffer`` under the lock, in list order;
+    more: a ReaderShard each, batch j to reader j % n), with the
+    pipelined device step at ``STAGE_FLUSH_SAMPLES``; then swap and
+    flush through the frame.  Returns (the flush's metrics, seconds
+    and counts, the order the batches committed in)."""
+    import threading
+    from veneur_tpu_torch.core.config import read_config
+    from veneur_tpu_torch.core.server import Server
+    cfg = read_config(data={
+        "num_readers": n_readers, "tpu_pipeline": True,
+        "tpu_stage_flush_samples": STAGE_FLUSH_SAMPLES,
+        "tpu_reader_pin_cores": "auto",
+        "percentiles": list(FLUSH_KW["percentiles"]),
+        "aggregates": list(FLUSH_KW["aggregates"]), "hostname": "h",
+        **{f"tpu_{k}": table_cfg[k] for k in (
+            "counter_rows", "gauge_rows", "histo_rows", "set_rows")}},
+        env={})
+    srv = Server(cfg, device=dev)
+    table = srv.table
+    # phase 4's table: sets on the device, the deep batch at 8 Mi
+    table.config.host_set_plane_max_bytes = table_cfg[
+        "host_set_plane_max_bytes"]
+    table.config.histo_merge_samples = table_cfg["histo_merge_samples"]
+    t = {"locked_s": 0.0, "apply_s": 0.0, "applies": 0}
+    apply = table.apply_staged
+
+    def timed_apply(w):
+        t0 = time.perf_counter()
+        apply(w)
+        t["apply_s"] += time.perf_counter() - t0
+        t["applies"] += 1
+    table.apply_staged = timed_apply
+    ingest = table.ingest_buffer
+
+    def timed_ingest(buf):
+        t0 = time.perf_counter()
+        out = ingest(buf)
+        t["locked_s"] += time.perf_counter() - t0
+        return out
+    table.ingest_buffer = timed_ingest
+    index_of = {id(b): j for j, b in enumerate(batches)}
+    order: list = []
+    shards = [TimedShard(srv._reader_shard(), index_of, order)
+              if n_readers > 1 else None for _ in range(n_readers)]
+    pinned = [False] * n_readers
+    errs = []
+
+    def reader(i):
+        try:
+            pinned[i] = srv._pin_reader_core(i)
+            for b in batches[i::n_readers]:
+                srv.handle_packet_batch([], drained=b, drained_pkts=512,
+                                        shard=shards[i])
+        except Exception as e:  # reported below
+            errs.append(repr(e))
+
+    threads = [threading.Thread(target=reader, args=(i,))
+               for i in range(n_readers)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    t1 = time.perf_counter()
+    check(not errs, f"{n_readers} readers: {errs}")
+    with srv.lock:
+        pend = table.begin_swap()
+    snap = table.complete_swap(pend)
+    sync()
+    t2 = time.perf_counter()
+    res = srv.flusher.flush(snap, retain_frame=True)
+    metrics = res.all_metrics()
+    t3 = time.perf_counter()
+    n = sum(b.count(b"\n") + 1 for b in batches)
+    check(srv.stats["metrics_processed"] == n and
+          srv.stats["metrics_dropped"] == 0,
+          f"{n_readers} readers processed {srv.stats}")
+    if n_readers > 1:
+        t["parse_s"] = sum(sh.parse_s for sh in shards)
+        t["locked_s"] = sum(sh.commit_s for sh in shards)
+    else:
+        t["parse_s"] = 0.0
+    t.update({"readers": n_readers, "pinned": pinned,
+              "ingest_wall_s": t1 - t0, "swap_s": t2 - t1,
+              "flush_s": t3 - t2, "total_s": t3 - t0,
+              "samples": n, "samples_per_s": n / (t3 - t0),
+              "locked_share_of_ingest_wall": t["locked_s"] / (t1 - t0)})
+    srv.shutdown()
+    return metrics, t, order or list(range(len(batches)))
+
+
+def gauge_values(bufs) -> dict:
+    """Every value sent for each gauge series of the text, as the f32 a
+    gauge stores, keyed by identity hash."""
+    from veneur_tpu_torch.protocol import columnar
+    parser = columnar.ColumnarParser()
+    out: dict = {}
+    for buf in bufs:
+        pb = parser.parse(buf, copy=False)
+        sel = pb.type_code[:pb.n] == columnar.CODE_GAUGE
+        for k, v in zip(pb.key_hash[:pb.n][sel].tolist(),
+                        pb.value[:pb.n][sel].astype(np.float32).tolist()):
+            out.setdefault(k, set()).add(v)
+    return out
+
+
+def compare_readers(metrics, one, gauges, same_order: bool) -> dict:
+    """A multi-reader flush against a 1-reader flush: counters, set
+    values and histogram count/min/max bit-equal, sums to rtol 1e-6.
+    ``same_order`` (the 1-reader run took the batches in the
+    multi-reader run's commit order): gauges bit-equal and percentiles
+    within rtol 2e-3 / atol 1e-3.  Otherwise every gauge must be one of
+    the values sent for its series, and the percentiles, whose digests
+    were built from the samples in another order, are only measured:
+    the share within that tolerance and the largest relative
+    difference."""
+    from veneur_tpu_torch.protocol import columnar
+    from veneur_tpu_torch.utils import hashing
+    d = {(m.name, m.tags): m for m in metrics}
+    o = {(m.name, m.tags): m for m in one}
+    check(d.keys() == o.keys(), "the flushes emit different metrics")
+    worst = {"sum": 0.0, "pct": 0.0, "pct_rel": 0.0}
+    n_gauges = n_pct = pct_in_tol = 0
+    for key, om in o.items():
+        dv, ov = d[key].value, om.value
+        name = key[0]
+        if name.endswith("percentile"):
+            ok = abs(dv - ov) <= 1e-3 + 2e-3 * abs(ov)
+            check(ok or not same_order, f"{key}: {dv} vs {ov}")
+            n_pct += 1
+            pct_in_tol += ok
+            worst["pct"] = max(worst["pct"], abs(dv - ov))
+            worst["pct_rel"] = max(worst["pct_rel"],
+                                   abs(dv - ov) / max(abs(ov), 1e-30))
+        elif same_order and name.startswith("g") and om.type == "gauge":
+            check(dv == ov, f"gauge {key}: {dv} vs {ov} not bit-equal")
+            n_gauges += 1
+        elif name.endswith(".sum"):
+            rel = abs(dv - ov) / max(abs(ov), 1e-30)
+            check(rel <= 1e-6, f"{key}: {dv} vs {ov}")
+            worst["sum"] = max(worst["sum"], rel)
+        elif om.type == "gauge" and name.startswith("g"):
+            sent = gauges[hashing.key_hash64(name, columnar.CODE_GAUGE,
+                                             key[1], 0)]
+            check(dv in sent and ov in sent,
+                  f"gauge {key}: {dv} / {ov} was never sent")
+            n_gauges += 1
+        else:
+            check(dv == ov, f"{key}: {dv} vs {ov} not bit-equal")
+    return {"metrics": len(o), "gauges_checked": n_gauges,
+            "same_commit_order": same_order,
+            "sum_max_rel_err": worst["sum"],
+            "percentile_max_abs_diff": worst["pct"],
+            "percentile_max_rel_diff": worst["pct_rel"],
+            "percentiles_within_merge_tolerance": pct_in_tol / max(n_pct, 1)}
+
+
+def phase_readers(table_out: dict, dev: str = "cuda",
+                  counts=(1, 2, 4)) -> dict:
+    """Phase 4's text, re-cut into 65,536-line batches, through 1, 2
+    and 4 readers, each one interval of a fresh server table at phase
+    4's configuration.  Every multi-reader flush is held to the
+    1-reader flush (``compare_readers``) and, bit for bit, to a 1-reader
+    replay of its own commit order; each run's p99s to the exact
+    ones."""
+    import torch
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    bufs, exact = table_out["bufs"], table_out["exact_p99"]
+    t0 = time.perf_counter()
+    batches = recut(bufs)
+    gauges = gauge_values(bufs)
+    prep_s = time.perf_counter() - t0
+    out = {"phase": "multi_reader", "device": dev,
+           "batches": len(batches), "batch_lines": READER_BATCH_LINES,
+           "stage_flush_samples": STAGE_FLUSH_SAMPLES,
+           "usable_cores": len(os.sched_getaffinity(0)),
+           "prep_s": prep_s, "runs": {}}
+    one = None
+    for n in counts:
+        with MergeRecorder() as rec:
+            metrics, st, order = run_readers(dev, n, batches,
+                                             table_out["cfg"], sync)
+        st["cluster_merge_launches"] = rec.launches
+        st["merge_shapes"] = rec.table()
+        if dev == "cuda":
+            check(rec.launches > 0, f"{n} readers launched no merge")
+        rel = p99_errors(metrics, bufs, exact)
+        st["p99_rel_err_median"] = float(np.median(rel))
+        st["p99_rel_err_max"] = float(rel.max())
+        check(st["p99_rel_err_median"] < 0.01,
+              f"{n} readers: median p99 error >= 1%")
+        if one is None:
+            # against itself: only its gauges' membership can fail
+            compare_readers(metrics, metrics, gauges, same_order=False)
+            one = metrics
+        else:
+            st["vs_one_reader"] = compare_readers(metrics, one, gauges,
+                                                  same_order=False)
+            replay, _, _ = run_readers(dev, 1, [batches[j] for j in order],
+                                       table_out["cfg"], sync)
+            st["vs_one_reader_in_commit_order"] = compare_readers(
+                metrics, replay, gauges, same_order=True)
+        out["runs"][str(n)] = st
+    out["cut"] = ("one interval per reader count (plus a 1-reader replay "
+                  "of each multi-reader commit order, untimed); the text "
+                  "is phase 4's, made once; no sockets (phase 5 drives "
+                  "SO_REUSEPORT readers at small size)")
     emit(out)
     return out
 
@@ -1020,6 +1423,9 @@ def wait_for(pred, timeout: float, what: str, proc=None) -> None:
         time.sleep(0.05)
 
 
+SERVER_READERS = 4  # the reference's example.yaml num_readers
+
+
 def phase_server(dev: str = "cuda") -> dict:
     port = free_udp_port()
     with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke-") as tmp:
@@ -1030,6 +1436,7 @@ def phase_server(dev: str = "cuda") -> dict:
             json.dump({"interval": "2s", "hostname": "smoke",
                        "statsd_listen_addresses":
                            [f"udp://127.0.0.1:{port}"],
+                       "num_readers": SERVER_READERS,
                        "flush_file": flush,
                        "percentiles": [0.5, 0.99]}, f)
         log = open(os.path.join(tmp, "server.log"), "w")
@@ -1044,7 +1451,10 @@ def phase_server(dev: str = "cuda") -> dict:
             wait_for(lambda: os.path.exists(flush), 60, "first flush",
                      proc)
             startup = time.perf_counter() - t0
-            s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+            # several source sockets: SO_REUSEPORT hashes each one's
+            # 4-tuple to one of the readers
+            socks = [socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+                     for _ in range(2 * SERVER_READERS)]
             msgs = [b"hits:1|c"] * 3 + [b"temp:42|g"]
             msgs += [f"lat:{v}|ms".encode() for v in range(200)]
             msgs += [f"uniq:u{i}|s".encode() for i in range(300)]
@@ -1054,10 +1464,11 @@ def phase_server(dev: str = "cuda") -> dict:
                      b"_e{5,4}:title|text|#a:b",
                      b"_sc|smoke.check|1|#chk:yes|m:hello",
                      b"evil:1|c\n" + b"x" * 5000]
-            for m in msgs:
-                s.sendto(m, ("127.0.0.1", port))
+            for i, m in enumerate(msgs):
+                socks[i % len(socks)].sendto(m, ("127.0.0.1", port))
                 time.sleep(0.0005)  # stay inside the receive buffer
-            s.close()
+            for sk in socks:
+                sk.close()
 
             def flushed():
                 with open(flush) as f:
@@ -1077,6 +1488,8 @@ def phase_server(dev: str = "cuda") -> dict:
             server_log = f.read()
     check(proc.returncode == 0, f"server exit code {proc.returncode}: "
                                 f"{server_log[-2000:]}")
+    check(f"with {SERVER_READERS} reader(s) each (fused shards)"
+          in server_log, "the server did not start its reader shards")
     vals = {r[0]: float(r[5]) for r in rows}
     check(vals.get("hits") == 3.0, f"hits = {vals.get('hits')}")
     check(vals.get("temp") == 42.0, f"temp = {vals.get('temp')}")
@@ -1094,7 +1507,8 @@ def phase_server(dev: str = "cuda") -> dict:
     check(vals.get("smoke.check") == 1.0 and any(
         r[0] == "smoke.check" and r[2] == "status" for r in rows),
         f"service check = {vals.get('smoke.check')}")
-    res = {"phase": "server", "startup_s": startup,
+    res = {"phase": "server", "num_readers": SERVER_READERS,
+           "source_sockets": 2 * SERVER_READERS, "startup_s": startup,
            "hits": vals["hits"], "lat.count": vals["lat.count"],
            "lat.99percentile": vals["lat.99percentile"],
            "uniq": vals["uniq"], "multi_line": multi,
@@ -1377,12 +1791,18 @@ def main() -> int:
     phase_build()
     kern = phase_kernel()
     phase_entry()
+    phase_f1()
     table = phase_table()
+    readers = phase_readers(table)
+    del table["bufs"], table["exact_p99"], table["metrics"]
     glob = phase_global()
     grpc_glob = phase_global_grpc(glob.pop("grpc_input"))
-    # phase 2 again, at every other shape phases 4, 6 and 8 merged at:
-    # the locals' sample batches unit-weight, the globals' wires weighted
+    # phase 2 again, at every other shape phases 4, 6, 8 and 9 merged
+    # at: the locals' sample batches unit-weight, the globals' wires
+    # weighted
     cases = recorded_cases(table["merge_shapes"])
+    for run in readers["runs"].values():
+        cases += recorded_cases(run["merge_shapes"], timed=cases)
     for label in ("flat", "stack"):
         local_shapes, global_shapes = glob["shapes"][label]
         cases += recorded_cases(local_shapes, timed=cases)
@@ -1401,13 +1821,19 @@ def main() -> int:
     by_path = {"table_interval": table["cluster_merge_launches"],
                "global_tier": sum(glob[s]["cluster_merge_launches"]
                                   for s in ("flat", "stack")),
-               "global_tier_grpc": grpc_glob["cluster_merge_launches"]}
+               "global_tier_grpc": grpc_glob["cluster_merge_launches"],
+               "multi_reader": {n: r["cluster_merge_launches"]
+                                for n, r in readers["runs"].items()}}
+    shapes_by_path = {"multi_reader": {n: r["merge_shapes"] for n, r in
+                                       readers["runs"].items()}}
     emit({"kernels": [{
         "name": "cluster_merge", "route": "cuda",
         "source": "veneur_tpu_torch/csrc/cluster_merge.cu",
         "replaces": "veneur_tpu/ops/pallas_merge.py:192",
-        "launches": sum(by_path.values()),
+        "launches": sum(v if isinstance(v, int) else sum(v.values())
+                        for v in by_path.values()),
         "launches_by_path": by_path,
+        "merge_shapes_by_path": shapes_by_path,
         "max_abs_err": k["quantile_max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None,

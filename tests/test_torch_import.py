@@ -40,6 +40,7 @@ from veneur_tpu_torch.core.server import Server
 from veneur_tpu_torch.core.table import MetricTable, TableConfig
 from veneur_tpu_torch.forward import gob_codec, hll_codec, http_import
 from veneur_tpu_torch.ops import hll, tdigest
+from veneur_tpu_torch.protocol import dogstatsd as dsd
 from veneur_tpu_torch.sinks.simple import CaptureSink
 from veneur_tpu_torch.utils import hashing
 
@@ -609,3 +610,67 @@ def test_forward_row_fields_match_jax():
     from veneur_tpu.core.flusher import ForwardRow as JRow
     assert ([f for f in ForwardRow.__dataclass_fields__] ==
             [f for f in JRow.__dataclass_fields__])
+
+
+def _subnormal_rows() -> list:
+    """Forward rows a sender that keeps f32 subnormals could put on a
+    wire: a global counter and gauge of 1e-40, a global-scope digest of
+    two 1e-40 samples, one mixing 1e-40 with 5, and a default-scope one
+    with a subnormal centroid weight."""
+    from veneur_tpu_torch.core.table import RowMeta
+    tiny = float(np.float32(1e-40))
+    cap = tdigest.DEFAULT_CAPACITY
+    rows = [ForwardRow(RowMeta("ic", (), dsd.SCOPE_GLOBAL, dsd.COUNTER),
+                       "counter", value=tiny),
+            ForwardRow(RowMeta("ig", (), dsd.SCOPE_GLOBAL, dsd.GAUGE),
+                       "gauge", value=tiny)]
+    for name, scope, stats, means, weights in (
+            ("h1", dsd.SCOPE_GLOBAL, [2, tiny, tiny, 2 * tiny, 0],
+             [tiny], [2]),
+            ("h2", dsd.SCOPE_GLOBAL, [2, tiny, 5, 5, 0.2], [tiny, 5],
+             [1, 1]),
+            ("h3", dsd.SCOPE_DEFAULT, [2, 3, 5, 8, 0.5], [3, 5],
+             [tiny, 1])):
+        m = np.zeros(cap, np.float32)
+        w = np.zeros(cap, np.float32)
+        m[:len(means)], w[:len(weights)] = means, weights
+        rows.append(ForwardRow(RowMeta(name, (), scope, dsd.TIMER),
+                               "histo", stats=np.asarray(stats, np.float32),
+                               means=m, weights=w))
+    return rows
+
+
+@pytest.mark.parametrize("path", ["native", "reference", "grpc"])
+def test_import_subnormals_flush_as_jax(path):
+    """F1 on the import paths, one case per finding: before the flush
+    of subnormals the port kept them in imported counters (every
+    schema), in ``merge_histo_stats``'s min/max/sum rows (native and
+    gRPC) and in forwarded digests' percentiles (every schema).  Now
+    the same wire flushes bit-equal to a JAX global, percentiles
+    included; the gauge keeps its subnormal in both."""
+    from veneur_tpu.forward import grpc_forward as jgf
+    from veneur_tpu_torch.forward import grpc_forward as gf
+    rows = _subnormal_rows()
+    jt = JTable(JConfig(**_GLOBAL))
+    tt = MetricTable(TableConfig(**_GLOBAL), device="cpu")
+    if path == "grpc":
+        wire = gf.rows_to_metric_list(rows).SerializeToString()
+        assert (gf.apply_metric_list_bytes(tt, wire) ==
+                jgf.apply_metric_list_bytes(jt, wire) == (5, 0))
+    else:
+        body, hdr = (http_import.encode_rows(rows) if path == "native"
+                     else http_import.encode_rows_reference(rows))
+        enc = hdr.get("Content-Encoding", "")
+        assert (http_import.apply_import(
+            tt, http_import.decode_body(body, enc)) ==
+            jhttp.apply_import(jt, jhttp.decode_body(body, enc)) == (5, 0))
+    jm = _by_name(_global_flush(jt, True).metrics)
+    tm = _by_name(_global_flush(tt, False).metrics)
+    assert tm.keys() == jm.keys()
+    for key, jv in jm.items():
+        assert (np.float64(tm[key].value).tobytes() ==
+                np.float64(jv.value).tobytes()), (key, tm[key].value,
+                                                  jv.value)
+    assert tm[("ic", ())].value == 0.0
+    assert tm[("ig", ())].value == float(np.float32(1e-40))
+    assert tm[("h1.99percentile", ())].value == 0.0

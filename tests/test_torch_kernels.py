@@ -1,9 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions.
 
-This file imports no JAX, so it also runs where only PyTorch is
-installed.  The ``cuda``-marked cases need an NVIDIA GPU (a CUDA
-kernel has no CPU mode) and skip without one; run them on the card
-from the repo root with
+This file imports JAX in one test only, which skips where JAX is not
+installed, so the file also runs where only PyTorch is installed.  The
+``cuda``-marked cases need an NVIDIA GPU (a CUDA kernel has no CPU
+mode) and skip without one; run them on the card from the repo root
+with
 
     python -m pytest --noconftest -q tests/test_torch_kernels.py
 
@@ -22,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from veneur_tpu_torch.ops import cluster_merge, tdigest
+from veneur_tpu_torch.ops import cluster_merge, segment, tdigest
 
 QS = torch.tensor([0.01, 0.1, 0.5, 0.9, 0.99], dtype=torch.float32)
 
@@ -110,6 +111,17 @@ def _case(name: str):
         return (*state(64, 616, 0.7), *wire(64, 8), 100.0)
     if name == "wire_k32":
         return (*state(64, 616, 0.7), *wire(64, 32), 100.0)
+    if name == "subnormal":              # f32 subnormals flush to 0
+        m, w = state(32, 616, 0.5)
+        v, bw = batch(32, 256)
+        tiny = np.float32(1e-40)
+        m[::3, :4] = [tiny, -tiny, 2 * tiny, 1.0]
+        v[::2, :3] = [tiny, -tiny, 3 * tiny]
+        w[1::4, 1] = tiny                    # a subnormal weight: empty
+        bw[::5, 4:9] = tiny
+        m[7], w[7] = 0.0, 0.0                # a row whose only weights
+        bw[7] = np.where(bw[7] > 0, tiny, 0.0)  # are subnormal
+        return m, w, v, bw, 100.0
     if name == "wire_k64_unsorted":      # weighted, arrival order
         v, w = wire(64, 64)
         perm = np.argsort(rng.random((64, 64)), axis=1)
@@ -121,7 +133,7 @@ def _case(name: str):
 CASES = ["ingest_full_width", "union_616", "shallow_256", "small_width",
          "empty_batch", "empty_rows", "ties", "unsorted_state",
          "sorted_union", "all_empty_rows", "unaligned_batch", "wire_k8",
-         "wire_k32", "wire_k64_unsorted"]
+         "wire_k32", "wire_k64_unsorted", "subnormal"]
 
 
 def _tensor(a: np.ndarray, device: str) -> torch.Tensor:
@@ -136,9 +148,18 @@ def _tensor(a: np.ndarray, device: str) -> torch.Tensor:
         a.shape, (a.strides[0] // a.itemsize, 1), off)
 
 
+def _mass(w, bw):
+    """The input weight mass, f32 subnormal weights flushed to zero as
+    the merge flushes them."""
+    return segment.ftz(w).double().sum(1) + segment.ftz(bw).double().sum(1)
+
+
 def _check_contract(m, w, total):
     """Mass conserved; occupied slots contiguous from 0, mean-sorted,
-    zeros after."""
+    zeros after; no f32 subnormal left."""
+    tiny = torch.finfo(torch.float32).tiny
+    assert not bool(((m.abs() < tiny) & (m != 0)).any())
+    assert not bool(((w.abs() < tiny) & (w != 0)).any())
     torch.testing.assert_close(w.double().sum(1), total, rtol=1e-6,
                                atol=0)
     occ = w > 0
@@ -156,7 +177,7 @@ def test_plain_merge_contract(name):
     m, w, bm, bw = (_tensor(a, "cpu") for a in arrays)
     om, ow = cluster_merge.cluster_merge(m, w, bm, bw, **_scale(comp))
     assert om.shape == m.shape
-    _check_contract(om, ow, w.double().sum(1) + bw.double().sum(1))
+    _check_contract(om, ow, _mass(w, bw))
 
 
 @pytest.mark.cuda
@@ -172,8 +193,7 @@ def test_kernel_matches_plain(name):
     pm, pw = cluster_merge.cluster_merge_plain(*args, **_scale(comp))
     torch.cuda.synchronize()
     assert cluster_merge.launches == before + 1
-    _check_contract(km, kw, args[1].double().sum(1) +
-                    args[3].double().sum(1))
+    _check_contract(km, kw, _mass(args[1], args[3]))
     qs = QS.cuda()
     qk = tdigest.quantile(km, kw, qs)
     qp = tdigest.quantile(pm, pw, qs)
@@ -203,6 +223,52 @@ def test_kernel_strided_batch_and_bound():
     with pytest.raises(ValueError, match="2048"):
         cluster_merge.cluster_merge(wide, wide, wide, wide,
                                     **_scale(comp))
+
+
+def test_plain_merge_flushes_subnormals_as_jax_pallas():
+    """F1 in the merge: ``cluster_merge_plain`` against the reference's
+    Pallas kernel (``merge_planes``, in interpret mode, as the JAX
+    package's tests run it on the CPU) on subnormal means and weights.
+    Both read a subnormal weight as no weight and a subnormal mean as a
+    zero of its sign: the same rows come out empty, no subnormal comes
+    out, mass agrees to rtol 1e-6 and quantiles to rtol 2e-3 / atol
+    1e-3.  Imports JAX only here (skipped where it is not installed)."""
+    jax = pytest.importorskip("jax")
+    jnp = pytest.importorskip("jax.numpy")
+    pallas_merge = pytest.importorskip("veneur_tpu.ops.pallas_merge")
+    rng = np.random.default_rng(13)
+    rows, cap, k, comp = 8, 40, 24, 5.0
+    tiny = np.float32(1e-40)
+    m = np.sort(rng.gamma(2.0, 30.0, (rows, cap)), 1).astype(np.float32)
+    w = (np.arange(cap)[None, :] < rng.integers(0, cap // 2, rows)[:, None]
+         ).astype(np.float32)
+    m = np.where(w > 0, m, 0).astype(np.float32)
+    m[:, 0] = np.where(w[:, 0] > 0, tiny, 0)
+    bv = rng.gamma(2.0, 30.0, (rows, k)).astype(np.float32)
+    bw = np.ones((rows, k), np.float32)
+    bv[::2, :5] = [tiny, -tiny, 2 * tiny, 0.5, tiny]
+    bw[1::2, 3:7] = tiny
+    w[5], bw[5] = 0.0, tiny                  # only subnormal weights
+    kw = _scale(comp)
+    pm, pw = (x.numpy() for x in cluster_merge.cluster_merge_plain(
+        *(torch.from_numpy(a) for a in (m, w, bv, bw)), **kw))
+    # on JAX's CPU backend, where the JAX package's tests run it: with a
+    # GPU visible JAX defaults to it, where this comparison did not hold
+    with jax.default_device(jax.devices("cpu")[0]):
+        jm, jw = (np.array(x) for x in pallas_merge.merge_planes(
+            *(jnp.asarray(a) for a in (m, w, bv, bw)), **kw,
+            interpret=True))
+    for a in (pm, pw, jm, jw):
+        assert not ((np.abs(a) < np.finfo(np.float32).tiny) &
+                    (a != 0)).any()
+    np.testing.assert_array_equal(pw.sum(1) == 0, jw.sum(1) == 0)
+    assert not pw[5].any() and not pm[5].any()
+    np.testing.assert_allclose(pw.sum(1), jw.sum(1), rtol=1e-6)
+    qs = torch.tensor([0.05, 0.5, 0.99], dtype=torch.float32)
+    qp = tdigest.quantile(torch.from_numpy(pm), torch.from_numpy(pw), qs)
+    qj = tdigest.quantile(torch.from_numpy(jm), torch.from_numpy(jw), qs)
+    torch.testing.assert_close(qp, qj, rtol=2e-3, atol=1e-3,
+                               equal_nan=True)
 
 
 def test_ab_tool_variants_derive_from_the_kernel_source():

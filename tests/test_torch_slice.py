@@ -15,6 +15,7 @@ import json
 import socket
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -376,6 +377,58 @@ def test_ingest_buffer_interval_matches_jax(monkeypatch, case):
     _assert_same_flush(tr.metrics, jr.metrics)
 
 
+def _f1_lines(case: str) -> list[bytes]:
+    """ROADMAP Queue 3's F1 inputs: f32 subnormal samples on each path
+    (and a gauge, which both packages keep, as the control)."""
+    if case == "counter":
+        return [b"tc:1e-40|c"]
+    if case == "gauge":
+        return [b"tg:1e-40|g"]
+    if case == "ranked":  # the superbatch's ranked merge
+        return [b"tiny:1e-40|ms"] * 2
+    if case == "min_hmean":
+        return [b"mm:1e-40|ms", b"mm:5|ms"]
+    if case == "weighted":
+        return [b"tw:1e-40|ms|@0.5", b"tw:2e-40|ms|@0.5"]
+    # a dense f32 plane row: 40 rows x 60 samples, then the subnormal
+    rng = np.random.default_rng(1)
+    return [f"p{i}:{v:.3f}|ms".encode() for i in range(40)
+            for v in rng.gamma(2.0, 30.0, 60)] + [b"p0:1e-40|ms"]
+
+
+@pytest.mark.parametrize("case", ["counter", "gauge", "ranked",
+                                  "min_hmean", "weighted", "dense_plane"])
+def test_f32_subnormals_flush_as_jax(case):
+    """F1: the reference flushes f32 subnormal samples to zero inside
+    its jitted ops; the port does the same, so the same text flushes
+    the same metrics (``.hmean`` present or not alike) with every
+    counter, min, max, sum and count bit-equal, signed zeros included.
+    A gauge is a select in both and keeps its subnormal."""
+    jt, tt = _tables()
+    buf = b"\n".join(_f1_lines(case))
+    assert tt.ingest_buffer(buf) == jt.ingest_buffer(buf)
+    kw = dict(percentiles=PCTS, aggregates=AGGS, hostname="h")
+    jr = JFlusher(is_local=False, **kw).flush(jt.swap(), now=1)
+    tr = Flusher(**kw, device="cpu").flush(tt.swap(), now=1)
+    _assert_same_flush(tr.metrics, jr.metrics)
+    t, j = _by_name(tr.metrics), _by_name(jr.metrics)
+    for key, jv in j.items():
+        if key[0][:2] in ("tc", "tg", "ti", "mm", "tw") or \
+                key[0].startswith("p0."):
+            if not key[0].endswith("percentile"):
+                assert (np.float64(t[key].value).tobytes() ==
+                        np.float64(jv.value).tobytes()), key
+    if case == "gauge":
+        assert t[("tg", ())].value == 9.99994610111476e-41
+    if case == "min_hmean":
+        assert t[("mm.min", ())].value == 0.0
+        assert ("mm.hmean", ()) in t
+    if case in ("ranked", "weighted"):
+        name = "tiny" if case == "ranked" else "tw"
+        assert (name + ".hmean", ()) not in t
+        assert t[(name + ".99percentile", ())].value == 0.0
+
+
 def test_two_intervals_and_compaction():
     """Rows persist across intervals; idle rows compact away at the
     swap in both tables the same way."""
@@ -495,6 +548,119 @@ def test_config_reader_keys(key, default):
         read_config(data={key: 0})
 
 
+_READER_KEYS = ("num_readers", "tpu_multi_reader_fused",
+                "tpu_reader_pin_cores", "tpu_stage_flush_samples",
+                "tpu_pipeline", "tpu_columnar_emit")
+
+
+def test_config_reader_pipeline_emit_keys_as_reference():
+    """The reader, pipeline and emit keys keep the reference's names
+    and defaults, read the reference's example.yaml values, take the
+    reference's environment overrides, and validate alike; the io_uring
+    backend key is still refused by name."""
+    import os
+
+    import yaml
+    from veneur_tpu.core import config as jconfig
+    jdef = jconfig.Config()
+    tdef = read_config(data={}, env={})
+    for key in _READER_KEYS:
+        assert getattr(tdef, key) == getattr(jdef, key), key
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "example.yaml")) as f:
+        ex = yaml.safe_load(f)
+    data = {k: ex[k] for k in _READER_KEYS if k in ex}
+    assert data == {"num_readers": 4}
+    assert read_config(data=data, env={}).num_readers == 4
+    env = {"VENEUR_TPU_PIPELINE": "0", "VENEUR_TPU_MULTI_READER_FUSED":
+           "false", "VENEUR_TPU_READER_PIN_CORES": "2,3",
+           "VENEUR_TPU_COLUMNAR_EMIT": "0"}
+    tenv = read_config(data={}, env=env)
+    jenv = jconfig.read_config(data={}, env=env)
+    for key in ("tpu_pipeline", "tpu_multi_reader_fused",
+                "tpu_reader_pin_cores", "tpu_columnar_emit"):
+        assert getattr(tenv, key) == getattr(jenv, key), key
+    assert (tenv.tpu_pipeline, tenv.tpu_reader_pin_cores) == (False, "2,3")
+    for bad in ({"tpu_stage_flush_samples": 0},
+                {"tpu_reader_pin_cores": "x,y"}):
+        with pytest.raises(ValueError, match=next(iter(bad))):
+            read_config(data=bad, env={})
+    with pytest.raises(ValueError, match="tpu_ingest_backend"):
+        read_config(data={"tpu_ingest_backend": "recvmmsg"})
+
+
+def _udp_flush(num_readers: int, packets: dict, fused: bool = True):
+    """A port server with ``num_readers`` readers on one address, fed
+    ``packets`` ({source socket index: [datagram, ...]}) from that many
+    source sockets, flushed once.  Returns (metrics by (name, tags),
+    the reader threads that took a batch)."""
+    cfg = read_config(data={
+        "interval": "60s", "hostname": "h", "num_readers": num_readers,
+        "tpu_multi_reader_fused": fused,
+        "statsd_listen_addresses": ["udp://127.0.0.1:0"],
+        "percentiles": [0.5, 0.99], "tpu_counter_rows": 64,
+        "tpu_gauge_rows": 64, "tpu_histo_rows": 64, "tpu_set_rows": 8},
+        env={})
+    cap = CaptureSink()
+    srv = Server(cfg, device="cpu", extra_sinks=[cap])
+    readers = set()
+    batch = srv.handle_packet_batch
+
+    def spy(*a, **kw):
+        readers.add((threading.current_thread().name,
+                     kw.get("shard") is not None))
+        return batch(*a, **kw)
+    srv.handle_packet_batch = spy
+    srv.start()
+    try:
+        assert len(srv.sockets) == num_readers
+        port = srv.bound_ports()[0]
+        assert all(s.getsockname()[1] == port for s in srv.sockets)
+        expect = sum(p.count(b"\n") + 1 for pk in packets.values()
+                     for p in pk)
+        socks = {i: socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+                 for i in packets}
+        for i, pk in packets.items():
+            for p in pk:
+                socks[i].sendto(p, ("127.0.0.1", port))
+                time.sleep(0.0002)
+        for sk in socks.values():
+            sk.close()
+        deadline = time.monotonic() + 20
+        while (srv.stats["metrics_processed"] < expect and
+               time.monotonic() < deadline):
+            time.sleep(0.02)
+        assert srv.stats["metrics_processed"] == expect
+        srv.flush_once()
+    finally:
+        srv.shutdown()
+    return _by_name(cap.metrics), readers
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_udp_server_four_readers_flush_as_one(fused):
+    """Eight source sockets into a server with ``num_readers: 4``
+    (SO_REUSEPORT spreads them over the readers, each with its own
+    ReaderShard, or with ``tpu_multi_reader_fused: false`` the split
+    columnar path) and into a one-reader server: the same metrics, with
+    counters, gauges (each series from one socket), counts, min/max and
+    set values equal and percentiles within the merge tolerance."""
+    rng = np.random.default_rng(9)
+    packets = {}
+    for i in range(8):
+        lines = [b"hits:1|c", b"g%d:%d|g" % (i, i * 3 + 1)]
+        lines += [b"lat:%.3f|ms" % v for v in rng.gamma(2.0, 30.0, 40)]
+        lines += [b"uniq:u%d|s" % (i * 100 + j) for j in range(30)]
+        packets[i] = [b"\n".join(lines[k::4]) for k in range(4)] * 5
+    many, readers = _udp_flush(4, packets, fused)
+    one, one_readers = _udp_flush(1, packets)
+    assert all(shard is fused for _name, shard in readers)
+    assert len(readers) >= 2, readers
+    assert not any(shard for _name, shard in one_readers)
+    _assert_same_flush(list(many.values()), list(one.values()))
+    assert many[("hits", ())].value == 8 * 5
+
+
 # ---- the port's rules ------------------------------------------------------
 
 def test_port_imports_no_jax():
@@ -509,7 +675,8 @@ names = [m.name for m in pkgutil.walk_packages(
     veneur_tpu_torch.__path__, "veneur_tpu_torch.")]
 for n in names:
     importlib.import_module(n)
-assert {"veneur_tpu_torch.forward.http_import",
+assert {"veneur_tpu_torch.core.frame",
+        "veneur_tpu_torch.forward.http_import",
         "veneur_tpu_torch.forward.gob_codec",
         "veneur_tpu_torch.forward.hll_codec",
         "veneur_tpu_torch.forward.grpc_forward",

@@ -39,9 +39,12 @@ def main(argv: list[str] | None = None) -> int:
     signal.signal(signal.SIGTERM, _stop)
     srv.start()
     logging.getLogger("veneur_tpu_torch").info(
-        "listening on %s, http %s, grpc %s, device %s, %s",
-        cfg.statsd_listen_addresses, srv.http_port, srv.grpc_ports,
-        srv.device,
+        "listening on %s with %d reader(s) each%s, http %s, grpc %s, "
+        "device %s, %s", cfg.statsd_listen_addresses,
+        max(1, cfg.num_readers),
+        " (fused shards)" if cfg.num_readers > 1 and
+        cfg.tpu_multi_reader_fused else "", srv.http_port,
+        srv.grpc_ports, srv.device,
         f"local forwarding to {cfg.forward_address}" if cfg.is_local()
         else "global")
     stop.wait()

@@ -3,11 +3,14 @@
 Port of ``veneur_tpu/core/config.py``.  Key names are the reference's,
 so one YAML file drives either server.  A key this port does not know
 is refused with an error naming it — never silently ignored, since a
-setting the port would not honour must not look accepted.
+setting the port would not honour must not look accepted.  The
+reference's ``VENEUR_<KEY>`` environment overrides apply to the keys in
+``_ENV_KEYS``.
 """
 
 from __future__ import annotations
 
+import os
 import re
 from dataclasses import dataclass, field, fields
 
@@ -47,6 +50,26 @@ class Config:
     metric_max_length: int = 4096
     # datagrams a reader drains per batch (one recvmmsg sweep, <= 512)
     reader_batch_packets: int = 512
+    # UDP reader threads per statsd address (SO_REUSEPORT sockets when
+    # more than one)
+    num_readers: int = 1
+    # with num_readers > 1, each reader runs the fused native parse +
+    # probe + combine without the lock into a ReaderShard and merges
+    # under it; false: the split columnar parse outside the lock and
+    # ingest_columns under it
+    tpu_multi_reader_fused: bool = True
+    # reader i pinned to one core: "auto" (core i when there are at
+    # least as many cores as readers), "off", or a comma list of cores
+    tpu_reader_pin_cores: str = "auto"
+    # staged samples that trigger a mid-interval device step
+    tpu_stage_flush_samples: int = 65536
+    # detach staged work under the ingest lock and apply it outside it
+    # (the flush waits for every pending apply); false: the step runs
+    # inline under the lock
+    tpu_pipeline: bool = True
+    # emit the flush as a columnar MetricFrame (false: the per-row
+    # emit)
+    tpu_columnar_emit: bool = True
     # HTTP listener ("host:port"): /healthcheck, /debug/vars and
     # POST /import
     http_address: str = ""
@@ -105,9 +128,19 @@ class Config:
                 "flush_file_format must be 'native' or 'reference'")
         for n in ("tpu_counter_rows", "tpu_gauge_rows", "tpu_histo_rows",
                   "tpu_set_rows", "tpu_histo_slots", "metric_max_length",
-                  "reader_batch_packets"):
+                  "reader_batch_packets", "tpu_stage_flush_samples"):
             if getattr(self, n) <= 0:
                 problems.append(f"{n} must be positive")
+        pin = self.tpu_reader_pin_cores
+        if pin not in ("auto", "off"):
+            try:
+                cores = [int(c) for c in pin.split(",") if c.strip()]
+                if not cores or any(c < 0 for c in cores):
+                    raise ValueError
+            except ValueError:
+                problems.append(
+                    "tpu_reader_pin_cores must be auto, off or a "
+                    "comma list of core ids")
         for addr in self.statsd_listen_addresses:
             if not addr.startswith("udp://"):
                 problems.append(
@@ -130,9 +163,24 @@ class Config:
         return problems
 
 
-def read_config(path: str | None = None,
-                data: dict | None = None) -> Config:
-    """Load a YAML file (and/or a dict), refuse unknown keys, validate."""
+# keys the reference lets VENEUR_<KEY upper-cased> override, among those
+# the port runs
+_ENV_KEYS = ("tpu_pipeline", "tpu_multi_reader_fused",
+             "tpu_reader_pin_cores", "tpu_columnar_emit")
+
+
+def _coerce(name: str, raw: str):
+    """An environment string as the field's type (the reference's
+    ``_coerce``, for the types of ``_ENV_KEYS``)."""
+    if isinstance(getattr(Config(), name), bool):
+        return raw.lower() in ("1", "true", "yes", "on")
+    return raw
+
+
+def read_config(path: str | None = None, data: dict | None = None,
+                env: dict | None = None) -> Config:
+    """Load a YAML file (and/or a dict), refuse unknown keys, apply the
+    environment overrides (``env``, default ``os.environ``), validate."""
     known = {f.name for f in fields(Config)}
     raw: dict = {}
     if path is not None:
@@ -157,6 +205,11 @@ def read_config(path: str | None = None,
     for key, value in raw.items():
         if value is not None:
             setattr(cfg, key, value)
+    env = os.environ if env is None else env
+    for name in _ENV_KEYS:
+        env_key = "VENEUR_" + name.upper()
+        if env_key in env:
+            setattr(cfg, name, _coerce(name, env[env_key]))
     cfg.resolve_aliases()
     problems = cfg.validate()
     if problems:

@@ -1,11 +1,14 @@
 """Flush: table snapshot -> InterMetrics and forwarded state.
 
-Port of ``veneur_tpu/core/flusher.py`` (the per-row emit path).  The
-device work is a handful of readouts over whole planes — counter/gauge
-vectors, the combined histo stats plus the quantile readout over the
-touched digest rows, the HLL estimate over the register plane, and on a
-local the digest and register rows it forwards — followed by one
-readback and host-side assembly from row metadata.
+Port of ``veneur_tpu/core/flusher.py``.  The device work is a handful
+of readouts over whole planes — counter/gauge vectors, the combined
+histo stats plus the quantile readout over the touched digest rows, the
+HLL estimate over the register plane, and on a local the digest and
+register rows it forwards — followed by one readback and host-side
+assembly from row metadata: by default columnar, one ``MetricFrame``
+block per aggregate kind over many rows (``columnar=True``), else the
+per-row emit, one ``InterMetric`` at a time, kept as the parity
+oracle.
 
 Two roles, as in the reference: a **global** (``is_local=False``)
 emits every touched row, percentiles included; a **local**
@@ -30,6 +33,8 @@ import torch
 
 from veneur_tpu_torch import resolve_device
 from veneur_tpu_torch.core import metrics as im
+from veneur_tpu_torch.core.frame import (MetricFrame, TYPE_COUNTER,
+                                         TYPE_GAUGE)
 from veneur_tpu_torch.core.table import RowMeta, Snapshot
 from veneur_tpu_torch.ops import hll, segment, tdigest
 from veneur_tpu_torch.protocol import dogstatsd as dsd
@@ -37,12 +42,25 @@ from veneur_tpu_torch.protocol import dogstatsd as dsd
 DEFAULT_AGGREGATES = ("min", "max", "count")
 DEFAULT_PERCENTILES = (0.5, 0.75, 0.99)
 
+_SCOPE_CODE = {dsd.SCOPE_DEFAULT: 0, dsd.SCOPE_LOCAL: 1,
+               dsd.SCOPE_GLOBAL: 2}
+_SCOPE_LOCAL, _SCOPE_GLOBAL = 1, 2
+
+
+def _scope_codes(metas: list, rows: np.ndarray) -> np.ndarray:
+    """uint8 scope code per selected row: the columnar emit's one
+    O(touched rows) Python pass over the metadata."""
+    code = _SCOPE_CODE
+    return np.fromiter((code[metas[r].scope] for r in rows),
+                       np.uint8, len(rows))
+
 
 def _combine_stats_fn(stats: torch.Tensor,
                       imp: torch.Tensor) -> torch.Tensor:
     """Combine the local-sample and imported stat planes (weight/sum/
-    rsum add, min min, max max)."""
-    return torch.stack([
+    rsum add, min min, max max); subnormals flush to zero, as in the
+    reference's jitted readout."""
+    return segment.ftz(torch.stack([
         stats[:, segment.STAT_WEIGHT] + imp[:, segment.STAT_WEIGHT],
         torch.minimum(stats[:, segment.STAT_MIN],
                       imp[:, segment.STAT_MIN]),
@@ -50,7 +68,7 @@ def _combine_stats_fn(stats: torch.Tensor,
                       imp[:, segment.STAT_MAX]),
         stats[:, segment.STAT_SUM] + imp[:, segment.STAT_SUM],
         stats[:, segment.STAT_RSUM] + imp[:, segment.STAT_RSUM],
-    ], dim=1)
+    ], dim=1))
 
 
 def _histo_readout(stats, imp, means, weights, qs):
@@ -105,33 +123,69 @@ class FlushResult:
     metrics: list[im.InterMetric] = field(default_factory=list)
     forward: list[ForwardRow] = field(default_factory=list)
     tally: dict[str, int] = field(default_factory=dict)
+    # columnar emit: when the flush ran with ``retain_frame=True`` the
+    # emitted aggregates stay in ``frame`` and ``metrics`` holds only
+    # what is appended afterwards (status checks); otherwise the frame
+    # is materialized into ``metrics`` and this is None
+    frame: MetricFrame | None = None
+
+    def metric_count(self) -> int:
+        return len(self.metrics) + (len(self.frame)
+                                    if self.frame is not None else 0)
+
+    def all_metrics(self) -> list[im.InterMetric]:
+        """Every emitted InterMetric: the frame materialized, then the
+        riders."""
+        if self.frame is None:
+            return self.metrics
+        return self.frame.materialize() + self.metrics
 
 
 class Flusher:
     """Emits a snapshot's touched rows and, when ``is_local``, collects
     the rows it forwards.  Its readouts run on ``device`` (default
     ``"cuda"``; raises without CUDA unless the caller passes
-    ``"cpu"``); snapshot planes elsewhere are moved there first."""
+    ``"cpu"``); snapshot planes elsewhere are moved there first.
+    ``columnar`` (default) assembles a MetricFrame; False runs the
+    per-row emit."""
 
     def __init__(self, is_local: bool = False,
                  percentiles: tuple[float, ...] = DEFAULT_PERCENTILES,
                  aggregates: tuple[str, ...] = DEFAULT_AGGREGATES,
                  hostname: str = "",
-                 device: "str | torch.device" = "cuda"):
+                 device: "str | torch.device" = "cuda",
+                 columnar: bool = True):
         self.device = resolve_device(device)
         self.is_local = is_local
         self.percentiles = tuple(percentiles)
         self.aggregates = tuple(aggregates)
         self.hostname = hostname
+        self.columnar = columnar
 
-    def flush(self, snap: Snapshot, now: int | None = None) -> FlushResult:
+    def flush(self, snap: Snapshot, now: int | None = None,
+              retain_frame: bool = False) -> FlushResult:
+        """Read the snapshot out and emit it.  ``retain_frame=True``
+        (the server's path) keeps the columnar emit's frame in
+        ``res.frame`` for per-sink routing; otherwise the frame is
+        materialized into ``res.metrics``, the per-row emit's shape."""
         ts = int(now if now is not None else time.time())
         res = FlushResult()
         pre = self._prefetch(snap)
-        self._flush_counters(snap, ts, res, pre)
-        self._flush_gauges(snap, ts, res, pre)
-        self._flush_histos(snap, ts, res, pre)
-        self._flush_sets(snap, ts, res, pre)
+        if self.columnar:
+            frame = MetricFrame(ts, self.hostname)
+            self._frame_counters(snap, res, pre, frame)
+            self._frame_gauges(snap, res, pre, frame)
+            self._frame_histos(snap, res, pre, frame)
+            self._frame_sets(snap, res, pre, frame)
+            if retain_frame:
+                res.frame = frame
+            else:
+                res.metrics.extend(frame.materialize())
+        else:
+            self._flush_counters(snap, ts, res, pre)
+            self._flush_gauges(snap, ts, res, pre)
+            self._flush_histos(snap, ts, res, pre)
+            self._flush_sets(snap, ts, res, pre)
         res.tally["overflow"] = sum(snap.overflow.values())
         return res
 
@@ -395,3 +449,144 @@ class Flusher:
                                             float(round(ests[row])), meta,
                                             im.GAUGE))
         res.tally["sets"] = int(snap.set_touched[:len(snap.set_meta)].sum())
+
+    # ------------------------------------------------------------------
+    # columnar emit: the routing and gating of the per-row emit above,
+    # evaluated as boolean arrays over the touched rows; one frame
+    # block per aggregate kind, percentile suffixes built once a flush
+
+    def _frame_scalar_class(self, metas, touched, vals, kind,
+                            type_code, res, frame) -> None:
+        """Counters and gauges: forward global-scope rows on a local,
+        emit the rest."""
+        rows = np.nonzero(touched[:len(metas)])[0]
+        if not len(rows):
+            return
+        v64 = np.asarray(vals)[rows].astype(np.float64)
+        if self.is_local:
+            fwd = _scope_codes(metas, rows) == _SCOPE_GLOBAL
+        else:
+            fwd = np.zeros(len(rows), dtype=bool)
+        for r, v in zip(rows[fwd], v64[fwd]):
+            res.forward.append(ForwardRow(metas[r], kind,
+                                          value=float(v)))
+        emit = ~fwd
+        frame.add_block(metas, rows[emit], v64[emit], type_code=type_code)
+
+    def _frame_counters(self, snap: Snapshot, res: FlushResult,
+                        pre: dict, frame: MetricFrame) -> None:
+        vals = pre.get("counters")
+        if vals is None:
+            return
+        self._frame_scalar_class(snap.counter_meta, snap.counter_touched,
+                                 vals, "counter", TYPE_COUNTER, res, frame)
+        res.tally["counters"] = int(
+            snap.counter_touched[:len(snap.counter_meta)].sum())
+
+    def _frame_gauges(self, snap: Snapshot, res: FlushResult,
+                      pre: dict, frame: MetricFrame) -> None:
+        vals = pre.get("gauges")
+        if vals is None:
+            return
+        self._frame_scalar_class(snap.gauge_meta, snap.gauge_touched,
+                                 vals, "gauge", TYPE_GAUGE, res, frame)
+        res.tally["gauges"] = int(
+            snap.gauge_touched[:len(snap.gauge_meta)].sum())
+
+    def _frame_histos(self, snap: Snapshot, res: FlushResult,
+                      pre: dict, frame: MetricFrame) -> None:
+        rows = pre["histo_rows"]
+        if not len(rows):
+            return
+        metas = snap.histo_meta
+        stats = pre["stats"]
+        comb = pre["comb"]
+        qvals = pre.get("qvals")
+        all_pcts = pre["all_pcts"]
+        tally = int(snap.histo_touched[:len(metas)].sum())
+        # forward rows first, in row order, as the per-row emit does
+        for pos, r in enumerate(pre["histo_fwd"]):
+            res.forward.append(ForwardRow(
+                metas[r], "histo", stats=stats[r].copy(),
+                means=pre["fwd_means"][pos].copy(),
+                weights=pre["fwd_weights"][pos].copy()))
+        sc = _scope_codes(metas, rows)
+        if self.is_local:
+            # mixed-scope rows emit local aggregates while their digest
+            # forwards; global-only rows emit nothing here
+            emit_mask = sc != _SCOPE_GLOBAL
+            gm = np.zeros(int(emit_mask.sum()), dtype=bool)
+            with_pcts = sc[emit_mask] == _SCOPE_LOCAL
+        else:
+            emit_mask = np.ones(len(rows), dtype=bool)
+            gm = sc == _SCOPE_GLOBAL
+            with_pcts = np.ones(len(rows), dtype=bool)
+        erows = rows[emit_mask]
+        if not len(erows):
+            res.tally["histograms"] = tally
+            return
+        # global-scope rows on a global read the combined plane, every
+        # other row the local-sample plane (see _flush_histos)
+        st = np.where(gm[:, None], comb[erows], stats[erows]) \
+            .astype(np.float64)
+        weight = st[:, segment.STAT_WEIGHT]
+        st_min = st[:, segment.STAT_MIN]
+        st_max = st[:, segment.STAT_MAX]
+        st_sum = st[:, segment.STAT_SUM]
+        st_rsum = st[:, segment.STAT_RSUM]
+        sampled = weight != 0
+        agg = set(self.aggregates)
+
+        def block(mask, vals, suffix, type_code=TYPE_GAUGE):
+            frame.add_block(metas, erows[mask], vals, suffix, type_code)
+
+        # the per-row emit's sparse-emission gates
+        if "max" in agg:
+            m = gm | (st_max != float(segment.STAT_MAX_EMPTY))
+            block(m, st_max[m], ".max")
+        if "min" in agg:
+            m = gm | (st_min != float(segment.STAT_MIN_EMPTY))
+            block(m, st_min[m], ".min")
+        if "sum" in agg:
+            m = gm | sampled
+            block(m, st_sum[m], ".sum")
+        if "avg" in agg:
+            m = weight != 0
+            block(m, st_sum[m] / weight[m], ".avg")
+        if "count" in agg:
+            m = gm | sampled
+            block(m, weight[m], ".count", TYPE_COUNTER)
+        if "hmean" in agg:
+            m = (weight != 0) & (st_rsum != 0)
+            block(m, weight[m] / st_rsum[m], ".hmean")
+        if qvals is not None:
+            q64 = qvals[erows].astype(np.float64)
+            if "median" in agg:
+                m = np.ones(len(erows), dtype=bool)
+                block(m, q64[:, len(all_pcts) - 1], ".median")
+            for pi, p in enumerate(self.percentiles):
+                block(with_pcts, q64[with_pcts, pi],
+                      "." + _percentile_suffix(p))
+        res.tally["histograms"] = tally
+
+    def _frame_sets(self, snap: Snapshot, res: FlushResult,
+                    pre: dict, frame: MetricFrame) -> None:
+        rows = pre["set_rows"]
+        if not len(rows):
+            return
+        metas = snap.set_meta
+        ests = pre.get("ests")
+        fwd = pre.get("set_fwd", ())
+        for pos, r in enumerate(fwd):
+            res.forward.append(ForwardRow(
+                metas[r], "set", regs=pre["fwd_regs"][pos].copy()))
+        in_fwd = np.zeros(len(rows), dtype=bool)
+        if fwd:
+            in_fwd = np.isin(rows, np.asarray(fwd))
+        sc = _scope_codes(metas, rows)
+        emit = ~in_fwd & ~((sc == _SCOPE_GLOBAL) & self.is_local)
+        erows = rows[emit]
+        if len(erows) and ests is not None:
+            vals = np.round(np.asarray(ests)[erows]).astype(np.float64)
+            frame.add_block(metas, erows, vals)
+        res.tally["sets"] = int(snap.set_touched[:len(metas)].sum())

@@ -1,0 +1,247 @@
+"""MetricFrame: the columnar flush->emit interchange.
+
+The port's copy of ``veneur_tpu/core/frame.py``.
+
+The legacy emit path builds one ``InterMetric`` object per aggregate —
+a single histogram row fans out to 8+ Python objects before any sink
+sees it, and at wide cardinality (100k-1M live series) that per-row
+object churn, not the d2h readback or the XLA merge, is the flush
+ceiling (the "serialization cost dominates sketch cost" regime SALSA
+identifies for streaming sketches).  A ``MetricFrame`` keeps the data
+columnar from the device readback to the sink wire:
+
+- a frame is a list of ``Block``s; each block is ONE aggregate kind
+  (the counter plane, ``<histo>.max``, one percentile column, ...)
+  over many series rows
+- a block indexes into a shared row-metadata pool (the snapshot's
+  ``RowMeta`` list) via a NumPy index array, so names and tag tuples
+  are never copied per metric — a histogram's 8 aggregate blocks all
+  point at the same pool rows
+- values are one f64 NumPy column per block (widened from the f32
+  device planes, bit-identical to the legacy ``float()`` per row)
+- the name suffix (``".max"``, ``".99percentile"``) and the metric
+  type are per-BLOCK scalars, computed once per flush instead of once
+  per row
+
+Sinks that understand frames (``flush_frame``) encode straight off the
+columns; everything else goes through ``materialize()``, which builds
+the exact legacy ``InterMetric`` list lazily and caches it.  Per-sink
+routing (``veneursinkonly:`` whitelists + excluded-tag stripping,
+reference sinks/sinks.go:51) is evaluated once per POOL ROW, not once
+per metric — the masks broadcast to every block sharing the pool.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from veneur_tpu_torch.core import metrics as im
+from veneur_tpu_torch.core.metrics import InterMetric
+
+# per-block metric type codes
+TYPE_GAUGE = 0
+TYPE_COUNTER = 1
+TYPE_NAMES = (im.GAUGE, im.COUNTER)
+
+_SINK_ONLY_PREFIX = "veneursinkonly:"
+
+
+@dataclass
+class Block:
+    """One aggregate kind over many series rows.
+
+    ``rows`` indexes into ``metas``; ``tag_table`` (set by routing)
+    replaces the pool's raw tag tuples with the sink's final
+    (common-tag-appended, excluded-tag-stripped) tuples, aligned to
+    the POOL, so blocks sharing a pool share the table."""
+    metas: list
+    rows: np.ndarray  # int64[n] pool indices
+    values: np.ndarray  # f64[n]
+    suffix: str = ""
+    type_code: int = TYPE_GAUGE
+    tag_table: list | None = None
+
+    def __len__(self) -> int:
+        return len(self.rows)
+
+
+class MetricFrame:
+    def __init__(self, ts: int, hostname: str = "",
+                 common_tags: tuple[str, ...] = ()):
+        self.ts = int(ts)
+        self.hostname = hostname
+        self.common_tags = tuple(common_tags)
+        self.blocks: list[Block] = []
+        # legacy InterMetrics that ride along with the frame (status
+        # checks, anything synthesized outside the columnar path);
+        # routed frames carry the sink's filtered slice here
+        self.extra: list[InterMetric] = []
+        self._materialized: list[InterMetric] | None = None
+        # when a routed view shares this frame's blocks verbatim, it
+        # points back here so the block materialization is built once
+        # and shared across every no-filter sink
+        self._block_src: "MetricFrame | None" = None
+        # (id(pool), sink_name, excluded) -> (accept bool[], tags list)
+        self._route_cache: dict = {}
+        self._routing_needed: bool | None = None
+
+    # ------------------------------------------------------------------
+
+    def add_block(self, metas: list, rows: np.ndarray,
+                  values: np.ndarray, suffix: str = "",
+                  type_code: int = TYPE_GAUGE) -> None:
+        if len(rows) == 0:
+            return
+        self.blocks.append(Block(metas, np.asarray(rows),
+                                 np.asarray(values, np.float64),
+                                 suffix, type_code))
+        self._materialized = None
+
+    def __len__(self) -> int:
+        return sum(len(b) for b in self.blocks)
+
+    def total_len(self) -> int:
+        return len(self) + len(self.extra)
+
+    # ------------------------------------------------------------------
+
+    def block_tags(self, block: Block, j: int) -> tuple[str, ...]:
+        """Final tag tuple for position ``j`` of ``block``."""
+        r = int(block.rows[j])
+        if block.tag_table is not None:
+            return block.tag_table[r]
+        return block.metas[r].tags + self.common_tags
+
+    def block_name(self, block: Block, j: int) -> str:
+        return block.metas[int(block.rows[j])].name + block.suffix
+
+    def iter_metrics(self):
+        """Yield legacy InterMetrics in block order (then extras)."""
+        yield from self._iter_block_metrics()
+        yield from self.extra
+
+    def _iter_block_metrics(self):
+        for b in self.blocks:
+            mtype = TYPE_NAMES[b.type_code]
+            suffix = b.suffix
+            metas = b.metas
+            tag_table = b.tag_table
+            common = self.common_tags
+            ts = self.ts
+            host = self.hostname
+            vals = b.values
+            for j, r in enumerate(b.rows):
+                r = int(r)
+                meta = metas[r]
+                tags = (tag_table[r] if tag_table is not None
+                        else meta.tags + common)
+                yield InterMetric(name=meta.name + suffix,
+                                  timestamp=ts, value=float(vals[j]),
+                                  tags=tags, type=mtype,
+                                  hostname=host)
+
+    def _materialize_blocks(self) -> list[InterMetric]:
+        src = self._block_src or self
+        if src._materialized is None:
+            src._materialized = list(src._iter_block_metrics())
+        return src._materialized
+
+    def materialize(self) -> list[InterMetric]:
+        """The legacy list, built lazily and cached — the adapter for
+        sinks and plugins that never learned frames."""
+        blocks = self._materialize_blocks()
+        return blocks + self.extra if self.extra else blocks
+
+    # ------------------------------------------------------------------
+    # per-sink routing
+
+    def _pool_route(self, metas: list, sink_name: str,
+                    excluded: frozenset):
+        """(accept mask, final tag table) for one meta pool x one
+        sink — O(pool rows), shared by every block over the pool and
+        cached for re-entrant routing of the same sink."""
+        key = (id(metas), sink_name, excluded)
+        hit = self._route_cache.get(key)
+        if hit is not None:
+            return hit
+        n = len(metas)
+        accept = np.ones(n, dtype=bool)
+        tags_out: list = [()] * n
+        common = self.common_tags
+        for i, meta in enumerate(metas):
+            tags = meta.tags + common
+            wl = None
+            for t in tags:
+                if t.startswith(_SINK_ONLY_PREFIX):
+                    if wl is None:
+                        wl = set()
+                    wl.add(t[len(_SINK_ONLY_PREFIX):])
+            if wl is not None and sink_name not in wl:
+                accept[i] = False
+                continue
+            if excluded:
+                tags = tuple(t for t in tags
+                             if t.split(":", 1)[0] not in excluded)
+            tags_out[i] = tags
+        out = (accept, tags_out)
+        self._route_cache[key] = out
+        return out
+
+    def _needs_routing(self) -> bool:
+        """True when any pool row carries a sink whitelist tag — the
+        only case where acceptance can differ per sink.  Scanned once
+        per frame (pools are immutable for the frame's lifetime)."""
+        if self._routing_needed is not None:
+            return self._routing_needed
+        self._routing_needed = self._scan_whitelists()
+        return self._routing_needed
+
+    def _scan_whitelists(self) -> bool:
+        seen = set()
+        for b in self.blocks:
+            if id(b.metas) in seen:
+                continue
+            seen.add(id(b.metas))
+            for meta in b.metas:
+                for t in meta.tags:
+                    if t.startswith(_SINK_ONLY_PREFIX):
+                        return True
+        return any(t.startswith(_SINK_ONLY_PREFIX)
+                   for t in self.common_tags)
+
+    def route(self, sink_name: str, sink=None,
+              extra: list[InterMetric] | None = None) -> "MetricFrame":
+        """Filter the frame for one sink: whitelist routing + excluded
+        tags (the frame analogue of sinks.base.route).  Returns
+        ``self`` untouched when the sink filters nothing, so the
+        common no-whitelist/no-exclusion case shares one
+        materialization across sinks."""
+        excluded = frozenset(getattr(sink, "excluded_tags", ())
+                             if sink is not None else ())
+        routed = MetricFrame(self.ts, self.hostname, self.common_tags)
+        routed.extra = list(extra or ())
+        routed._route_cache = self._route_cache  # share pool work
+        if not excluded and not self._needs_routing():
+            if not routed.extra:
+                return self
+            # share the block list AND its one-time materialization
+            routed.blocks = self.blocks
+            routed._block_src = self._block_src or self
+            return routed
+        for b in self.blocks:
+            accept, tags_out = self._pool_route(b.metas, sink_name,
+                                                excluded)
+            if accept.all():
+                routed.blocks.append(Block(
+                    b.metas, b.rows, b.values, b.suffix, b.type_code,
+                    tag_table=tags_out))
+                continue
+            keep = accept[b.rows]
+            if not keep.any():
+                continue
+            routed.blocks.append(Block(
+                b.metas, b.rows[keep], b.values[keep], b.suffix,
+                b.type_code, tag_table=tags_out))
+        return routed

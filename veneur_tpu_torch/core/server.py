@@ -1,22 +1,33 @@
 """The server: UDP DogStatsD and HTTP /import in, interval flushes out.
 
-Port of the single-reader path of ``veneur_tpu/core/server.py``: one
-reader thread per ``udp://`` statsd address blocks on its first
-datagram, then drains whatever else is queued with one native recvmmsg
-sweep (``vtpu_recv_drain``; datagrams over ``metric_max_length`` are
-rejected whole and counted as packet errors) and hands the batch to
-``handle_packet_batch``: one fused native parse + probe + combine pass
-(``MetricTable.ingest_buffer``) under the table lock.  Events, service
-checks and malformed lines take the per-line parser.  A flush thread
-swaps the table every interval and emits the flushed InterMetrics to
-the flush-file plugin and any extra sinks (``flush_once``).
+Port of ``veneur_tpu/core/server.py``.  Each ``udp://`` statsd address
+gets ``num_readers`` reader threads, each on its own socket (bound with
+SO_REUSEPORT when there is more than one, so the kernel spreads the
+senders over them).  A reader blocks on its first datagram, then drains
+whatever else is queued with one native recvmmsg sweep
+(``vtpu_recv_drain``; datagrams over ``metric_max_length`` are rejected
+whole and counted as packet errors) and hands the batch to
+``handle_packet_batch``.  One reader runs the fused native parse +
+probe + combine (``MetricTable.ingest_buffer``) under the table lock;
+several each parse into a ``ReaderShard`` of their own without the
+lock and merge under it (or, with ``tpu_multi_reader_fused: false``,
+parse into columns outside the lock and ``ingest_columns`` under it).
+Events, service checks and malformed lines take the per-line parser.
+
+Every ingest and import site checks the staging against
+``tpu_stage_flush_samples``: past it the staged work is detached under
+the lock and applied to the device after the lock is released
+(``tpu_pipeline``; the flush's ``complete_swap`` waits for every pending
+apply), or, with the pipeline off, applied inline.  A flush thread swaps
+the table every interval, reads it out as a columnar ``MetricFrame``
+(``tpu_columnar_emit``), routes the frame to each sink and hands the
+flush-file plugin the materialized list (``flush_once``).
 
 With ``http_address`` set, a ``ThreadingHTTPServer`` answers
 ``/healthcheck``, ``/debug/vars`` (the server's counters) and ``POST
-/import``: each body is decoded, merged
-into the table under the table lock (``http_import.apply_import``) and
-may trigger a device step; a malformed body is answered 400 and
-counted.  Each ``grpc_listen_addresses`` entry starts an
+/import``: each body is decoded and merged into the table under the
+table lock (``http_import.apply_import``); a malformed body is answered
+400 and counted.  Each ``grpc_listen_addresses`` entry starts an
 ``ImportServer`` (``forward/grpc_forward.py``): ``forwardrpc.Forward/
 SendMetrics`` decodes each wire natively outside the table lock and
 merges it under the lock, ``dogstatsd.DogstatsdGRPC/SendPacket`` feeds
@@ -35,6 +46,7 @@ import ctypes
 import http.server
 import json
 import logging
+import os
 import socket
 import threading
 import time
@@ -52,6 +64,7 @@ from veneur_tpu_torch.core.flusher import FlushResult, Flusher, ForwardRow
 from veneur_tpu_torch.core.table import MetricTable, TableConfig
 from veneur_tpu_torch.forward import grpc_forward, http_import
 from veneur_tpu_torch.protocol import addr as addrmod
+from veneur_tpu_torch.protocol import columnar
 from veneur_tpu_torch.protocol import dogstatsd as dsd
 from veneur_tpu_torch.sinks.base import route
 from veneur_tpu_torch.sinks.simple import LocalFilePlugin
@@ -79,12 +92,13 @@ class Server:
             compression=float(config.tpu_compression),
             histo_slots=config.tpu_histo_slots), device=self.device)
         self.is_local = config.is_local()
+        self.pipeline = bool(config.tpu_pipeline)
         self.flusher = Flusher(
             is_local=self.is_local,
             percentiles=tuple(config.percentiles),
             aggregates=tuple(config.aggregates),
             hostname=config.hostname or socket.gethostname(),
-            device=self.device)
+            device=self.device, columnar=bool(config.tpu_columnar_emit))
         self.metric_sinks = list(extra_sinks or [])
         self.plugins = []
         if config.flush_file:
@@ -92,6 +106,10 @@ class Server:
                 config.flush_file, self.flusher.hostname,
                 fmt=config.flush_file_format, interval=self.interval))
         self.lock = threading.Lock()
+        # the counters have a lock of their own: a reader never takes
+        # the ingest lock only to count
+        self._stats_lock = threading.Lock()
+        self._parsers = threading.local()  # split path: one per reader
         self._flush_serial = threading.Lock()
         self._shutdown = threading.Event()
         self._threads: list[threading.Thread] = []
@@ -111,16 +129,25 @@ class Server:
     # ------------------------------------------------------------------
 
     def start(self) -> None:
+        n = max(1, self.config.num_readers)
         for a in self.config.statsd_listen_addresses:
             _, host, port, _ = addrmod.parse_addr(a)
-            sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
-            sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF,
-                            _RCVBUF_BYTES)
-            sock.bind((host, port))
-            sock.settimeout(0.2)
-            self.sockets.append(sock)
-            self._spawn(f"udp-reader-{len(self.sockets) - 1}",
-                        self._udp_reader, sock)
+            for i in range(n):
+                sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+                if n > 1:
+                    sock.setsockopt(socket.SOL_SOCKET,
+                                    socket.SO_REUSEPORT, 1)
+                sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF,
+                                _RCVBUF_BYTES)
+                sock.bind((host, port))
+                # the kernel hashes a wake datagram to one member of a
+                # reuseport group: the timeout is what makes every
+                # reader see shutdown
+                sock.settimeout(0.2)
+                port = sock.getsockname()[1]  # port 0 resolved once
+                self.sockets.append(sock)
+                self._spawn(f"udp-reader-{len(self.sockets) - 1}",
+                            self._udp_reader, sock, i)
         if self.config.http_address:
             self._start_http(self.config.http_address)
         for a in self.config.grpc_listen_addresses:
@@ -152,7 +179,7 @@ class Server:
                     self._ok()
                 elif self.path == "/debug/vars":
                     # the reference's expvar page, cut to the counters
-                    with server.lock:
+                    with server._stats_lock:
                         body = json.dumps({
                             "stats": server.stats,
                             # per-thread native decode scratch kept by
@@ -174,8 +201,7 @@ class Server:
                         body, self.headers.get("Content-Encoding", ""),
                         self.headers)
                 except (ValueError, zlib.error) as e:
-                    with server.lock:
-                        server.stats["import_errors"] += 1
+                    server.bump("import_errors")
                     self.send_error(400, str(e))
                     return
                 self._ok(json.dumps({"accepted": acc}).encode(),
@@ -190,23 +216,28 @@ class Server:
     def handle_import(self, body: bytes, content_encoding: str = "",
                       headers=None) -> int:
         """Decode one ``/import`` body and merge it into the table under
-        the table lock, then run a device step if staging passed its
-        bound.  The trace, drain, replay, recovery and handoff headers
-        are decoded and otherwise ignored: the ledger, spool,
-        checkpoints and handoff they feed are not in this server.
-        Raises ValueError (or zlib.error) on a malformed body, before
-        anything is merged.  Returns the accepted item count."""
+        the table lock (past the staging bound, the device step follows
+        the lock's release).  The trace, drain, replay, recovery and
+        handoff headers are decoded and otherwise ignored: the ledger,
+        spool, checkpoints and handoff they feed are not in this
+        server.  Raises ValueError (or zlib.error) on a malformed body,
+        before anything is merged.  Returns the accepted item count."""
         items = http_import.decode_body(body, content_encoding)
         flags = http_import.decode_headers(headers or {})
         flagged = any(flags[k] for k in ("drain", "replay", "recovery",
                                          "handoff"))
         with self.lock:
             acc, dropped = http_import.apply_import(self.table, items)
-            self._maybe_device_step()
-            self.stats["imports_received"] += acc
-            self.stats["metrics_dropped"] += dropped
-            self.stats["import_flagged_wires"] += int(flagged)
+            work = self._maybe_device_step_locked()
+        self._apply_staged(work)
+        self.bump("imports_received", acc)
+        self.bump("metrics_dropped", dropped)
+        self.bump("import_flagged_wires", int(flagged))
         return acc
+
+    def bump(self, key: str, n: int = 1) -> None:
+        with self._stats_lock:
+            self.stats[key] = self.stats.get(key, 0) + n
 
     def _spawn(self, name: str, fn, *args) -> None:
         t = threading.Thread(target=fn, args=args, name=name, daemon=True)
@@ -217,7 +248,42 @@ class Server:
         """The statsd sockets' ports, then the gRPC listeners'."""
         return [s.getsockname()[1] for s in self.sockets] + self.grpc_ports
 
-    def _udp_reader(self, sock: socket.socket) -> None:
+    def _pin_reader_core(self, index: int) -> bool:
+        """Pin this reader thread to one core (``tpu_reader_pin_cores``:
+        "auto" = reader i on the i-th usable core when there are at
+        least as many cores as readers, "off", or a comma list).
+        Returns whether it pinned; pinning never fails a reader."""
+        pin = self.config.tpu_reader_pin_cores
+        if pin == "off" or not hasattr(os, "sched_setaffinity"):
+            return False
+        try:
+            avail = sorted(os.sched_getaffinity(0))
+            if pin == "auto":
+                if len(avail) < max(1, self.config.num_readers):
+                    return False  # oversubscribed: pins would stack
+                core = avail[index % len(avail)]
+            else:
+                cores = [int(c) for c in pin.split(",") if c.strip()]
+                core = cores[index % len(cores)]
+                if core not in avail:
+                    return False
+            os.sched_setaffinity(0, {core})
+        except (OSError, ValueError):
+            return False
+        return True
+
+    def _reader_shard(self):
+        """A reader's ReaderShard on the multi-reader fused path, None
+        where one reader (``ingest_buffer``) or the split columnar path
+        (``tpu_multi_reader_fused: false``) runs."""
+        if (self.config.num_readers > 1 and
+                self.config.tpu_multi_reader_fused):
+            return self.table.make_reader_shard()
+        return None
+
+    def _udp_reader(self, sock: socket.socket, index: int = 0) -> None:
+        self._pin_reader_core(index)
+        shard = self._reader_shard()
         lib = native.load()
         max_len = self.config.metric_max_length
         # one byte past the limit: a longer datagram arrives truncated
@@ -246,7 +312,7 @@ class Server:
                 [data], drained=drain_buf[:nbytes].tobytes() if nbytes
                 else None,
                 drained_pkts=int(n_msgs.value) if nbytes else 0,
-                oversize=int(n_over.value))
+                oversize=int(n_over.value), shard=shard)
 
     def handle_packet(self, data: bytes) -> None:
         """Ingest one datagram (possibly multi-line)."""
@@ -255,12 +321,17 @@ class Server:
     def handle_packet_batch(self, packets: list[bytes],
                             drained: bytes | None = None,
                             drained_pkts: int = 0,
-                            oversize: int = 0) -> int:
-        """Ingest many datagrams with one native pass under one lock
-        round.  ``drained`` is the recvmmsg sweep's newline-joined
-        chunk of ``drained_pkts`` datagrams, already length-checked;
-        ``oversize`` counts datagrams the sweep rejected.  Returns the
-        processed sample count."""
+                            oversize: int = 0, shard=None) -> int:
+        """Ingest many datagrams in one native pass.  ``drained`` is the
+        recvmmsg sweep's newline-joined chunk of ``drained_pkts``
+        datagrams, already length-checked; ``oversize`` counts datagrams
+        the sweep rejected.  With ``shard`` (this reader's ReaderShard)
+        the pass runs without the lock and only the merge holds it; a
+        single-reader server runs ``ingest_buffer`` under the lock;
+        otherwise (the split path, and a multi-reader server's packets
+        from elsewhere, e.g. gRPC SendPacket) the batch parses into
+        columns outside the lock and ``ingest_columns`` runs under it.
+        Returns the processed sample count."""
         errors = oversize
         good = []
         for p in packets:
@@ -272,14 +343,38 @@ class Server:
         if drained is not None:
             good.append(drained)
         buf = b"\n".join(good)
-        with self.lock:
-            processed, dropped, others = self.table.ingest_buffer(buf)
-            self._maybe_device_step()
+        if shard is not None:
+            shard.parse(buf)
+            with self.lock:
+                processed, dropped, others = shard.commit()
+                work = self._maybe_device_step_locked()
+            self._apply_staged(work)
+            shard.reset()
+            lines = [buf[off:off + ln] for off, ln, _kind in others]
+        elif self.config.num_readers <= 1:
+            with self.lock:
+                processed, dropped, others = self.table.ingest_buffer(buf)
+                work = self._maybe_device_step_locked()
+            self._apply_staged(work)
+            lines = [buf[off:off + ln] for off, ln, _kind in others]
+        else:
+            # views into this thread's own parser scratch, consumed
+            # before the thread parses again
+            parser = getattr(self._parsers, "p", None)
+            if parser is None:
+                parser = self._parsers.p = columnar.ColumnarParser()
+            pb = parser.parse(buf, copy=False)
+            with self.lock:
+                processed, dropped = self.table.ingest_columns(pb)
+                work = self._maybe_device_step_locked()
+            self._apply_staged(work)
+            lines = [pb.line(int(i)) for i in np.nonzero(
+                pb.type_code[:pb.n] > columnar.CODE_SET)[0]]
         # events, service checks and malformed lines: per-line parse
         slow = []
-        for off, ln, _kind in others:
+        for line in lines:
             try:
-                parsed = dsd.parse_line(buf[off:off + ln])
+                parsed = dsd.parse_line(line)
             except dsd.ParseError:
                 errors += 1
                 continue
@@ -290,24 +385,39 @@ class Server:
                     name=parsed.name, type=dsd.STATUS,
                     value=float(parsed.status), tags=parsed.tags,
                     message=parsed.message))
-        with self.lock:
-            for sample in slow:
-                if not self.table.ingest(sample):
-                    dropped += 1
-            if slow:
-                self._maybe_device_step()
+        if slow:
+            with self.lock:
+                for sample in slow:
+                    if not self.table.ingest(sample):
+                        dropped += 1
+                work = self._maybe_device_step_locked()
+            self._apply_staged(work)
             processed += len(slow)
+        with self._stats_lock:
             self.stats["packets_received"] += n_pkts
             self.stats["packet_errors"] += errors
             self.stats["metrics_processed"] += processed
             self.stats["metrics_dropped"] += dropped
         return processed
 
-    def _maybe_device_step(self) -> None:
-        """Bound host staging between flushes.  Caller holds the lock."""
-        if (self.table.staged() >=
-                self.table.config.histo_merge_samples):
-            self.table.device_step()
+    def _maybe_device_step_locked(self):
+        """Past ``tpu_stage_flush_samples`` staged samples, the
+        mid-interval device step (it bounds host staging).  Caller
+        holds the lock.  Pipelined, it returns the detached work, which
+        the caller hands to ``_apply_staged`` once the lock is released;
+        serial, it applies inline and returns None."""
+        if self.table.staged() < self.config.tpu_stage_flush_samples:
+            return None
+        if self.pipeline:
+            return self.table.take_staged()
+        self.table.device_step()
+        return None
+
+    def _apply_staged(self, work) -> None:
+        """Apply detached work outside the lock (``complete_swap`` waits
+        for it, so nothing crosses the swap)."""
+        if work is not None:
+            self.table.apply_staged(work)
 
     # ------------------------------------------------------------------
 
@@ -322,13 +432,20 @@ class Server:
                 log.exception("flush failed")
 
     def flush_once(self) -> FlushResult:
-        """One flush: swap the table, read out, emit to sinks."""
+        """One flush: swap the table (pipelined: detach under the lock,
+        apply the final staging outside it), read it out, route it to
+        every sink and plugin, forward on a local.  Returns the
+        FlushResult with the frame materialized into ``metrics``."""
         with self._flush_serial:
             with self.lock:
-                pend = self.table.begin_swap()
+                if self.pipeline:
+                    pend = self.table.begin_swap()
+                else:
+                    snap = self.table.swap()
                 status = self.table.take_status()
-            snap = self.table.complete_swap(pend)
-            res = self.flusher.flush(snap)
+            if self.pipeline:
+                snap = self.table.complete_swap(pend)
+            res = self.flusher.flush(snap, retain_frame=True)
             ts = int(time.time())
             for (name, _, _, _), (val, msg, stags) in status.items():
                 res.metrics.append(im.InterMetric(
@@ -336,15 +453,23 @@ class Server:
                     type=im.STATUS, message=msg,
                     hostname=self.flusher.hostname))
             for sink in self.metric_sinks:
-                sink.flush(route(res.metrics, sink.name, sink))
+                if res.frame is not None and hasattr(sink, "flush_frame"):
+                    sink.flush_frame(res.frame.route(
+                        sink.name, sink,
+                        extra=route(res.metrics, sink.name, sink)))
+                else:
+                    sink.flush(route(res.all_metrics(), sink.name, sink))
             for plugin in self.plugins:
-                plugin.flush(res.metrics, self.flusher.hostname)
+                plugin.flush(res.all_metrics(), self.flusher.hostname)
             if self.is_local and res.forward:
                 if self.config.forward_use_grpc:
                     self._forward_grpc(res.forward)
                 else:
                     self._forward_http(res.forward)
-            self.stats["flushes"] += 1
+            self.bump("flushes")
+            if res.frame is not None:
+                res.metrics = res.frame.materialize() + res.metrics
+                res.frame = None
             return res
 
     def _forward_http(self, rows: list[ForwardRow]) -> None:
@@ -365,13 +490,11 @@ class Server:
             with urllib.request.urlopen(req, timeout=10.0) as r:
                 r.read()
         except Exception as e:  # forwarding never aborts the flush
-            with self.lock:
-                self.stats["metrics_dropped"] += len(rows)
-                self.stats["forward_errors"] += 1
+            self.bump("metrics_dropped", len(rows))
+            self.bump("forward_errors")
             log.warning("forward failed: %s", e)
             return
-        with self.lock:
-            self.stats["forwarded_rows"] += len(rows)
+        self.bump("forwarded_rows", len(rows))
 
     def _forward_grpc(self, rows: list[ForwardRow]) -> None:
         """Send a flush's forward rows to the global's Forward service
@@ -384,13 +507,11 @@ class Server:
         try:
             self._grpc_client.send(rows)
         except grpc.RpcError as e:
-            with self.lock:
-                self.stats["metrics_dropped"] += len(rows)
-                self.stats["forward_errors"] += 1
+            self.bump("metrics_dropped", len(rows))
+            self.bump("forward_errors")
             log.warning("grpc forward failed: %s", e)
             return
-        with self.lock:
-            self.stats["forwarded_rows"] += len(rows)
+        self.bump("forwarded_rows", len(rows))
 
     def shutdown(self) -> None:
         self._shutdown.set()

@@ -1,6 +1,8 @@
 """Device-resident metric tables: every series of a class in one plane.
 
-Port of ``veneur_tpu/core/table.py``, single-reader and single-tier.
+Port of ``veneur_tpu/core/table.py``, single-tier.  Several reader
+threads can share one table: each parses into a ``ReaderShard`` of its
+own without the lock and merges under it.
 All series of a metric class live in one fixed-capacity plane on the
 device, addressed by a dense row id that the host allocates per key:
 
@@ -249,11 +251,13 @@ class _IntervalState:
     __slots__ = ("gen", "fresh", "counters", "gauges", "histo_stats",
                  "histo_import_stats", "histo_means", "histo_weights",
                  "hll_regs", "hll_host_plane", "hll_host_ez",
-                 "hll_host_inv", "hll_device_touched")
+                 "hll_host_inv", "hll_device_touched", "pending")
 
     def __init__(self, gen: int):
         self.gen = gen
         self.fresh: set = set()
+        # detached work (take_staged) not yet applied to this state
+        self.pending = 0
         self.hll_host_plane: np.ndarray | None = None
         # per-row LogLog-Beta statistics kept by the native fold
         self.hll_host_ez: np.ndarray | None = None
@@ -277,6 +281,30 @@ class _PendingSwap:
                  "gauge_meta", "gauge_touched", "histo_meta",
                  "histo_touched", "set_meta", "set_touched",
                  "overflow", "ingested")
+
+
+_SCRATCH_COLS = (("hr", np.int32), ("hv", np.float32), ("hw", np.float32),
+                 ("sr", np.int32), ("sp", np.int32), ("mk", np.uint64),
+                 ("mt", np.uint8), ("mv", np.float64), ("mm", np.uint64),
+                 ("mw", np.float32), ("mo", np.int64), ("ml", np.int32),
+                 ("oo", np.int64), ("ol", np.int32), ("ok", np.uint8))
+
+
+def _grow_scratch(sc: dict | None, n_lines: int) -> dict:
+    """The fused pass's per-line scratch columns for ``n_lines``
+    lines: histo/set appends, the compact miss columns, the other
+    lines' spans.  Grow-only."""
+    if sc is None or len(sc["hr"]) < n_lines:
+        cap = max(n_lines, 4096)
+        sc = {name: np.empty(cap, dt) for name, dt in _SCRATCH_COLS}
+    return sc
+
+
+def _others(sc: dict, meta: np.ndarray) -> list[tuple[int, int, int]]:
+    """[(offset, length, type_code)] of a pass's event, service-check
+    and malformed lines."""
+    return [(int(sc["oo"][i]), int(sc["ol"][i]), int(sc["ok"][i]))
+            for i in range(int(meta[11]))]
 
 
 class _MissLines:
@@ -437,6 +465,9 @@ class MetricTable:
         self.routes: dict[str, int] = {}
         self.h2d_bytes = 0
         self._device_lock = threading.Lock()
+        # guards every state's pending count (take_staged bumps it under
+        # the ingest lock, apply_staged drops it, complete_swap waits)
+        self._pending_cv = threading.Condition()
         self._init_state()
 
     def _init_state(self):
@@ -652,42 +683,12 @@ class MetricTable:
                               sp, meta)
         return self._commit_pass(meta, hr, hv, hw, sr, sp)
 
-    def ingest_buffer(self, buf
-                      ) -> tuple[int, int, list[tuple[int, int, int]]]:
-        """Fused parse + probe + combine over a raw newline-separated
-        buffer (vtpu_parse_ingest): no columns between the grammar and
-        the table.  Misses resolve in Python and replay through
-        vtpu_ingest into the same staging.
-
-        Returns (processed, dropped, others): others is
-        [(offset, length, type_code)] for event, service-check and
-        malformed lines, the caller's per-line business."""
-        buf_b = buf if isinstance(buf, bytes) else bytes(buf)
-        buf_np = np.frombuffer(buf_b, np.uint8)
-        n_est = buf_b.count(b"\n") + 1
-        sc = self._fused_scratch
-        if sc is None or len(sc["hr"]) < n_est:
-            cap = max(n_est, 4096)
-            sc = self._fused_scratch = {
-                "hr": np.empty(cap, np.int32),
-                "hv": np.empty(cap, np.float32),
-                "hw": np.empty(cap, np.float32),
-                "sr": np.empty(cap, np.int32),
-                "sp": np.empty(cap, np.int32),
-                "mk": np.empty(cap, np.uint64),
-                "mt": np.empty(cap, np.uint8),
-                "mv": np.empty(cap, np.float64),
-                "mm": np.empty(cap, np.uint64),
-                "mw": np.empty(cap, np.float32),
-                "mo": np.empty(cap, np.int64),
-                "ml": np.empty(cap, np.int32),
-                "oo": np.empty(cap, np.int64),
-                "ol": np.empty(cap, np.int32),
-                "ok": np.empty(cap, np.uint8),
-            }
-        meta = np.zeros(12, np.int64)
-        t = self._touch_ptrs()
-
+    def _parse_ingest(self, buf_np: np.ndarray, t: dict, sc: dict,
+                      meta: np.ndarray) -> None:
+        """One vtpu_parse_ingest pass over ``buf_np``: combine into the
+        staging ``t`` points at (the table's, or a reader shard's
+        private copy), per-line appends into the scratch columns
+        ``sc``."""
         def p(name, ctype):
             return native.ptr(sc[name], ctype)
 
@@ -704,21 +705,44 @@ class MetricTable:
             p("mw", f32), p("mo", i64), p("ml", i32),
             p("oo", i64), p("ol", i32), p("ok", u8),
             native.ptr(meta, i64))
+
+    def _replay_misses(self, buf_np: np.ndarray, t: dict, sc: dict,
+                       meta: np.ndarray) -> None:
+        """Resolve a fused pass's misses (rows for never-seen series),
+        then replay the compact miss columns through vtpu_ingest into
+        the same staging and scratch (appends continue at ``meta``'s
+        cursors).  Caller holds the ingest lock."""
         n_miss = int(meta[2])
-        if n_miss:
-            shim = _MissLines(buf_np, sc["mo"], sc["ml"], sc["mt"])
-            self._resolve_misses(shim, np.arange(n_miss),
-                                 sc["mk"][:n_miss])
-            miss2 = np.empty(n_miss, np.int64)
-            self._ingest_pass(t, sc["mk"], sc["mt"], sc["mv"], sc["mm"],
-                              sc["mw"], n_miss, miss2, -1, sc["hr"],
-                              sc["hv"], sc["hw"], sc["sr"], sc["sp"], meta)
+        if not n_miss:
+            return
+        shim = _MissLines(buf_np, sc["mo"], sc["ml"], sc["mt"])
+        self._resolve_misses(shim, np.arange(n_miss), sc["mk"][:n_miss])
+        miss2 = np.empty(n_miss, np.int64)
+        self._ingest_pass(t, sc["mk"], sc["mt"], sc["mv"], sc["mm"],
+                          sc["mw"], n_miss, miss2, -1, sc["hr"], sc["hv"],
+                          sc["hw"], sc["sr"], sc["sp"], meta)
+
+    def ingest_buffer(self, buf
+                      ) -> tuple[int, int, list[tuple[int, int, int]]]:
+        """Fused parse + probe + combine over a raw newline-separated
+        buffer (vtpu_parse_ingest): no columns between the grammar and
+        the table.  Misses resolve in Python and replay through
+        vtpu_ingest into the same staging.
+
+        Returns (processed, dropped, others): others is
+        [(offset, length, type_code)] for event, service-check and
+        malformed lines, the caller's per-line business."""
+        buf_b = buf if isinstance(buf, bytes) else bytes(buf)
+        buf_np = np.frombuffer(buf_b, np.uint8)
+        sc = self._fused_scratch = _grow_scratch(
+            self._fused_scratch, buf_b.count(b"\n") + 1)
+        meta = np.zeros(12, np.int64)
+        t = self._touch_ptrs()
+        self._parse_ingest(buf_np, t, sc, meta)
+        self._replay_misses(buf_np, t, sc, meta)
         processed, dropped = self._commit_pass(
             meta, sc["hr"], sc["hv"], sc["hw"], sc["sr"], sc["sp"])
-        n_other = int(meta[11])
-        others = [(int(sc["oo"][i]), int(sc["ol"][i]), int(sc["ok"][i]))
-                  for i in range(n_other)]
-        return processed, dropped, others
+        return processed, dropped, _others(sc, meta)
 
     def staged(self) -> int:
         return self._staged_n
@@ -900,15 +924,45 @@ class MetricTable:
     # device step
 
     def device_step(self, final: bool = False) -> None:
-        """Push staged samples to the device.  Counters and gauges ship
-        only at the swap (they are dense interval accumulators); histo
-        and set staging ship at the swap or past
-        ``histo_merge_samples``."""
+        """Push staged samples to the device (the serial form: detach
+        and apply back to back; the pipelined form is ``take_staged`` /
+        ``apply_staged``).  Counters and gauges ship only at the swap
+        (they are dense interval accumulators); histo and set staging
+        ship at the swap or past ``histo_merge_samples``."""
         w = self._detach_staged(final)
         if w.empty:
             return
         with self._device_lock:
             self._apply_work(w)
+
+    def take_staged(self, final: bool = False) -> _StagedWork | None:
+        """Pipelined half 1: detach the staging buffers and pin the
+        current interval state.  Must run under the lock that serializes
+        ingest and ``begin_swap``: the pending count it bumps is what
+        ``complete_swap`` waits out, so the bump is atomic with the
+        detach (a swap between them could snapshot before this work
+        lands).  Returns None when nothing was detached."""
+        w = self._detach_staged(final)
+        if w.empty:
+            return None
+        with self._pending_cv:
+            w.state.pending += 1
+        return w
+
+    def apply_staged(self, w: _StagedWork) -> None:
+        """Pipelined half 2: apply detached work outside the ingest
+        lock.  Any thread may call it; applies serialize on the device
+        lock.  Two mid-interval applies commute (counter add, set max,
+        digest merges that only move centroid placement; gauges ship
+        only in the final work), and the pinned state keeps the work in
+        its interval."""
+        try:
+            with self._device_lock:
+                self._apply_work(w)
+        finally:
+            with self._pending_cv:
+                w.state.pending -= 1
+                self._pending_cv.notify_all()
 
     def _detach_staged(self, final: bool) -> _StagedWork:
         c = self.config
@@ -1728,8 +1782,14 @@ class MetricTable:
         return pend
 
     def complete_swap(self, pend: _PendingSwap) -> Snapshot:
-        """Swap half 2 (no ingest lock needed): apply the final staging
-        to the outgoing state and assemble the snapshot."""
+        """Swap half 2 (no ingest lock needed): wait out every pipelined
+        apply still pinned to the outgoing state (its pending count
+        reaches zero only once each pre-swap ``take_staged`` has landed:
+        no sample is lost or counted twice across the swap), apply the
+        final staging and assemble the snapshot."""
+        with self._pending_cv:
+            while pend.state.pending:
+                self._pending_cv.wait()
         if not pend.work.empty:
             with self._device_lock:
                 self._apply_work(pend.work)
@@ -1763,3 +1823,156 @@ class MetricTable:
         out = self.status
         self.status = {}
         return out
+
+    def make_reader_shard(self) -> "ReaderShard":
+        """Private fused-ingest scratch for one reader thread of a
+        multi-reader server (``ReaderShard``)."""
+        return ReaderShard(self)
+
+
+class ReaderShard:
+    """One reader thread's private half of the fused native ingest.
+
+    ``ingest_buffer`` holds the table lock across the whole parse +
+    probe + combine pass; with several SO_REUSEPORT readers that
+    serializes them.  A shard splits it so the O(lines) work runs on
+    every reader at once:
+
+    - ``parse(buf)``, no lock: ``vtpu_parse_ingest`` combines into this
+      shard's private dense and append scratch.  Index probes need no
+      lock (the native index publishes an immutable-capacity inner
+      table and counts its readers); every output buffer is the
+      shard's own.
+    - ``commit()``, under the caller's ingest lock: resolve misses (row
+      allocation for new series, once per identity), replay them, and
+      merge the shard's touched rows into the shared staging in
+      O(touched rows + appended samples).
+    - ``reset()``, no lock: zero the rows ``commit`` merged.
+
+    A compaction between ``parse`` and ``commit`` renumbers rows; the
+    table's ``_reindex_epoch`` shows it, and ``commit`` then discards
+    the scratch and re-ingests the raw buffer through ``ingest_buffer``.
+
+    Gauge last-write-wins resolves in commit order across shards, as
+    in any concurrent UDP arrival order; counter, histogram and set
+    merges do not depend on order.
+    """
+
+    def __init__(self, table: MetricTable):
+        self.table = table
+        c = table.config
+        self._c_dense = np.zeros(c.counter_rows, np.float64)
+        self._c_touch = np.zeros(c.counter_rows, np.uint8)
+        self._g_dense = np.zeros(c.gauge_rows, np.float32)
+        self._g_mask = np.zeros(c.gauge_rows, np.uint8)
+        self._g_touch = np.zeros(c.gauge_rows, np.uint8)
+        self._h_touch = np.zeros(c.histo_rows, np.uint8)
+        self._s_touch = np.zeros(c.set_rows, np.uint8)
+        u8 = ctypes.c_uint8
+        self._ptrs = dict(
+            counter_dense=native.ptr(self._c_dense, ctypes.c_double),
+            counter_touch=native.ptr(self._c_touch, u8),
+            gauge_dense=native.ptr(self._g_dense, ctypes.c_float),
+            gauge_mask=native.ptr(self._g_mask, u8),
+            gauge_touch=native.ptr(self._g_touch, u8),
+            histo_touch=native.ptr(self._h_touch, u8),
+            set_touch=native.ptr(self._s_touch, u8))
+        self._cols: dict | None = None  # per-line columns, grow-only
+        self._meta = np.zeros(12, np.int64)
+        self._buf: bytes | None = None
+        self._epoch = -1
+        # rows commit() merged, for the off-lock zeroing in reset()
+        self._zc = self._zg = self._zh = self._zs = None
+
+    def parse(self, buf) -> None:
+        """Fused parse + probe + combine into private scratch, without
+        the lock.  ctypes releases the GIL for the C pass, so readers
+        parse in parallel."""
+        t = self.table
+        buf_b = buf if isinstance(buf, bytes) else bytes(buf)
+        self._buf = buf_b
+        # the epoch BEFORE the probes: a compaction landing during the
+        # pass bumps it, and commit discards
+        self._epoch = t._reindex_epoch
+        self._cols = _grow_scratch(self._cols, buf_b.count(b"\n") + 1)
+        self._meta[:] = 0
+        t._parse_ingest(np.frombuffer(buf_b, np.uint8), self._ptrs,
+                        self._cols, self._meta)
+
+    def commit(self) -> tuple[int, int, list[tuple[int, int, int]]]:
+        """The locked merge: the caller holds the lock that serializes
+        every other table mutation.  Returns (processed, dropped,
+        others) as ``ingest_buffer`` does, offsets into the buffer
+        given to ``parse``."""
+        t = self.table
+        if self._epoch != t._reindex_epoch:
+            # rows renumbered since the probes: drop the scratch and run
+            # the raw buffer through the locked single-reader pass
+            buf = self._buf
+            self._discard()
+            return t.ingest_buffer(buf)
+        sc, meta = self._cols, self._meta
+        t._replay_misses(np.frombuffer(self._buf, np.uint8), self._ptrs,
+                         sc, meta)
+        processed = int(meta[3])
+        dropped = int(meta[6:11].sum())
+        if dropped:
+            t.counter_idx.drops.add(int(meta[6]))
+            t.gauge_idx.drops.add(int(meta[7]))
+            t.histo_idx.drops.add(int(meta[8] + meta[9]))
+            t.set_idx.drops.add(int(meta[10]))
+        cr = np.nonzero(self._c_touch)[0]
+        if len(cr):
+            t._counter_dense[cr] += self._c_dense[cr]
+            t.counter_idx.touched[cr] = True
+            t._counter_dirty = True
+        gr = np.nonzero(self._g_mask)[0]
+        if len(gr):
+            t._gauge_dense[gr] = self._g_dense[gr]
+            t._gauge_mask[gr] = 1
+            t.gauge_idx.touched[gr] = True
+            t._gauge_dirty = True
+        hn = int(meta[0])
+        hr = None
+        if hn:
+            t._histo_stage.append(sc["hr"][:hn].copy(),
+                                  sc["hv"][:hn].copy(),
+                                  sc["hw"][:hn].copy())
+            hr = np.nonzero(self._h_touch)[0]
+            t.histo_idx.touched[hr] = True
+        sn = int(meta[1])
+        sr = None
+        if sn:
+            t._set_pos_rows.append(sc["sr"][:sn].copy())
+            t._set_pos.append(sc["sp"][:sn].copy())
+            sr = np.nonzero(self._s_touch)[0]
+            t.set_idx.touched[sr] = True
+        t._note_staged(processed - dropped)
+        self._zc, self._zg, self._zh, self._zs = cr, gr, hr, sr
+        self._buf = None
+        return processed, dropped, _others(sc, meta)
+
+    def reset(self) -> None:
+        """Zero the rows commit merged, off the lock, so the scrub never
+        lengthens the critical section."""
+        if self._zc is not None and len(self._zc):
+            self._c_dense[self._zc] = 0.0
+            self._c_touch[self._zc] = 0
+        if self._zg is not None and len(self._zg):
+            self._g_dense[self._zg] = 0.0
+            self._g_mask[self._zg] = 0
+            self._g_touch[self._zg] = 0
+        if self._zh is not None and len(self._zh):
+            self._h_touch[self._zh] = 0
+        if self._zs is not None and len(self._zs):
+            self._s_touch[self._zs] = 0
+        self._zc = self._zg = self._zh = self._zs = None
+
+    def _discard(self) -> None:
+        """Full scrub, for the epoch fall-back."""
+        for a in (self._c_dense, self._c_touch, self._g_dense,
+                  self._g_mask, self._g_touch, self._h_touch,
+                  self._s_touch):
+            a.fill(0)
+        self._buf = None
+        self._zc = self._zg = self._zh = self._zs = None

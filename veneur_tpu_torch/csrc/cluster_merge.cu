@@ -5,6 +5,7 @@
 // f32[R, C] plus an incoming batch f32[R, K] merge into f32[R, C],
 // packed and sorted by mean.  Per row:
 //
+//   f32 subnormals read or written flush to a zero of their sign
 //   key = mean, empty slots (weight 0) keyed +inf
 //   stable sort of cat(state, batch) by key
 //   inclusive prefix sum of weight -> q = (cum - w) / total
@@ -24,7 +25,8 @@
 // eight rows are resident on an SM and hide each other's latency.
 //
 // - Loads: cp.async copies the whole row into shared memory at once,
-//   16 bytes at a time where the row pointers allow, 4 otherwise.  One
+//   16 bytes at a time where the row pointers allow, 4 otherwise.  A
+//   pass flushes subnormals to zero in place (one barrier); one more
 //   pass then counts each row's live slots, its highest live column and
 //   the spread of its live weights, and checks that keys never decrease
 //   along it (a warp reduction and one barrier).  A row with no weight
@@ -57,6 +59,7 @@
 //   step past a neighbour's mean.  Every block scan takes one barrier.
 
 #include <cuda_runtime.h>
+#include <float.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -138,6 +141,21 @@ __device__ __forceinline__ uint32_t order_bits(float f) {
 
 __device__ __forceinline__ float from_order_bits(uint32_t u) {
   return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
+}
+
+// A subnormal as a zero of its sign: the reference's merge runs under
+// XLA, which flushes them on every f32 load and store (the build keeps
+// nvcc's default -ftz=false, so this is the only place they flush).
+__device__ __forceinline__ float ftz(float x) {
+  return fabsf(x) < FLT_MIN ? copysignf(0.f, x) : x;
+}
+
+// Flush one row's means and weights in shared memory in place.
+__device__ void flush_row(float* m, float* w, int width) {
+  for (int i = threadIdx.x; i < width; i += kThreads) {
+    m[i] = ftz(m[i]);
+    w[i] = ftz(w[i]);
+  }
 }
 
 __device__ __forceinline__ float key_of(const float* m, const float* w,
@@ -437,6 +455,9 @@ __device__ void merge_row(float* sm, float* sw, float* bm, float* bw,
   const RowStat& ss = sc.stat[0];
   const RowStat& bs = sc.stat[1];
   int* cl = reinterpret_cast<int*>(sm);
+  flush_row(sm, sw, cap);
+  flush_row(bm, bw, k_in);
+  __syncthreads();
   survey_row(sm, sw, cap, &sc.stat[0]);
   survey_row(bm, bw, k_in, &sc.stat[1]);
   __syncthreads();
@@ -548,8 +569,8 @@ __device__ void merge_row(float* sm, float* sw, float* bm, float* bw,
       // f32 rounding that can step outside keeps slot means sorted
       mean = fminf(fmaxf(s_wm / fmaxf(s_w, kEps), mkey[a]), mkey[b - 1]);
     }
-    om[s] = mean;
-    ow[s] = s_w;
+    om[s] = ftz(mean);
+    ow[s] = ftz(s_w);
   }
 }
 

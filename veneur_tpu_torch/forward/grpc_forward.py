@@ -713,9 +713,10 @@ class ImportServer:
         self.port = self._grpc.add_insecure_port(address)
 
     def _send_metrics(self, request: bytes, context):
-        """Decode outside the server's lock (another handler's apply or
-        a device step may hold it), apply under it, then step the
-        device at the staging bound.  A wire that neither the native
+        """Decode outside the server's lock (another handler's apply
+        may hold it), apply under it and, past the staging bound, detach
+        the staged work there and apply it to the device after the lock
+        is released.  A wire that neither the native
         walker nor protobuf can read is counted in ``import_errors`` and
         answered INVALID_ARGUMENT."""
         core = self._core
@@ -731,14 +732,14 @@ class ImportServer:
                         forward_pb2.MetricList.FromString(request))
                 else:
                     acc, dropped = apply_decoded(core.table, request, cols)
-                core._maybe_device_step()
-                core.stats["imports_received"] += acc
-                core.stats["received_grpc"] += acc + dropped
-                core.stats["metrics_dropped"] += dropped
-                core.stats["import_flagged_wires"] += int(flagged)
+                work = core._maybe_device_step_locked()
+            core._apply_staged(work)
+            core.bump("imports_received", acc)
+            core.bump("received_grpc", acc + dropped)
+            core.bump("metrics_dropped", dropped)
+            core.bump("import_flagged_wires", int(flagged))
         except DecodeError as e:
-            with core.lock:
-                core.stats["import_errors"] += 1
+            core.bump("import_errors")
             context.abort(grpc.StatusCode.INVALID_ARGUMENT,
                           f"malformed MetricList: {e}")
         return empty_pb2.Empty()
@@ -746,8 +747,7 @@ class ImportServer:
     def _send_packet(self, request, context):
         """dogstatsd.DogstatsdGRPC/SendPacket (networking.go:314): the
         body may hold many newline-separated lines."""
-        with self._core.lock:
-            self._core.stats["received_dogstatsd-grpc"] += 1
+        self._core.bump("received_dogstatsd-grpc")
         self._core.handle_packet(request.packetBytes)
         return None  # dogstatsd.Empty
 

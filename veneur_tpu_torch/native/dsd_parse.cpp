@@ -1,5 +1,6 @@
 // Columnar DogStatsD batch parser and fused ingest: the host side of
-// the port's single-reader ingest path.
+// the port's ingest path, for one reader or several (reader shards
+// probe the identity index without a lock).
 //
 // A copy of the reference package's veneur_tpu/native/dsd_parse.cpp,
 // cut to the entries the port runs: the batch parser

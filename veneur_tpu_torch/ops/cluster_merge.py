@@ -17,6 +17,10 @@ ids clipped to the capacity, weighted per-cluster means).
   the CPU tests hold it against JAX, and the card holds the kernel
   against it.
 
+Both flush f32 subnormals to a zero of their sign as they read the
+four planes and as they write the two results, as the reference's merge
+does under XLA (a subnormal weight is no weight).
+
 ``launches`` counts kernel launches (not plain-version calls), so a run
 can show that its merges went through the kernel; ``occupancy`` reports
 the kernel's launch shape on the current card.
@@ -34,6 +38,8 @@ import threading
 from pathlib import Path
 
 import torch
+
+from veneur_tpu_torch.ops.segment import ftz
 
 MAX_WIDTH = 2048    # pow2 sort width bound, as the TPU kernel's
 _EPS = 1e-30
@@ -175,8 +181,8 @@ def cluster_merge_plain(means: torch.Tensor, weights: torch.Tensor,
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """The reference's scatter merge in PyTorch, on any device."""
     num_rows, cap = means.shape
-    m = torch.cat([means, new_means], dim=1)
-    w = torch.cat([weights, new_weights], dim=1)
+    m = ftz(torch.cat([means, new_means], dim=1))
+    w = ftz(torch.cat([weights, new_weights], dim=1))
     key = torch.where(w > 0, m, torch.full_like(m, math.inf))
     _, order = torch.sort(key, dim=1, stable=True)
     m = m.gather(1, order)
@@ -206,7 +212,7 @@ def cluster_merge_plain(means: torch.Tensor, weights: torch.Tensor,
     pack_key = torch.where(out_w > 0, out_m,
                            torch.full_like(out_m, math.inf))
     _, order = torch.sort(pack_key, dim=1, stable=True)
-    return out_m.gather(1, order), out_w.gather(1, order)
+    return ftz(out_m.gather(1, order)), ftz(out_w.gather(1, order))
 
 
 def _check(name: str, t: torch.Tensor, rows: int, dev) -> None:

@@ -12,6 +12,11 @@ Conventions (as in the reference package):
   on them, so every scatter here masks the pad rows out first.
 * ``weights`` carry the DogStatsD sample-rate correction ``1/rate``.
 * All state is float32.
+* f32 subnormals flush to zero of the same sign wherever the reference
+  takes them inside a jitted op (``ftz``): XLA's CPU backend runs its
+  jitted code with the x86 flush-to-zero and denormals-are-zero modes,
+  and a TPU's f32 has no subnormals.  Selects and copies (the gauge
+  updates) keep them, as XLA's do.
 
 Functions are pure: they return new tensors and leave their inputs
 untouched, like their JAX counterparts.
@@ -25,11 +30,19 @@ HISTO_STAT_COLS = 5
 STAT_WEIGHT, STAT_MIN, STAT_MAX, STAT_SUM, STAT_RSUM = range(HISTO_STAT_COLS)
 
 _F32_MAX = float(torch.finfo(torch.float32).max)
+_F32_TINY = float(torch.finfo(torch.float32).tiny)
 
 # Untouched-row sentinels for the min/max columns (the reference's
 # +/-Inf initialisation, kept inf-free).
 STAT_MIN_EMPTY = _F32_MAX
 STAT_MAX_EMPTY = -_F32_MAX
+
+
+def ftz(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with every f32 subnormal replaced by a zero of its sign.
+    Done per tensor, never through a process-wide floating-point mode
+    (that would also change numpy's arithmetic in the same process)."""
+    return torch.where(t.abs() < _F32_TINY, t * 0.0, t)
 
 
 def _live(row_ids: torch.Tensor, num_rows: int) -> torch.Tensor:
@@ -49,9 +62,10 @@ def counter_update(state: torch.Tensor, row_ids: torch.Tensor,
     agree bit for bit) and is at least as close to the exact total as
     the reference's f32 scatter-add."""
     live = _live(row_ids, state.shape[0])
-    return state.double().index_add(
+    addends = ftz(ftz(values) * ftz(weights))
+    return ftz(ftz(state).double().index_add(
         0, row_ids[live].long(),
-        (values * weights)[live].double()).to(torch.float32)
+        addends[live].double()).to(torch.float32))
 
 
 def gauge_update(state: torch.Tensor, row_ids: torch.Tensor,
@@ -83,7 +97,8 @@ def merge_histo_stats(stats: torch.Tensor, row_ids: torch.Tensor,
     device's scatter-add runs in."""
     live = _live(row_ids, stats.shape[0])
     rows = row_ids[live].long()
-    inc = incoming[live]
+    inc = ftz(incoming[live])
+    stats = ftz(stats)
     out = stats.clone()
     for col in (STAT_WEIGHT, STAT_SUM, STAT_RSUM):
         out[:, col] = stats[:, col].double().index_add(
@@ -92,7 +107,7 @@ def merge_histo_stats(stats: torch.Tensor, row_ids: torch.Tensor,
         0, rows, inc[:, STAT_MIN], "amin", include_self=True)
     out[:, STAT_MAX] = stats[:, STAT_MAX].scatter_reduce(
         0, rows, inc[:, STAT_MAX], "amax", include_self=True)
-    return out
+    return ftz(out)
 
 
 def histo_stats_update(stats: torch.Tensor, row_ids: torch.Tensor,
@@ -100,6 +115,7 @@ def histo_stats_update(stats: torch.Tensor, row_ids: torch.Tensor,
                        weights: torch.Tensor) -> torch.Tensor:
     """Update per-row local histogram aggregates: a raw sample of value
     v / weight w contributes the stat row (w, v, v, v*w, w/v)."""
+    values, weights = ftz(values), ftz(weights)
     incoming = torch.stack([
         weights, values, values, values * weights,
         torch.where(values != 0, weights / values,
@@ -110,6 +126,7 @@ def histo_stats_update(stats: torch.Tensor, row_ids: torch.Tensor,
 def histo_stats_update_unit(stats: torch.Tensor, row_ids: torch.Tensor,
                             values: torch.Tensor) -> torch.Tensor:
     """histo_stats_update with unit sample weights."""
+    values = ftz(values)
     ones = torch.ones_like(values)
     incoming = torch.stack([
         ones, values, values, values,
@@ -121,12 +138,13 @@ def histo_stats_update_unit(stats: torch.Tensor, row_ids: torch.Tensor,
 def counter_dense_update(state: torch.Tensor,
                          dense: torch.Tensor) -> torch.Tensor:
     """Add a host-precombined per-row total vector (f32[R])."""
-    return state + dense
+    return ftz(ftz(state) + ftz(dense))
 
 
 def gauge_dense_update(state: torch.Tensor, dense: torch.Tensor,
                        mask: torch.Tensor) -> torch.Tensor:
-    """Apply host-precombined last-write values where ``mask`` is set."""
+    """Apply host-precombined last-write values where ``mask`` is set
+    (a select: subnormals pass through, as in the reference)."""
     return torch.where(mask, dense, state)
 
 

@@ -17,7 +17,9 @@ static offsets and reinterprets the f32 / u8 segments with
 ``Tensor.view`` (the same bits as JAX's bitcast), then runs every class
 update.  The histo arm calls the same ``tdigest.ingest_ranked*``
 functions as the per-class path, so its merges go through the cluster
-merge kernel.
+merge kernel.  Every arm's arithmetic flushes f32 subnormals to zero
+there (``segment.ftz``), as the reference's jitted step does; the gauge
+arm is a select and keeps them, as XLA's does.
 """
 
 from __future__ import annotations

@@ -11,7 +11,10 @@ version on the CPU.
 The port behaves as the reference does under its defaults on a TPU:
 the tail refinement is on and every merge goes through the fused
 kernel.  JAX's ``lax.scan`` over merge chunks is a Python loop of
-merges here.  Functions return new tensors.
+merges here.  f32 subnormals flush to signed zero where the reference's
+jitted ops take them (``segment.ftz``): in the merge's loads and stores,
+the stat folds and the quantile readout.  Functions return new
+tensors.
 """
 
 from __future__ import annotations
@@ -179,6 +182,7 @@ def _stats_from_dense(stats: torch.Tensor, dense_v: torch.Tensor,
                       dense_w: torch.Tensor) -> torch.Tensor:
     """Fold a dense sample plane into the per-row (weight, min, max,
     sum, rsum) aggregates as row reductions."""
+    dense_v, dense_w = segment.ftz(dense_v), segment.ftz(dense_w)
     occ = dense_w > 0
     fmax = segment._F32_MAX
     w = stats[:, segment.STAT_WEIGHT] + dense_w.sum(dim=1)
@@ -193,20 +197,21 @@ def _stats_from_dense(stats: torch.Tensor, dense_v: torch.Tensor,
     rs = stats[:, segment.STAT_RSUM] + torch.where(
         occ & (dense_v != 0), dense_w / dense_v,
         torch.zeros_like(dense_v)).sum(dim=1)
-    return torch.stack([w, mn, mx, sm, rs], dim=1)
+    return segment.ftz(torch.stack([w, mn, mx, sm, rs], dim=1))
 
 
 def _combine_row_stats(stats: torch.Tensor,
                        batch_stats: torch.Tensor) -> torch.Tensor:
     """Elementwise fold of per-row batch aggregates into the stats
     plane (untouched rows carry identity values)."""
-    return torch.stack([
+    stats, batch_stats = segment.ftz(stats), segment.ftz(batch_stats)
+    return segment.ftz(torch.stack([
         stats[:, 0] + batch_stats[:, 0],
         torch.minimum(stats[:, 1], batch_stats[:, 1]),
         torch.maximum(stats[:, 2], batch_stats[:, 2]),
         stats[:, 3] + batch_stats[:, 3],
         stats[:, 4] + batch_stats[:, 4],
-    ], dim=1)
+    ], dim=1))
 
 
 def ingest_ranked(means, weights, stats, row_ids, ranks, values,
@@ -424,6 +429,8 @@ def _bounds(m, w, mins, maxs):
 
 def _quantile(means, weights, qs, mins, maxs):
     """The reference's uniform-bounds quantile walk."""
+    means, weights, mins, maxs = (segment.ftz(t) for t in
+                                  (means, weights, mins, maxs))
     m, w, cum, lb, ub, nvalid, total = _bounds(means, weights, mins,
                                                maxs)
     last = (nvalid - 1).clamp(min=0)[:, None]
@@ -438,13 +445,16 @@ def _quantile(means, weights, qs, mins, maxs):
     prop = ((t - cum_before) / w_i.clamp(min=_EPS)).clamp(0.0, 1.0)
     est = lb_i + prop * (ub_i - lb_i)
     ok = (nvalid[:, None] > 0) & (total > 0)
-    return torch.where(ok, est, torch.full_like(est, math.nan))
+    return segment.ftz(torch.where(ok, est,
+                                   torch.full_like(est, math.nan)))
 
 
 def _quantile_interp(means, weights, qs, mins, maxs):
     """Rank-space centroid-mean interpolation (the flush readout).
     Knots: (-0.5, min), (pos_i, mean_i)..., (total-0.5, max) with
     pos_i = cum_i - (w_i+1)/2; target rank h = q*(total-1)."""
+    means, weights, mins, maxs = (segment.ftz(t) for t in
+                                  (means, weights, mins, maxs))
     m, w = _sorted_planes(means, weights)
     cum, total, nvalid, last, lo_anchor, hi_anchor = _anchors(
         m, w, mins, maxs)
@@ -466,7 +476,8 @@ def _quantile_interp(means, weights, qs, mins, maxs):
     est = v_lo + frac * (v_hi - v_lo)
     est = torch.minimum(torch.maximum(est, lo_anchor), hi_anchor)
     ok = (nvalid[:, None] > 0) & (total > 0)
-    return torch.where(ok, est, torch.full_like(est, math.nan))
+    return segment.ftz(torch.where(ok, est,
+                                   torch.full_like(est, math.nan)))
 
 
 def quantile(means: torch.Tensor, weights: torch.Tensor,

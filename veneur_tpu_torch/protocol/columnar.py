@@ -3,10 +3,12 @@
 ``ParsedBatch`` is the column set ``MetricTable.ingest_columns``
 consumes; ``ColumnarParser`` fills it with the native batch parser
 (``vtpu_parse_batch``, ``veneur_tpu_torch/native``) over a whole buffer
-of newline-separated lines.  The single-reader server does not parse
-into columns: ``MetricTable.ingest_buffer`` parses, probes and combines
-in one native pass.  Only novel series, events, service checks and
-malformed lines touch per-line Python (``protocol.dogstatsd``).
+of newline-separated lines.  The server parses into columns only on
+the multi-reader split path (``tpu_multi_reader_fused: false``);
+otherwise ``MetricTable.ingest_buffer`` or a reader's ``ReaderShard``
+parses, probes and combines in one native pass.  Only novel series,
+events, service checks and malformed lines touch per-line Python
+(``protocol.dogstatsd``).
 """
 
 from __future__ import annotations

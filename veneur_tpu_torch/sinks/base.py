@@ -2,7 +2,9 @@
 
 Sinks are host-side and run post-readback at flush.  Metric routing
 honours per-metric ``veneursinkonly:<name>`` whitelists
-(InterMetric.acceptable_for) and per-sink excluded tags.
+(InterMetric.acceptable_for) and per-sink excluded tags; a flush's
+MetricFrame routes itself the same way (``MetricFrame.route``) and
+reaches a sink through ``flush_frame``.
 """
 
 from __future__ import annotations
@@ -40,6 +42,14 @@ class SinkBase:
         return InterMetric(name=m.name, timestamp=m.timestamp,
                            value=m.value, tags=kept, type=m.type,
                            message=m.message, hostname=m.hostname)
+
+    def flush_frame(self, frame) -> None:
+        """Columnar entry (``core.frame.MetricFrame``).  The frame is
+        already routed for this sink (whitelists and excluded tags
+        applied), so the default hands ``flush`` its materialized
+        list; a sink that encodes straight off the columns overrides
+        this."""
+        self.flush(frame.materialize())
 
 
 def route(metrics: list[InterMetric], sink_name: str,

@@ -16,6 +16,8 @@ kernel's own library (``_build/``), with the same C entry:
 - ``composite_sort``: every unsorted row sorted by (key, column)
   composites, also where its live weights are all equal;
 - ``fast_math``: q by a reciprocal and the tail's log by ``__logf``;
+- ``no_flush``: without the f32 subnormal flush on load and store (the
+  kernel before it), to time what the flush costs;
 - ``stop_survey`` ... ``stop_ids``: the kernel cut short after one phase
   (loads and survey, sort, merge, cluster ids), writing zeros, so that
   the differences between them give each phase's time.
@@ -135,6 +137,12 @@ _EDITS = {
          "    const float q = (cum - w) * (1.f / denom);"),
         ("tail_coeff * logf(tail_q0 / fmaxf(1.f - q, tail_qmin));",
          "tail_coeff * (logf(tail_q0) - __logf(fmaxf(1.f - q, tail_qmin)));"),
+    ],
+    "no_flush": [
+        ("  flush_row(sm, sw, cap);\n  flush_row(bm, bw, k_in);\n"
+         "  __syncthreads();\n", ""),
+        ("    om[s] = ftz(mean);\n    ow[s] = ftz(s_w);",
+         "    om[s] = mean;\n    ow[s] = s_w;"),
     ],
 }
 
