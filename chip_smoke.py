@@ -15,9 +15,9 @@ Run from the root of a checkout.  Phases, one JSON line each:
    at R = 16384, C = 616, K = 512 (the deep plane), K = 256, K = 616
    (union), K = 512 with unsorted state rows and K = 512 with f32
    subnormal keys and weights: mass, packing contract, no subnormal
-   written, quantiles; times with CUDA events.  After phases 4, 6, 8
-   and 9 the same check runs at every other (R, K) they merged at (the
-   global folds with weighted centroids);
+   written, quantiles; times with CUDA events.  After phases 4, 6, 8,
+   9 and 10 the same check runs at every other (R, K) they merged at
+   (the global folds with weighted centroids);
 3. ``entry("cuda")`` against ``entry("cpu")`` on the same arrays, then
    F1: f32 subnormal samples on every histogram path, a subnormal
    counter and a subnormal gauge through the table on the card and on
@@ -68,6 +68,19 @@ Run from the root of a checkout.  Phases, one JSON line each:
    intervals (the second must resolve every wire from the wire-plan
    cache) plus one profiled; held against a CPU global on the same
    bytes, against phase 6's HTTP global and against the exact p99;
+10. adaptive sketch tiers (run right after phase 8): the reference's
+   cardinality soak (``bench.py --cardinality``, full size) through a
+   tiered port ``Server``: 65,536 timer rows and 16,384 set rows with
+   pools of an eighth, 3 steady intervals of Zipf(1.15) traffic
+   (300,000 timer samples over 40,000 series, 120,000 set members over
+   12,000 series, plus tracked hot and cold series) and 3 idle ones,
+   through ``handle_packet_batch`` in 8,192-line chunks and
+   ``flush_once``; the soak's gates but its two ledger gates (device
+   bytes per series 4x under the all-wide baseline and flat, the
+   accuracy pins, promotions and demotions in both classes), every
+   timer series' flushed count equal to what was sent, the flush held
+   to a CPU port server's on the same lines, and the card's peak
+   device memory against an untiered port table at the same sizes;
 7. the chain: a global (HTTP and gRPC listeners) and three locals (one
    per /import schema, one forwarding over gRPC) as server processes on
    the card: the global flushes the JAX chain's ``lat.99percentile``
@@ -75,7 +88,7 @@ Run from the root of a checkout.  Phases, one JSON line each:
    Go-side MetricList fixture through SendMetrics; a garbage /import is
    answered 400 and a garbage SendMetrics INVALID_ARGUMENT, both
    counted;
-10. the kernels line, then the last line
+11. the kernels line, then the last line
     ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero before the last
@@ -105,7 +118,13 @@ F32_OPS_PER_S = 67e12
 QS = (0.1, 0.5, 0.9, 0.99)
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        # the script's wall clock at the end of each phase
+        obj = dict(obj, script_elapsed_s=time.perf_counter() - T_START)
     print(json.dumps(obj), flush=True)
 
 
@@ -982,6 +1001,353 @@ def phase_readers(table_out: dict, dev: str = "cuda",
     return out
 
 
+# ---- phase 10: adaptive sketch tiers (the cardinality soak) ---------------
+
+# bench.py's --cardinality soak, non-QUICK (bench.py:4352-4437): its
+# series, table rows, traffic per interval and tier thresholds
+SOAK_HISTO_SERIES, SOAK_SET_SERIES = 40_000, 12_000
+SOAK_HISTO_ROWS, SOAK_SET_ROWS = 65_536, 16_384
+SOAK_SAMPLES, SOAK_ITEMS = 300_000, 120_000
+SOAK_STEADY, SOAK_IDLE = 3, 3
+SOAK_CHUNK = 8192  # lines per handle_packet_batch(drained=...) call
+SOAK_ENV = {"VENEUR_TPU_PLANE_TIERS": "2",
+            "VENEUR_TPU_PROMOTE_HISTO_SAMPLES": "64",
+            "VENEUR_TPU_PROMOTE_SET_ENTRIES": "512",
+            "VENEUR_TPU_DEMOTE_IDLE_INTERVALS": "2"}
+
+
+def soak_traffic(seed: int = 20260808) -> dict:
+    """The soak's intervals as line lists, made once (seeded): the
+    first also touches every series once, each steady interval carries
+    the tracked series (hot timer 3,000 samples, cold timer 24, hot set
+    5,000 members, cold set 60) and Zipf(1.15) traffic (300,000 timer
+    samples over 40,000 series, 120,000 fresh set members over 12,000
+    series); each idle interval 500 new one-sample timers.  Also the
+    samples sent to every timer series each interval, and the tracked
+    values of the last steady interval."""
+    rng = np.random.default_rng(seed)
+    intervals, sent = [], []
+    uid = 0
+    hot_vals = cold_vals = None
+    for it in range(SOAK_STEADY):
+        lines = []
+        counts = np.zeros(SOAK_HISTO_SERIES, np.int64)
+        if it == 0:
+            lines += [b"card.h.%d:1|ms" % i
+                      for i in range(SOAK_HISTO_SERIES)]
+            lines += [b"card.s.%d:seed|s" % i
+                      for i in range(SOAK_SET_SERIES)]
+            counts += 1
+        hot_vals = np.round(rng.uniform(0.0, 1000.0, 3_000), 4)
+        cold_vals = np.round(rng.uniform(0.0, 1000.0, 24), 4)
+        lines += [b"card.h.hot:%.4f|ms" % v for v in hot_vals]
+        lines += [b"card.h.cold:%.4f|ms" % v for v in cold_vals]
+        lines += [b"card.s.hot:mh%d|s" % i for i in range(5_000)]
+        lines += [b"card.s.cold:mc%d|s" % i for i in range(60)]
+        hz = np.minimum(rng.zipf(1.15, SOAK_SAMPLES),
+                        SOAK_HISTO_SERIES) - 1
+        vals = rng.uniform(0.0, 1000.0, SOAK_SAMPLES)
+        lines += [b"card.h.%d:%.4f|ms" % (i, v)
+                  for i, v in zip(hz.tolist(), vals.tolist())]
+        counts += np.bincount(hz, minlength=SOAK_HISTO_SERIES)
+        sz = np.minimum(rng.zipf(1.15, SOAK_ITEMS), SOAK_SET_SERIES) - 1
+        lines += [b"card.s.%d:m%d|s" % (i, uid + j)
+                  for j, i in enumerate(sz.tolist())]
+        uid += SOAK_ITEMS
+        intervals.append(lines)
+        c = {f"card.h.{i}": int(n) for i, n in enumerate(counts) if n}
+        c.update({"card.h.hot": 3_000, "card.h.cold": 24})
+        sent.append(c)
+    for j in range(SOAK_IDLE):
+        names = [f"card.h.tail{j * 500 + i}" for i in range(500)]
+        intervals.append([b"%s:1|ms" % n.encode() for n in names])
+        sent.append({n: 1 for n in names})
+    return {"intervals": intervals, "sent": sent, "hot_vals": hot_vals,
+            "cold_vals": cold_vals}
+
+
+def run_soak(dev: str, traffic: dict, sync) -> dict:
+    """The soak through a port ``Server`` on ``dev``: every interval's
+    lines through ``handle_packet_batch(drained=...)`` in SOAK_CHUNK
+    chunks, then ``flush_once``.  Per interval: the time split (ingest;
+    the final apply; the tier boundary; the flusher; the rest of
+    ``flush_once``), ``plane_bytes()`` and the index occupancy after
+    it, the snapshot's tier view and its metrics."""
+    import torch
+    from veneur_tpu_torch.core.config import read_config
+    from veneur_tpu_torch.core.server import Server
+    saved = {k: os.environ.get(k) for k in SOAK_ENV}
+    os.environ.update(SOAK_ENV)
+    try:
+        srv = Server(read_config(data={
+            "interval": "10s", "hostname": "bench-cardinality",
+            "percentiles": [0.5, 0.99], "aggregates": ["max", "count"],
+            "tpu_histo_rows": SOAK_HISTO_ROWS,
+            "tpu_set_rows": SOAK_SET_ROWS}, env={}), device=dev)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    table = srv.table
+    check(table.tiers is not None, "the soak's table is not tiered")
+    t = {}
+    views = []
+    complete, boundary, flush = (table.complete_swap,
+                                 table._tier_boundary, srv.flusher.flush)
+
+    def timed(key, fn):
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            sync()
+            t[key] = t.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return wrapped
+
+    def complete_spy(pend):
+        snap = timed("complete_swap_s", complete)(pend)
+        views.append((snap.tiers, [m.name for m in snap.histo_meta],
+                      [m.name for m in snap.set_meta]))
+        return snap
+    table.complete_swap = complete_spy
+    table._tier_boundary = timed("boundary_s", boundary)
+    srv.flusher.flush = timed("flush_s", flush)
+    out = []
+    for lines in traffic["intervals"]:
+        t.clear()
+        t0 = time.perf_counter()
+        for i in range(0, len(lines), SOAK_CHUNK):
+            srv.handle_packet_batch(
+                [], drained=b"\n".join(lines[i:i + SOAK_CHUNK]),
+                drained_pkts=1)
+        sync()
+        t1 = time.perf_counter()
+        res = srv.flush_once()
+        t2 = time.perf_counter()
+        ti, hnames, snames = views[-1]
+        pb = table.plane_bytes()
+        out.append({
+            "samples": len(lines), "ingest_s": t1 - t0,
+            "apply_s": t["complete_swap_s"] - t["boundary_s"],
+            "boundary_s": t["boundary_s"], "flush_s": t["flush_s"],
+            # begin_swap, and the frame's materialization for the sinks
+            "other_s": (t2 - t1 - t["complete_swap_s"] - t["flush_s"]),
+            "total_s": t2 - t0,
+            "occ_histo": table.histo_idx.occupancy(),
+            "occ_set": table.set_idx.occupancy(),
+            "samples_per_s": len(lines) / (t2 - t0),
+            "plane_bytes": pb, "tiers": ti, "histo_names": hnames,
+            "set_names": snames, "metrics": res.metrics,
+            "overflow": res.tally.get("overflow", 0)})
+    dirs = {c: (getattr(table.tiers, c).tier.copy(),
+                getattr(table.tiers, c).slot.copy())
+            for c in ("histo", "set")}
+    srv.shutdown()
+    del srv, table
+    return {"intervals": out, "directory": dirs}
+
+
+def soak_accuracy(last, traffic) -> tuple[dict, dict]:
+    """The soak's accuracy pins on the last steady flush, against the
+    exact per-interval values (bench.py:4509-4585)."""
+    hot, cold = traffic["hot_vals"], traffic["cold_vals"]
+    em = {m.name: m.value for m in last["metrics"]}
+    acc = {"hot_p99": em.get("card.h.hot.99percentile"),
+           "hot_p99_true": float(np.quantile(hot, 0.99)),
+           "cold_p99": em.get("card.h.cold.99percentile"),
+           "cold_p99_true": float(np.quantile(cold, 0.99)),
+           "hot_count": em.get("card.h.hot.count"),
+           "hot_max": em.get("card.h.hot.max"),
+           "hot_max_true": float(np.float32(hot.max())),
+           "set_hot_est": em.get("card.s.hot"), "set_hot_true": 5_000,
+           "set_cold_est": em.get("card.s.cold"), "set_cold_true": 60}
+
+    def rel(got, want):
+        return (float("inf") if got is None
+                else abs(float(got) - want) / max(abs(want), 1e-9))
+    gates = {
+        "histo_hot_p99_pinned": rel(acc["hot_p99"],
+                                    acc["hot_p99_true"]) <= 0.02,
+        "histo_cold_p99_pinned": rel(acc["cold_p99"],
+                                     acc["cold_p99_true"]) <= 0.05,
+        "histo_hot_count_exact": acc["hot_count"] == 3_000,
+        "histo_hot_max_exact": acc["hot_max"] == acc["hot_max_true"],
+        "set_hot_est_pinned": rel(acc["set_hot_est"], 5_000.0) <= 0.04,
+        "set_cold_est_pinned": rel(acc["set_cold_est"], 60.0) <= 0.02}
+    return acc, gates
+
+
+def compare_tiered_flush(dev_iv, cpu_iv) -> dict:
+    """The card's flush against the CPU table's for one interval: the
+    same frozen tier view; counters, counts, max, set estimates and
+    compact-row percentiles bit-equal; wide-row percentiles within rtol
+    2e-3 / atol 1e-3 (the soak emits no sums)."""
+    dt, ct = dev_iv["tiers"], cpu_iv["tiers"]
+    for a in ("histo_tier", "histo_slot", "set_tier", "set_slot"):
+        check(np.array_equal(getattr(dt, a), getattr(ct, a)),
+              f"card and CPU tier views differ in {a}")
+    check(dt.movements == ct.movements, "card and CPU movements differ")
+    wide = {n for n, w in zip(cpu_iv["histo_names"],
+                              ct.histo_tier[:len(cpu_iv["histo_names"])])
+            if w}
+    d = {(m.name, m.tags): m.value for m in dev_iv["metrics"]}
+    c = {(m.name, m.tags): m.value for m in cpu_iv["metrics"]}
+    check(d.keys() == c.keys(), "card and CPU flush different metrics")
+    n_wide = n_compact = 0
+    worst = 0.0
+    for key, cv in c.items():
+        dv = d[key]
+        name = key[0]
+        if name.endswith("percentile") and name.rsplit(".", 1)[0] in wide:
+            check(abs(dv - cv) <= 1e-3 + 2e-3 * abs(cv),
+                  f"{key}: {dv} vs {cv}")
+            worst = max(worst, abs(dv - cv))
+            n_wide += 1
+            continue
+        check(dv == cv, f"{key}: {dv} vs {cv} not bit-equal")
+        n_compact += name.endswith("percentile")
+    return {"metrics": len(c), "wide_percentiles": n_wide,
+            "compact_percentiles_bit_equal": n_compact,
+            "wide_percentile_max_abs_diff": worst}
+
+
+def phase_tiers(dev: str = "cuda", cpu_reference: bool = True) -> dict:
+    """Phase 10: the reference's cardinality soak through a tiered port
+    server on the card (and the same lines through a CPU one), with the
+    soak's gates but its two ledger gates, mass conservation, and the
+    card's device memory against an untiered port table of the same
+    sizes."""
+    import torch
+    from veneur_tpu_torch.core.table import MetricTable, TableConfig
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    traffic = soak_traffic()
+    gen_s = time.perf_counter() - t0
+    if dev == "cuda":
+        sync()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    with MergeRecorder() as rec:
+        run = run_soak(dev, traffic, sync)
+    ivs = run["intervals"]
+    out = {"phase": "tiers_soak", "device": dev, "gen_s": gen_s,
+           "histo_series": SOAK_HISTO_SERIES,
+           "set_series": SOAK_SET_SERIES, "histo_rows": SOAK_HISTO_ROWS,
+           "set_rows": SOAK_SET_ROWS, "env": SOAK_ENV,
+           "cluster_merge_launches": rec.launches,
+           "merge_shapes": rec.table()}
+    if dev == "cuda":
+        out["peak_device_bytes_tiered"] = (torch.cuda.max_memory_allocated()
+                                           - base)
+        check(rec.launches > 0, "the soak launched no cluster merge")
+        # an untiered port table at the same sizes, built and freed
+        sync()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        saved = os.environ.get("VENEUR_TPU_PLANE_TIERS")
+        os.environ["VENEUR_TPU_PLANE_TIERS"] = "1"
+        try:
+            wide = MetricTable(TableConfig(
+                counter_rows=16384, gauge_rows=16384,
+                histo_rows=SOAK_HISTO_ROWS, set_rows=SOAK_SET_ROWS),
+                device=dev)
+            check(wide.tiers is None, "the untiered table is tiered")
+            sync()
+            out["peak_device_bytes_untiered"] = (
+                torch.cuda.max_memory_allocated() - base)
+            del wide
+        finally:
+            if saved is None:
+                os.environ.pop("VENEUR_TPU_PLANE_TIERS", None)
+            else:
+                os.environ["VENEUR_TPU_PLANE_TIERS"] = saved
+        sync()
+        torch.cuda.empty_cache()
+    # device bytes per series against the analytic all-wide baseline,
+    # as the soak computes them after the last steady flush: the same
+    # occupancy, every occupied histo and set row a full-width sketch
+    last = ivs[SOAK_STEADY - 1]
+    pb = last["plane_bytes"]
+    ti = pb["tiers"]["occupancy"]
+    h_slot_b = pb["histo"]["wide"] / max(1, ti["histo"]["wide_slots"])
+    s_slot_b = pb["set"]["wide"] / max(1, ti["set"]["wide_slots"])
+    baseline = (pb["counter"]["wide"] + pb["gauge"]["wide"] +
+                pb["histo"]["stats"] + last["occ_histo"] * h_slot_b +
+                last["occ_set"] * s_slot_b)
+    base_dbps = baseline / max(1, pb["occupancy"])
+    dbps = pb["device_bytes_per_series"]
+    acc, gates = soak_accuracy(last, traffic)
+    steadies = [iv["plane_bytes"]["total"] for iv in ivs[:SOAK_STEADY]]
+    mv = ivs[-1]["plane_bytes"]["tiers"]["movements"]
+    gates.update({
+        "dbps_bounded_4x": base_dbps / dbps >= 4.0,
+        "dbps_flat_steady": max(steadies) <= 1.10 * min(steadies),
+        "promotions_fired": all(mv[c]["promotions"] > 0
+                                for c in ("histo", "set")),
+        "demotions_fired": all(mv[c]["demotions"] > 0
+                               for c in ("histo", "set"))})
+    # mass: every timer series' flushed count is what was sent to it
+    for k, (iv, sent) in enumerate(zip(ivs, traffic["sent"])):
+        got = {m.name[:-len(".count")]: m.value for m in iv["metrics"]
+               if m.name.startswith("card.h.") and m.name.endswith(".count")}
+        check(got == {n: float(c) for n, c in sent.items()},
+              f"interval {k + 1}: flushed timer counts differ from the "
+              f"samples sent")
+        check(iv["overflow"] == 0, f"interval {k + 1} dropped samples")
+    gates["mass_conserved"] = True
+    out.update({
+        "intervals": [{k: v for k, v in iv.items()
+                       if k not in ("tiers", "metrics", "histo_names",
+                                    "set_names", "plane_bytes",
+                                    "occ_histo", "occ_set")} |
+                      {"total_bytes": iv["plane_bytes"]["total"],
+                       "device_bytes_per_series":
+                           iv["plane_bytes"]["device_bytes_per_series"],
+                       "occupancy": iv["plane_bytes"]["occupancy"],
+                       "wide_rows": {c: iv["plane_bytes"]["tiers"][
+                           "occupancy"][c]["wide"]
+                           for c in ("histo", "set")},
+                       "movements": iv["tiers"].movements}
+                      for iv in ivs],
+        "plane_bytes_last_steady": {k: v for k, v in pb.items()
+                                    if k != "tiers"},
+        "device_bytes_per_series": dbps,
+        "baseline_all_wide_bytes": baseline,
+        "baseline_device_bytes_per_series": base_dbps,
+        "dbps_reduction_x": base_dbps / dbps,
+        "movements": mv, "accuracy": acc,
+        "steady_samples_per_s": (
+            sum(iv["samples"] for iv in ivs[:SOAK_STEADY]) /
+            sum(iv["total_s"] for iv in ivs[:SOAK_STEADY]))})
+    if cpu_reference:
+        crun = run_soak("cpu", traffic, lambda: None)
+        check(all(np.array_equal(crun["directory"][c][i],
+                                 run["directory"][c][i])
+                  for c in ("histo", "set") for i in (0, 1)),
+              "card and CPU directories differ after the soak")
+        out["vs_cpu"] = [compare_tiered_flush(d, c) for d, c in
+                         zip(ivs, crun["intervals"])]
+        out["cpu_steady_samples_per_s"] = (
+            sum(iv["samples"] for iv in crun["intervals"][:SOAK_STEADY]) /
+            sum(iv["total_s"] for iv in crun["intervals"][:SOAK_STEADY]))
+    gates = {k: bool(v) for k, v in gates.items()}
+    out["gates"] = gates
+    out["cut"] = ("none: the soak's sizes, traffic and thresholds; its "
+                  "two ledger gates wait for the port's ledger")
+    emit(out)
+    bad = [k for k, v in gates.items() if not v]
+    check(not bad, f"soak gates failed: {bad}")
+    return out
+
+
 # ---- phase 6: the global tier -------------------------------------------------
 
 # BASELINE config 5: 64 locals forwarding to one global.  Every fourth
@@ -1797,9 +2163,10 @@ def main() -> int:
     del table["bufs"], table["exact_p99"], table["metrics"]
     glob = phase_global()
     grpc_glob = phase_global_grpc(glob.pop("grpc_input"))
-    # phase 2 again, at every other shape phases 4, 6, 8 and 9 merged
-    # at: the locals' sample batches unit-weight, the globals' wires
-    # weighted
+    tiers = phase_tiers()
+    # phase 2 again, at every other shape phases 4, 6, 8, 9 and 10
+    # merged at: the locals' sample batches unit-weight, the globals'
+    # wires weighted
     cases = recorded_cases(table["merge_shapes"])
     for run in readers["runs"].values():
         cases += recorded_cases(run["merge_shapes"], timed=cases)
@@ -1810,6 +2177,7 @@ def main() -> int:
                                 timed=cases)
     cases += recorded_cases(grpc_glob["merge_shapes"], weighted=True,
                             timed=cases)
+    cases += recorded_cases(tiers["merge_shapes"], timed=cases)
     kern.update(phase_kernel(cases=cases))
     phase_server()
     phase_chain()
@@ -1823,9 +2191,11 @@ def main() -> int:
                                   for s in ("flat", "stack")),
                "global_tier_grpc": grpc_glob["cluster_merge_launches"],
                "multi_reader": {n: r["cluster_merge_launches"]
-                                for n, r in readers["runs"].items()}}
+                                for n, r in readers["runs"].items()},
+               "tiers": tiers["cluster_merge_launches"]}
     shapes_by_path = {"multi_reader": {n: r["merge_shapes"] for n, r in
-                                       readers["runs"].items()}}
+                                       readers["runs"].items()},
+                      "tiers": tiers["merge_shapes"]}
     emit({"kernels": [{
         "name": "cluster_merge", "route": "cuda",
         "source": "veneur_tpu_torch/csrc/cluster_merge.cu",

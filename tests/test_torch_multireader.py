@@ -18,7 +18,6 @@ from __future__ import annotations
 import ctypes
 import sys
 import threading
-import time
 
 import numpy as np
 import pytest
@@ -295,12 +294,20 @@ def test_compaction_under_live_readers_exact():
     intervals, each round on a fresh keyspace, so that begin_swap
     compacts: the native index is cleared and refilled under live
     probes, and the counter totals summed over every interval are
-    exact."""
+    exact.  A round ends once every reader has committed a buffer of
+    that round's keyspace, so an interval holds at most two keyspaces
+    (300 of the 512 counter rows) however late a reader runs: a wall
+    clock pace let a reader descheduled across two swaps carry a third
+    keyspace into one interval, and the next round overflowed the
+    class."""
     n_readers, rounds, per, card = 3, 12, 400, 150
     table = _table(counter_rows=512, histo_merge_samples=1 << 30)
     lock = threading.Lock()
     stop = threading.Event()
     phase = [0]
+    # the round of the last buffer each reader committed
+    done = [-1] * n_readers
+    progress = threading.Condition()
     sent = [0] * n_readers
     errs = []
 
@@ -308,8 +315,8 @@ def test_compaction_under_live_readers_exact():
         try:
             shard = table.make_reader_shard()
             while not stop.is_set():
-                base = phase[0] * card
-                buf = "\n".join(f"cmp.{base + (idx * 7 + i) % card}:1|c"
+                ph = phase[0]
+                buf = "\n".join(f"cmp.{ph * card + (idx * 7 + i) % card}:1|c"
                                 for i in range(per)).encode()
                 shard.parse(buf)
                 with lock:
@@ -317,8 +324,13 @@ def test_compaction_under_live_readers_exact():
                 shard.reset()
                 assert d == 0
                 sent[idx] += p
+                with progress:
+                    done[idx] = ph
+                    progress.notify_all()
         except Exception as e:  # pragma: no cover - failure detail
             errs.append(e)
+            with progress:
+                progress.notify_all()
 
     def flushed_total():
         with lock:
@@ -333,7 +345,10 @@ def test_compaction_under_live_readers_exact():
     try:
         for r in range(rounds):
             phase[0] = r
-            time.sleep(0.02)
+            with progress:
+                assert progress.wait_for(
+                    lambda: errs or min(done) >= r, timeout=60)
+            assert not errs, errs
             flushed += flushed_total()
     finally:
         stop.set()

@@ -21,6 +21,11 @@ and every non-local-scope set.
 Histo aggregate emission matches the reference: .min .max .sum .avg
 .count .median .hmean (count is a counter) plus ``.<p>percentile``
 gauges, with its sparse-emission guards.
+
+A tiered snapshot (``Snapshot.tiers``) keeps its stat planes row-space
+but its centroid planes are a wide-slot pool and its compact rows live
+on the host: quantiles split by tier (``_dispatch_histos_tiered``), and
+set estimates and forwarded registers go through the tier view.
 """
 
 from __future__ import annotations
@@ -89,6 +94,17 @@ def _histo_readout_rows(stats, imp, means, weights, qs, idx):
     comb, qvals = _histo_readout(st, imp[idx], means[idx], weights[idx],
                                  qs)
     return st, comb, qvals
+
+
+def _histo_quantiles_slots(stats, imp, means, weights, qs, row_idx,
+                           slot_idx):
+    """The quantile readout of a tiered table's wide rows: min/max from
+    the row-indexed stat planes at ``row_idx``, centroids from the
+    wide-slot pool at ``slot_idx`` (position-aligned)."""
+    comb = _combine_stats_fn(stats[row_idx], imp[row_idx])
+    return tdigest._quantile_interp(means[slot_idx], weights[slot_idx],
+                                    qs, comb[:, segment.STAT_MIN],
+                                    comb[:, segment.STAT_MAX])
 
 
 def _gather_rows(plane: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -203,6 +219,10 @@ class Flusher:
             full = np.zeros(shape, out.dtype)
             full[rows] = out[:len(rows)]
             pre[out_key] = full
+        # a tiered snapshot's host-side assembly (compact-row quantiles,
+        # mixed-tier forward rows) needs the full row-space readback
+        for fn in pre.pop("_tier_post", []):
+            fn(pre)
         return pre
 
     def _dispatch(self, snap: Snapshot) -> tuple[dict, dict, list]:
@@ -248,7 +268,11 @@ class Flusher:
                                     snap.histo_means, snap.histo_weights))
             R = stats.shape[0]
             shape5 = (R, segment.HISTO_STAT_COLS)
-            if len(histo_rows) * 2 < R:
+            if snap.tiers is not None:
+                self._dispatch_histos_tiered(
+                    snap, histo_rows, all_pcts, need_q, qs,
+                    (stats, imp, means, weights), devs, pre, expand)
+            elif len(histo_rows) * 2 < R:
                 idx = torch.as_tensor(histo_rows, device=dev)
                 if need_q:
                     st_g, comb_g, qvals_g = _histo_readout_rows(
@@ -272,13 +296,15 @@ class Flusher:
                     comb = _combine_stats_fn(stats, imp)
                 devs["stats"] = stats
                 devs["comb"] = comb
-            fwd = [int(r) for r in histo_rows
-                   if self._forwardable(snap.histo_meta[r], always=True)]
-            pre["histo_fwd"] = fwd
-            if fwd:
-                idx = torch.as_tensor(fwd, device=dev)
-                devs["fwd_means"] = _gather_rows(means, idx)
-                devs["fwd_weights"] = _gather_rows(weights, idx)
+            if snap.tiers is None:
+                fwd = [int(r) for r in histo_rows
+                       if self._forwardable(snap.histo_meta[r],
+                                            always=True)]
+                pre["histo_fwd"] = fwd
+                if fwd:
+                    idx = torch.as_tensor(fwd, device=dev)
+                    devs["fwd_means"] = _gather_rows(means, idx)
+                    devs["fwd_weights"] = _gather_rows(weights, idx)
 
         set_rows = np.nonzero(snap.set_touched[:len(snap.set_meta)])[0]
         pre["set_rows"] = set_rows
@@ -290,7 +316,18 @@ class Flusher:
             need_est = any(int(r) not in fwd_set and
                            self._emit_local(snap.set_meta[r])
                            for r in set_rows)
-            if snap.host_only_sets:
+            if snap.tiers is not None:
+                # a tiered interval: the host plane is slot-indexed and
+                # compact rows are sparse, so estimates and forwarded
+                # registers go through the tier view (compact rows
+                # materialize as dense u8[M] for the wire)
+                if fwd:
+                    pre["fwd_regs"] = [snap.tiers.set_row_regs(snap, r)
+                                       for r in fwd]
+                if need_est:
+                    pre["ests"] = snap.tiers.set_estimates(snap,
+                                                           set_rows)
+            elif snap.host_only_sets:
                 # the interval's sets live on the host: no device work
                 if fwd:
                     pre["fwd_regs"] = snap.hll_host_plane[
@@ -308,6 +345,135 @@ class Flusher:
                 if need_est:
                     devs["ests"] = hll.estimate(regs)
         return devs, pre, expand
+
+    # ------------------------------------------------------------------
+    # tiered dispatch: wide rows read quantiles at their pool slots on
+    # the device; compact rows run the same _quantile_interp over
+    # host-built singleton planes once the combined stats (their true
+    # min/max) are back — one math path for both tiers, so a compact row
+    # in its singleton regime reads as the untiered digest would
+
+    def _dispatch_histos_tiered(self, snap: Snapshot, histo_rows,
+                                all_pcts, need_q, qs, planes,
+                                devs: dict, pre: dict,
+                                expand: list) -> None:
+        ti = snap.tiers
+        dev = self.device
+        stats, imp, means, weights = planes
+        R = stats.shape[0]
+        shape5 = (R, segment.HISTO_STAT_COLS)
+        if len(histo_rows) * 2 < R:
+            idx = torch.as_tensor(histo_rows, device=dev)
+            st_g = _gather_rows(stats, idx)
+            devs["stats_g"] = st_g
+            devs["comb_g"] = _combine_stats_fn(st_g,
+                                               _gather_rows(imp, idx))
+            expand.append(("stats_g", "stats", histo_rows, shape5))
+            expand.append(("comb_g", "comb", histo_rows, shape5))
+        else:
+            devs["stats"] = stats
+            devs["comb"] = _combine_stats_fn(stats, imp)
+        wide = ti.histo_tier[histo_rows].astype(bool)
+        wrows = histo_rows[wide]
+        crows = histo_rows[~wide]
+        if need_q:
+            if len(wrows):
+                devs["qvals_w"] = _histo_quantiles_slots(
+                    stats, imp, means, weights, qs,
+                    torch.as_tensor(wrows, device=dev),
+                    torch.as_tensor(ti.histo_slot[wrows].astype(np.int64),
+                                    device=dev))
+                expand.append(("qvals_w", "qvals", wrows,
+                               (R, len(all_pcts))))
+
+            def _compact_quantiles(pre, crows=crows,
+                                   store=ti.histo_compact,
+                                   npcts=len(all_pcts), R=R):
+                qv = pre.get("qvals")
+                if qv is None:
+                    qv = pre["qvals"] = np.zeros((R, npcts), np.float32)
+                if len(crows):
+                    qv[crows] = self._compact_quantiles(
+                        crows, store, pre["comb"], qs)
+
+            pre.setdefault("_tier_post", []).append(_compact_quantiles)
+        fwd = [int(r) for r in histo_rows
+               if self._forwardable(snap.histo_meta[r], always=True)]
+        pre["histo_fwd"] = fwd
+        if not fwd:
+            return
+        fwide = ti.histo_tier[np.asarray(fwd, np.int64)] != 0
+        wf = np.asarray(fwd, np.int64)[fwide]
+        if len(wf):
+            sidx = torch.as_tensor(ti.histo_slot[wf].astype(np.int64),
+                                   device=dev)
+            devs["fwd_means_w"] = _gather_rows(means, sidx)
+            devs["fwd_weights_w"] = _gather_rows(weights, sidx)
+
+        def _assemble_fwd(pre, fwd=fwd, fwide=fwide,
+                          store=ti.histo_compact):
+            mw = pre.pop("fwd_means_w", None)
+            ww = pre.pop("fwd_weights_w", None)
+            out_m, out_w = [], []
+            j = 0
+            for i, r in enumerate(fwd):
+                if fwide[i]:
+                    out_m.append(mw[j])
+                    out_w.append(ww[j])
+                    j += 1
+                    continue
+                v, w = (store.samples(r) if store is not None
+                        else (np.empty(0, np.float32),) * 2)
+                # mean-sorted like a digest plane, so the wire's
+                # live-centroid list reads the same either tier
+                o = np.argsort(v, kind="stable")
+                out_m.append(np.ascontiguousarray(v[o]))
+                out_w.append(np.ascontiguousarray(w[o]))
+            pre["fwd_means"] = out_m
+            pre["fwd_weights"] = out_w
+
+        pre.setdefault("_tier_post", []).append(_assemble_fwd)
+
+    def _compact_quantiles(self, crows, store, comb, qs) -> np.ndarray:
+        """Quantiles of compact rows from their retained samples: the
+        flush's ``_quantile_interp`` over singleton planes built on the
+        host, read out on the flusher's device.  Rows are bucketed by
+        sample count in powers of two (>= 64 columns, >= 8 rows), so one
+        hot pre-promotion row never pads the whole batch to its
+        depth."""
+        dev = self.device
+        npcts = int(qs.shape[0])
+        planes = [store.samples(int(r)) if store is not None
+                  else (np.empty(0, np.float32),) * 2 for r in crows]
+        counts = np.array([len(v) for v, _ in planes], np.int64)
+        order = np.argsort(counts, kind="stable")
+        out = np.zeros((len(crows), npcts), np.float32)
+        lo = 0
+        while lo < len(order):
+            c = int(max(counts[order[lo]], 1))
+            cap = 1 << max(6, (c - 1).bit_length())
+            hi = lo
+            while hi < len(order) and counts[order[hi]] <= cap:
+                hi += 1
+            sel = order[lo:hi]
+            n = 1 << max(3, int(len(sel) - 1).bit_length())
+            cm = np.zeros((n, cap), np.float32)
+            cw = np.zeros((n, cap), np.float32)
+            for k, i in enumerate(sel):
+                v, w = planes[i]
+                cm[k, :len(v)] = v
+                cw[k, :len(v)] = w
+            rr = crows[sel]
+            mn = np.zeros(n, np.float32)
+            mx = np.zeros(n, np.float32)
+            mn[:len(sel)] = comb[rr, segment.STAT_MIN]
+            mx[:len(sel)] = comb[rr, segment.STAT_MAX]
+            cq = tdigest._quantile_interp(
+                *(torch.from_numpy(a).to(dev) for a in (cm, cw)), qs,
+                *(torch.from_numpy(a).to(dev) for a in (mn, mx)))
+            out[sel] = cq.cpu().numpy()[:len(sel)]
+            lo = hi
+        return out
 
     # ------------------------------------------------------------------
 

@@ -1,8 +1,8 @@
 """Device-resident metric tables: every series of a class in one plane.
 
-Port of ``veneur_tpu/core/table.py``, single-tier.  Several reader
-threads can share one table: each parses into a ``ReaderShard`` of its
-own without the lock and merges under it.
+Port of ``veneur_tpu/core/table.py``.  Several reader threads can share
+one table: each parses into a ``ReaderShard`` of its own without the
+lock and merges under it.
 All series of a metric class live in one fixed-capacity plane on the
 device, addressed by a dense row id that the host allocates per key:
 
@@ -39,6 +39,17 @@ take the deep path (host stats fold + one merge per chunk).  Raw set
 members fold into a host register plane with running estimate
 statistics (or, past ``host_set_plane_max_bytes``, ride the
 superbatch as a compact plane, a full plane or packed positions).
+
+Adaptive sketch tiers (``core/tiers.py``): when the dense histogram and
+set planes would pass ``VENEUR_TPU_TIER_AUTO_BYTES`` (256 MiB), or
+``VENEUR_TPU_PLANE_TIERS`` forces it, the centroid planes and the set
+register plane are pooled at an eighth of the rows, and per-row tier
+bits route each series to a pool slot (WIDE) or to an exact host store
+(COMPACT: raw samples, sparse registers).  A tiered table skips the
+superbatch and applies class by class; series cross tiers mid-interval
+(escalation, drained through the cluster merge) and at the interval
+boundary (``_tier_boundary``).  The stat planes stay row-indexed in
+both modes.
 """
 
 from __future__ import annotations
@@ -53,6 +64,7 @@ import numpy as np
 import torch
 
 from veneur_tpu_torch import native, resolve_device
+from veneur_tpu_torch.core import tiers as tiersmod
 from veneur_tpu_torch.ops import cluster_merge, hll, segment, superbatch
 from veneur_tpu_torch.ops import tdigest
 from veneur_tpu_torch.protocol import columnar, dogstatsd as dsd
@@ -251,7 +263,9 @@ class _IntervalState:
     __slots__ = ("gen", "fresh", "counters", "gauges", "histo_stats",
                  "histo_import_stats", "histo_means", "histo_weights",
                  "hll_regs", "hll_host_plane", "hll_host_ez",
-                 "hll_host_inv", "hll_device_touched", "pending")
+                 "hll_host_inv", "hll_device_touched", "pending",
+                 "histo_compact", "set_sparse", "set_dense_overflow",
+                 "tier_frozen")
 
     def __init__(self, gen: int):
         self.gen = gen
@@ -263,6 +277,15 @@ class _IntervalState:
         self.hll_host_ez: np.ndarray | None = None
         self.hll_host_inv: np.ndarray | None = None
         self.hll_device_touched = False
+        # tiered tables: the compact-tier stores (exact host sketches of
+        # below-threshold series), refused promotions' imported
+        # registers, and the (tier, slot) maps frozen at begin_swap so
+        # late pipelined applies route as this interval's earlier data
+        # did (see tiers.TierSnapshot)
+        self.histo_compact: Any = None
+        self.set_sparse: Any = None
+        self.set_dense_overflow: dict[int, np.ndarray] | None = None
+        self.tier_frozen: dict | None = None
 
 
 class _StagedWork:
@@ -280,7 +303,7 @@ class _PendingSwap:
     __slots__ = ("work", "state", "counter_meta", "counter_touched",
                  "gauge_meta", "gauge_touched", "histo_meta",
                  "histo_touched", "set_meta", "set_touched",
-                 "overflow", "ingested")
+                 "overflow", "ingested", "row_maps")
 
 
 _SCRATCH_COLS = (("hr", np.int32), ("hv", np.float32), ("hw", np.float32),
@@ -355,15 +378,28 @@ class Snapshot:
     hll_host_inv: np.ndarray | None = None
     overflow: dict[str, int] = field(default_factory=dict)
     ingested: int = 0
+    # tiered tables: the interval's tier view (tiers.TierSnapshot): the
+    # frozen (tier, slot) assignments its data was routed under and the
+    # compact-tier stores.  None for an untiered table.
+    tiers: Any = None
 
     @property
     def host_only_sets(self) -> bool:
+        """True when the interval's set state is all on the host.  A
+        tiered interval always is (sparse store and slot-indexed host
+        plane), but its plane is read through ``tiers``."""
+        if self.tiers is not None:
+            return True
         return (self.hll_host_plane is not None and
                 not self.hll_device_touched)
 
     def host_set_estimates(self) -> np.ndarray:
-        """Estimates for a host-only-sets interval: O(rows) from the
-        fold's statistics when present, else a rescan of the plane."""
+        """Estimates for a host-only-sets interval, row-indexed in both
+        modes: O(rows) from the fold's statistics when present, else a
+        rescan of the plane; a tiered interval through its tier view."""
+        if self.tiers is not None:
+            return self.tiers.set_estimates(
+                self, np.nonzero(self.set_touched)[0])
         if self.hll_host_ez is not None:
             return hll.estimate_from_stats(self.hll_host_ez,
                                            self.hll_host_inv)
@@ -388,6 +424,22 @@ class MetricTable:
         self.gauge_idx = _ClassIndex(c.gauge_rows)
         self.histo_idx = _ClassIndex(c.histo_rows)
         self.set_idx = _ClassIndex(c.set_rows)
+
+        # adaptive sketch tiers: past the auto budget of dense sketch
+        # planes (or when VENEUR_TPU_PLANE_TIERS forces it) the centroid
+        # planes and set registers pool at a fraction of the rows; an
+        # untiered table keeps self.tiers None and every tiered branch
+        # below is dead code
+        dense_bytes = (c.set_rows * hll.M +
+                       c.histo_rows * 2 * self.capacity * 4)
+        self.tiers = (tiersmod.TierDirectory(c.histo_rows, c.set_rows)
+                      if tiersmod.tiers_enabled(dense_bytes) else None)
+        if self.tiers is not None:
+            self._histo_pool_rows = self.tiers.histo.wide_slots
+            self._set_pool_rows = self.tiers.set.wide_slots
+        else:
+            self._histo_pool_rows = c.histo_rows
+            self._set_pool_rows = c.set_rows
 
         # counters and gauges stage as DENSE per-row host buffers (f64
         # counter accumulator: one f32 round-off at ship time)
@@ -487,10 +539,12 @@ class MetricTable:
             st.histo_stats = segment.empty_histo_stats(c.histo_rows, dev)
             st.histo_import_stats = segment.empty_histo_stats(
                 c.histo_rows, dev)
+            # stat planes stay row-indexed in both modes; the centroid
+            # planes pool down to wide slots under tiering
             st.histo_means, st.histo_weights = tdigest.empty_state(
-                c.histo_rows, self.capacity, dev)
+                self._histo_pool_rows, self.capacity, dev)
         elif kind == "hll":
-            st.hll_regs = hll.empty_state(c.set_rows, dev)
+            st.hll_regs = hll.empty_state(self._set_pool_rows, dev)
 
     def _ensure_fresh(self, st: _IntervalState, kind: str) -> None:
         """Lazy per-kind reinit: after a swap the old planes belong to
@@ -1028,25 +1082,41 @@ class MetricTable:
     def _apply_work(self, w: _StagedWork) -> None:
         """Apply detached staging to its interval state: the superbatch
         takes every family its schema carries; deep histo batches and
-        the host set fold run on their own.  Caller holds
-        _device_lock."""
+        the host set fold run on their own.  A tiered table skips the
+        superbatch and applies class by class: counters and gauges as
+        dense updates, histograms and sets through the tier routing.
+        Caller holds _device_lock."""
         st = w.state
         c = self.config
-        self._superbatch_apply(w)
+        tiered = self.tiers is not None
+        if not tiered:
+            self._superbatch_apply(w)
+        else:
+            self._tiered_scalar_histo_apply(w)
         if w.digest is not None:
             batch = w.digest.take()
             if batch is not None:
-                self._histo_device_step(st, *batch, with_stats=False)
+                if tiered:
+                    self._tiered_histo_step(st, *batch, with_stats=False)
+                else:
+                    self._histo_device_step(st, *batch, with_stats=False)
         if w.wire_parts:
-            self._wire_digest_step(st, w.wire_parts)
+            if tiered:
+                self._tiered_wire_digest_step(st, w.wire_parts)
+            else:
+                self._wire_digest_step(st, w.wire_parts)
         if w.set_parts is not None:
             # the superbatch left the sets: the plane fits the host
-            # bound, so they fold into the host register plane
+            # bound (or the table is tiered), so they fold on the host
             parts_rows, parts_pos = self._set_parts(w.set_parts)
             if parts_rows:
-                self._route("set_host_fold")
-                self._hll_host_fold(st, np.concatenate(parts_rows),
-                                    np.concatenate(parts_pos))
+                srows = np.concatenate(parts_rows)
+                spos = np.concatenate(parts_pos)
+                if tiered:
+                    self._tiered_set_step(st, srows, spos)
+                else:
+                    self._route("set_host_fold")
+                    self._hll_host_fold(st, srows, spos)
         if w.stats_parts is not None:
             rows = np.concatenate([p[0] for p in w.stats_parts])
             vals = np.concatenate([p[1] for p in w.stats_parts])
@@ -1065,6 +1135,10 @@ class MetricTable:
             # swap ships each touched series once, however many wires
             # carried it
             rows = np.nonzero(touched)[0].astype(np.int32)
+            if tiered:
+                self._route("set_import")
+                self._tiered_set_import(st, rows, plane[rows])
+                return
             b = _bucket_len(len(rows), wide=True)
             padded = np.zeros((b, hll.M), np.uint8)
             padded[:len(rows)] = plane[rows]
@@ -1484,7 +1558,7 @@ class MetricTable:
 
     def _ensure_host_plane(self, st: _IntervalState) -> None:
         if st.hll_host_plane is None:
-            pool = self.config.set_rows
+            pool = self._set_pool_rows
             st.hll_host_plane = np.zeros((pool, hll.M), np.uint8)
             # all-zero rows: every register counts in ez and adds 2^0
             # to the inverse-power sum
@@ -1561,7 +1635,9 @@ class MetricTable:
         uniq = np.unique(rows)
         mb = _bucket_len(len(uniq))
         sub = mb * 2 <= c.histo_rows
-        n_plane_rows = mb if sub else c.histo_rows
+        # the whole-plane form densifies every digest row: a tiered
+        # table's pool rows (its merges take slot ids)
+        n_plane_rows = mb if sub else self._histo_pool_rows
         if sub:
             local = np.searchsorted(uniq, rows).astype(np.int32)
             pre = (self._dev(_pad_np(uniq.astype(np.int32), mb,
@@ -1697,6 +1773,244 @@ class MetricTable:
             self._histo_device_step(st, *batch, with_stats=False)
 
     # ------------------------------------------------------------------
+    # tiered apply routing (self.tiers is not None; an untiered table
+    # never reaches these)
+
+    def _tiered_scalar_histo_apply(self, w: _StagedWork) -> None:
+        """The superbatch's families on a tiered table, class by class:
+        counters and gauges as dense updates, raw histogram samples
+        through the tier routing.  Consumed families are nulled on
+        ``w``."""
+        st = w.state
+        if w.counter is not None:
+            self._ensure_fresh(st, "counter")
+            st.counters = segment.counter_dense_update(
+                st.counters, self._dev(w.counter.astype(np.float32)))
+            w.counter = None
+        if w.gauge is not None:
+            dense, mask = w.gauge
+            self._ensure_fresh(st, "gauge")
+            st.gauges = segment.gauge_dense_update(
+                st.gauges, self._dev(dense), self._dev(mask.astype(bool)))
+            w.gauge = None
+        if w.histo is not None:
+            batch = w.histo.take()
+            w.histo = None
+            if batch is not None:
+                self._tiered_histo_step(st, *batch, with_stats=True)
+
+    def _tier_partition(self, st: _IntervalState, rows, name: str):
+        """(wide positions, their pool slots, compact positions) of a
+        batch's rows of class ``name``: by the state's frozen view once
+        begin_swap froze it, else by the live directory.  Caller holds
+        the directory lock."""
+        frozen = st.tier_frozen
+        if frozen is None:
+            return tiersmod.split_by_tier(rows, getattr(self.tiers, name))
+        ftier, fslot = frozen[name]
+        mask = ftier[rows] != 0
+        wpos = np.nonzero(mask)[0]
+        return wpos, fslot[rows[wpos]], np.nonzero(~mask)[0]
+
+    def _tiered_histo_step(self, st: _IntervalState, rows, vals, wts,
+                           with_stats: bool) -> None:
+        """Tiered histogram apply: the exact row-space stats fold first
+        (stat planes are row-indexed in both modes), then a partition by
+        tier bit.  Wide rows translate to pool slots and take the ranked
+        merge; compact rows keep their raw weighted samples on the host
+        (below the promote threshold that list IS the digest).  A row
+        crossing the threshold escalates mid-interval: a slot, and its
+        retained samples drained through the cluster merge — the
+        lossless upgrade.  A frozen (post-begin_swap) state never
+        escalates: its data stays in the compact store and the boundary
+        promotes the row for the next interval."""
+        dirs = self.tiers
+        th = dirs.thresholds
+        rows = np.ascontiguousarray(rows, np.int32)
+        vals = np.ascontiguousarray(vals, np.float32)
+        wts = np.ascontiguousarray(wts, np.float32)
+        if with_stats:
+            self._host_stats_fold(st, rows, vals, wts)
+        dev_parts = []
+        with dirs.lock:
+            frozen = st.tier_frozen
+            wpos, wslots, cpos = self._tier_partition(st, rows, "histo")
+            if len(wpos):
+                dev_parts.append((np.asarray(wslots, np.int32),
+                                  vals[wpos], wts[wpos]))
+            if len(cpos):
+                store = st.histo_compact
+                if store is None:
+                    store = st.histo_compact = \
+                        tiersmod.CompactHistoStore(self.config.histo_rows)
+                crows = rows[cpos]
+                store.append(crows, vals[cpos], wts[cpos])
+                if frozen is None:
+                    cand = np.unique(crows)
+                    cand = cand[store.counts[cand] >= th.histo_samples]
+                    for r in cand:
+                        s = dirs.histo.ensure_wide(int(r),
+                                                   escalation=True)
+                        if s is None:
+                            # pool exhausted: the row stays compact,
+                            # exact on the host; a refused promotion
+                            continue
+                        dv, dw = store.drain_row(int(r))
+                        dev_parts.append(
+                            (np.full(len(dv), s, np.int32), dv, dw))
+        if dev_parts:
+            self._histo_device_step(
+                st, np.concatenate([p[0] for p in dev_parts]),
+                np.concatenate([p[1] for p in dev_parts]),
+                np.concatenate([p[2] for p in dev_parts]),
+                with_stats=False)
+
+    def _tiered_set_step(self, st: _IntervalState, srows, spos) -> None:
+        """Tiered set apply: wide rows fold into the slot-indexed host
+        register plane; compact rows append to the sparse register list
+        (exact: the dense row is a function of the deduped list).
+        Occupancy crossing the promote threshold escalates: the sparse
+        list scatters into a new pool slot."""
+        dirs = self.tiers
+        th = dirs.thresholds
+        srows = np.ascontiguousarray(srows, np.int32)
+        spos = np.ascontiguousarray(spos, np.int32)
+        fold_rows, fold_pos = [], []
+        with dirs.lock:
+            frozen = st.tier_frozen
+            wpos, wslots, cpos = self._tier_partition(st, srows, "set")
+            if len(wpos):
+                fold_rows.append(np.asarray(wslots, np.int32))
+                fold_pos.append(spos[wpos])
+            if len(cpos):
+                store = st.set_sparse
+                if store is None:
+                    store = st.set_sparse = tiersmod.SparseSetStore(
+                        self.config.set_rows)
+                crows = srows[cpos]
+                store.append(crows, spos[cpos])
+                if frozen is None:
+                    cand = np.unique(crows)
+                    cand = cand[store.counts[cand] >= th.set_entries]
+                    if len(cand):
+                        # raw append counts over-estimate occupancy:
+                        # dedup before deciding
+                        store.consolidate()
+                        for r in cand:
+                            if store.counts[r] < th.set_entries:
+                                continue
+                            s = dirs.set.ensure_wide(int(r),
+                                                     escalation=True)
+                            if s is None:
+                                continue
+                            p = store.drain_row(int(r))
+                            fold_rows.append(np.full(len(p), s, np.int32))
+                            fold_pos.append(p)
+        if fold_rows:
+            self._route("set_host_fold")
+            self._hll_host_fold(st, np.concatenate(fold_rows),
+                                np.concatenate(fold_pos))
+
+    def _tiered_set_import(self, st: _IntervalState, rows, regs) -> None:
+        """Forwarded dense register rows on a tiered table: the target
+        row force-promotes (a peer already holds dense state) and the
+        row unions into its slot, the fold statistics recomputed
+        exactly.  Rows the pool refuses keep their registers in the
+        interval's overflow sidecar: exact, never lost, unpromoted."""
+        self._ensure_host_plane(st)
+        plane = st.hll_host_plane
+        dirs = self.tiers
+        for i, r in enumerate(np.asarray(rows, np.int64)):
+            r = int(r)
+            with dirs.lock:
+                frozen = st.tier_frozen
+                if frozen is not None:
+                    ftier, fslot = frozen["set"]
+                    s = int(fslot[r]) if ftier[r] else -1
+                else:
+                    s0 = dirs.set.ensure_wide(r, escalation=True)
+                    s = -1 if s0 is None else int(s0)
+                    if s >= 0 and st.set_sparse is not None and \
+                            st.set_sparse.counts[r] > 0:
+                        p = st.set_sparse.drain_row(r)
+                        if len(p):
+                            plane[s, p >> 6] = np.maximum(
+                                plane[s, p >> 6],
+                                (p & 0x3F).astype(np.uint8))
+            if s < 0:
+                ov = st.set_dense_overflow
+                if ov is None:
+                    ov = st.set_dense_overflow = {}
+                prev = ov.get(r)
+                ov[r] = (regs[i].copy() if prev is None
+                         else np.maximum(prev, regs[i]))
+                continue
+            prow = plane[s]
+            np.maximum(prow, regs[i], out=prow)
+            ez = int((prow == 0).sum())
+            st.hll_host_ez[s] = ez
+            nz = prow[prow != 0].astype(np.int64)
+            st.hll_host_inv[s] = float(ez) + float(
+                np.ldexp(1.0, -nz).sum())
+
+    def _tiered_wire_digest_step(self, st: _IntervalState,
+                                 parts: list[tuple]) -> None:
+        """Forwarded centroid parts translate row -> slot before the
+        wire fold: forwarded digests are wide-tier traffic by
+        definition, so their rows force-promote (draining any compact
+        samples through the merge).  Centroids of rows the pool refuses
+        stay in the compact store as weighted samples — a centroid IS a
+        weighted sample, so no mass is lost."""
+        dirs = self.tiers
+        out_parts = []
+        extra = []
+        with dirs.lock:
+            frozen = st.tier_frozen
+            store = st.histo_compact
+            smap = np.full(self.config.histo_rows, -1, np.int32)
+            smapped = np.zeros(self.config.histo_rows, bool)
+            for rows, means, wts in parts:
+                if not len(rows):
+                    continue
+                rows = np.ascontiguousarray(rows, np.int32)
+                for r in np.unique(rows):
+                    r = int(r)
+                    if smapped[r]:
+                        continue
+                    smapped[r] = True
+                    if frozen is not None:
+                        ftier, fslot = frozen["histo"]
+                        smap[r] = fslot[r] if ftier[r] else -1
+                        continue
+                    s = dirs.histo.ensure_wide(r, escalation=True)
+                    if s is None:
+                        continue
+                    smap[r] = s
+                    if store is not None and store.counts[r] > 0:
+                        dv, dw = store.drain_row(r)
+                        if len(dv):
+                            extra.append(
+                                (np.full(len(dv), s, np.int32), dv, dw))
+                slots = smap[rows]
+                ok = slots >= 0
+                if not ok.all():
+                    if store is None:
+                        store = st.histo_compact = \
+                            tiersmod.CompactHistoStore(
+                                self.config.histo_rows)
+                    bad = ~ok
+                    store.append(rows[bad],
+                                 np.asarray(means, np.float32)[bad],
+                                 np.asarray(wts, np.float32)[bad])
+                if ok.any():
+                    out_parts.append((slots[ok], np.asarray(means)[ok],
+                                      np.asarray(wts)[ok]))
+        if out_parts:
+            self._wire_digest_step(st, out_parts)
+        for erows, ev, ew in extra:
+            self._histo_device_step(st, erows, ev, ew, with_stats=False)
+
+    # ------------------------------------------------------------------
     # flush boundary
 
     def swap(self) -> Snapshot:
@@ -1709,6 +2023,20 @@ class MetricTable:
         final staging, capture the row metadata, install a fresh
         interval state, bump the generation, compact."""
         st = self._state
+        # freeze the outgoing interval's tier routing first: late
+        # pipelined applies pinned to this state partition by these
+        # copies (an escalation re-checks tier_frozen under the same
+        # lock, so it either lands before the freeze and the copy sees
+        # it, or is skipped).  Pre-compaction row space, as the metadata
+        # captured below.
+        if self.tiers is not None:
+            with self.tiers.lock:
+                st.tier_frozen = {
+                    "histo": (self.tiers.histo.tier.copy(),
+                              self.tiers.histo.slot.copy()),
+                    "set": (self.tiers.set.tier.copy(),
+                            self.tiers.set.slot.copy()),
+                }
         work = self._detach_staged(final=True)
         pend = _PendingSwap()
         pend.work = work
@@ -1748,6 +2076,7 @@ class MetricTable:
         self._state = ns
         self.gen += 1
         compacted = False
+        pend.row_maps = {}
         for idx in (self.counter_idx, self.gauge_idx, self.histo_idx,
                     self.set_idx):
             idx.drops.take()
@@ -1757,12 +2086,27 @@ class MetricTable:
                     (idx.last_gen[:occ] >= self.gen - 1).sum())
                 if (freed >= max(1, idx.capacity // 8) or
                         (occ >= idx.capacity and freed > 0)):
-                    idx.compact(keep_gen=self.gen - 1)
+                    mapping = idx.compact(keep_gen=self.gen - 1)
+                    if idx is self.histo_idx:
+                        pend.row_maps["histo"] = mapping
+                    elif idx is self.set_idx:
+                        pend.row_maps["set"] = mapping
                     compacted = True
                 else:
                     idx.reset_interval()
             else:
                 idx.reset_interval()
+        if compacted and self.tiers is not None:
+            # the tier directory is row-keyed: it follows the
+            # renumbering (dropped wide rows hand their slots back).  The
+            # outgoing state's frozen copies stay in the old row space:
+            # they pair with the pend metadata, and the boundary
+            # translates through pend.row_maps.
+            with self.tiers.lock:
+                if "histo" in pend.row_maps:
+                    self.tiers.histo.renumber(pend.row_maps["histo"])
+                if "set" in pend.row_maps:
+                    self.tiers.set.renumber(pend.row_maps["set"])
         if compacted:
             # rows renumbered: rebuild the columnar key index from the
             # surviving metas
@@ -1794,6 +2138,13 @@ class MetricTable:
             with self._device_lock:
                 self._apply_work(pend.work)
         st = pend.state
+        snap_tiers = None
+        if self.tiers is not None:
+            # every apply pinned to this state has landed, so the
+            # boundary sees the interval's final stores and no apply
+            # races its tier flips
+            with self._device_lock:
+                snap_tiers = self._tier_boundary(pend, st)
         return Snapshot(
             gen=st.gen,
             counters=st.counters,
@@ -1817,7 +2168,133 @@ class MetricTable:
             hll_host_inv=st.hll_host_inv,
             overflow=pend.overflow,
             ingested=pend.ingested,
+            tiers=snap_tiers,
         )
+
+    def _tier_boundary(self, pend: _PendingSwap, st: _IntervalState):
+        """End-of-interval promotions and demotions, and the interval's
+        tier view.  Runs under _device_lock after the final apply, so
+        its flips affect the NEXT interval only.  A row that already has
+        next-interval data (live touched) keeps its tier until the
+        following boundary: a flipped row never has one interval's data
+        on both sides.  Boundary promotions are tier flips only (the
+        planes reset at every swap); escalations did the in-place
+        upgrades."""
+        dirs = self.tiers
+        th = dirs.thresholds
+        if st.histo_compact is not None:
+            st.histo_compact.consolidate()
+        if st.set_sparse is not None:
+            st.set_sparse.consolidate()
+        with dirs.lock:
+            for name, cls, idx, store, thresh in (
+                    ("histo", dirs.histo, self.histo_idx,
+                     st.histo_compact, th.histo_samples),
+                    ("set", dirs.set, self.set_idx,
+                     st.set_sparse, th.set_entries)):
+                mapping = pend.row_maps.get(name)
+                touched = (pend.histo_touched if name == "histo"
+                           else pend.set_touched)
+                if mapping is not None:
+                    tn = np.zeros(cls.rows, bool)
+                    live = np.nonzero(mapping >= 0)[0]
+                    tn[mapping[live]] = touched[live]
+                    touched = tn
+                wide = cls.tier != 0
+                cls.idle[wide & touched] = 0
+                cls.idle[wide & ~touched] += 1
+                for r in np.nonzero(
+                        wide & (cls.idle >= th.demote_idle) &
+                        ~idx.touched)[0]:
+                    cls.demote(int(r))
+                if store is not None and not dirs.promote_frozen:
+                    for ro in np.nonzero(store.counts >= thresh)[0]:
+                        rn = (int(ro) if mapping is None
+                              else int(mapping[ro]))
+                        if rn < 0 or cls.tier[rn] or idx.touched[rn]:
+                            continue
+                        cls.ensure_wide(rn)
+            frozen = st.tier_frozen or {}
+            fh = frozen.get("histo") or (dirs.histo.tier.copy(),
+                                         dirs.histo.slot.copy())
+            fs = frozen.get("set") or (dirs.set.tier.copy(),
+                                       dirs.set.slot.copy())
+            movements = {"histo": dirs.histo.take_delta(),
+                         "set": dirs.set.take_delta()}
+            occupancy = {"histo": dirs.histo.occupancy(),
+                         "set": dirs.set.occupancy()}
+        pb = self.plane_bytes()
+        return tiersmod.TierSnapshot(
+            histo_tier=fh[0], histo_slot=fh[1],
+            set_tier=fs[0], set_slot=fs[1],
+            histo_compact=st.histo_compact,
+            set_sparse=st.set_sparse,
+            set_dense_overflow=st.set_dense_overflow or {},
+            movements=movements,
+            occupancy=occupancy,
+            plane_bytes=pb,
+            device_bytes_per_series=pb["device_bytes_per_series"],
+            pool_rows={"histo": self._histo_pool_rows,
+                       "set": self._set_pool_rows})
+
+    def plane_bytes(self) -> dict:
+        """Per-class, per-tier sketch-memory accounting of the current
+        interval's live allocations (tensor ``nbytes`` on the device,
+        array ``nbytes`` on the host), so a promotion or demotion shows
+        the flush after it happens.  Reads race ingest benignly: these
+        are gauges, not invariants."""
+        st = self._state
+
+        def _b(x) -> int:
+            return int(x.nbytes) if x is not None else 0
+
+        counter_b = _b(st.counters) + self._counter_dense.nbytes
+        gauge_b = (_b(st.gauges) + self._gauge_dense.nbytes +
+                   self._gauge_mask.nbytes)
+        histo_wide = _b(st.histo_means) + _b(st.histo_weights)
+        histo_stats = _b(st.histo_stats) + _b(st.histo_import_stats)
+        histo_compact = (st.histo_compact.nbytes()
+                         if st.histo_compact is not None else 0)
+        set_wide = _b(st.hll_regs)
+        for arr in (st.hll_host_plane, st.hll_host_ez, st.hll_host_inv):
+            set_wide += _b(arr)
+        set_compact = (st.set_sparse.nbytes()
+                       if st.set_sparse is not None else 0)
+        ov = st.set_dense_overflow
+        if ov:
+            set_compact += sum(r.nbytes for r in ov.values())
+        directory = 0
+        tier_info = None
+        if self.tiers is not None:
+            with self.tiers.lock:
+                for cls in (self.tiers.histo, self.tiers.set):
+                    directory += (cls.tier.nbytes + cls.slot.nbytes +
+                                  cls.idle.nbytes + cls.slot_row.nbytes)
+                tier_info = {
+                    "occupancy": {
+                        "histo": self.tiers.histo.occupancy(),
+                        "set": self.tiers.set.occupancy()},
+                    "movements": self.tiers.counters(),
+                    "promote_frozen": self.tiers.promote_frozen,
+                }
+        total = (counter_b + gauge_b + histo_wide + histo_stats +
+                 histo_compact + set_wide + set_compact + directory)
+        occ = (self.counter_idx.occupancy() +
+               self.gauge_idx.occupancy() +
+               self.histo_idx.occupancy() +
+               self.set_idx.occupancy())
+        return {
+            "counter": {"wide": counter_b, "compact": 0},
+            "gauge": {"wide": gauge_b, "compact": 0},
+            "histo": {"wide": histo_wide, "stats": histo_stats,
+                      "compact": histo_compact},
+            "set": {"wide": set_wide, "compact": set_compact},
+            "directory": directory,
+            "total": total,
+            "occupancy": occ,
+            "device_bytes_per_series": total / max(1, occ),
+            "tiers": tier_info,
+        }
 
     def take_status(self):
         out = self.status

@@ -11,8 +11,8 @@ compiler's output: the table and the server have no pure-Python ingest
 to fall back to.
 
 The numpy functions at the end (``rank_plain``, ``dense_plane_plain``,
-``hll_plane_plain``) are the plain versions the tests hold the C entries
-against; nothing on the ingest path calls them.
+``hll_plane_plain``, ``tier_split_plain``) are the plain versions the
+tests hold the C entries against; nothing on the ingest path calls them.
 """
 
 from __future__ import annotations
@@ -125,6 +125,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.vtpu_hll_plane_stats.restype = None
     lib.vtpu_hll_plane_stats.argtypes = [
         i32p, i32p, i64, i32, i32, u8p, f64p, i32p]
+    lib.vtpu_tier_split.restype = i64
+    lib.vtpu_tier_split.argtypes = [i32p, i64, u8p, i32p, i32p, i32p]
     lib.vtpu_gob_decode.restype = i64
     lib.vtpu_gob_decode.argtypes = [
         u8p, i64, i64,
@@ -281,6 +283,24 @@ def sb_gather_i32(parts, dst: np.ndarray, fill: int) -> None:
                               len(dst), fill)
 
 
+def tier_split(rows, tier: np.ndarray, slot: np.ndarray
+               ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Stable partition of a batch's row ids by tier bit
+    (vtpu_tier_split): (wide positions, their pool slots, compact
+    positions), positions indexing into the batch."""
+    rows = _arr(rows, np.int32)
+    n = len(rows)
+    if tier.dtype != np.uint8 or slot.dtype != np.int32:
+        raise ValueError("tier must be u8 and slot i32")
+    out_idx = np.empty(n, np.int32)
+    out_rows = np.empty(n, np.int32)
+    nw = int(load().vtpu_tier_split(
+        ptr(rows, ctypes.c_int32), n, ptr(tier, ctypes.c_uint8),
+        ptr(slot, ctypes.c_int32), ptr(out_idx, ctypes.c_int32),
+        ptr(out_rows, ctypes.c_int32)))
+    return out_idx[:nw], out_rows[:nw], out_idx[nw:]
+
+
 # ---- plain versions (tests only) ------------------------------------
 
 def rank_plain(rows, num_rows: int) -> tuple[np.ndarray, int]:
@@ -338,3 +358,12 @@ def hll_plane_plain(rows, packed, plane: np.ndarray) -> None:
     live = ((rows >= 0) & (rows < plane.shape[0]) & (idx >= 0) &
             (idx < plane.shape[1]))
     np.maximum.at(plane, (rows[live], idx[live]), rk[live])
+
+
+def tier_split_plain(rows, tier: np.ndarray, slot: np.ndarray
+                     ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    rows = _arr(rows, np.int32)
+    mask = tier[rows] != 0
+    wide_pos = np.nonzero(mask)[0].astype(np.int32)
+    return (wide_pos, slot[rows[wide_pos]].astype(np.int32),
+            np.nonzero(~mask)[0].astype(np.int32))

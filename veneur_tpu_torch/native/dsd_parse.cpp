@@ -9,7 +9,8 @@
 // (vtpu_ingest), the fused parse + probe + combine pass
 // (vtpu_parse_ingest), the within-row rank, the host-densified value
 // plane (vtpu_dense_plane), the HLL register folds (vtpu_hll_plane,
-// vtpu_hll_plane_stats), the superbatch segment gather, the batched
+// vtpu_hll_plane_stats), the superbatch segment gather, the tier
+// partition of the adaptive sketch tiers (vtpu_tier_split), the batched
 // gob value decode of the reference-schema /import wire
 // (vtpu_gob_decode), and the gRPC MetricList wire walker with its
 // per-item import-identity hash (vtpu_metriclist_decode,
@@ -1302,6 +1303,32 @@ void vtpu_hll_plane_stats(const int32_t* rows, const int32_t* packed,
       if (old == 0) ez[r]--;
     }
   }
+}
+
+// ---------------------------------------------------------------------
+// adaptive sketch tiers (core/tiers.py): single-pass stable partition
+// of a batch's row ids by per-row tier bit.  The first n_wide outputs
+// are wide-tier samples with out_rows = slot[row] (pool-slot space),
+// the rest compact-tier samples with out_rows = row (table-row space);
+// out_idx carries each one's batch position.  Returns n_wide.
+int64_t vtpu_tier_split(const int32_t* rows, int64_t n,
+                        const uint8_t* tier, const int32_t* slot,
+                        int32_t* out_idx, int32_t* out_rows) {
+  int64_t w = 0;
+  for (int64_t i = 0; i < n; i++)
+    if (tier[rows[i]]) {
+      out_idx[w] = (int32_t)i;
+      out_rows[w] = slot[rows[i]];
+      w++;
+    }
+  int64_t c = w;
+  for (int64_t i = 0; i < n; i++)
+    if (!tier[rows[i]]) {
+      out_idx[c] = (int32_t)i;
+      out_rows[c] = rows[i];
+      c++;
+    }
+  return w;
 }
 
 

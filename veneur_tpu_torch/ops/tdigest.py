@@ -449,17 +449,31 @@ def _quantile(means, weights, qs, mins, maxs):
                                    torch.full_like(est, math.nan)))
 
 
+def _fma32(a: torch.Tensor, b: torch.Tensor,
+           c: torch.Tensor) -> torch.Tensor:
+    """f32 ``a * b + c`` with one rounding of the exact product, as a
+    fused multiply-add gives it: the product of two f32s is exact in
+    f64, so one f64 add and one round to f32 (a double rounding only in
+    rare halfway cases).  The reference's jitted CPU readout contracts
+    these two spots into FMAs; rounding the product first moves the
+    last bit of about a quarter of percentiles."""
+    return (a.double() * b.double() + c.double()).float()
+
+
 def _quantile_interp(means, weights, qs, mins, maxs):
     """Rank-space centroid-mean interpolation (the flush readout).
     Knots: (-0.5, min), (pos_i, mean_i)..., (total-0.5, max) with
-    pos_i = cum_i - (w_i+1)/2; target rank h = q*(total-1)."""
+    pos_i = cum_i - (w_i+1)/2; target rank h = q*(total-1).  The two
+    multiply-adds ``h - p_lo`` and ``v_lo + frac * (v_hi - v_lo)`` are
+    fused (``_fma32``), as the reference's are."""
     means, weights, mins, maxs = (segment.ftz(t) for t in
                                   (means, weights, mins, maxs))
     m, w = _sorted_planes(means, weights)
     cum, total, nvalid, last, lo_anchor, hi_anchor = _anchors(
         m, w, mins, maxs)
     pos = cum - (w + 1.0) * 0.5
-    h = qs[None, :] * (total - 1.0).clamp(min=0.0)
+    span = (total - 1.0).clamp(min=0.0)
+    h = qs[None, :] * span
     pos_masked = torch.where(w > 0, pos, torch.full_like(pos, math.inf))
     idx = (pos_masked[:, None, :] < h[:, :, None]).sum(dim=-1)
     below = idx == 0
@@ -472,8 +486,9 @@ def _quantile_interp(means, weights, qs, mins, maxs):
     p_hi = torch.where(above, (total - 0.5).expand_as(h),
                        pos.gather(1, idx_hi))
     v_hi = torch.where(above, hi_anchor.expand_as(h), m.gather(1, idx_hi))
-    frac = ((h - p_lo) / (p_hi - p_lo).clamp(min=_EPS)).clamp(0.0, 1.0)
-    est = v_lo + frac * (v_hi - v_lo)
+    frac = (_fma32(qs[None, :].expand_as(h), span.expand_as(h), -p_lo) /
+            (p_hi - p_lo).clamp(min=_EPS)).clamp(0.0, 1.0)
+    est = _fma32(frac, v_hi - v_lo, v_lo)
     est = torch.minimum(torch.maximum(est, lo_anchor), hi_anchor)
     ok = (nvalid[:, None] > 0) & (total > 0)
     return segment.ftz(torch.where(ok, est,
