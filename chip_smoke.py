@@ -45,11 +45,20 @@ Run from the root of a checkout.  Phases, one JSON line each:
    device step at 65,536 staged samples, then swap and flush: samples/s,
    lock-free parse and locked commit time, apply, swap and flush time,
    the merges by (rows, K); every flush held to the 1-reader flush
-   (gauges: one of the values sent) and to the exact p99s;
+   (gauges: one of the values sent) and to the exact p99s; the ledger
+   closes and seals around the swap as ``flush_once`` does, and each
+   reader count must seal balanced with every line received;
 5. the server: ``python -m veneur_tpu_torch.cli.main`` on the card with
    ``num_readers: 4``, fed over loopback UDP from eight source sockets
    (single-line, multi-line, an event, a service check and an
-   oversize datagram), its flush file checked;
+   oversize datagram), its flush file checked; then its ``/debug/*``
+   surface: CUDA-event device time for every device step that ran,
+   readback bytes, the flush stages, the sealed and balanced ledger
+   (received = the samples sent), the last flush's trace tree, the
+   signal history and flight recorder, the TSV's
+   ``veneur.worker.metrics_processed_total`` equal to the samples sent,
+   and a ``/debug/pprof/device`` capture during a timer burst whose CUDA
+   kernels include ``cluster_merge_kernel``;
 6. the global tier at BASELINE config 5's size: 64 locals' wires (each
    the local-role flush of a table on the card that took a 1/64 share
    of phase 4's timer and set traffic, plus global-only counters,
@@ -75,9 +84,10 @@ Run from the root of a checkout.  Phases, one JSON line each:
    (300,000 timer samples over 40,000 series, 120,000 set members over
    12,000 series, plus tracked hot and cold series) and 3 idle ones,
    through ``handle_packet_batch`` in 8,192-line chunks and
-   ``flush_once``; the soak's gates but its two ledger gates (device
-   bytes per series 4x under the all-wide baseline and flat, the
-   accuracy pins, promotions and demotions in both classes), every
+   ``flush_once``; all of the soak's gates (device bytes per series 4x
+   under the all-wide baseline and flat, the accuracy pins, promotions
+   and demotions in both classes, the ledger naming every movement,
+   nothing unattributed, every interval sealed balanced), every
    timer series' flushed count equal to what was sent, the flush held
    to a CPU port server's on the same lines, and the card's peak
    device memory against an untiered port table at the same sizes;
@@ -87,7 +97,9 @@ Run from the root of a checkout.  Phases, one JSON line each:
    from each; Health/Check, a multi-line SendPacket and the frozen
    Go-side MetricList fixture through SendMetrics; a garbage /import is
    answered 400 and a garbage SendMetrics INVALID_ARGUMENT, both
-   counted;
+   counted; the global's ``/debug/trace/<local's trace id>`` holds an
+   ``import`` span under each local's ``flush.forward`` span (HTTP in
+   both schemas, gRPC);
 11. the kernels line, then the last line
     ``{"ok": true, "device": {...}}``.
 
@@ -851,18 +863,30 @@ def run_readers(dev: str, n_readers: int, batches, table_cfg: dict,
         th.join()
     t1 = time.perf_counter()
     check(not errs, f"{n_readers} readers: {errs}")
+    # the interval closes in the swap's lock round and seals after the
+    # flush, as flush_once does
     with srv.lock:
         pend = table.begin_swap()
+        led = srv.ledger.close_interval(
+            seq=1, table_staged=pend.ingested,
+            table_overflow=pend.overflow)
     snap = table.complete_swap(pend)
     sync()
     t2 = time.perf_counter()
     res = srv.flusher.flush(snap, retain_frame=True)
     metrics = res.all_metrics()
     t3 = time.perf_counter()
+    srv.ledger.credit_rows(led, res.row_accounting)
+    srv.ledger.seal(led)
     n = sum(b.count(b"\n") + 1 for b in batches)
     check(srv.stats["metrics_processed"] == n and
           srv.stats["metrics_dropped"] == 0,
           f"{n_readers} readers processed {srv.stats}")
+    check(led.balanced and led.received == {"dogstatsd": n},
+          f"{n_readers} readers sealed {led.to_dict()}")
+    t["ledger"] = {k: led.to_dict()[k] for k in (
+        "received", "staged", "rows", "balanced", "owed",
+        "staged_drift", "rows_owed")}
     if n_readers > 1:
         t["parse_s"] = sum(sh.parse_s for sh in shards)
         t["locked_s"] = sum(sh.commit_s for sh in shards)
@@ -1144,9 +1168,10 @@ def run_soak(dev: str, traffic: dict, sync) -> dict:
     dirs = {c: (getattr(table.tiers, c).tier.copy(),
                 getattr(table.tiers, c).slot.copy())
             for c in ("histo", "set")}
+    ledger = (srv.ledger.records(), srv.ledger.summary())
     srv.shutdown()
     del srv, table
-    return {"intervals": out, "directory": dirs}
+    return {"intervals": out, "directory": dirs, "ledger": ledger}
 
 
 def soak_accuracy(last, traffic) -> tuple[dict, dict]:
@@ -1179,11 +1204,23 @@ def soak_accuracy(last, traffic) -> tuple[dict, dict]:
     return acc, gates
 
 
+# the server's own count rows that come from its stats deltas and its
+# ledger: held by value card against CPU; every other veneur.* row
+# (timings, gc, memory, the device-cost registry) by name only
+SELF_COUNTS = ("veneur.worker.", "veneur.packet.", "veneur.listen.",
+               "veneur.ledger.", "veneur.tier.", "veneur.signals.",
+               "veneur.flight.", "veneur.import.request_error_total",
+               "veneur.flush.error_total",
+               "veneur.forward.post_metrics_total",
+               "veneur.forward.error_total")
+
+
 def compare_tiered_flush(dev_iv, cpu_iv) -> dict:
     """The card's flush against the CPU table's for one interval: the
     same frozen tier view; counters, counts, max, set estimates and
     compact-row percentiles bit-equal; wide-row percentiles within rtol
-    2e-3 / atol 1e-3 (the soak emits no sums)."""
+    2e-3 / atol 1e-3 (the soak emits no sums); the server's own
+    ``veneur.*`` rows by name, its stats-delta counts by value."""
     dt, ct = dev_iv["tiers"], cpu_iv["tiers"]
     for a in ("histo_tier", "histo_slot", "set_tier", "set_slot"):
         check(np.array_equal(getattr(dt, a), getattr(ct, a)),
@@ -1195,11 +1232,17 @@ def compare_tiered_flush(dev_iv, cpu_iv) -> dict:
     d = {(m.name, m.tags): m.value for m in dev_iv["metrics"]}
     c = {(m.name, m.tags): m.value for m in cpu_iv["metrics"]}
     check(d.keys() == c.keys(), "card and CPU flush different metrics")
-    n_wide = n_compact = 0
+    types = {(m.name, m.tags): m.type for m in cpu_iv["metrics"]}
+    n_wide = n_compact = n_self = 0
     worst = 0.0
     for key, cv in c.items():
         dv = d[key]
         name = key[0]
+        if name.startswith("veneur."):
+            if name.startswith(SELF_COUNTS) and types[key] == "counter":
+                check(dv == cv, f"{key}: {dv} vs {cv}")
+            n_self += 1
+            continue
         if name.endswith("percentile") and name.rsplit(".", 1)[0] in wide:
             check(abs(dv - cv) <= 1e-3 + 2e-3 * abs(cv),
                   f"{key}: {dv} vs {cv}")
@@ -1208,17 +1251,18 @@ def compare_tiered_flush(dev_iv, cpu_iv) -> dict:
             continue
         check(dv == cv, f"{key}: {dv} vs {cv} not bit-equal")
         n_compact += name.endswith("percentile")
-    return {"metrics": len(c), "wide_percentiles": n_wide,
+    return {"metrics": len(c), "self_telemetry_rows": n_self,
+            "wide_percentiles": n_wide,
             "compact_percentiles_bit_equal": n_compact,
             "wide_percentile_max_abs_diff": worst}
 
 
 def phase_tiers(dev: str = "cuda", cpu_reference: bool = True) -> dict:
     """Phase 10: the reference's cardinality soak through a tiered port
-    server on the card (and the same lines through a CPU one), with the
-    soak's gates but its two ledger gates, mass conservation, and the
-    card's device memory against an untiered port table of the same
-    sizes."""
+    server on the card (and the same lines through a CPU one), with all
+    of the soak's gates (its three ledger gates included), mass
+    conservation, and the card's device memory against an untiered port
+    table of the same sizes."""
     import torch
     from veneur_tpu_torch.core.table import MetricTable, TableConfig
 
@@ -1287,13 +1331,28 @@ def phase_tiers(dev: str = "cuda", cpu_reference: bool = True) -> dict:
     acc, gates = soak_accuracy(last, traffic)
     steadies = [iv["plane_bytes"]["total"] for iv in ivs[:SOAK_STEADY]]
     mv = ivs[-1]["plane_bytes"]["tiers"]["movements"]
+    # the reference's ledger gates (bench.py:4541-4580): the ledger
+    # names every movement, nothing is lost unattributed, every
+    # interval sealed balanced
+    recs, ledsum = run["ledger"]
+    unattributed = (ledsum["imbalanced"] + ledsum["owed_total"]
+                    + ledsum.get("shed_owed_total", 0))
     gates.update({
         "dbps_bounded_4x": base_dbps / dbps >= 4.0,
         "dbps_flat_steady": max(steadies) <= 1.10 * min(steadies),
         "promotions_fired": all(mv[c]["promotions"] > 0
                                 for c in ("histo", "set")),
         "demotions_fired": all(mv[c]["demotions"] > 0
-                               for c in ("histo", "set"))})
+                               for c in ("histo", "set")),
+        "ledger_names_movements": (
+            sum(r.tier_promotions for r in recs)
+            == sum(c["promotions"] for c in mv.values())
+            and sum(r.tier_demotions for r in recs)
+            == sum(c["demotions"] for c in mv.values())),
+        "unattributed_zero": unattributed == 0,
+        "ledgers_balanced": ledsum["imbalanced"] == 0})
+    out["ledger"] = ledsum
+    out["unattributed_lost"] = int(unattributed)
     # mass: every timer series' flushed count is what was sent to it
     for k, (iv, sent) in enumerate(zip(ivs, traffic["sent"])):
         got = {m.name[:-len(".count")]: m.value for m in iv["metrics"]
@@ -1340,8 +1399,7 @@ def phase_tiers(dev: str = "cuda", cpu_reference: bool = True) -> dict:
             sum(iv["total_s"] for iv in crun["intervals"][:SOAK_STEADY]))
     gates = {k: bool(v) for k, v in gates.items()}
     out["gates"] = gates
-    out["cut"] = ("none: the soak's sizes, traffic and thresholds; its "
-                  "two ledger gates wait for the port's ledger")
+    out["cut"] = "none: the soak's sizes, traffic, thresholds and gates"
     emit(out)
     bad = [k for k, v in gates.items() if not v]
     check(not bad, f"soak gates failed: {bad}")
@@ -1792,8 +1850,144 @@ def wait_for(pred, timeout: float, what: str, proc=None) -> None:
 SERVER_READERS = 4  # the reference's example.yaml num_readers
 
 
+def server_sent(msgs) -> int:
+    """Samples a server processes from ``msgs``: every line of a
+    datagram within ``metric_max_length``, events aside."""
+    return sum(1 for m in msgs if len(m) <= 4096
+               for ln in m.split(b"\n") if not ln.startswith(b"_e{"))
+
+
+def check_debug_surface(hport: int, tsv_rows: list, sent: int) -> dict:
+    """The server's /debug/* records after its traffic was flushed and
+    the next interval carried the first telemetry tick: the launch
+    registry (CUDA-event device time for every step that ran, readback
+    bytes), the flush ring's stages, the sealed ledger, the last
+    flush's trace tree, the signal history, the flight recorder, and
+    the TSV's ``veneur.*`` rows."""
+    dv = json.loads(http_get(hport, "/debug/vars"))
+    dc = dv["devicecost"]
+    ran = {n: e for n, e in dc["kernels"].items() if e["calls"]}
+    check(ran, "no device step ran")
+    for name, e in ran.items():
+        check(e["device_calls"] > 0 and e["device_duration_ns"] and
+              e["device_duration_ns"] > 0,
+              f"{name}: no CUDA-event device time: {e}")
+    check(any(n.startswith("table.") for n in ran) and
+          any(n.startswith("flusher.") for n in ran),
+          f"steps that ran: {sorted(ran)}")
+    check(dc["readback_bytes_total"] > 0 and dc["events_dropped"] == 0,
+          f"readback / dropped events: {dc}")
+    flushes = json.loads(http_get(hport, "/debug/flushes"))
+    stages = set().union(*(r["stages_ns"] for r in flushes))
+    want = {"snapshot", "swap_apply", "dispatch", "device_wait",
+            "host_emit", "sink_flush"}
+    check(want <= stages, f"flush stages {sorted(stages)}")
+    led = json.loads(http_get(hport, "/debug/ledger"))
+    recs = led["records"]
+    received = sum(r["received"].get("dogstatsd", 0) for r in recs)
+    check(led["imbalanced"] == [] and all(r["balanced"] for r in recs),
+          f"ledger imbalanced: {led['imbalanced']}")
+    check(received == sent, f"ledger received {received} of {sent}")
+    tid = flushes[-1]["trace_id"]
+    spans = json.loads(http_get(hport, f"/debug/trace/{tid}"))["spans"]
+    root = [s for s in spans if s["name"] == "flush"]
+    check(len(root) == 1, f"trace {tid}: {len(root)} roots")
+    kids = {s["name"] for s in spans
+            if s["parent_id"] == root[0]["span_id"]}
+    check({f"flush.{s}" for s in want} <= kids, f"trace children {kids}")
+    sig = json.loads(http_get(hport, "/debug/signals"))
+    check(sig["rows"] >= 2 and len(sig["signals"]) >= 30,
+          f"signals: {sig['rows']} rows, {len(sig['signals'])} signals")
+    flight = json.loads(http_get(hport, "/debug/flight"))
+    check("bundles" in flight and "stats" in flight, "flight listing")
+    processed = sum(float(r[5]) for r in tsv_rows
+                    if r[0] == "veneur.worker.metrics_processed_total")
+    check(processed == sent,
+          f"veneur.worker.metrics_processed_total {processed} of {sent}")
+    veneur = sorted({r[0] for r in tsv_rows if r[0].startswith("veneur.")})
+    return {"steps_ran": {n: {"calls": e["calls"],
+                              "device_ns": e["device_duration_ns"],
+                              "dispatch_ns": e["dispatch_duration_ns"],
+                              "est_bytes": e["est_bytes_accessed_per_call"]}
+                          for n, e in ran.items()},
+            "readback_bytes": dc["readback_bytes_total"],
+            "h2d_bytes": dc["h2d_bytes_total"],
+            "compile_total": dc["compile_total"],
+            "compile_cache_hits": dc["compile_cache_hits"],
+            "flush_stages": sorted(stages),
+            "ledger_intervals": led["intervals"],
+            "ledger_received": received, "trace_children": sorted(kids),
+            "signal_rows": sig["rows"], "signals": len(sig["signals"]),
+            "flight": flight["stats"], "veneur_rows": len(veneur),
+            "metrics_processed_total": processed}
+
+
+def profile_burst(hport: int, port: int, flush: str) -> dict:
+    """``/debug/pprof/device?seconds=1`` while timers arrive from a
+    burst thread, timed to span the server's next flush (its merges run
+    at the swap): the Chrome trace's CUDA kernels must include
+    ``cluster_merge_kernel``.  A short capture first pays the
+    profiler's one-time start-up (~10 s on the H100, which would
+    otherwise eat the window); the window is placed 1.4 s after a flush
+    file write at the 2 s interval; if it still misses a swap, one
+    2.5 s capture follows, and the result says which took it."""
+    import shutil
+    import threading
+    t_req = time.perf_counter()
+    warm = json.loads(http_get(hport, "/debug/pprof/device?seconds=0.05",
+                               timeout=180))
+    shutil.rmtree(warm["dir"], ignore_errors=True)
+    warmup_s = time.perf_counter() - t_req
+    done = threading.Event()
+
+    def burst():
+        s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        v = 0
+        while not done.is_set():
+            s.sendto(b"\n".join(b"burst.lat:%d|ms" % (v + i)
+                                 for i in range(50)), ("127.0.0.1", port))
+            v += 50
+            time.sleep(0.002)
+        s.close()
+    th = threading.Thread(target=burst)
+    th.start()
+    tries = []
+    try:
+        for seconds in (1, 2.5):
+            size = os.path.getsize(flush)
+            wait_for(lambda: os.path.getsize(flush) != size, 10,
+                     "a flush before the capture")
+            time.sleep(1.4)
+            # the capture, then the trace's export, answer the request
+            t_req = time.perf_counter()
+            out = json.loads(http_get(
+                hport, f"/debug/pprof/device?seconds={seconds}",
+                timeout=180))
+            request_s = time.perf_counter() - t_req
+            with open(os.path.join(out["dir"], "trace.json")) as f:
+                events = json.load(f)["traceEvents"]
+            shutil.rmtree(out["dir"], ignore_errors=True)
+            kernels = sorted({e.get("name", "") for e in events
+                              if e.get("cat") == "kernel"})
+            merge = [k for k in kernels if "cluster_merge_kernel" in k]
+            tries.append({"seconds": seconds, "kernels": len(kernels),
+                          "cluster_merge": merge[:1],
+                          "activities": out["activities"],
+                          "events": len(events), "request_s": request_s,
+                          "trace_bytes": out["files"][0]["bytes"]})
+            if merge:
+                break
+    finally:
+        done.set()
+        th.join()
+    check(tries[-1]["cluster_merge"],
+          f"no cluster_merge_kernel in the device profile: {tries}")
+    return {"warmup_request_s": warmup_s, "captures": tries}
+
+
 def phase_server(dev: str = "cuda") -> dict:
     port = free_udp_port()
+    hport = free_tcp_port()
     with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke-") as tmp:
         flush = os.path.join(tmp, "flush.tsv")
         cfg = os.path.join(tmp, "server.yaml")
@@ -1802,6 +1996,7 @@ def phase_server(dev: str = "cuda") -> dict:
             json.dump({"interval": "2s", "hostname": "smoke",
                        "statsd_listen_addresses":
                            [f"udp://127.0.0.1:{port}"],
+                       "http_address": f"127.0.0.1:{hport}",
                        "num_readers": SERVER_READERS,
                        "flush_file": flush,
                        "percentiles": [0.5, 0.99]}, f)
@@ -1835,11 +2030,23 @@ def phase_server(dev: str = "cuda") -> dict:
                 time.sleep(0.0005)  # stay inside the receive buffer
             for sk in socks:
                 sk.close()
+            sent = server_sent(msgs)
 
-            def flushed():
+            def rows():
                 with open(flush) as f:
-                    return "lat.count" in f.read()
-            wait_for(flushed, 30, "the flush of the sent metrics", proc)
+                    return [r.split("\t") for r in f.read().splitlines()]
+
+            wait_for(lambda: any(r[0] == "lat.count" for r in rows()), 30,
+                     "the flush of the sent metrics", proc)
+            # the first telemetry tick after the traffic reaches the
+            # TSV with the next flush
+            wait_for(lambda: sum(
+                float(r[5]) for r in rows()
+                if r[0] == "veneur.worker.metrics_processed_total")
+                >= sent, 30, "the telemetry of the sent metrics", proc)
+            tsv = rows()
+            debug = check_debug_surface(hport, tsv, sent)
+            debug["device_profile"] = profile_burst(hport, port, flush)
         finally:
             proc.terminate()
             try:
@@ -1848,10 +2055,9 @@ def phase_server(dev: str = "cuda") -> dict:
                 proc.kill()
                 proc.wait()
             log.close()
-        with open(flush) as f:
-            rows = [r.split("\t") for r in f.read().splitlines()]
         with open(os.path.join(tmp, "server.log")) as f:
             server_log = f.read()
+    rows = [r for r in tsv if not r[0].startswith("veneur.")]
     check(proc.returncode == 0, f"server exit code {proc.returncode}: "
                                 f"{server_log[-2000:]}")
     check(f"with {SERVER_READERS} reader(s) each (fused shards)"
@@ -1879,17 +2085,18 @@ def phase_server(dev: str = "cuda") -> dict:
            "lat.99percentile": vals["lat.99percentile"],
            "uniq": vals["uniq"], "multi_line": multi,
            "service_check": vals["smoke.check"],
-           "oversize_rejected": True}
+           "oversize_rejected": True, "samples_sent": sent,
+           "debug": debug}
     emit(res)
     return res
 
 
 # ---- phase 7: local -> global over UDP and HTTP --------------------------
 
-def http_get(port: int, path: str) -> bytes:
+def http_get(port: int, path: str, timeout: float = 10) -> bytes:
     import urllib.request
     with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
-                                timeout=10) as r:
+                                timeout=timeout) as r:
         return r.read()
 
 
@@ -1964,6 +2171,28 @@ def drive_grpc(port: int) -> dict:
     return {"health": health, "garbage_send_metrics": garbage}
 
 
+def stitched_trace(local_port: int, global_port: int) -> dict:
+    """The local's forwarding flush (the last ring record that shipped
+    rows), its ``flush.forward`` span, and the global's fragment of the
+    same trace: one ``import`` span parented under that span."""
+    flushes = json.loads(http_get(local_port, "/debug/flushes"))
+    fwd_recs = [r for r in flushes if r["forward_rows"]]
+    check(fwd_recs, "the local forwarded no rows")
+    tid = fwd_recs[-1]["trace_id"]
+    spans = json.loads(http_get(local_port, f"/debug/trace/{tid}"))["spans"]
+    fwd = [s for s in spans if s["name"] == "flush.forward"]
+    check(len(fwd) == 1, f"local trace {tid}: {[s['name'] for s in spans]}")
+    gspans = json.loads(http_get(global_port,
+                                 f"/debug/trace/{tid}"))["spans"]
+    imp = [s for s in gspans if s["name"] == "import"]
+    check(len(imp) == 1 and imp[0]["parent_id"] == fwd[0]["span_id"]
+          and imp[0]["trace_id"] == tid,
+          f"global fragment of {tid}: {gspans}")
+    return {"trace_id": tid, "forward_span": fwd[0]["span_id"],
+            "import_protocol": imp[0]["tags"]["protocol"],
+            "import_accepted": int(imp[0]["tags"]["accepted"])}
+
+
 def phase_chain(dev: str = "cuda") -> dict:
     """Four server processes on the card: a global (``http_address`` and
     a gRPC listener) and three locals forwarding to it, one in each
@@ -1975,9 +2204,15 @@ def phase_chain(dev: str = "cuda") -> dict:
     SERVING, a SendPacket's lines flush, the frozen Go-side wire flushes
     what tests/test_grpc_forward.py asserts of it; a garbage /import
     body is answered 400, a garbage SendMetrics INVALID_ARGUMENT, both
-    are counted, and the metrics sent after them still flush."""
+    are counted, and the metrics sent after them still flush.  Each
+    local's forward carries its flush cycle's trace context: the
+    global's ``/debug/trace/<local's trace id>`` must hold an ``import``
+    span parented under the local's ``flush.forward`` span, over HTTP
+    (both schemas) and over gRPC."""
     gport, grpc_port = free_tcp_port(), free_tcp_port()
     lports = [free_udp_port(), free_udp_port(), free_udp_port()]
+    hports = {n: free_tcp_port() for n in ("local", "localref",
+                                           "localgrpc")}
     with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke-") as tmp:
         base = {"interval": "2s", "percentiles": [0.5, 0.99]}
         cfgs = {"global": dict(
@@ -1988,11 +2223,13 @@ def phase_chain(dev: str = "cuda") -> dict:
             cfgs[name] = dict(
                 base, hostname=name,
                 statsd_listen_addresses=[f"udp://127.0.0.1:{port}"],
+                http_address=f"127.0.0.1:{hports[name]}",
                 forward_address=f"http://127.0.0.1:{gport}",
                 forward_json_schema=schema)
         cfgs["localgrpc"] = dict(
             base, hostname="localgrpc",
             statsd_listen_addresses=[f"udp://127.0.0.1:{lports[2]}"],
+            http_address=f"127.0.0.1:{hports['localgrpc']}",
             forward_address=f"127.0.0.1:{grpc_port}",
             forward_use_grpc=True)
         procs, logs, flush = {}, {}, {}
@@ -2034,6 +2271,8 @@ def phase_chain(dev: str = "cuda") -> dict:
                      procs["global"])
             latency = time.perf_counter() - t1
             stats = json.loads(http_get(gport, "/debug/vars"))["stats"]
+            stitched = {n: stitched_trace(hports[n], gport)
+                        for n in hports}
         finally:
             for p in procs.values():
                 p.terminate()
@@ -2079,6 +2318,10 @@ def phase_chain(dev: str = "cuda") -> dict:
     check(stats["imports_received"] >= 10, f"imports_received {stats}")
     check(stats["received_grpc"] >= 6, f"received_grpc {stats}")
     check(stats["received_dogstatsd-grpc"] == 1, f"SendPacket {stats}")
+    for name, want in (("local", "http"), ("localref", "http"),
+                       ("localgrpc", "grpc")):
+        check(stitched[name]["import_protocol"] == want,
+              f"{name}'s import span: {stitched[name]}")
     res = {"phase": "chain", "startup_s": startup,
            "send_to_global_flush_s": latency,
            "lat.99percentile": g["lat.99percentile"],
@@ -2086,7 +2329,7 @@ def phase_chain(dev: str = "cuda") -> dict:
            "latgrpc.99percentile": g["latgrpc.99percentile"],
            "garbage_import_status": garbage, **grpc_res,
            "fixture": {k: v for k, v in g.items() if k.startswith("fix")},
-           "global_stats": stats}
+           "global_stats": stats, "stitched_traces": stitched}
     emit(res)
     return res
 

@@ -726,9 +726,10 @@ def test_udp_server_four_readers_flush_as_one(fused):
 # ---- the port's rules ------------------------------------------------------
 
 def test_port_imports_no_jax():
-    """Importing the package and every module, and building a table
-    (untiered and tiered, the latter through an interval), loads
-    neither jax nor any veneur_tpu module, and maps the port's
+    """Importing the package and every module, building a table
+    (untiered and tiered, the latter through an interval), and running
+    a server through two observed flushes and a device profile capture,
+    loads neither jax nor any veneur_tpu module, and maps the port's
     own native library, never the JAX package's (checked in a fresh
     interpreter: this test process has imported both)."""
     code = """
@@ -745,7 +746,22 @@ assert {"veneur_tpu_torch.core.frame",
         "veneur_tpu_torch.forward.hll_codec",
         "veneur_tpu_torch.forward.grpc_forward",
         "veneur_tpu_torch.forward.gen.forward_pb2",
-        "veneur_tpu_torch.protocol.gen.health_pb2"} <= set(names)
+        "veneur_tpu_torch.protocol.gen.health_pb2",
+        "veneur_tpu_torch.protocol.gen.ssf_pb2",
+        "veneur_tpu_torch.protocol.wire",
+        "veneur_tpu_torch.trace.spans",
+        "veneur_tpu_torch.trace.client",
+        "veneur_tpu_torch.core.spans",
+        "veneur_tpu_torch.core.debughttp",
+        "veneur_tpu_torch.core.telemetry",
+        "veneur_tpu_torch.observe.devicecost",
+        "veneur_tpu_torch.observe.flushring",
+        "veneur_tpu_torch.observe.traceindex",
+        "veneur_tpu_torch.observe.tracer",
+        "veneur_tpu_torch.observe.ledger",
+        "veneur_tpu_torch.observe.signals",
+        "veneur_tpu_torch.observe.recorder",
+        "veneur_tpu_torch.observe.profiler"} <= set(names)
 from veneur_tpu_torch.core.table import MetricTable, TableConfig
 from veneur_tpu_torch.forward import gob_codec
 MetricTable(TableConfig(histo_rows=8), device="cpu")
@@ -758,6 +774,16 @@ tiered.swap()
 gob_codec.decode_batch([gob_codec.encode_counter(1)], [1])
 from veneur_tpu_torch.forward import grpc_forward
 assert grpc_forward.decode_metric_list(b"")["n"] == 0
+from veneur_tpu_torch.core.config import read_config
+from veneur_tpu_torch.core.server import Server
+from veneur_tpu_torch.observe import capture_device_profile
+srv = Server(read_config(data={"tpu_histo_rows": 8}), device="cpu")
+srv.handle_packet(b"a:1|c")
+srv.flush_once()
+srv.flush_once()
+assert srv.ledger.last().balanced and srv.signals.rows() == 2
+srv.shutdown()
+capture_device_profile(0.05)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib",
                                             "veneur_tpu.")))

@@ -90,6 +90,35 @@ class Config:
     forward_json_schema: str = "native"
     # t-digest compression of the histogram planes
     tpu_compression: float = 100.0
+    # -- self-observation (the reference's keys and defaults) ---------
+    # self-telemetry: DogStatsD datagrams to this host:port (or
+    # udp://host:port); empty injects them into the server's own table
+    stats_address: str = ""
+    # scope of the server's own metrics by type ({counter: local |
+    # global | default, gauge: ..., ...}) and extra tags on them
+    veneur_metrics_scopes: dict = field(default_factory=dict)
+    veneur_metrics_additional_tags: list[str] = field(
+        default_factory=list)
+    # a torch.profiler trace (CPU and CUDA) for the process lifetime,
+    # written to ./torch_profile/trace.json at shutdown
+    enable_profiling: bool = False
+    # an imbalanced conservation-ledger interval logs an ERROR instead
+    # of a warning (it bumps ledger_imbalance either way)
+    tpu_ledger_strict: bool = False
+    # stamp the flush cycle's (trace_id, span_id) onto forward wires
+    # and parent import spans under the remote forward span
+    tpu_trace_propagation: bool = True
+    # rows of the per-flush signal history (/debug/signals); 0 disables
+    # it and the flight recorder
+    tpu_signal_history: int = 512
+    # flight-recorder bundles: directory (empty: a bounded in-memory
+    # store), retention by count and bytes, per-trigger cooldown
+    tpu_flight_dir: str = ""
+    tpu_flight_max_bundles: int = 64
+    tpu_flight_max_bytes: int = 67108864
+    tpu_flight_cooldown: str = "30s"
+    # /debug/cluster peers ("host:port,...")
+    tpu_cluster_peers: str = ""
 
     def interval_seconds(self) -> float:
         return parse_duration(self.interval)
@@ -160,20 +189,54 @@ class Config:
                 f"http_address needs host:port: {self.http_address}")
         if self.tpu_compression <= 0:
             problems.append("tpu_compression must be positive")
+        for scope_type, scope in self.veneur_metrics_scopes.items():
+            if scope_type not in ("counter", "gauge", "histogram",
+                                  "set", "status"):
+                problems.append(
+                    f"veneur_metrics_scopes: unknown type "
+                    f"{scope_type!r}")
+            if scope not in ("local", "global", "default"):
+                problems.append(
+                    f"veneur_metrics_scopes: unknown scope {scope!r}")
+        try:
+            parse_duration(self.tpu_flight_cooldown)
+        except ValueError as e:
+            problems.append(f"tpu_flight_cooldown: {e}")
+        if self.tpu_signal_history < 0:
+            problems.append("tpu_signal_history must be >= 0")
         return problems
 
 
 # keys the reference lets VENEUR_<KEY upper-cased> override, among those
 # the port runs
 _ENV_KEYS = ("tpu_pipeline", "tpu_multi_reader_fused",
-             "tpu_reader_pin_cores", "tpu_columnar_emit")
+             "tpu_reader_pin_cores", "tpu_columnar_emit",
+             "stats_address", "veneur_metrics_scopes",
+             "veneur_metrics_additional_tags", "enable_profiling", "tpu_ledger_strict",
+             "tpu_trace_propagation", "tpu_signal_history",
+             "tpu_flight_dir", "tpu_flight_max_bundles",
+             "tpu_flight_max_bytes", "tpu_flight_cooldown",
+             "tpu_cluster_peers")
 
 
 def _coerce(name: str, raw: str):
     """An environment string as the field's type (the reference's
     ``_coerce``, for the types of ``_ENV_KEYS``)."""
-    if isinstance(getattr(Config(), name), bool):
+    current = getattr(Config(), name)
+    if isinstance(current, bool):
         return raw.lower() in ("1", "true", "yes", "on")
+    if isinstance(current, int):
+        return int(raw)
+    if isinstance(current, list):
+        return [x.strip() for x in raw.split(",") if x.strip()]
+    if isinstance(current, dict):
+        # "k1:v1,k2:v2"
+        out = {}
+        for item in raw.split(","):
+            if item.strip():
+                k, _, v = item.partition(":")
+                out[k.strip()] = v.strip()
+        return out
     return raw
 
 

@@ -36,7 +36,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from veneur_tpu_torch import resolve_device
+from veneur_tpu_torch import observe, resolve_device
 from veneur_tpu_torch.core import metrics as im
 from veneur_tpu_torch.core.frame import (MetricFrame, TYPE_COUNTER,
                                          TYPE_GAUGE)
@@ -76,7 +76,7 @@ def _combine_stats_fn(stats: torch.Tensor,
     ], dim=1))
 
 
-def _histo_readout(stats, imp, means, weights, qs):
+def _histo_readout_fn(stats, imp, means, weights, qs):
     """Combined stats plus the per-row quantile readout (the
     reference's default "interp" interpolation)."""
     comb = _combine_stats_fn(stats, imp)
@@ -86,18 +86,18 @@ def _histo_readout(stats, imp, means, weights, qs):
     return comb, qvals
 
 
-def _histo_readout_rows(stats, imp, means, weights, qs, idx):
+def _histo_readout_rows_fn(stats, imp, means, weights, qs, idx):
     """_histo_readout restricted to the touched rows ``idx``: both the
     readback and the quantile readout's sort scale with the touched
     row count instead of the table capacity."""
     st = stats[idx]
-    comb, qvals = _histo_readout(st, imp[idx], means[idx], weights[idx],
-                                 qs)
+    comb, qvals = _histo_readout_fn(st, imp[idx], means[idx],
+                                    weights[idx], qs)
     return st, comb, qvals
 
 
-def _histo_quantiles_slots(stats, imp, means, weights, qs, row_idx,
-                           slot_idx):
+def _histo_quantiles_slots_fn(stats, imp, means, weights, qs, row_idx,
+                              slot_idx):
     """The quantile readout of a tiered table's wide rows: min/max from
     the row-indexed stat planes at ``row_idx``, centroids from the
     wide-slot pool at ``slot_idx`` (position-aligned)."""
@@ -107,9 +107,27 @@ def _histo_quantiles_slots(stats, imp, means, weights, qs, row_idx,
                                     comb[:, segment.STAT_MAX])
 
 
-def _gather_rows(plane: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def _gather_rows_fn(plane: torch.Tensor,
+                    idx: torch.Tensor) -> torch.Tensor:
     """Compact selected rows on the device before readback."""
     return plane[idx]
+
+
+# the readout steps, registered with the device-cost registry under the
+# reference's names (/debug/vars, veneur.device.dispatches_total)
+_combine_stats = observe.instrument("flusher.combine_stats",
+                                    _combine_stats_fn)
+_histo_readout = observe.instrument("flusher.histo_readout",
+                                    _histo_readout_fn)
+_histo_readout_rows = observe.instrument("flusher.histo_readout_rows",
+                                         _histo_readout_rows_fn)
+_histo_quantiles_slots = observe.instrument(
+    "flusher.histo_quantiles_slots", _histo_quantiles_slots_fn)
+_gather_rows = observe.instrument("flusher.gather_rows", _gather_rows_fn)
+# the host set plane's union into the device registers (a bulk h2d
+# copy each interval)
+_union_host_plane = observe.instrument("flusher.hll_union_host_plane",
+                                       hll.union)
 
 
 def _percentile_suffix(p: float) -> str:
@@ -144,6 +162,25 @@ class FlushResult:
     # what is appended afterwards (status checks); otherwise the frame
     # is materialized into ``metrics`` and this is None
     frame: MetricFrame | None = None
+    # row-granularity routing counts for the conservation ledger: every
+    # touched row is emitted, forwarded, both (overlap: default-scope
+    # histos on a local), or retained (neither).  Counted from the
+    # routing decisions, not derived as a residual, so the ledger's
+    # ``staged == emitted + forwarded - overlap + retained`` is a real
+    # check on the routing paths
+    row_accounting: dict = field(default_factory=lambda: {
+        "staged_rows": 0, "emitted_rows": 0, "forwarded_rows": 0,
+        "overlap_rows": 0, "retained_rows": 0})
+
+    def account_rows(self, staged: int = 0, emitted: int = 0,
+                     forwarded: int = 0, overlap: int = 0,
+                     retained: int = 0) -> None:
+        acct = self.row_accounting
+        acct["staged_rows"] += int(staged)
+        acct["emitted_rows"] += int(emitted)
+        acct["forwarded_rows"] += int(forwarded)
+        acct["overlap_rows"] += int(overlap)
+        acct["retained_rows"] += int(retained)
 
     def metric_count(self) -> int:
         return len(self.metrics) + (len(self.frame)
@@ -179,50 +216,67 @@ class Flusher:
         self.columnar = columnar
 
     def flush(self, snap: Snapshot, now: int | None = None,
-              retain_frame: bool = False) -> FlushResult:
-        """Read the snapshot out and emit it.  ``retain_frame=True``
-        (the server's path) keeps the columnar emit's frame in
-        ``res.frame`` for per-sink routing; otherwise the frame is
-        materialized into ``res.metrics``, the per-row emit's shape."""
+              cycle=None, retain_frame: bool = False) -> FlushResult:
+        """Read the snapshot out and emit it.  ``cycle`` is an
+        observe.FlushCycle (or the NULL_CYCLE default): stage spans and
+        readback accounting for the three phases this method owns —
+        dispatch, device wait, host emit.  ``retain_frame=True`` (the
+        server's path) keeps the columnar emit's frame in ``res.frame``
+        for per-sink routing; otherwise the frame is materialized into
+        ``res.metrics``, the per-row emit's shape."""
+        if cycle is None:
+            cycle = observe.NULL_CYCLE
         ts = int(now if now is not None else time.time())
         res = FlushResult()
-        pre = self._prefetch(snap)
-        if self.columnar:
-            frame = MetricFrame(ts, self.hostname)
-            self._frame_counters(snap, res, pre, frame)
-            self._frame_gauges(snap, res, pre, frame)
-            self._frame_histos(snap, res, pre, frame)
-            self._frame_sets(snap, res, pre, frame)
-            if retain_frame:
-                res.frame = frame
+        pre = self._prefetch(snap, cycle)
+        with cycle.stage("host_emit"):
+            if self.columnar:
+                frame = MetricFrame(ts, self.hostname)
+                self._frame_counters(snap, res, pre, frame)
+                self._frame_gauges(snap, res, pre, frame)
+                self._frame_histos(snap, res, pre, frame)
+                self._frame_sets(snap, res, pre, frame)
+                if retain_frame:
+                    res.frame = frame
+                else:
+                    res.metrics.extend(frame.materialize())
             else:
-                res.metrics.extend(frame.materialize())
-        else:
-            self._flush_counters(snap, ts, res, pre)
-            self._flush_gauges(snap, ts, res, pre)
-            self._flush_histos(snap, ts, res, pre)
-            self._flush_sets(snap, ts, res, pre)
+                self._flush_counters(snap, ts, res, pre)
+                self._flush_gauges(snap, ts, res, pre)
+                self._flush_histos(snap, ts, res, pre)
+                self._flush_sets(snap, ts, res, pre)
         res.tally["overflow"] = sum(snap.overflow.values())
         return res
 
     # ------------------------------------------------------------------
 
-    def _prefetch(self, snap: Snapshot) -> dict:
+    def _prefetch(self, snap: Snapshot, cycle=observe.NULL_CYCLE) -> dict:
         """Launch every device readout the flush needs, then read all
         results back to the host at once (re-scattering gathered rows
-        into full-size host arrays)."""
-        devs, pre, expand = self._dispatch(snap)
-        for k, v in devs.items():
-            pre[k] = v.cpu().numpy()
-        for dev_key, out_key, rows, shape in expand:
-            out = pre.pop(dev_key)
-            full = np.zeros(shape, out.dtype)
-            full[rows] = out[:len(rows)]
-            pre[out_key] = full
-        # a tiered snapshot's host-side assembly (compact-row quantiles,
-        # mixed-tier forward rows) needs the full row-space readback
-        for fn in pre.pop("_tier_post", []):
-            fn(pre)
+        into full-size host arrays).  Two traced stages: ``dispatch``
+        covers the launches (asynchronous on a card), ``device_wait``
+        the readback copies and the host re-scatter; the reference's
+        older names ``device_dispatch`` / ``readback_sync`` record the
+        same times."""
+        with cycle.stage("dispatch", alias="device_dispatch") as sp:
+            devs, pre, expand = self._dispatch(snap)
+            sp.add_tag("device_arrays", str(len(devs)))
+        with cycle.stage("device_wait", alias="readback_sync") as sp:
+            for k, v in devs.items():
+                pre[k] = v.cpu().numpy()
+            nbytes = int(sum(pre[k].nbytes for k in devs))
+            cycle.add_readback(nbytes)
+            sp.add_tag("readback_bytes", str(nbytes))
+            for dev_key, out_key, rows, shape in expand:
+                out = pre.pop(dev_key)
+                full = np.zeros(shape, out.dtype)
+                full[rows] = out[:len(rows)]
+                pre[out_key] = full
+            # a tiered snapshot's host-side assembly (compact-row
+            # quantiles, mixed-tier forward rows) needs the full
+            # row-space readback
+            for fn in pre.pop("_tier_post", []):
+                fn(pre)
         return pre
 
     def _dispatch(self, snap: Snapshot) -> tuple[dict, dict, list]:
@@ -282,8 +336,8 @@ class Flusher:
                                    (R, len(all_pcts))))
                 else:
                     st_g = _gather_rows(stats, idx)
-                    comb_g = _combine_stats_fn(st_g,
-                                               _gather_rows(imp, idx))
+                    comb_g = _combine_stats(st_g,
+                                            _gather_rows(imp, idx))
                 devs["stats_g"] = st_g
                 devs["comb_g"] = comb_g
                 expand.append(("stats_g", "stats", histo_rows, shape5))
@@ -293,7 +347,7 @@ class Flusher:
                     comb, devs["qvals"] = _histo_readout(
                         stats, imp, means, weights, qs)
                 else:
-                    comb = _combine_stats_fn(stats, imp)
+                    comb = _combine_stats(stats, imp)
                 devs["stats"] = stats
                 devs["comb"] = comb
             if snap.tiers is None:
@@ -337,7 +391,8 @@ class Flusher:
             else:
                 regs = snap.hll_regs.to(dev)
                 if snap.hll_host_plane is not None:
-                    regs = hll.union(regs, torch.from_numpy(
+                    observe.REGISTRY.note_h2d(snap.hll_host_plane.nbytes)
+                    regs = _union_host_plane(regs, torch.from_numpy(
                         snap.hll_host_plane).to(dev))
                 if fwd:
                     devs["fwd_regs"] = _gather_rows(
@@ -366,13 +421,12 @@ class Flusher:
             idx = torch.as_tensor(histo_rows, device=dev)
             st_g = _gather_rows(stats, idx)
             devs["stats_g"] = st_g
-            devs["comb_g"] = _combine_stats_fn(st_g,
-                                               _gather_rows(imp, idx))
+            devs["comb_g"] = _combine_stats(st_g, _gather_rows(imp, idx))
             expand.append(("stats_g", "stats", histo_rows, shape5))
             expand.append(("comb_g", "comb", histo_rows, shape5))
         else:
             devs["stats"] = stats
-            devs["comb"] = _combine_stats_fn(stats, imp)
+            devs["comb"] = _combine_stats(stats, imp)
         wide = ti.histo_tier[histo_rows].astype(bool)
         wrows = histo_rows[wide]
         crows = histo_rows[~wide]
@@ -503,13 +557,20 @@ class Flusher:
             return
         meta_all = getattr(snap, key + "_meta")
         touched = getattr(snap, key + "_touched")[:len(meta_all)]
+        n_fwd = n_emit = n_ret = 0
         for row in np.nonzero(touched)[0]:
             meta = meta_all[row]
             v = float(vals[row])
             if self._forwardable(meta, always=False):
                 res.forward.append(ForwardRow(meta, kind, value=v))
+                n_fwd += 1
             elif self._emit_local(meta):
                 res.metrics.append(self._mk(meta.name, ts, v, meta, mtype))
+                n_emit += 1
+            else:
+                n_ret += 1
+        res.account_rows(staged=n_fwd + n_emit + n_ret, emitted=n_emit,
+                         forwarded=n_fwd, retained=n_ret)
         res.tally[key + "s"] = int(touched.sum())
 
     def _flush_counters(self, snap, ts, res, pre) -> None:
@@ -536,6 +597,7 @@ class Flusher:
         qvals = pre.get("qvals")
         all_pcts = pre["all_pcts"]
         fwd_pos = {r: i for i, r in enumerate(pre["histo_fwd"])}
+        n_fwd = n_emit = n_both = n_ret = 0
         for row in rows:
             meta = snap.histo_meta[row]
             st = stats[row]
@@ -545,8 +607,14 @@ class Flusher:
                     meta, "histo", stats=st.copy(),
                     means=pre["fwd_means"][pos].copy(),
                     weights=pre["fwd_weights"][pos].copy()))
+                n_fwd += 1
             if meta.scope == dsd.SCOPE_GLOBAL and self.is_local:
+                if pos is None:
+                    n_ret += 1
                 continue
+            n_emit += 1
+            if pos is not None:
+                n_both += 1
             global_mode = (meta.scope == dsd.SCOPE_GLOBAL and
                            not self.is_local)
             self._emit_histo_row(
@@ -555,6 +623,9 @@ class Flusher:
                 with_percentiles=(not self.is_local or
                                   meta.scope == dsd.SCOPE_LOCAL),
                 global_mode=global_mode)
+        res.account_rows(staged=len(rows), emitted=n_emit,
+                         forwarded=n_fwd, overlap=n_both,
+                         retained=n_ret)
         res.tally["histograms"] = int(
             snap.histo_touched[:len(snap.histo_meta)].sum())
 
@@ -604,16 +675,23 @@ class Flusher:
             return
         ests = pre.get("ests")
         fwd_pos = {r: i for i, r in enumerate(pre.get("set_fwd", ()))}
+        n_fwd = n_emit = n_ret = 0
         for row in rows:
             meta = snap.set_meta[row]
             pos = fwd_pos.get(int(row))
             if pos is not None:
                 res.forward.append(ForwardRow(
                     meta, "set", regs=pre["fwd_regs"][pos].copy()))
+                n_fwd += 1
             elif self._emit_local(meta):
                 res.metrics.append(self._mk(meta.name, ts,
                                             float(round(ests[row])), meta,
                                             im.GAUGE))
+                n_emit += 1
+            else:
+                n_ret += 1
+        res.account_rows(staged=len(rows), emitted=n_emit,
+                         forwarded=n_fwd, retained=n_ret)
         res.tally["sets"] = int(snap.set_touched[:len(snap.set_meta)].sum())
 
     # ------------------------------------------------------------------
@@ -638,6 +716,8 @@ class Flusher:
                                           value=float(v)))
         emit = ~fwd
         frame.add_block(metas, rows[emit], v64[emit], type_code=type_code)
+        res.account_rows(staged=len(rows), emitted=int(emit.sum()),
+                         forwarded=int(fwd.sum()))
 
     def _frame_counters(self, snap: Snapshot, res: FlushResult,
                         pre: dict, frame: MetricFrame) -> None:
@@ -677,16 +757,25 @@ class Flusher:
                 means=pre["fwd_means"][pos].copy(),
                 weights=pre["fwd_weights"][pos].copy()))
         sc = _scope_codes(metas, rows)
+        # routing counts mirror the per-row emit: on a local every
+        # non-local-scope row forwards and every non-global-scope row
+        # emits (default scope does both: its local aggregates emit
+        # while its digest forwards); a global emits all
         if self.is_local:
-            # mixed-scope rows emit local aggregates while their digest
-            # forwards; global-only rows emit nothing here
+            fwd_mask = sc != _SCOPE_LOCAL
             emit_mask = sc != _SCOPE_GLOBAL
             gm = np.zeros(int(emit_mask.sum()), dtype=bool)
             with_pcts = sc[emit_mask] == _SCOPE_LOCAL
         else:
+            fwd_mask = np.zeros(len(rows), dtype=bool)
             emit_mask = np.ones(len(rows), dtype=bool)
             gm = sc == _SCOPE_GLOBAL
             with_pcts = np.ones(len(rows), dtype=bool)
+        res.account_rows(
+            staged=len(rows), emitted=int(emit_mask.sum()),
+            forwarded=len(pre["histo_fwd"]),
+            overlap=int((emit_mask & fwd_mask).sum()),
+            retained=int((~emit_mask & ~fwd_mask).sum()))
         erows = rows[emit_mask]
         if not len(erows):
             res.tally["histograms"] = tally
@@ -751,6 +840,9 @@ class Flusher:
             in_fwd = np.isin(rows, np.asarray(fwd))
         sc = _scope_codes(metas, rows)
         emit = ~in_fwd & ~((sc == _SCOPE_GLOBAL) & self.is_local)
+        res.account_rows(staged=len(rows), emitted=int(emit.sum()),
+                         forwarded=len(fwd),
+                         retained=int((~emit & ~in_fwd).sum()))
         erows = rows[emit]
         if len(erows) and ests is not None:
             vals = np.round(np.asarray(ests)[erows]).astype(np.float64)

@@ -36,6 +36,19 @@ merges it under the lock, ``dogstatsd.DogstatsdGRPC/SendPacket`` feeds
 mergeable state after every flush, POSTed to the global's ``/import``
 or, with ``forward_use_grpc``, sent as one MetricList through a client
 dialled once (a failed send is counted and logged, never retried).
+Every cycle observes itself as the reference's server does: a flush
+tracer (``observe.FlushTracer``) hangs a span per stage off the cycle's
+root, sends them through a loopback trace client into the span worker
+and indexes them for ``/debug/trace/<id>``; the cycle's record lands in
+the ``/debug/flushes`` ring; every ingest and import site credits the
+conservation ledger under the lock it already holds, the interval
+closes in the swap's lock round and seals after the sinks (``/debug/
+ledger``); each seal samples a signal row (``/debug/signals``) that the
+flight recorder's triggers read (``/debug/flight``), and self-telemetry
+(``core/telemetry.py``) emits the operator metrics, into the server's
+own table unless ``stats_address`` is set.  A local stamps its forward
+with the cycle's trace context; a global parents its ``import`` span
+under it, so one interval's tree stitches across the tiers.
 ``shutdown`` stops every listener, joins every thread and closes every
 socket and channel.
 """
@@ -57,9 +70,13 @@ import grpc
 import numpy as np
 import torch
 
-from veneur_tpu_torch import native, resolve_device
+from veneur_tpu_torch import native, observe, resolve_device
+from veneur_tpu_torch import trace as vtrace
+from veneur_tpu_torch.core import debughttp
 from veneur_tpu_torch.core import metrics as im
-from veneur_tpu_torch.core.config import Config
+from veneur_tpu_torch.core.config import Config, parse_duration
+from veneur_tpu_torch.core.spans import SpanWorker
+from veneur_tpu_torch.core.telemetry import Telemetry
 from veneur_tpu_torch.core.flusher import FlushResult, Flusher, ForwardRow
 from veneur_tpu_torch.core.table import MetricTable, TableConfig
 from veneur_tpu_torch.forward import grpc_forward, http_import
@@ -68,6 +85,7 @@ from veneur_tpu_torch.protocol import columnar
 from veneur_tpu_torch.protocol import dogstatsd as dsd
 from veneur_tpu_torch.sinks.base import route
 from veneur_tpu_torch.sinks.simple import LocalFilePlugin
+from veneur_tpu_torch.trace.spans import Span
 
 log = logging.getLogger("veneur_tpu_torch.server")
 
@@ -75,6 +93,8 @@ log = logging.getLogger("veneur_tpu_torch.server")
 _DRAIN_MAX = 512
 # socket receive buffer: the reference's read_buffer_size_bytes default
 _RCVBUF_BYTES = 2 * 1048576
+# /debug/cluster: seconds a peer's scraped summary is served from cache
+_CLUSTER_TTL = 10.0
 
 
 class Server:
@@ -125,6 +145,61 @@ class Server:
                       "import_errors": 0, "import_flagged_wires": 0,
                       "received_grpc": 0, "received_dogstatsd-grpc": 0,
                       "forward_errors": 0, "forwarded_rows": 0}
+        self._pprof_lock = threading.Lock()
+        self._profiler = None
+        self.last_flush = time.monotonic()
+
+        # the span plane: the server's loopback trace client feeds its
+        # own span worker (reference server.go:347-354); the port has
+        # no span sinks yet, so the worker validates and counts
+        self.span_worker = SpanWorker([], common_tags={},
+                                      stats_cb=self.bump)
+        self.trace_client = vtrace.Client(
+            vtrace.ChannelBackend(self.span_worker.submit), capacity=256)
+        # flush self-observation: every cycle leaves a span tree (also
+        # indexed by trace id for /debug/trace) and a record in the
+        # /debug/flushes ring; the device-cost registry is the
+        # process-global one the table and flusher steps report to
+        self.device_costs = observe.REGISTRY
+        self.flush_ring = observe.FlushRing()
+        self.trace_index = observe.TraceIndex()
+        self.flush_tracer = observe.FlushTracer(
+            self.trace_client, self.flush_ring,
+            registry=self.device_costs, index=self.trace_index)
+        # the sample-conservation ledger: ingest sites credit under
+        # self.lock, the interval closes in the swap's lock round and
+        # seals after the sinks (/debug/ledger)
+        self.ledger = observe.Ledger(
+            strict=bool(config.tpu_ledger_strict),
+            node="local" if self.is_local else "global",
+            on_imbalance=lambda rec: self.bump("ledger_imbalance"))
+        # tier byte accounting from the last boundary (None until a
+        # tiered flush; always None on a single-tier table)
+        self._last_plane_bytes = None
+        self.telemetry = Telemetry(self)
+        self._sink_durations: dict[str, int] = {}
+        # the signal history (one fixed-schema row per seal) and the
+        # flight recorder watching its rows; the schema is derived
+        # here, once, before any subsystem has data
+        self.signals = None
+        self.flight = None
+        self._flight_record = None
+        if config.tpu_signal_history > 0:
+            self.signals = observe.SignalHistory(
+                schema=tuple(self._signal_row()),
+                capacity=config.tpu_signal_history,
+                node=config.hostname or "",
+                role="local" if self.is_local else "global")
+            self.flight = observe.FlightRecorder(
+                self.signals, context_fn=self._flight_context,
+                directory=config.tpu_flight_dir,
+                max_bundles=config.tpu_flight_max_bundles,
+                max_bytes=config.tpu_flight_max_bytes,
+                cooldown=parse_duration(config.tpu_flight_cooldown),
+                node=config.hostname or "")
+        # /debug/cluster peer-summary cache: addr -> (monotonic, summary)
+        self._cluster_cache: dict = {}
+        self._cluster_lock = threading.Lock()
 
     # ------------------------------------------------------------------
 
@@ -148,6 +223,9 @@ class Server:
                 self.sockets.append(sock)
                 self._spawn(f"udp-reader-{len(self.sockets) - 1}",
                             self._udp_reader, sock, i)
+        self.span_worker.start()
+        if self.config.enable_profiling:
+            self._start_profiling()
         if self.config.http_address:
             self._start_http(self.config.http_address)
         for a in self.config.grpc_listen_addresses:
@@ -175,18 +253,33 @@ class Server:
                 self.wfile.write(body)
 
             def do_GET(self):
-                if self.path == "/healthcheck":
+                path = self.path
+                if path == "/healthcheck":
                     self._ok()
-                elif self.path == "/debug/vars":
-                    # the reference's expvar page, cut to the counters
-                    with server._stats_lock:
-                        body = json.dumps({
-                            "stats": server.stats,
-                            # per-thread native decode scratch kept by
-                            # the gRPC import handlers
-                            "forward": {"decode_scratch_bytes":
-                                        grpc_forward.decode_scratch_bytes()}})
-                    self._ok(body.encode(), "application/json")
+                elif path.startswith("/debug/pprof"):
+                    debughttp.pprof(self, server._pprof_lock)
+                elif path.startswith("/debug/flushes"):
+                    debughttp.respond_ok(
+                        self, server.flush_ring.to_json(
+                            limit=debughttp.query_int(path, "n", 0)),
+                        "application/json")
+                elif path.startswith("/debug/ledger"):
+                    debughttp.ledger_dump(
+                        self, server.ledger,
+                        limit=debughttp.query_int(path, "n", 0))
+                elif path.startswith("/debug/signals"):
+                    debughttp.signals_dump(self, server.signals, path)
+                elif path.startswith("/debug/flight"):
+                    debughttp.flight_dump(self, server.flight, path)
+                elif path.startswith("/debug/cluster"):
+                    debughttp.respond_ok(
+                        self, json.dumps(server._cluster_view(),
+                                         indent=1).encode(),
+                        "application/json")
+                elif path.startswith("/debug/trace"):
+                    debughttp.trace_dump(self, server.trace_index, path)
+                elif path.startswith("/debug/vars"):
+                    debughttp.vars_dump(self, server.debug_vars())
                 else:
                     self.send_error(404)
 
@@ -217,23 +310,55 @@ class Server:
                       headers=None) -> int:
         """Decode one ``/import`` body and merge it into the table under
         the table lock (past the staging bound, the device step follows
-        the lock's release).  The trace, drain, replay, recovery and
-        handoff headers are decoded and otherwise ignored: the ledger,
-        spool, checkpoints and handoff they feed are not in this
-        server.  Raises ValueError (or zlib.error) on a malformed body,
-        before anything is merged.  Returns the accepted item count."""
+        the lock's release).  The items credit the ledger in the same
+        critical section, under the protocol the wire's flags name
+        (their other effects — spool, checkpoints, handoff — are not in
+        this server); a trace header parents the ``import`` span under
+        the sender's forward span.  Raises ValueError (or zlib.error)
+        on a malformed body, before anything is merged.  Returns the
+        accepted item count."""
+        t0 = time.monotonic_ns()
         items = http_import.decode_body(body, content_encoding)
         flags = http_import.decode_headers(headers or {})
         flagged = any(flags[k] for k in ("drain", "replay", "recovery",
                                          "handoff"))
         with self.lock:
+            # the overflow delta splits the drops into overflow (the
+            # table counted them) and invalid (dropped before it)
+            ov0 = self.table.overflow_total()
             acc, dropped = http_import.apply_import(self.table, items)
+            ov = self.table.overflow_total() - ov0
+            self.ledger.ingest(
+                http_import.import_protocol("http-import", flags),
+                processed=acc + dropped, staged=acc, overflow=ov,
+                invalid=dropped - ov)
             work = self._maybe_device_step_locked()
         self._apply_staged(work)
+        self.note_import_span("http", acc, dropped, *flags["trace"],
+                              nbytes=len(body))
         self.bump("imports_received", acc)
         self.bump("metrics_dropped", dropped)
         self.bump("import_flagged_wires", int(flagged))
+        self.bump("import_response_ns", time.monotonic_ns() - t0)
+        self.bump("import_responses")
         return acc
+
+    def note_import_span(self, protocol: str, accepted: int,
+                         dropped: int, trace_id: int, span_id: int,
+                         nbytes: int = 0) -> None:
+        """Record this tier's half of a cross-process flush trace: the
+        sending tier stamped its cycle's (trace_id, span_id) onto the
+        wire, so the import span recorded here parents under the remote
+        forward span and the interval stitches into one tree at
+        /debug/trace/<trace_id> on either end."""
+        if not trace_id or not self.config.tpu_trace_propagation:
+            return
+        sp = Span("import", service="veneur", trace_id=trace_id,
+                  parent_id=span_id,
+                  tags={"protocol": protocol, "accepted": str(accepted),
+                        "dropped": str(dropped), "bytes": str(nbytes)})
+        sp.finish(self.trace_client)
+        self.trace_index.add(sp.proto)
 
     def bump(self, key: str, n: int = 1) -> None:
         with self._stats_lock:
@@ -308,11 +433,18 @@ class Server:
             nbytes = lib.vtpu_recv_drain(
                 sock.fileno(), drain_ptr, drain_buf.nbytes, sweep, max_len,
                 ctypes.byref(n_msgs), ctypes.byref(n_over))
-            self.handle_packet_batch(
+            n_pkts = 1 + (int(n_msgs.value) if nbytes else 0) + int(
+                n_over.value)
+            t0 = time.monotonic_ns()
+            processed = self.handle_packet_batch(
                 [data], drained=drain_buf[:nbytes].tobytes() if nbytes
                 else None,
                 drained_pkts=int(n_msgs.value) if nbytes else 0,
                 oversize=int(n_over.value), shard=shard)
+            self.device_costs.add_reader_batch(
+                threading.current_thread().name, n_pkts, processed,
+                time.monotonic_ns() - t0, fused=shard is not None)
+            self.bump("received_dogstatsd-udp", n_pkts)
 
     def handle_packet(self, data: bytes) -> None:
         """Ingest one datagram (possibly multi-line)."""
@@ -331,6 +463,8 @@ class Server:
         otherwise (the split path, and a multi-reader server's packets
         from elsewhere, e.g. gRPC SendPacket) the batch parses into
         columns outside the lock and ``ingest_columns`` runs under it.
+        Each branch credits the ledger in the critical section of its
+        merge (a shard's lock-free ``parse`` does no ledger work).
         Returns the processed sample count."""
         errors = oversize
         good = []
@@ -347,6 +481,9 @@ class Server:
             shard.parse(buf)
             with self.lock:
                 processed, dropped, others = shard.commit()
+                self.ledger.ingest("dogstatsd", processed=processed,
+                                   staged=processed - dropped,
+                                   overflow=dropped)
                 work = self._maybe_device_step_locked()
             self._apply_staged(work)
             shard.reset()
@@ -354,6 +491,9 @@ class Server:
         elif self.config.num_readers <= 1:
             with self.lock:
                 processed, dropped, others = self.table.ingest_buffer(buf)
+                self.ledger.ingest("dogstatsd", processed=processed,
+                                   staged=processed - dropped,
+                                   overflow=dropped)
                 work = self._maybe_device_step_locked()
             self._apply_staged(work)
             lines = [buf[off:off + ln] for off, ln, _kind in others]
@@ -366,6 +506,9 @@ class Server:
             pb = parser.parse(buf, copy=False)
             with self.lock:
                 processed, dropped = self.table.ingest_columns(pb)
+                self.ledger.ingest("dogstatsd", processed=processed,
+                                   staged=processed - dropped,
+                                   overflow=dropped)
                 work = self._maybe_device_step_locked()
             self._apply_staged(work)
             lines = [pb.line(int(i)) for i in np.nonzero(
@@ -386,13 +529,23 @@ class Server:
                     value=float(parsed.status), tags=parsed.tags,
                     message=parsed.message))
         if slow:
+            n_status = sum(1 for s in slow if s.type == dsd.STATUS)
+            slow_dropped = 0
             with self.lock:
                 for sample in slow:
                     if not self.table.ingest(sample):
-                        dropped += 1
+                        slow_dropped += 1
+                self.ledger.ingest(
+                    "dogstatsd", processed=len(slow),
+                    staged=len(slow) - slow_dropped - n_status,
+                    overflow=slow_dropped, status=n_status)
                 work = self._maybe_device_step_locked()
             self._apply_staged(work)
             processed += len(slow)
+            dropped += slow_dropped
+        if errors:
+            # informational, not a balance input: out of the lock
+            self.ledger.ingest("dogstatsd", parse_errors=errors)
         with self._stats_lock:
             self.stats["packets_received"] += n_pkts
             self.stats["packet_errors"] += errors
@@ -434,45 +587,128 @@ class Server:
     def flush_once(self) -> FlushResult:
         """One flush: swap the table (pipelined: detach under the lock,
         apply the final staging outside it), read it out, route it to
-        every sink and plugin, forward on a local.  Returns the
-        FlushResult with the frame materialized into ``metrics``."""
+        every sink and plugin, forward on a local, then seal the
+        interval's ledger record, sample the signal row and tick
+        self-telemetry.  The cycle is traced: one span per stage, a
+        record in the /debug/flushes ring.  Returns the FlushResult
+        with the frame materialized into ``metrics``."""
         with self._flush_serial:
+            t_flush0 = time.monotonic_ns()
+            with self.flush_tracer.cycle() as cyc:
+                return self._flush_stages(cyc, t_flush0)
+
+    def _flush_stages(self, cyc, t_flush0: int) -> FlushResult:
+        with cyc.stage("snapshot"):
             with self.lock:
                 if self.pipeline:
                     pend = self.table.begin_swap()
+                    swapped = pend
                 else:
-                    snap = self.table.swap()
+                    snap = swapped = self.table.swap()
                 status = self.table.take_status()
-            if self.pipeline:
+                # the interval closes in the swap's lock round, so the
+                # site credits and the table's own counters describe
+                # the same samples
+                led = self.ledger.close_interval(
+                    seq=cyc.record.seq, trace_id=cyc.record.trace_id,
+                    table_staged=swapped.ingested,
+                    table_overflow=swapped.overflow)
+        if self.pipeline:
+            with cyc.stage("swap_apply"):
                 snap = self.table.complete_swap(pend)
-            res = self.flusher.flush(snap, retain_frame=True)
-            ts = int(time.time())
-            for (name, _, _, _), (val, msg, stags) in status.items():
-                res.metrics.append(im.InterMetric(
-                    name=name, timestamp=ts, value=val, tags=stags,
-                    type=im.STATUS, message=msg,
-                    hostname=self.flusher.hostname))
+        res = self.flusher.flush(snap, cycle=cyc, retain_frame=True)
+        # the flusher's routing counts are synchronous: balance inputs
+        self.ledger.credit_rows(led, res.row_accounting)
+        if snap.tiers is not None:
+            # tier movements are named on the record (never balance
+            # inputs); the boundary's byte accounting feeds telemetry
+            # and the signal row
+            self.ledger.credit_tiers(led, snap.tiers.movements)
+            self._last_plane_bytes = snap.tiers.plane_bytes
+        self.last_flush = time.monotonic()
+        self.bump("flushes")
+        ts = int(time.time())
+        for (name, _, _, _), (val, msg, stags) in status.items():
+            res.metrics.append(im.InterMetric(
+                name=name, timestamp=ts, value=val, tags=stags,
+                type=im.STATUS, message=msg,
+                hostname=self.flusher.hostname))
+        with cyc.stage("sink_flush"):
             for sink in self.metric_sinks:
-                if res.frame is not None and hasattr(sink, "flush_frame"):
-                    sink.flush_frame(res.frame.route(
-                        sink.name, sink,
-                        extra=route(res.metrics, sink.name, sink)))
-                else:
-                    sink.flush(route(res.all_metrics(), sink.name, sink))
+                self._flush_sink(sink, res, cyc, led)
             for plugin in self.plugins:
                 plugin.flush(res.all_metrics(), self.flusher.hostname)
             if self.is_local and res.forward:
-                if self.config.forward_use_grpc:
-                    self._forward_grpc(res.forward)
-                else:
-                    self._forward_http(res.forward)
-            self.bump("flushes")
-            if res.frame is not None:
-                res.metrics = res.frame.materialize() + res.metrics
-                res.frame = None
-            return res
+                with cyc.stage("forward") as sp:
+                    sp.add_tag("rows", str(len(res.forward)))
+                    self._forward(res.forward, cyc.wire_context(sp), led)
+            self.span_worker.flush()
+        with self._stats_lock:
+            sink_durs = dict(self._sink_durations)
+            self._sink_durations.clear()
+        cyc.record.metrics_emitted = res.metric_count()
+        cyc.record.forward_rows = len(res.forward)
+        cyc.record.tally = dict(res.tally)
+        self.ledger.seal(led)
+        self._sample_signals(led, cyc.record,
+                             time.monotonic_ns() - t_flush0)
+        try:
+            self.telemetry.flush_tick(
+                res.tally, time.monotonic_ns() - t_flush0, sink_durs,
+                record=cyc.record)
+        except Exception:
+            log.exception("self-telemetry emission failed")
+        if res.frame is not None:
+            res.metrics = res.frame.materialize() + res.metrics
+            res.frame = None
+        return res
 
-    def _forward_http(self, rows: list[ForwardRow]) -> None:
+    def _flush_sink(self, sink, res: FlushResult, cyc, led) -> None:
+        """Route the flush to one sink (the frame, or the materialized
+        list) under its own stage span; a failed sink is counted and
+        logged, what it took is credited to the ledger."""
+        t0 = time.monotonic_ns()
+        try:
+            with cyc.stage(f"sink.{sink.name}"):
+                if res.frame is not None and hasattr(sink, "flush_frame"):
+                    payload = res.frame.route(
+                        sink.name, sink,
+                        extra=route(res.metrics, sink.name, sink))
+                    n_routed = payload.total_len()
+                    sink.flush_frame(payload)
+                else:
+                    batch = route(res.all_metrics(), sink.name, sink)
+                    n_routed = len(batch)
+                    sink.flush(batch)
+            self.ledger.credit_sink(led, sink.name, n_routed)
+        except Exception:
+            self.bump("flush_errors")
+            log.exception("sink %s flush failed", sink.name)
+        finally:
+            with self._stats_lock:
+                self._sink_durations[sink.name] = (
+                    self._sink_durations.get(sink.name, 0)
+                    + time.monotonic_ns() - t0)
+
+    def _forward(self, rows: list[ForwardRow], trace_ctx, led) -> None:
+        """Ship a flush's mergeable state upstream, over gRPC or HTTP
+        (flusher.go:82-99); ``trace_ctx`` is the forward stage span's
+        (trace_id, span_id), stamped on the wire unless
+        ``tpu_trace_propagation`` is off."""
+        t0 = time.monotonic_ns()
+        if not self.config.tpu_trace_propagation:
+            trace_ctx = None
+        try:
+            if self.config.forward_use_grpc:
+                self._forward_grpc(rows, trace_ctx, led)
+            else:
+                self._forward_http(rows, trace_ctx, led)
+        finally:
+            self.bump("forward_duration_ns", time.monotonic_ns() - t0)
+            self.bump("forward_post_metrics", len(rows))
+
+    def _forward_http(self, rows: list[ForwardRow], trace_ctx=None,
+                      led=None) -> None:
         """POST a flush's forward rows to the global's /import (the
         reference's flusher.go flushForward); a failed send drops and
         counts the rows and logs, as the reference does."""
@@ -482,6 +718,10 @@ class Server:
                     rows, compression=float(self.config.tpu_compression))
             else:
                 body, headers = http_import.encode_rows(rows)
+            if trace_ctx and trace_ctx[0]:
+                headers = dict(headers)
+                headers[http_import.TRACE_HEADER] = \
+                    http_import.encode_trace_header(*trace_ctx)
             url = self.config.forward_address.rstrip("/") + "/import"
             if not url.startswith("http"):
                 url = "http://" + url
@@ -492,11 +732,17 @@ class Server:
         except Exception as e:  # forwarding never aborts the flush
             self.bump("metrics_dropped", len(rows))
             self.bump("forward_errors")
+            if led is not None:
+                self.ledger.credit_forward_wire(led, errors=1)
             log.warning("forward failed: %s", e)
             return
         self.bump("forwarded_rows", len(rows))
+        if led is not None:
+            self.ledger.credit_forward_wire(led, rows=len(rows),
+                                            nbytes=len(body))
 
-    def _forward_grpc(self, rows: list[ForwardRow]) -> None:
+    def _forward_grpc(self, rows: list[ForwardRow], trace_ctx=None,
+                      led=None) -> None:
         """Send a flush's forward rows to the global's Forward service
         through a client dialled once (flusher.go:499 forwardGRPC); a
         failed send drops and counts the rows and logs, never retried."""
@@ -505,13 +751,248 @@ class Server:
                 self.config.forward_address,
                 compression=float(self.config.tpu_compression))
         try:
-            self._grpc_client.send(rows)
+            self._grpc_client.send(rows, trace_context=trace_ctx)
         except grpc.RpcError as e:
             self.bump("metrics_dropped", len(rows))
             self.bump("forward_errors")
+            if led is not None:
+                self.ledger.credit_forward_wire(led, errors=1)
             log.warning("grpc forward failed: %s", e)
             return
         self.bump("forwarded_rows", len(rows))
+        if led is not None:
+            self.ledger.credit_forward_wire(led, rows=len(rows))
+
+    # ------------------------------------------------------------------
+    # signal history, flight recorder, fleet view, /debug/vars
+
+    def _signal_row(self, led=None, record=None, flush_ns: int = 0
+                    ) -> dict:
+        """One row of every internal signal, in the reference's fixed
+        schema (``veneur_tpu/core/server.py`` ``_signal_row``): called
+        with no arguments at construction to derive the schema.  A
+        subsystem the port does not run yet (pressure, shedding,
+        breakers, the spool, the collective path, sink workers,
+        handoff and recovery) samples 0."""
+        with self._stats_lock:
+            st = dict(self.stats)
+        row = {
+            "ingest.packets_received": st.get("packets_received", 0),
+            "ingest.packet_errors": st.get("packet_errors", 0),
+            "ingest.metrics_processed": st.get("metrics_processed", 0),
+            "ingest.metrics_dropped": st.get("metrics_dropped", 0),
+            "ingest.imports_received": st.get("imports_received", 0),
+            "ingest.import_errors": st.get("import_errors", 0),
+            "ingest.kernel_drops": 0,
+            "flush.count": st.get("flushes", 0),
+            "flush.errors": st.get("flush_errors", 0),
+            "flush.slow_tasks": 0,
+            "flush.duration_ns": int(flush_ns),
+            "flush.compiles":
+                self.device_costs.totals()["compile_total"],
+            "handoff.shipped_items": 0,
+            "handoff.received_items": 0,
+            "recover.recovered_items": 0,
+            "recover.replay_wires": 0,
+            "recover.segments_replayed": 0,
+            "trace.spans_sent": self.trace_client.sent,
+            "trace.spans_dropped": self.trace_client.dropped,
+        }
+        stages = record.stages if record is not None else {}
+        for stage in ("snapshot", "dispatch", "device_wait",
+                      "host_emit", "sink_flush", "forward"):
+            row[f"flush.stage.{stage}_ns"] = stages.get(stage, 0)
+        row["flush.readback_bytes"] = (
+            record.readback_bytes if record is not None else 0)
+        for key in ("pressure.score", "pressure.level",
+                    "pressure.engaged", "pressure.transitions",
+                    "flush.overruns", "flush.coalesced", "shed.total",
+                    "shed.tenants"):
+            row[key] = 0
+        rec = led
+        row["ledger.received"] = (
+            rec.received_total() if rec is not None else 0)
+        for key, attr in (("staged", "staged"), ("status", "status"),
+                          ("shed", "shed"), ("overflow", "overflow"),
+                          ("invalid", "invalid"), ("owed", "owed")):
+            row[f"ledger.{key}"] = (getattr(rec, attr)
+                                    if rec is not None else 0)
+        row["ledger.balanced"] = int(
+            rec.balanced if rec is not None else True)
+        for key in ("emitted_rows", "forwarded_rows", "retained_rows",
+                    "coalesced", "parse_errors"):
+            row[f"ledger.{key}"] = (getattr(rec, key)
+                                    if rec is not None else 0)
+        row["ledger.imbalanced_total"] = self.ledger.imbalanced_total
+        row["reshard.received_items"] = (
+            rec.reshard_received_items if rec is not None else 0)
+        table = self.table
+        row["table.staged"] = int(table.staged())
+        occ = 0.0
+        for idx in (table.counter_idx, table.gauge_idx,
+                    table.histo_idx, table.set_idx):
+            if idx.capacity:
+                occ = max(occ, idx.occupancy() / idx.capacity)
+        row["table.occupancy"] = round(occ, 6)
+        for key in ("breaker.closed", "breaker.half_open",
+                    "breaker.open", "breaker.opens_total",
+                    "forward.sent_items", "forward.error_items",
+                    "forward.busy_dropped_items",
+                    "forward.replayed_items", "forward.queued",
+                    "forward.destinations", "reshard.epoch",
+                    "reshard.moved_rows", "spool.queued_items",
+                    "spool.queued_bytes", "spool.spooled_items",
+                    "spool.replayed_items", "spool.expired_items",
+                    "spool.inflight_items", "forward.collective.cycles",
+                    "forward.collective.rows",
+                    "forward.collective.rejected_rows",
+                    "forward.collective.fallback_cycles",
+                    "forward.collective.landed_blocks",
+                    "forward.collective.items_received",
+                    "sink.flushes", "sink.errors", "sink.busy_drops",
+                    "sink.timeouts"):
+            row[key] = 0
+        pb = self._last_plane_bytes or {}
+        row["table.plane_bytes_total"] = pb.get("total", 0)
+        row["table.plane_bytes_histo_wide"] = pb.get(
+            "histo", {}).get("wide", 0)
+        row["table.plane_bytes_histo_compact"] = pb.get(
+            "histo", {}).get("compact", 0)
+        row["table.plane_bytes_set_wide"] = pb.get(
+            "set", {}).get("wide", 0)
+        row["table.plane_bytes_set_compact"] = pb.get(
+            "set", {}).get("compact", 0)
+        row["table.plane_bytes_per_series"] = round(
+            pb.get("device_bytes_per_series", 0.0), 3)
+        for key in ("promotions", "demotions", "escalations",
+                    "promote_refused"):
+            row[f"table.tier_{key}"] = (getattr(rec, f"tier_{key}")
+                                        if rec is not None else 0)
+        return row
+
+    def _sample_signals(self, led, record, flush_ns: int) -> None:
+        """The per-seal hook: append one row to the history ring and
+        evaluate the flight recorder's triggers on it."""
+        if self.signals is None:
+            return
+        try:
+            row = self._signal_row(led, record, flush_ns)
+            t_now = time.time()
+            self.signals.append(row, t=t_now, seq=led.seq)
+            # the triggering interval's flush record reaches the ring
+            # only after this hook: hand it to _flight_context
+            self._flight_record = record
+            self.flight.observe(row, t=t_now, seq=led.seq)
+            self.bump("signal_rows")
+        except Exception:
+            log.exception("signal sample failed")
+
+    def _flight_context(self, trigger: str, row: dict) -> dict:
+        """What a flight bundle carries beside the signal rows: the
+        last sealed ledger records, the triggering interval's flush
+        record and trace tree, and the counters."""
+        out: dict = {"ledger_records": [
+            r.to_dict() for r in self.ledger.records()[-4:]]}
+        rec = self._flight_record
+        if rec is None:
+            flushes = self.flush_ring.records()
+            rec = flushes[-1] if flushes else None
+        if rec is not None:
+            out["flush_record"] = rec.to_dict()
+            out["trace"] = self.trace_index.get(rec.trace_id)
+        with self._stats_lock:
+            out["stats"] = dict(self.stats)
+        return out
+
+    def _scrape_peer(self, addr: str) -> dict:
+        url = addr if "://" in addr else f"http://{addr}"
+        url = url.rstrip("/") + "/debug/signals?summary=1"
+        with urllib.request.urlopen(url, timeout=1.0) as resp:
+            return json.loads(resp.read().decode())
+
+    def _cluster_view(self) -> dict:
+        """This node's signal summary merged with its peers', each
+        peer's cached for ``_CLUSTER_TTL`` seconds; a peer that stops
+        answering serves its last summary flagged stale."""
+        now = time.monotonic()
+        peers = {}
+        peers_cfg = self.config.tpu_cluster_peers.split(",")
+        for addr in (p.strip() for p in peers_cfg if p.strip()):
+            with self._cluster_lock:
+                cached = self._cluster_cache.get(addr)
+            if cached is not None and now - cached[0] < _CLUSTER_TTL:
+                peers[addr] = cached[1]
+                continue
+            try:
+                summ = self._scrape_peer(addr)
+                summ["stale"] = False
+                with self._cluster_lock:
+                    self._cluster_cache[addr] = (now, summ)
+                peers[addr] = summ
+            except Exception as e:
+                err = f"{type(e).__name__}: {e}"
+                peers[addr] = (dict(cached[1], stale=True, error=err)
+                               if cached is not None
+                               else {"error": err, "stale": True})
+        return {"node": self.config.hostname or "",
+                "role": "local" if self.is_local else "global",
+                "self": (self.signals.summary()
+                         if self.signals is not None else None),
+                "peers": peers}
+
+    def debug_vars(self) -> dict:
+        """The /debug/vars page: counters, the device-cost registry,
+        the trace client, the tier byte accounting and summaries of
+        the ledger, signal history and flight recorder."""
+        with self._stats_lock:
+            stats = dict(self.stats)
+        return {
+            "stats": stats,
+            "devicecost": self.device_costs.snapshot(),
+            "trace_client": {"sent": self.trace_client.sent,
+                             "dropped": self.trace_client.dropped,
+                             "errors": self.trace_client.errors},
+            "last_flush_age_s": round(
+                time.monotonic() - self.last_flush, 3),
+            # per-thread native decode scratch kept by the gRPC import
+            # handlers
+            "forward": {"decode_scratch_bytes":
+                        grpc_forward.decode_scratch_bytes()},
+            "planes": self.table.plane_bytes(),
+            "ledger": self.ledger.summary(),
+            "signals": (self.signals.summary()
+                        if self.signals is not None else None),
+            "flight": (self.flight.stats()
+                       if self.flight is not None else None),
+        }
+
+    def _start_profiling(self) -> None:
+        """``enable_profiling``: a torch.profiler trace of CPU and CUDA
+        activity for the process lifetime (reference server.go:1512),
+        written to ./torch_profile/trace.json at shutdown.  It holds
+        the profiler lock, so /debug/pprof/device answers 503."""
+        from torch.profiler import ProfilerActivity, profile
+        if not self._pprof_lock.acquire(blocking=False):
+            return
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        self._profiler = profile(activities=acts)
+        self._profiler.start()
+
+    def _stop_profiling(self) -> None:
+        prof, self._profiler = self._profiler, None
+        if prof is None:
+            return
+        try:
+            prof.stop()
+            os.makedirs("torch_profile", exist_ok=True)
+            prof.export_chrome_trace(
+                os.path.join("torch_profile", "trace.json"))
+        except Exception:
+            log.exception("could not write the profile")
+        finally:
+            self._pprof_lock.release()
 
     def shutdown(self) -> None:
         self._shutdown.set()
@@ -531,3 +1012,9 @@ class Server:
         if self._grpc_client is not None:
             self._grpc_client.close()
             self._grpc_client = None
+        self._stop_profiling()
+        self.trace_client.close()
+        self.span_worker.stop()
+        if self.flight is not None:
+            self.flight.stop()
+        self.telemetry.close()

@@ -63,8 +63,9 @@ from typing import Any
 import numpy as np
 import torch
 
-from veneur_tpu_torch import native, resolve_device
+from veneur_tpu_torch import native, observe, resolve_device
 from veneur_tpu_torch.core import tiers as tiersmod
+from veneur_tpu_torch.observe.ledger import ClassDropTally
 from veneur_tpu_torch.ops import cluster_merge, hll, segment, superbatch
 from veneur_tpu_torch.ops import tdigest
 from veneur_tpu_torch.protocol import columnar, dogstatsd as dsd
@@ -123,6 +124,51 @@ def _fused_import_mode() -> str:
     return "stack"
 
 
+class _Late:
+    """Resolves ``module.<name>`` at call time, not wrap time: the
+    route tests replace module attributes to spy on which path fired,
+    and a captured reference would go dark."""
+
+    def __init__(self, module, name: str):
+        self._module = module
+        self._name = name
+
+    def __call__(self, *args, **kwargs):
+        return getattr(self._module, self._name)(*args, **kwargs)
+
+
+# The device steps of the apply paths, registered with the device-cost
+# registry under the reference's entry names: /debug/vars shows each
+# step's calls, host dispatch time, CUDA-event device time and bytes,
+# and veneur.device.dispatches_total their sum per interval.
+_counter_dense_step = observe.instrument(
+    "table.counter_dense", segment.counter_dense_update)
+_gauge_dense_step = observe.instrument(
+    "table.gauge_dense", segment.gauge_dense_update)
+# global-tier merge steps (forwarded partial state)
+_histo_stats_merge = observe.instrument(
+    "table.histo_stats_merge", segment.merge_histo_stats)
+_hll_merge_rows = observe.instrument("table.hll_merge_rows",
+                                     hll.merge_rows)
+# elementwise fold of host-computed per-row batch aggregates
+_histo_stats_fold = observe.instrument(
+    "table.histo_stats_fold", tdigest._combine_row_stats)
+_superbatch_apply = observe.instrument(
+    "table.superbatch_apply", _Late(superbatch, "step"))
+# the digest merges (each launches the cluster merge kernel on a card)
+_td_step = {
+    name: observe.instrument("table.td_" + name, _Late(tdigest, name))
+    for name in (
+        "ingest_ranked", "ingest_ranked_unit",
+        "ingest_ranked_rows", "ingest_ranked_unit_rows",
+        "add_samples_ranked", "add_samples_ranked_unit",
+        "add_samples_ranked_rows", "add_samples_ranked_unit_rows",
+        "ingest_plane_pre", "ingest_plane_pre_unit",
+        "add_samples_ranked_scan", "add_samples_ranked_scan_rows",
+        "merge_dense_scan", "merge_dense_scan_rows",
+        "merge_wire_stack_rows")}
+
+
 @dataclass
 class TableConfig:
     counter_rows: int = 4096
@@ -149,20 +195,6 @@ class RowMeta:
     key_hash: int = 0
 
 
-class _DropTally:
-    """Per-class overflow-drop count for one interval (samples)."""
-
-    def __init__(self):
-        self.count = 0
-
-    def add(self, n: int) -> None:
-        self.count += int(n)
-
-    def take(self) -> int:
-        n, self.count = self.count, 0
-        return n
-
-
 class _ClassIndex:
     """Host-side MetricKey -> row allocation for one metric class."""
 
@@ -172,7 +204,7 @@ class _ClassIndex:
         self.meta: list[RowMeta] = []
         self.touched = np.zeros(capacity, dtype=bool)
         self.last_gen = np.zeros(capacity, dtype=np.int64)
-        self.drops = _DropTally()
+        self.drops = ClassDropTally()
 
     @property
     def overflow(self) -> int:
@@ -1125,7 +1157,7 @@ class MetricTable:
             padded = np.zeros((b, vals.shape[1]), np.float32)
             padded[:len(vals)] = vals
             self._ensure_fresh(st, "histo")
-            st.histo_import_stats = segment.merge_histo_stats(
+            st.histo_import_stats = _histo_stats_merge(
                 st.histo_import_stats,
                 self._dev(_pad_np(rows, b, c.histo_rows)),
                 self._dev(padded))
@@ -1145,7 +1177,7 @@ class MetricTable:
             self._route("set_import")
             self._ensure_fresh(st, "hll")
             st.hll_device_touched = True
-            st.hll_regs = hll.merge_rows(
+            st.hll_regs = _hll_merge_rows(
                 st.hll_regs, self._dev(_pad_np(rows, b, c.set_rows)),
                 self._dev(padded))
 
@@ -1238,8 +1270,9 @@ class MetricTable:
             self._ensure_fresh(st, "hll")
             st.hll_device_touched = True
         self.h2d_bytes += tbuf.numel() * 4
+        observe.REGISTRY.note_h2d(tbuf.numel() * 4)
         dbuf = superbatch.to_device(tbuf, self.device, self._sb_bufs)
-        out = superbatch.step(spec, st.counters, st.gauges,
+        out = _superbatch_apply(spec, st.counters, st.gauges,
                               st.histo_means, st.histo_weights,
                               st.histo_stats, st.hll_regs, dbuf)
         self.superbatch_applies += 1
@@ -1376,6 +1409,7 @@ class MetricTable:
     def _dev(self, arr: np.ndarray) -> torch.Tensor:
         arr = np.ascontiguousarray(arr)
         self.h2d_bytes += arr.nbytes
+        observe.REGISTRY.note_h2d(arr.nbytes)
         return torch.from_numpy(arr).to(self.device)
 
     def _route(self, name: str) -> None:
@@ -1447,7 +1481,7 @@ class MetricTable:
         np.minimum.at(batch[:, segment.STAT_MIN], rows, vals)
         np.maximum.at(batch[:, segment.STAT_MAX], rows, vals)
         self._ensure_fresh(st, "histo")
-        st.histo_stats = tdigest._combine_row_stats(st.histo_stats,
+        st.histo_stats = _histo_stats_fold(st.histo_stats,
                                                     self._dev(batch))
 
     def _host_precluster(self, rows, vals, wts
@@ -1539,13 +1573,13 @@ class MetricTable:
         self._ensure_fresh(st, "histo")
         if unit:
             (st.histo_means, st.histo_weights,
-             st.histo_stats) = tdigest.ingest_plane_pre_unit(
+             st.histo_stats) = _td_step["ingest_plane_pre_unit"](
                 st.histo_means, st.histo_weights, st.histo_stats,
                 self._dev(batch_stats), self._dev(counts),
                 self._dev(plane_v), compression=c.compression)
         else:
             (st.histo_means, st.histo_weights,
-             st.histo_stats) = tdigest.ingest_plane_pre(
+             st.histo_stats) = _td_step["ingest_plane_pre"](
                 st.histo_means, st.histo_weights, st.histo_stats,
                 self._dev(batch_stats), self._dev(plane_v),
                 self._dev(plane_w), compression=c.compression)
@@ -1605,18 +1639,18 @@ class MetricTable:
         kw = dict(slots=slots, compression=c.compression)
         wts_dev = () if unit else (self._dev(_pad_np(wts, b, 0.0)),)
         if with_stats:
-            fn = {(True, True): tdigest.ingest_ranked_unit_rows,
-                  (True, False): tdigest.ingest_ranked_unit,
-                  (False, True): tdigest.ingest_ranked_rows,
-                  (False, False): tdigest.ingest_ranked}[(unit, sub)]
+            fn = {(True, True): _td_step["ingest_ranked_unit_rows"],
+                  (True, False): _td_step["ingest_ranked_unit"],
+                  (False, True): _td_step["ingest_ranked_rows"],
+                  (False, False): _td_step["ingest_ranked"]}[(unit, sub)]
             (st.histo_means, st.histo_weights, st.histo_stats) = fn(
                 st.histo_means, st.histo_weights, st.histo_stats, *pre,
                 rows_dev, rank_dev, vals_dev, *wts_dev, **kw)
         else:
-            fn = {(True, True): tdigest.add_samples_ranked_unit_rows,
-                  (True, False): tdigest.add_samples_ranked_unit,
-                  (False, True): tdigest.add_samples_ranked_rows,
-                  (False, False): tdigest.add_samples_ranked}[(unit, sub)]
+            fn = {(True, True): _td_step["add_samples_ranked_unit_rows"],
+                  (True, False): _td_step["add_samples_ranked_unit"],
+                  (False, True): _td_step["add_samples_ranked_rows"],
+                  (False, False): _td_step["add_samples_ranked"]}[(unit, sub)]
             st.histo_means, st.histo_weights = fn(
                 st.histo_means, st.histo_weights, *pre, rows_dev,
                 rank_dev, vals_dev, *wts_dev, **kw)
@@ -1653,8 +1687,8 @@ class MetricTable:
             plane_w = np.zeros((n_plane_rows, width), np.float32)
             plane_v[local, rank] = vals
             plane_w[local, rank] = wts
-            fn = (tdigest.merge_dense_scan_rows if sub
-                  else tdigest.merge_dense_scan)
+            fn = (_td_step["merge_dense_scan_rows"] if sub
+                  else _td_step["merge_dense_scan"])
             st.histo_means, st.histo_weights = fn(
                 st.histo_means, st.histo_weights, *pre,
                 self._dev(plane_v), self._dev(plane_w), **kw)
@@ -1665,10 +1699,10 @@ class MetricTable:
         wts_dev = self._dev(_pad_np(wts, b, 0.0))
         if sub:
             rows_dev = self._dev(_pad_np(local, b, mb))
-            fn = tdigest.add_samples_ranked_scan_rows
+            fn = _td_step["add_samples_ranked_scan_rows"]
         else:
             rows_dev = self._dev(_pad_np(rows, b, c.histo_rows))
-            fn = tdigest.add_samples_ranked_scan
+            fn = _td_step["add_samples_ranked_scan"]
         st.histo_means, st.histo_weights = fn(
             st.histo_means, st.histo_weights, *pre, rows_dev, rank_dev,
             vals_dev, wts_dev, **kw)
@@ -1749,7 +1783,7 @@ class MetricTable:
                 stack_w[i, local, rank] = wts
                 live[i] = True
             st.histo_means, st.histo_weights = \
-                tdigest.merge_wire_stack_rows(
+                _td_step["merge_wire_stack_rows"](
                     st.histo_means, st.histo_weights, idx_dev,
                     self._dev(stack_m), self._dev(stack_w), live,
                     compression=c.compression)
@@ -1764,7 +1798,7 @@ class MetricTable:
                 stack_m[0, local, rank] = means
                 stack_w[0, local, rank] = wts
                 st.histo_means, st.histo_weights = \
-                    tdigest.merge_wire_stack_rows(
+                    _td_step["merge_wire_stack_rows"](
                         st.histo_means, st.histo_weights, idx_dev,
                         self._dev(stack_m), self._dev(stack_w), live,
                         compression=c.compression)
@@ -1784,13 +1818,13 @@ class MetricTable:
         st = w.state
         if w.counter is not None:
             self._ensure_fresh(st, "counter")
-            st.counters = segment.counter_dense_update(
+            st.counters = _counter_dense_step(
                 st.counters, self._dev(w.counter.astype(np.float32)))
             w.counter = None
         if w.gauge is not None:
             dense, mask = w.gauge
             self._ensure_fresh(st, "gauge")
-            st.gauges = segment.gauge_dense_update(
+            st.gauges = _gauge_dense_step(
                 st.gauges, self._dev(dense), self._dev(mask.astype(bool)))
             w.gauge = None
         if w.histo is not None:

@@ -36,6 +36,7 @@ from veneur_tpu_torch import native
 from veneur_tpu_torch.core.flusher import ForwardRow
 from veneur_tpu_torch.core.table import MetricTable
 from veneur_tpu_torch.forward import hll_codec
+from veneur_tpu_torch.forward.http_import import import_protocol
 from veneur_tpu_torch.forward.gen import forward_pb2, metric_pb2
 from veneur_tpu_torch.ops import segment
 from veneur_tpu_torch.protocol import dogstatsd as dsd
@@ -46,10 +47,10 @@ log = logging.getLogger("veneur_tpu_torch.grpc")
 _METHOD = "/forwardrpc.Forward/SendMetrics"
 
 # Invocation metadata the reference's tiers exchange beside the wire
-# (keys are lowercase ASCII).  As on the HTTP path, the port decodes
-# them and ignores their effects: the ledger, spool, checkpoints and
-# arc handoff they feed are not ported.  Every decoder fails open: a
-# bad or missing key never rejects an import.
+# (keys are lowercase ASCII).  As on the HTTP path, the trace context
+# parents the import span and the flags name the ledger protocol; their
+# other effects (spool, checkpoints, arc handoff) are not ported.  Every
+# decoder fails open: a bad or missing key never rejects an import.
 TRACE_ID_KEY = "veneur-trace-id"
 SPAN_ID_KEY = "veneur-span-id"
 DRAIN_KEY = "veneur-drain"
@@ -718,7 +719,11 @@ class ImportServer:
         the staged work there and apply it to the device after the lock
         is released.  A wire that neither the native
         walker nor protobuf can read is counted in ``import_errors`` and
-        answered INVALID_ARGUMENT."""
+        answered INVALID_ARGUMENT.  The wire's items credit the server's
+        ledger under the lock (``grpc-import``; its drops split into
+        overflow and invalid by the table's overflow delta), and a wire
+        carrying a trace context records the ``import`` span under the
+        sender's forward span."""
         core = self._core
         flags = decode_metadata(context.invocation_metadata())
         flagged = any(flags[k] for k in ("drain", "replay", "recovery",
@@ -726,18 +731,25 @@ class ImportServer:
         cols = decode_metric_list(request)
         try:
             with core.lock:
+                ov0 = core.table.overflow_total()
                 if cols is None:
                     acc, dropped = apply_metric_list(
                         core.table,
                         forward_pb2.MetricList.FromString(request))
                 else:
                     acc, dropped = apply_decoded(core.table, request, cols)
+                ov = core.table.overflow_total() - ov0
+                core.ledger.ingest(import_protocol("grpc-import", flags),
+                                   processed=acc + dropped, staged=acc,
+                                   overflow=ov, invalid=dropped - ov)
                 work = core._maybe_device_step_locked()
             core._apply_staged(work)
             core.bump("imports_received", acc)
             core.bump("received_grpc", acc + dropped)
             core.bump("metrics_dropped", dropped)
             core.bump("import_flagged_wires", int(flagged))
+            core.note_import_span("grpc", acc, dropped, *flags["trace"],
+                                  nbytes=len(request))
         except DecodeError as e:
             core.bump("import_errors")
             context.abort(grpc.StatusCode.INVALID_ARGUMENT,
@@ -795,11 +807,17 @@ class ForwardClient:
         self._call_raw(body, timeout=timeout or self._timeout,
                        metadata=metadata)
 
-    def send(self, rows: list[ForwardRow]) -> None:
-        """Encode and send a flush's rows.  Raises grpc.RpcError on
-        failure."""
+    def send(self, rows: list[ForwardRow],
+             trace_context: tuple[int, int] | None = None) -> None:
+        """Encode and send a flush's rows; ``trace_context`` = (trace_id,
+        span_id) of the sending flush cycle, stamped as invocation
+        metadata when set.  Raises grpc.RpcError on failure."""
+        metadata = None
+        if trace_context and trace_context[0] and trace_context[1]:
+            metadata = [(TRACE_ID_KEY, str(trace_context[0])),
+                        (SPAN_ID_KEY, str(trace_context[1]))]
         self._call(rows_to_metric_list(rows, self._compression),
-                   timeout=self._timeout)
+                   timeout=self._timeout, metadata=metadata)
 
     def close(self) -> None:
         self._channel.close()

@@ -41,8 +41,9 @@ from veneur_tpu_torch.protocol import dogstatsd as dsd
 log = logging.getLogger("veneur_tpu_torch.forward")
 
 # Request headers the reference's tiers exchange beside the body.  The
-# port decodes them and ignores their effects: what they feed (the
-# conservation ledger, the spool, checkpoints, arc handoff) is not
+# trace context parents the import span under the sender's forward
+# span and the flags name the ledger protocol (``import_protocol``);
+# their other effects (the spool, checkpoints, arc handoff) are not
 # ported yet.  Each decoder fails open: a bad or missing header never
 # rejects the import.
 TRACE_HEADER = "X-Veneur-Trace"
@@ -91,6 +92,15 @@ def decode_trace_header(value: str | None) -> tuple[int, int]:
     if tid <= 0 or sid <= 0:
         return 0, 0
     return tid, sid
+
+
+def import_protocol(base: str, flags: dict) -> str:
+    """The ledger protocol of an import: ``base`` suffixed by the
+    wire's flag, in the reference's precedence."""
+    for key in ("recovery", "handoff", "drain", "replay"):
+        if flags[key]:
+            return f"{base}-{key}"
+    return base
 
 
 def decode_headers(headers) -> dict:

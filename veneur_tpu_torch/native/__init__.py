@@ -22,9 +22,12 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
+
+from veneur_tpu_torch.observe.devicecost import REGISTRY
 
 _DIR = Path(__file__).resolve().parent
 SOURCE = _DIR / "dsd_parse.cpp"
@@ -54,10 +57,12 @@ def build() -> Path:
     path.  Raises RuntimeError with g++'s output if the build fails."""
     out = library_path()
     if out.exists():
+        REGISTRY.add_cache_hit()
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = ["g++", *FLAGS, "-o", str(tmp), str(SOURCE)]
+    t0 = time.monotonic_ns()
     try:
         res = subprocess.run(cmd, capture_output=True, text=True,
                              timeout=300)
@@ -67,6 +72,7 @@ def build() -> Path:
         raise RuntimeError(f"native library build failed "
                            f"({res.returncode}):\n{res.stderr[-4000:]}")
     os.replace(tmp, out)  # atomic: racing processes both succeed
+    REGISTRY.add_compile(time.monotonic_ns() - t0)
     return out
 
 

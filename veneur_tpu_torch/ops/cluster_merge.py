@@ -23,7 +23,9 @@ does under XLA (a subnormal weight is no weight).
 
 ``launches`` counts kernel launches (not plain-version calls), so a run
 can show that its merges went through the kernel; ``occupancy`` reports
-the kernel's launch shape on the current card.
+the kernel's launch shape on the current card.  Every merge notes the
+bytes it moves (``merge_bytes``) to the device-cost registry, the
+estimate of the step that ran it.
 """
 
 from __future__ import annotations
@@ -35,10 +37,12 @@ import math
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
 
+from veneur_tpu_torch.observe.devicecost import REGISTRY
 from veneur_tpu_torch.ops.segment import ftz
 
 MAX_WIDTH = 2048    # pow2 sort width bound, as the TPU kernel's
@@ -53,6 +57,12 @@ launches = 0
 
 _lib = None
 _lib_lock = threading.Lock()
+
+
+def merge_bytes(rows: int, cap: int, k: int) -> int:
+    """Bytes one merge must move: read both f32 planes and the batch,
+    write both planes (the bound formula of ``chip_smoke.py``)."""
+    return 2 * rows * (cap + k) * 4 + 2 * rows * cap * 4
 
 
 def _pow2_at_least(w: int) -> int:
@@ -91,9 +101,11 @@ def build(verbose: bool = False) -> Path:
     tag = hashlib.sha1(src + " ".join(ARCH_FLAGS).encode()).hexdigest()[:12]
     out = BUILD_DIR / f"libcluster_merge-{tag}.so"
     if out.exists():
+        REGISTRY.add_cache_hit()
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.monotonic_ns()
     cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
            "-Xcompiler", "-fPIC", "-o", str(tmp), str(SOURCE)]
     if verbose:
@@ -105,6 +117,7 @@ def build(verbose: bool = False) -> Path:
     if verbose and res.stderr:
         print(res.stderr.strip())
     os.replace(tmp, out)
+    REGISTRY.add_compile(time.monotonic_ns() - t0)
     return out
 
 
@@ -239,6 +252,8 @@ def cluster_merge(means: torch.Tensor, weights: torch.Tensor,
     kw = dict(delta=delta, tail_coeff=tail_coeff, tail_q0=tail_q0,
               tail_qmin=tail_qmin)
     dev = means.device
+    REGISTRY.note_kernel_bytes(merge_bytes(
+        means.shape[0], means.shape[1], new_means.shape[1]))
     if dev.type == "cpu":
         return cluster_merge_plain(means, weights, new_means,
                                    new_weights, **kw)
