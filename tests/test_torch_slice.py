@@ -727,11 +727,14 @@ def test_udp_server_four_readers_flush_as_one(fused):
 
 def test_port_imports_no_jax():
     """Importing the package and every module, building a table
-    (untiered and tiered, the latter through an interval), and running
-    a server through two observed flushes and a device profile capture,
-    loads neither jax nor any veneur_tpu module, and maps the port's
-    own native library, never the JAX package's (checked in a fresh
-    interpreter: this test process has imported both)."""
+    (untiered and tiered, the latter through an interval), running a
+    server through two observed flushes and a device profile capture,
+    and a sharded local forwarding through a proxy to a global over
+    gRPC (routed columnar by the native entries, drained on shutdown),
+    loads neither jax nor any veneur_tpu module, maps the port's own
+    native library, never the JAX package's, and exits with every
+    worker thread stopped (checked in a fresh interpreter: this test
+    process has imported both)."""
     code = """
 import importlib, pkgutil, sys
 import veneur_tpu_torch
@@ -761,7 +764,17 @@ assert {"veneur_tpu_torch.core.frame",
         "veneur_tpu_torch.observe.ledger",
         "veneur_tpu_torch.observe.signals",
         "veneur_tpu_torch.observe.recorder",
-        "veneur_tpu_torch.observe.profiler"} <= set(names)
+        "veneur_tpu_torch.observe.profiler",
+        "veneur_tpu_torch.forward.ring",
+        "veneur_tpu_torch.forward.route",
+        "veneur_tpu_torch.forward.breaker",
+        "veneur_tpu_torch.forward.destpool",
+        "veneur_tpu_torch.forward.discovery",
+        "veneur_tpu_torch.forward.spool",
+        "veneur_tpu_torch.forward.shard",
+        "veneur_tpu_torch.core.proxy",
+        "veneur_tpu_torch.cli.proxy",
+        "veneur_tpu_torch.trace.metrics"} <= set(names)
 from veneur_tpu_torch.core.table import MetricTable, TableConfig
 from veneur_tpu_torch.forward import gob_codec
 MetricTable(TableConfig(histo_rows=8), device="cpu")
@@ -784,6 +797,34 @@ srv.flush_once()
 assert srv.ledger.last().balanced and srv.signals.rows() == 2
 srv.shutdown()
 capture_device_profile(0.05)
+import threading, time
+from veneur_tpu_torch.core.config import ProxyConfig
+from veneur_tpu_torch.core.proxy import ProxyServer
+glob = Server(read_config(data={"tpu_histo_rows": 8,
+    "grpc_listen_addresses": ["tcp://127.0.0.1:0"]}), device="cpu")
+glob.start()
+px = ProxyServer(ProxyConfig(grpc_address="127.0.0.1:0",
+    forward_address=f"127.0.0.1:{glob.grpc_ports[0]}"))
+px.start()
+loc = Server(read_config(data={"tpu_histo_rows": 8,
+    "forward_use_grpc": True, "tpu_sharded_global": True,
+    "forward_address": f"127.0.0.1:{px.grpc_port}"}),
+    device="cpu")
+loc.handle_packet(b"g:1|c|#veneurglobalonly\\nh:2|c|#veneurglobalonly")
+loc.shutdown()
+assert loc.stats["drain_flushes"] == 1
+deadline = time.monotonic() + 20
+while (px.stats.get("metrics_routed", 0) < 1 or
+       glob.stats.get("imports_received", 0) < px.stats["metrics_routed"]):
+    assert time.monotonic() < deadline, (px.stats, glob.stats)
+    time.sleep(0.02)
+assert px.stats.get("columnar_fallbacks", 0) == 0
+px.shutdown()
+glob.shutdown()
+left = [t.name for t in threading.enumerate()
+        if t.name.startswith(("proxy-dest-", "discovery-refresh"))
+        and t.is_alive()]
+assert not left, left
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib",
                                             "veneur_tpu.")))

@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+__version__ = "0.1.0"
+
 
 def resolve_device(device: "str | torch.device" = "cuda") -> torch.device:
     """The device an entry point runs on: exactly what the caller

@@ -119,14 +119,54 @@ class Config:
     tpu_flight_cooldown: str = "30s"
     # /debug/cluster peers ("host:port,...")
     tpu_cluster_peers: str = ""
+    # -- the sharded global tier and outage riding --------------------
+    # split each flush's gRPC forward wire by route-key consistent hash
+    # across the comma-separated forward_address members (one bounded
+    # worker per destination); gRPC forwards only, the HTTP path falls
+    # back to one POST
+    tpu_sharded_global: bool = False
+    # live membership for the sharded ring: poll Consul's health API for
+    # passing instances of this service (needs tpu_sharded_global and
+    # forward_use_grpc)
+    consul_forward_service_name: str = ""
+    consul_url: str = "http://127.0.0.1:8500"
+    consul_refresh_interval: str = "30s"
+    # on shutdown a local runs one final flush whose forward wires are
+    # flagged drain, so a rolling restart conserves the staged interval
+    tpu_drain_on_shutdown: bool = True
+    # per-destination circuit breaker on the sharded forward workers:
+    # this many consecutive failures open it until the cooldown passes
+    # and one probe is let through; 0 disables it
+    tpu_breaker_threshold: int = 5
+    tpu_breaker_cooldown: str = "5s"
+    # wires that cannot ship (breaker open, retries or deadline spent)
+    # park in a bounded per-destination spool and replay, flagged
+    # veneur-replay, when the destination recovers
+    tpu_forward_spool: bool = True
+    tpu_forward_spool_max_bytes: int = 32 * 1024 * 1024
+    tpu_forward_spool_max_age: str = "300s"
+    # disk segments for the spool (<dir>/<dest>/<...>.wire); empty keeps
+    # it in memory
+    tpu_forward_spool_dir: str = ""
 
     def interval_seconds(self) -> float:
         return parse_duration(self.interval)
 
     def is_local(self) -> bool:
-        """A node with a forward destination is a local (reference
-        server.go:1609 IsLocal)."""
-        return bool(self.forward_address)
+        """A node with a forward destination — a static address or a
+        discovered service — is a local (reference server.go:1609
+        IsLocal)."""
+        return bool(self.forward_address
+                    or self.consul_forward_service_name)
+
+    def consul_refresh_interval_seconds(self) -> float:
+        return parse_duration(self.consul_refresh_interval)
+
+    def breaker_cooldown_seconds(self) -> float:
+        return parse_duration(self.tpu_breaker_cooldown)
+
+    def forward_spool_max_age_seconds(self) -> float:
+        return parse_duration(self.tpu_forward_spool_max_age)
 
     def resolve_aliases(self) -> None:
         """Fold the deprecated ``grpc_address`` into
@@ -181,8 +221,41 @@ class Config:
         if self.forward_json_schema not in ("reference", "native"):
             problems.append(
                 "forward_json_schema must be 'reference' or 'native'")
-        if "," in self.forward_address:
-            problems.append("forward_address takes one destination")
+        if "," in self.forward_address and not self.tpu_sharded_global:
+            problems.append(
+                "multiple forward_address members need "
+                "tpu_sharded_global (the single-global path dials one)")
+        if self.consul_forward_service_name:
+            if not self.tpu_sharded_global:
+                problems.append(
+                    "consul_forward_service_name needs "
+                    "tpu_sharded_global (discovery drives the ring)")
+            if not self.forward_use_grpc:
+                problems.append(
+                    "consul_forward_service_name needs "
+                    "forward_use_grpc (the sharded ring is gRPC-only)")
+            try:
+                if self.consul_refresh_interval_seconds() <= 0:
+                    problems.append(
+                        "consul_refresh_interval must be positive")
+            except ValueError as e:
+                problems.append(str(e))
+        if self.tpu_breaker_threshold < 0:
+            problems.append("tpu_breaker_threshold must be >= 0")
+        try:
+            if self.breaker_cooldown_seconds() <= 0:
+                problems.append("tpu_breaker_cooldown must be positive")
+        except ValueError as e:
+            problems.append(str(e))
+        if self.tpu_forward_spool_max_bytes <= 0:
+            problems.append(
+                "tpu_forward_spool_max_bytes must be positive")
+        try:
+            if self.forward_spool_max_age_seconds() <= 0:
+                problems.append(
+                    "tpu_forward_spool_max_age must be positive")
+        except ValueError as e:
+            problems.append(str(e))
         if self.http_address and not self.http_address.rpartition(
                 ":")[2].isdigit():
             problems.append(
@@ -216,17 +289,24 @@ _ENV_KEYS = ("tpu_pipeline", "tpu_multi_reader_fused",
              "tpu_trace_propagation", "tpu_signal_history",
              "tpu_flight_dir", "tpu_flight_max_bundles",
              "tpu_flight_max_bytes", "tpu_flight_cooldown",
-             "tpu_cluster_peers")
+             "tpu_cluster_peers", "tpu_sharded_global",
+             "consul_forward_service_name", "consul_url",
+             "consul_refresh_interval", "tpu_drain_on_shutdown",
+             "tpu_breaker_threshold", "tpu_breaker_cooldown",
+             "tpu_forward_spool", "tpu_forward_spool_max_bytes",
+             "tpu_forward_spool_max_age", "tpu_forward_spool_dir")
 
 
-def _coerce(name: str, raw: str):
+def _coerce(cls, name: str, raw: str):
     """An environment string as the field's type (the reference's
-    ``_coerce``, for the types of ``_ENV_KEYS``)."""
-    current = getattr(Config(), name)
+    ``_coerce``)."""
+    current = getattr(cls(), name)
     if isinstance(current, bool):
         return raw.lower() in ("1", "true", "yes", "on")
     if isinstance(current, int):
         return int(raw)
+    if isinstance(current, float):
+        return float(raw)
     if isinstance(current, list):
         return [x.strip() for x in raw.split(",") if x.strip()]
     if isinstance(current, dict):
@@ -240,11 +320,95 @@ def _coerce(name: str, raw: str):
     return raw
 
 
+@dataclass
+class ProxyConfig:
+    """veneur-proxy configuration (reference config_proxy.go), with the
+    reference's defaults and validation.  The TLS keys
+    (``forward_grpc_tls``, ``forward_grpc_tls_ca``) and ``sentry_dsn``
+    are not ported and are refused by name."""
+    debug: bool = False
+    http_address: str = ""
+    grpc_address: str = ""
+    # static destination list (comma separated), XOR consul discovery
+    forward_address: str = ""
+    consul_forward_service_name: str = ""
+    consul_refresh_interval: str = "30s"
+    consul_url: str = "http://127.0.0.1:8500"
+    forward_timeout: float = 10.0
+    stats_address: str = ""
+    # a separate destination set for gRPC-forwarded metrics (reference
+    # proxy.go:138,184 ForwardGRPCDestinations); unset: the main ring
+    grpc_forward_address: str = ""
+    consul_forward_grpc_service_name: str = ""
+    # datadog-format trace proxying: POST /spans bodies hash by trace
+    # id across these destinations (proxy.go:543 ProxyTraces)
+    trace_address: str = ""
+    consul_trace_service_name: str = ""
+    # accepted for config compatibility; unused, as in proxy.go
+    trace_api_address: str = ""
+    # the proxy's own telemetry as SSF spans to this address
+    # (proxy.go:219-250), with the trace client's buffer knobs
+    ssf_destination_address: str = ""
+    tracing_client_capacity: int = 1024
+    tracing_client_flush_interval: str = "500ms"
+    tracing_client_metrics_interval: str = "1s"
+    # cadence of the proxy's periodic runtime stats (proxy.go:210)
+    runtime_metrics_interval: str = "10s"
+    # Go http.Transport pool tuning: parsed for compatibility, no-ops
+    # (one persistent HTTP connection and one gRPC channel per
+    # destination)
+    idle_connection_timeout: str = ""
+    max_idle_conns: int = 0
+    max_idle_conns_per_host: int = 0
+    # Go pprof flag: a no-op (the proxy does no device work)
+    enable_profiling: bool = False
+    # the columnar route (native decode, vectorized ring assignment,
+    # per-destination workers); false: the per-item loop, the oracle
+    tpu_columnar_proxy: bool = True
+    # per-destination worker queue depth, in-worker retries and the
+    # backoff base between them
+    tpu_proxy_dest_queue: int = 8
+    tpu_proxy_send_retries: int = 2
+    tpu_proxy_send_backoff: float = 0.25
+    # the proxy's signal history, sampled at the discovery-refresh
+    # cadence; 0 disables it
+    tpu_signal_history: int = 512
+
+    def consul_refresh_interval_seconds(self) -> float:
+        return parse_duration(self.consul_refresh_interval)
+
+    def runtime_metrics_interval_seconds(self) -> float:
+        return parse_duration(self.runtime_metrics_interval or "10s")
+
+    def validate(self) -> list[str]:
+        problems = []
+        # any ONE routing surface suffices (the reference runs
+        # trace-only or grpc-only proxies, proxy.go:131-139)
+        if not (self.forward_address or
+                self.consul_forward_service_name or
+                self.grpc_forward_address or
+                self.consul_forward_grpc_service_name or
+                self.trace_address or
+                self.consul_trace_service_name):
+            problems.append(
+                "proxy needs at least one destination surface: "
+                "forward_address / grpc_forward_address / "
+                "trace_address (or their consul service names)")
+        try:
+            if self.consul_refresh_interval_seconds() <= 0:
+                problems.append(
+                    "consul_refresh_interval must be positive")
+        except ValueError as e:
+            problems.append(str(e))
+        return problems
+
+
 def read_config(path: str | None = None, data: dict | None = None,
-                env: dict | None = None) -> Config:
-    """Load a YAML file (and/or a dict), refuse unknown keys, apply the
-    environment overrides (``env``, default ``os.environ``), validate."""
-    known = {f.name for f in fields(Config)}
+                env: dict | None = None, cls=Config):
+    """Load a YAML file (and/or a dict) into ``cls`` (``Config`` or
+    ``ProxyConfig``), refuse unknown keys, apply the environment
+    overrides (``env``, default ``os.environ``), validate."""
+    known = {f.name for f in fields(cls)}
     raw: dict = {}
     if path is not None:
         with open(path) as f:
@@ -264,16 +428,19 @@ def read_config(path: str | None = None, data: dict | None = None,
     if unknown:
         raise ValueError(f"config keys not supported by this port: "
                          f"{unknown}")
-    cfg = Config()
+    cfg = cls()
     for key, value in raw.items():
         if value is not None:
             setattr(cfg, key, value)
     env = os.environ if env is None else env
-    for name in _ENV_KEYS:
+    # the proxy's every key takes its override, as in the reference
+    env_keys = _ENV_KEYS if cls is Config else sorted(known)
+    for name in env_keys:
         env_key = "VENEUR_" + name.upper()
         if env_key in env:
-            setattr(cfg, name, _coerce(name, env[env_key]))
-    cfg.resolve_aliases()
+            setattr(cfg, name, _coerce(cls, name, env[env_key]))
+    if cls is Config:
+        cfg.resolve_aliases()
     problems = cfg.validate()
     if problems:
         raise ValueError("; ".join(problems))

@@ -3,8 +3,7 @@
 The port's copy of ``veneur_tpu/core/debughttp.py``.  The reference
 wires the same net/http/pprof surface onto BOTH the server's and the
 proxy's HTTP listeners (server: server.go Handler(); proxy:
-proxy.go:533-538); the port's server serves it now, its proxy comes
-with the proxy tier:
+proxy.go:533-538), and so does the port:
 
 - ``/debug/pprof`` | ``.../goroutine`` | ``.../threads``: thread
   stack dump (the goroutine profile's role)
@@ -30,9 +29,10 @@ with the proxy tier:
 - ``/debug/flight``: flight-recorder bundle listing + fetch
   (``/debug/flight/<name>``), via ``flight_dump``
 
-``SERVER_DEBUG_ENDPOINTS`` is the authoritative inventory of every
-/debug/* path the port's server serves; the tests hold it against a
-scan of the server's do_GET routing.
+``SERVER_DEBUG_ENDPOINTS`` and ``PROXY_DEBUG_ENDPOINTS`` are the
+authoritative inventories of every /debug/* path the port's server and
+proxy serve; the tests hold each against a scan of its do_GET
+routing.
 
 Handlers are BaseHTTPRequestHandler methods; callers pass the request
 handler plus a per-process lock serializing the profiler (only one
@@ -56,6 +56,15 @@ SERVER_DEBUG_ENDPOINTS = (
     "/debug/signals",
     "/debug/flight",
     "/debug/cluster",
+    "/debug/vars",
+)
+
+# every /debug/* path the port proxy's do_GET routes (core/proxy.py)
+PROXY_DEBUG_ENDPOINTS = (
+    "/debug/pprof",
+    "/debug/trace",
+    "/debug/ledger",
+    "/debug/signals",
     "/debug/vars",
 )
 

@@ -1,0 +1,1008 @@
+"""veneur-proxy: consistent-hash routing of forwarded metrics across
+the global tier.
+
+Port of ``veneur_tpu/core/proxy.py``.  The proxy holds no device state:
+it decodes, hashes, groups and re-sends wires on the host, and the
+globals behind it fold them on their own devices.  The Go binary (cmd/veneur-proxy, proxy.go, proxysrv/): accepts
+forwarded metrics over gRPC (proxysrv/server.go:180 SendMetrics) and
+HTTP /import (proxy.go:587 ProxyMetrics), assigns every metric to one
+global veneur by consistent-hashing its MetricKey
+(proxysrv/server.go:273), batches per destination, and forwards with
+per-destination clients.  Destinations come from discovery with
+keep-last-good refresh (proxy.go:491 RefreshDestinations).
+"""
+
+from __future__ import annotations
+
+import http.client
+import http.server
+import json
+import logging
+import socket
+import threading
+import time
+import urllib.parse
+import zlib
+from collections import defaultdict
+from concurrent import futures as cf
+from concurrent.futures import ThreadPoolExecutor
+
+import grpc
+from google.protobuf import empty_pb2
+
+from veneur_tpu_torch import __version__, observe
+from veneur_tpu_torch import trace as vtrace
+from veneur_tpu_torch.core import debughttp
+from veneur_tpu_torch.core.config import parse_duration
+from veneur_tpu_torch.forward import http_import
+from veneur_tpu_torch.forward import ring as ringmod
+from veneur_tpu_torch.forward import route as routemod
+from veneur_tpu_torch.forward.destpool import DestinationPool
+from veneur_tpu_torch.forward.discovery import (ConsulDiscoverer,
+                                                DestinationRing,
+                                                StaticDiscoverer)
+from veneur_tpu_torch.forward.gen import forward_pb2
+from veneur_tpu_torch.forward.grpc_forward import (SPAN_ID_KEY,
+                                                   TRACE_ID_KEY,
+                                                   ForwardClient,
+                                                   decode_trace_metadata)
+from veneur_tpu_torch.observe.ledger import ProxyLedger
+from veneur_tpu_torch.observe.signals import SignalHistory
+from veneur_tpu_torch.observe.traceindex import TraceIndex
+from veneur_tpu_torch.trace import metrics as tmetrics
+from veneur_tpu_torch.trace.spans import Span
+
+log = logging.getLogger("veneur_tpu_torch.proxy")
+
+
+class ProxyServer:
+    def __init__(self, config):
+        self.config = config
+        self.stats = defaultdict(int)
+        self._stats_lock = threading.Lock()
+        self._pprof_lock = threading.Lock()
+        self._shutdown = threading.Event()
+        self._pool = ThreadPoolExecutor(max_workers=16)
+        self._clients: dict[str, object] = {}
+        self._clients_lock = threading.Lock()
+        # persistent per-destination HTTP connections (satellite of
+        # the columnar rebuild: one TCP handshake per destination, not
+        # per flush); entries are [conn_or_None, lock]
+        self._http_conns: dict[str, list] = {}
+        self._http_conns_lock = threading.Lock()
+        # columnar route path: native batched decode + vectorized
+        # ring assignment + per-destination workers; the legacy
+        # per-item loop stays as the bit-parity oracle and the
+        # fail-open fallback
+        self.columnar = bool(config.tpu_columnar_proxy)
+        self.destpool = DestinationPool(
+            queue_size=config.tpu_proxy_dest_queue,
+            retries=config.tpu_proxy_send_retries,
+            backoff=config.tpu_proxy_send_backoff,
+            on_result=self._metric_send_result)
+        # item-conservation ledger for the proxy hop:
+        # routed == enqueued + busy_dropped per interval
+        self.ledger = ProxyLedger(node="veneur-proxy")
+        # the proxy's fragment of cross-tier flush traces: route spans
+        # parented under the local tier's forward span, served at
+        # /debug/trace/<trace_id>
+        self.trace_index = TraceIndex()
+
+        problems = config.validate()
+        if problems:
+            raise ValueError("; ".join(problems))
+        if config.debug:
+            logging.getLogger("veneur_tpu_torch").setLevel(logging.DEBUG)
+
+        def _make_ring(static_addrs: str, consul_service: str,
+                       required: bool = False):
+            """One discovery ring from a static list XOR a consul
+            service; None when neither is configured (and not
+            required)."""
+            if not static_addrs and not consul_service and \
+                    not required:
+                return None
+            if consul_service:
+                disc = ConsulDiscoverer(config.consul_url)
+                service = consul_service
+            else:
+                disc = StaticDiscoverer(
+                    [a.strip() for a in static_addrs.split(",")
+                     if a.strip()])
+                service = "static"
+            ring = DestinationRing(disc, service)
+            if not ring.refresh():
+                log.warning("initial discovery refresh failed for "
+                            "%s; starting with an empty ring",
+                            service)
+            return ring
+
+        # main (HTTP /import) destination set; a trace-only or
+        # grpc-only proxy legally leaves it empty (reference
+        # AcceptingForwards=false, proxy.go:131-139)
+        self.ring = _make_ring(config.forward_address,
+                               config.consul_forward_service_name,
+                               required=True)
+        # SEPARATE gRPC-forward destination set (reference
+        # ForwardGRPCDestinations, proxy.go:138); unset -> main ring
+        self.grpc_ring = _make_ring(
+            config.grpc_forward_address,
+            config.consul_forward_grpc_service_name)
+        # datadog-format trace destinations (reference
+        # TraceDestinations, proxy.go:543 ProxyTraces)
+        self.trace_ring = _make_ring(config.trace_address,
+                                     config.consul_trace_service_name)
+
+        # the proxy's OWN telemetry as SSF spans (proxy.go:219-250):
+        # packet backend for udp/unixgram addresses, framed stream for
+        # tcp, with the reference's buffer knobs
+        self.trace_client = None
+        if config.ssf_destination_address:
+            addr = config.ssf_destination_address
+            if addr.startswith("tcp://"):
+                backend = vtrace.StreamBackend(addr)
+            else:
+                backend = vtrace.PacketBackend(addr)
+            self.trace_client = vtrace.Client(
+                backend, capacity=config.tracing_client_capacity,
+                flush_interval=parse_duration(
+                    config.tracing_client_flush_interval or "500ms"))
+
+        self.grpc_server = None
+        self.grpc_port = None
+        self._httpd = None
+        self.http_port = None
+        self._threads: list[threading.Thread] = []
+
+        # proxy-side signal history: one row per ledger roll (the
+        # discovery-refresh cadence — the proxy's "flush seal"), with
+        # the ProxyLedger/destpool signal set, served at
+        # /debug/signals like the server's
+        self.signals = None
+        if config.tpu_signal_history > 0:
+            self.signals = SignalHistory(
+                schema=tuple(self._signal_row()),
+                capacity=config.tpu_signal_history,
+                node=config.http_address or config.grpc_address or "",
+                role="proxy")
+
+    def bump(self, key: str, n: int = 1) -> None:
+        with self._stats_lock:
+            self.stats[key] += n
+
+    def _signal_row(self, rec=None) -> dict:
+        """The proxy's fixed-schema signal row: routing conservation
+        (the just-sealed ProxyLedgerRecord), destination-pool wire
+        outcomes, breaker states, and discovery health.  Called with
+        no args at init to derive the schema."""
+        with self._stats_lock:
+            st = dict(self.stats)
+        row = {
+            "route.routed": rec.routed if rec is not None else 0,
+            "route.dropped": rec.dropped if rec is not None else 0,
+            "route.enqueued": rec.enqueued if rec is not None else 0,
+            "route.busy_dropped":
+                rec.busy_dropped if rec is not None else 0,
+            "route.fallbacks":
+                rec.fallbacks if rec is not None else 0,
+            "ledger.owed": rec.owed if rec is not None else 0,
+            "ledger.balanced": int(
+                rec.balanced if rec is not None else True),
+            "ledger.imbalanced_total": self.ledger.imbalanced_total,
+            "ingest.imports_received": st.get("imports_received", 0),
+            "ingest.import_errors": st.get("import_errors", 0),
+            "ingest.spans_proxied": st.get("spans_proxied", 0),
+        }
+        tot = self.destpool.totals()
+        row["wire.sent_items"] = tot.get("sent_items", 0)
+        row["wire.error_items"] = tot.get("error_items", 0)
+        row["wire.retries"] = tot.get("retries", 0)
+        row["wire.busy_dropped_items"] = tot.get(
+            "busy_dropped_items", 0)
+        row["dest.queued"] = sum(
+            w.get("queued", 0)
+            for w in self.destpool.stats().values())
+        states = self.destpool.breaker_states()
+        row["breaker.closed"] = sum(
+            1 for s in states.values() if s["state"] == "closed")
+        row["breaker.half_open"] = sum(
+            1 for s in states.values() if s["state"] == "half_open")
+        row["breaker.open"] = sum(
+            1 for s in states.values() if s["state"] == "open")
+        row["breaker.opens_total"] = tot.get("breaker_opens", 0)
+        ring = getattr(self, "ring", None)
+        disc = ring.stats() if ring is not None else {}
+        row["dest.count"] = len(disc.get("members", ()))
+        row["discovery.epoch"] = disc.get("epoch", 0)
+        row["discovery.refreshes"] = disc.get("refreshes", 0)
+        return row
+
+    # ------------------------------------------------------------------
+    # listeners
+
+    def start(self) -> None:
+        if self.config.grpc_address:
+            self._start_grpc()
+        if self.config.http_address:
+            self._start_http()
+        t = threading.Thread(target=self._refresh_loop, daemon=True,
+                             name="discovery-refresh")
+        t.start()
+        self._threads.append(t)
+        if self.trace_client is not None:
+            t = threading.Thread(target=self._runtime_metrics_loop,
+                                 daemon=True,
+                                 name="proxy-runtime-metrics")
+            t.start()
+            self._threads.append(t)
+
+    def _start_grpc(self) -> None:
+        self.grpc_server = grpc.server(
+            cf.ThreadPoolExecutor(max_workers=8),
+            options=[("grpc.max_receive_message_length",
+                      64 * 1024 * 1024)])
+
+        if self.columnar:
+            # raw-bytes deserializer: the columnar router works off
+            # the serialized wire (native decode + record-span
+            # re-encode), so materializing protobuf objects here
+            # would pay the per-item cost the rewrite removes
+            deserializer = bytes
+
+            def send_metrics(request, context):
+                self.route_pb_wire(
+                    request,
+                    trace_ctx=decode_trace_metadata(
+                        context.invocation_metadata()))
+                return empty_pb2.Empty()
+        else:
+            deserializer = forward_pb2.MetricList.FromString
+
+            def send_metrics(request, context):
+                self.route_pb_metrics(
+                    list(request.metrics),
+                    trace_ctx=decode_trace_metadata(
+                        context.invocation_metadata()))
+                return empty_pb2.Empty()
+
+        handler = grpc.method_handlers_generic_handler(
+            "forwardrpc.Forward",
+            {"SendMetrics": grpc.unary_unary_rpc_method_handler(
+                send_metrics,
+                request_deserializer=deserializer,
+                response_serializer=empty_pb2.Empty.SerializeToString)})
+        self.grpc_server.add_generic_rpc_handlers((handler,))
+        host, _, port = self.config.grpc_address.rpartition(":")
+        self.grpc_port = self.grpc_server.add_insecure_port(
+            f"{host or '127.0.0.1'}:{port}")
+        self.grpc_server.start()
+
+    def _start_http(self) -> None:
+        proxy = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def do_GET(self):
+                # identity + pprof surface, matching the reference
+                # proxy's HTTP mux (proxy.go:533-538 wires
+                # /healthcheck, net/http/pprof and the standard
+                # identity endpoints on the same listener)
+                if self.path == "/healthcheck":
+                    debughttp.respond_ok(self)
+                elif self.path == "/version":
+                    debughttp.respond_ok(self, __version__.encode())
+                elif self.path == "/builddate":
+                    debughttp.respond_ok(self, b"dev")
+                elif self.path.startswith("/debug/pprof"):
+                    debughttp.pprof(self, proxy._pprof_lock)
+                elif self.path.startswith("/debug/trace"):
+                    debughttp.trace_dump(self, proxy.trace_index,
+                                         self.path)
+                elif self.path.startswith("/debug/ledger"):
+                    debughttp.ledger_dump(
+                        self, proxy.ledger,
+                        limit=debughttp.query_int(self.path, "n", 0))
+                elif self.path.startswith("/debug/signals"):
+                    # the proxy's signal-history ring (ProxyLedger +
+                    # destpool signal set, sampled per discovery
+                    # refresh); same query surface as the server's
+                    debughttp.signals_dump(self, proxy.signals,
+                                           self.path)
+                elif self.path.startswith("/debug/vars"):
+                    # same expvar surface as the server's listener;
+                    # the proxy has no flush ring, but its routing
+                    # stats and any device-cost counters (none in a
+                    # pure-proxy process) dump identically
+                    with proxy._stats_lock:
+                        stats = dict(proxy.stats)
+                    debughttp.vars_dump(self, {
+                        "version": __version__,
+                        "stats": stats,
+                        "devicecost": observe.REGISTRY.snapshot(),
+                        "destinations": len(proxy.ring.ring)
+                        if proxy.ring is not None else 0,
+                        "columnar": proxy.columnar,
+                        "destpool": proxy.destpool.stats(),
+                        # per-ring membership + refresh health (the
+                        # reason-tagged refresh_errors feed
+                        # veneur.discovery.refresh_errors_total)
+                        "discovery": {
+                            label: ring.stats()
+                            for label, ring in (
+                                ("forward", proxy.ring),
+                                ("grpc", proxy.grpc_ring),
+                                ("trace", proxy.trace_ring))
+                            if ring is not None},
+                    })
+                else:
+                    self.send_error(404)
+
+            def do_POST(self):
+                if self.path == "/spans":
+                    # datadog-format trace proxying (reference
+                    # handlers_global.go:47 handleTraceRequest ->
+                    # proxy.go:543 ProxyTraces)
+                    if proxy.trace_ring is None:
+                        self.send_error(404, "trace proxying not "
+                                             "configured")
+                        return
+                    length = int(self.headers.get("Content-Length",
+                                                  0))
+                    try:
+                        traces = json.loads(self.rfile.read(length))
+                        if not isinstance(traces, list):
+                            raise ValueError("body must be an array")
+                        proxy.route_traces(traces)
+                    except (ValueError, KeyError, TypeError,
+                            AttributeError) as e:
+                        proxy.bump("import_errors")
+                        self.send_error(400, str(e))
+                        return
+                    self.send_response(200)
+                    self.send_header("Content-Length", "0")
+                    self.end_headers()
+                    return
+                if self.path != "/import":
+                    self.send_error(404)
+                    return
+                length = int(self.headers.get("Content-Length", 0))
+                body = self.rfile.read(length)
+                try:
+                    items = http_import.decode_body(
+                        body, self.headers.get("Content-Encoding", ""))
+                except (ValueError, KeyError) as e:
+                    proxy.bump("import_errors")
+                    self.send_error(400, str(e))
+                    return
+                proxy.route_json_items(
+                    items,
+                    trace_ctx=http_import.decode_trace_header(
+                        self.headers.get(http_import.TRACE_HEADER)))
+                out = json.dumps({"accepted": len(items)}).encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(out)))
+                self.end_headers()
+                self.wfile.write(out)
+
+        host, _, port = self.config.http_address.rpartition(":")
+        self._httpd = http.server.ThreadingHTTPServer(
+            (host or "127.0.0.1", int(port)), Handler)
+        self.http_port = self._httpd.server_port
+        t = threading.Thread(target=self._httpd.serve_forever,
+                             daemon=True, name="proxy-http")
+        t.start()
+        self._threads.append(t)
+
+    # ------------------------------------------------------------------
+    # routing
+
+    # metricpb.Type enum value -> the same type strings the JSON import
+    # schema carries, so one series routes identically whichever
+    # protocol its local forwards over (the reference routes both paths
+    # on MetricKey.String(), proxysrv/server.go:273 / proxy.go:587)
+    _PB_TYPE_NAMES = {0: "counter", 1: "gauge", 2: "histogram",
+                      3: "set", 4: "timer"}
+
+    @classmethod
+    def _pb_key(cls, m) -> str:
+        """MetricKey identity string (proxysrv/server.go:273)."""
+        t = cls._PB_TYPE_NAMES.get(int(m.type), str(m.type))
+        return f"{m.name}|{t}|{','.join(m.tags)}"
+
+    @staticmethod
+    def _json_key(item: dict) -> str:
+        # reference JSONMetric items may carry tags: null with the
+        # joined form in "tagstring"
+        tags = item.get("tags") or ()
+        joined = ",".join(tags) if tags else item.get("tagstring", "")
+        return f"{item.get('name')}|{item.get('type')}|{joined}"
+
+    def _route_span(self, protocol: str, trace_ctx, n: int):
+        """The proxy's fragment of a cross-tier flush trace: a route
+        span parented under the sending tier's forward span.  Returns
+        None when no (or zero) context arrived — routing itself is
+        unconditional (fail-open)."""
+        if not trace_ctx or not trace_ctx[0]:
+            return None
+        return Span("proxy.route", service="veneur-proxy",
+                    trace_id=trace_ctx[0], parent_id=trace_ctx[1],
+                    tags={"protocol": protocol, "metrics": str(n)})
+
+    def _finish_route_span(self, sp) -> tuple[int, int] | None:
+        """Finish + index the route span; returns the (trace_id,
+        span_id) the batched re-forwards stamp onto their wires so the
+        receiving global parents under the PROXY hop."""
+        if sp is None:
+            return None
+        sp.finish(self.trace_client)
+        self.trace_index.add(sp.proto)
+        return (sp.trace_id, sp.span_id)
+
+    def route_pb_metrics(self, metrics: list, trace_ctx=None) -> None:
+        """Group by destination and forward over gRPC, one task per
+        destination (proxysrv/server.go:286 per-dest goroutines).
+        Routes on the dedicated gRPC destination set when configured
+        (grpc_forward_address), else the main ring."""
+        span = self._route_span("grpc", trace_ctx, len(metrics))
+        ring = self.grpc_ring or self.ring
+        groups: dict[str, list] = defaultdict(list)
+        routed = dropped = 0
+        for m in metrics:
+            try:
+                groups[ring.get(self._pb_key(m))].append(m)
+                routed += 1
+            except LookupError:
+                dropped += 1
+        self.bump("metrics_routed", routed)
+        if dropped:
+            self.bump("metrics_dropped", dropped)
+        # the shared executor's work queue is unbounded, so the legacy
+        # path never busy-drops: every routed item is enqueued
+        self.ledger.credit_route(routed=routed, dropped=dropped,
+                                 enqueued=routed,
+                                 per_dest={d: len(b)
+                                           for d, b in groups.items()})
+        wire_ctx = self._finish_route_span(span)
+        for dest, batch in groups.items():
+            self._pool.submit(self._send_grpc, dest, batch, wire_ctx)
+
+    def route_pb_wire(self, data: bytes, trace_ctx=None) -> None:
+        """Route a serialized MetricList: columnar when the gate is on
+        and the native path runs, else fail-open to the per-item
+        oracle (`route_pb_metrics`).  Routes on the dedicated gRPC
+        destination set when configured, else the main ring."""
+        routed = None
+        snap = None
+        if self.columnar:
+            snap = (self.grpc_ring or self.ring).snapshot()
+            try:
+                routed = routemod.route_metric_list(data, snap)
+            except Exception:
+                log.exception("columnar route failed; falling back "
+                              "to the per-item path")
+                routed = None
+        if routed is None:
+            if self.columnar:
+                self.bump("columnar_fallbacks")
+                self.ledger.credit_route(fallbacks=1)
+            try:
+                ml = forward_pb2.MetricList.FromString(data)
+            except Exception as e:
+                self.bump("import_errors")
+                log.warning("undecodable forward wire: %s", e)
+                return
+            self.route_pb_metrics(list(ml.metrics),
+                                  trace_ctx=trace_ctx)
+            return
+        span = self._route_span("grpc", trace_ctx, routed.n)
+        self.bump("metrics_routed", routed.routed)
+        if routed.dropped:
+            self.bump("metrics_dropped", routed.dropped)
+        wire_ctx = self._finish_route_span(span)
+        metadata = None
+        if wire_ctx and wire_ctx[0]:
+            metadata = [(TRACE_ID_KEY, str(wire_ctx[0])),
+                        (SPAN_ID_KEY, str(wire_ctx[1]))]
+        enqueued = busy = 0
+        for d, body, count in routed.batches:
+            dest = routed.members[d]
+            if self.destpool.submit(
+                    dest,
+                    lambda dest=dest, body=body, md=metadata:
+                    self._send_grpc_wire(dest, body, md),
+                    n_items=count,
+                    on_result=self._metric_send_result):
+                enqueued += count
+            else:
+                busy += count
+        if busy:
+            self.bump("busy_dropped", busy)
+        self.ledger.credit_route(routed=routed.routed,
+                                 dropped=routed.dropped,
+                                 enqueued=enqueued, busy_dropped=busy,
+                                 per_dest={routed.members[d]: n
+                                           for d, _, n in routed.batches})
+
+    def _metric_send_result(self, dest: str, n_items: int, err,
+                            retries: int) -> None:
+        """Destination-worker completion callback for metric sends:
+        the async half of the accounting (`forwards_sent` /
+        `forward_errors` stats plus the ledger's informational wire
+        outcomes)."""
+        if err is None:
+            self.bump("forwards_sent")
+            self.ledger.credit_send(sent_items=n_items,
+                                    retries=retries)
+        else:
+            self.bump("forward_errors")
+            self.ledger.credit_send(error_items=n_items,
+                                    retries=retries)
+
+    def _trace_send_result(self, dest: str, n_items: int, err,
+                           retries: int) -> None:
+        if err is None:
+            self.bump("traces_sent")
+        else:
+            self.bump("trace_errors")
+
+    def _send_grpc_wire(self, dest: str, body: bytes,
+                        metadata=None) -> None:
+        """Send pre-serialized MetricList bytes to ``dest`` on its
+        cached channel; raises on failure (the destination worker
+        retries + counts)."""
+        with self._clients_lock:
+            client = self._clients.get(dest)
+            if client is None:
+                client = ForwardClient(
+                    dest, timeout=self.config.forward_timeout)
+                self._clients[dest] = client
+        client.send_wire(body, timeout=self.config.forward_timeout,
+                         metadata=metadata)
+
+    def _send_grpc(self, dest: str, batch: list,
+                   trace_ctx=None) -> None:
+        metadata = None
+        if trace_ctx and trace_ctx[0]:
+            metadata = [(TRACE_ID_KEY, str(trace_ctx[0])),
+                        (SPAN_ID_KEY, str(trace_ctx[1]))]
+        try:
+            with self._clients_lock:
+                client = self._clients.get(dest)
+                if client is None:
+                    client = ForwardClient(
+                        dest, timeout=self.config.forward_timeout)
+                    self._clients[dest] = client
+            client._call(forward_pb2.MetricList(metrics=batch),
+                         timeout=self.config.forward_timeout,
+                         metadata=metadata)
+            self.bump("forwards_sent")
+        except (grpc.RpcError, OSError) as e:
+            # dropped-and-counted, never retried within a flush
+            # (reference flusher/proxy error semantics)
+            self.bump("forward_errors")
+            log.warning("proxy forward to %s failed: %s", dest, e)
+
+    def route_json_items(self, items: list[dict],
+                         trace_ctx=None) -> None:
+        """HTTP /import half: route decoded JSON items and re-POST per
+        destination (proxy.go:587 ProxyMetrics).  The key hash + ring
+        walk + grouping run vectorized over the batch when the
+        columnar gate is on (the items themselves are already decoded
+        dicts — the native gob/JSON decode happened in decode_body)."""
+        span = self._route_span("http", trace_ctx, len(items))
+        if self.columnar and items:
+            if self._route_json_columnar(items, span):
+                return
+            self.bump("columnar_fallbacks")
+            self.ledger.credit_route(fallbacks=1)
+        groups: dict[str, list] = defaultdict(list)
+        dropped = 0
+        for item in items:
+            try:
+                groups[self.ring.get(self._json_key(item))].append(item)
+            except LookupError:
+                dropped += 1
+        routed = len(items) - dropped
+        self.bump("metrics_routed", routed)
+        if dropped:
+            self.bump("metrics_dropped", dropped)
+        self.ledger.credit_route(routed=routed, dropped=dropped,
+                                 enqueued=routed,
+                                 per_dest={d: len(b)
+                                           for d, b in groups.items()})
+        wire_ctx = self._finish_route_span(span)
+        for dest, batch in groups.items():
+            self._pool.submit(self._send_http, dest, batch, wire_ctx)
+
+    def _route_json_columnar(self, items: list[dict], span) -> bool:
+        """Vectorized /import routing: one hash pass over the batch's
+        keys, one searchsorted, one argsort grouping, per-destination
+        workers.  Returns False to fail-open to the per-item loop."""
+        snap = self.ring.snapshot()
+        try:
+            keys = [self._json_key(it).encode() for it in items]
+            if len(snap) == 0:
+                groups = []
+                routed, dropped = 0, len(items)
+            else:
+                assign = snap.assign(ringmod.hash_keys(keys))
+                groups = routemod.group_indices(assign,
+                                                len(snap.members))
+                routed, dropped = len(items), 0
+        except Exception:
+            log.exception("columnar /import route failed; falling "
+                          "back to the per-item path")
+            return False
+        self.bump("metrics_routed", routed)
+        if dropped:
+            self.bump("metrics_dropped", dropped)
+        wire_ctx = self._finish_route_span(span)
+        enqueued = busy = 0
+        for d, idxs in groups:
+            dest = snap.members[d]
+            batch = [items[i] for i in idxs]
+            if self.destpool.submit(
+                    dest,
+                    lambda dest=dest, batch=batch, ctx=wire_ctx:
+                    self._post_import(dest, batch, ctx),
+                    n_items=len(batch),
+                    on_result=self._metric_send_result):
+                enqueued += len(batch)
+            else:
+                busy += len(batch)
+        if busy:
+            self.bump("busy_dropped", busy)
+        self.ledger.credit_route(routed=routed, dropped=dropped,
+                                 enqueued=enqueued, busy_dropped=busy,
+                                 per_dest={snap.members[d]: len(idxs)
+                                           for d, idxs in groups})
+        return True
+
+    # -- persistent per-destination HTTP connections -------------------
+
+    def _post_http(self, dest: str, path: str, body: bytes,
+                   headers: dict) -> None:
+        """POST over a persistent per-destination connection,
+        reconnecting once on a stale socket; raises on failure."""
+        with self._http_conns_lock:
+            entry = self._http_conns.get(dest)
+            if entry is None:
+                entry = [None, threading.Lock()]
+                self._http_conns[dest] = entry
+        url = dest if dest.startswith("http") else f"http://{dest}"
+        parsed = urllib.parse.urlsplit(url)
+        base = parsed.path.rstrip("/")
+        with entry[1]:
+            for attempt in (0, 1):
+                conn = entry[0]
+                if conn is None:
+                    cls = (http.client.HTTPSConnection
+                           if parsed.scheme == "https"
+                           else http.client.HTTPConnection)
+                    conn = cls(parsed.hostname, parsed.port,
+                               timeout=self.config.forward_timeout)
+                    entry[0] = conn
+                try:
+                    conn.request("POST", base + path, body=body,
+                                 headers=headers)
+                    resp = conn.getresponse()
+                    resp.read()
+                    if resp.status >= 400:
+                        raise OSError(f"HTTP {resp.status} from "
+                                      f"{dest}{path}")
+                    return
+                except (OSError, http.client.HTTPException):
+                    # stale keep-alive or dead peer: drop the
+                    # connection and retry once on a fresh socket
+                    try:
+                        conn.close()
+                    finally:
+                        entry[0] = None
+                    if attempt:
+                        raise
+
+    def _close_http_conns(self, gone=None) -> None:
+        with self._http_conns_lock:
+            dests = (list(self._http_conns) if gone is None
+                     else [d for d in gone if d in self._http_conns])
+            entries = [self._http_conns.pop(d) for d in dests]
+        for entry in entries:
+            conn = entry[0]
+            if conn is not None:
+                try:
+                    conn.close()
+                except Exception:
+                    pass
+
+    def _post_import(self, dest: str, batch: list[dict],
+                     trace_ctx=None) -> None:
+        body = zlib.compress(json.dumps(batch).encode())
+        headers = {"Content-Type": "application/json",
+                   "Content-Encoding": "deflate",
+                   "Content-Length": str(len(body))}
+        if trace_ctx and trace_ctx[0]:
+            headers[http_import.TRACE_HEADER] = \
+                http_import.encode_trace_header(*trace_ctx)
+        self._post_http(dest, "/import", body, headers)
+
+    def _send_http(self, dest: str, batch: list[dict],
+                   trace_ctx=None) -> None:
+        try:
+            self._post_import(dest, batch, trace_ctx)
+            self.bump("forwards_sent")
+        except Exception as e:
+            self.bump("forward_errors")
+            log.warning("proxy forward to %s failed: %s", dest, e)
+
+    def route_traces(self, traces: list) -> None:
+        """Datadog-format trace spans hash INDIVIDUALLY by trace id
+        across the trace destinations and re-POST as flat span arrays
+        to each dest's /spans — the reference's exact wire
+        (proxy.go:543-567 ProxyTraces; the endpoint takes a flat
+        []DatadogTraceSpan and no deflate).  Nested span lists are
+        flattened for callers that batch per trace.  With the
+        columnar gate on, the trace-id hash + ring walk + grouping
+        run vectorized over the flattened batch."""
+        flat: list[dict] = []
+        keys: list[bytes] = []
+        dropped = untraced = 0
+        for t in traces:
+            spans = t if isinstance(t, list) else [t]
+            for sp in spans:
+                if not isinstance(sp, dict):
+                    dropped += 1
+                    continue
+                raw_tid = sp.get("trace_id")
+                if not raw_tid:
+                    # missing/zero trace id: hashing the literal "0"
+                    # would pin every untraced span onto ONE
+                    # destination (a silent hot spot).  Derive a
+                    # deterministic id from the span's own content —
+                    # the same span always routes the same way — and
+                    # count it so operators see the bad emitters
+                    # (veneur.proxy.untraced_spans_total)
+                    untraced += 1
+                    raw_tid = zlib.crc32(json.dumps(
+                        sp, sort_keys=True, default=str).encode())
+                flat.append(sp)
+                keys.append(str(raw_tid).encode())
+        if self.columnar and flat:
+            done = self._route_traces_columnar(flat, keys, dropped,
+                                               untraced)
+            if done:
+                return
+            self.bump("columnar_fallbacks")
+        groups: dict[str, list] = defaultdict(list)
+        routed = 0
+        for sp, key in zip(flat, keys):
+            try:
+                groups[self.trace_ring.get(key.decode())].append(sp)
+                routed += 1
+            except LookupError:
+                dropped += 1
+        self.bump("traces_routed", routed)
+        if untraced:
+            self.bump("untraced_spans_total", untraced)
+        if dropped:
+            self.bump("traces_dropped", dropped)
+        for dest, batch in groups.items():
+            self._pool.submit(self._send_traces, dest, batch)
+
+    def _route_traces_columnar(self, flat: list[dict],
+                               keys: list[bytes], dropped: int,
+                               untraced: int) -> bool:
+        """Vectorized trace routing over the flattened span batch;
+        returns False to fail-open to the per-span loop."""
+        snap = self.trace_ring.snapshot()
+        try:
+            if len(snap) == 0:
+                groups = []
+                routed = 0
+                dropped += len(flat)
+            else:
+                assign = snap.assign(ringmod.hash_keys(keys))
+                groups = routemod.group_indices(assign,
+                                                len(snap.members))
+                routed = len(flat)
+        except Exception:
+            log.exception("columnar trace route failed; falling back "
+                          "to the per-span path")
+            return False
+        self.bump("traces_routed", routed)
+        if untraced:
+            self.bump("untraced_spans_total", untraced)
+        if dropped:
+            self.bump("traces_dropped", dropped)
+        for d, idxs in groups:
+            dest = snap.members[d]
+            batch = [flat[i] for i in idxs]
+            if not self.destpool.submit(
+                    dest,
+                    lambda dest=dest, batch=batch:
+                    self._post_spans(dest, batch),
+                    n_items=len(batch),
+                    on_result=self._trace_send_result):
+                self.bump("trace_busy_dropped", len(batch))
+        return True
+
+    def _post_spans(self, dest: str, batch: list) -> None:
+        body = json.dumps(batch).encode()
+        self._post_http(dest, "/spans", body,
+                        {"Content-Type": "application/json",
+                         "Content-Length": str(len(body))})
+
+    def _send_traces(self, dest: str, batch: list) -> None:
+        try:
+            self._post_spans(dest, batch)
+            self.bump("traces_sent")
+        except Exception as e:
+            self.bump("trace_errors")
+            log.warning("proxy trace forward to %s failed: %s",
+                        dest, e)
+
+    # ------------------------------------------------------------------
+
+    def _emit_ssf_stats(self) -> None:
+        """The proxy's own runtime metrics as SSF samples through the
+        trace client (proxy.go:210 MetricsInterval reporting)."""
+        if self.trace_client is None:
+            return
+        with self._stats_lock:
+            snap = dict(self.stats)
+        samples = [tmetrics.gauge(f"veneur_proxy.{k}", float(v))
+                   for k, v in snap.items()]
+        samples.append(tmetrics.gauge("veneur_proxy.destinations",
+                                      float(len(self.ring.ring))))
+        tmetrics.report_batch(self.trace_client, samples)
+
+    def _runtime_metrics_loop(self) -> None:
+        interval = self.config.runtime_metrics_interval_seconds()
+        client_iv = parse_duration(
+            self.config.tracing_client_metrics_interval or "1s")
+        tick = min(interval, client_iv)
+        next_runtime = next_client = 0.0
+        while not self._shutdown.wait(tick):
+            now = time.monotonic()
+            try:
+                if now >= next_runtime:
+                    next_runtime = now + interval
+                    self._emit_ssf_stats()
+                if now >= next_client and self.trace_client is not None:
+                    # the trace CLIENT's own backpressure counters at
+                    # their configured cadence (the reference's
+                    # tracing_client_metrics_interval)
+                    next_client = now + client_iv
+                    c = self.trace_client
+                    tmetrics.report_batch(c, [
+                        tmetrics.gauge(
+                            "veneur_proxy.trace_client.records_sent",
+                            float(c.sent)),
+                        tmetrics.gauge(
+                            "veneur_proxy.trace_client."
+                            "records_dropped", float(c.dropped)),
+                        tmetrics.gauge(
+                            "veneur_proxy.trace_client.errors",
+                            float(c.errors))])
+            except Exception:
+                log.exception("proxy runtime metrics emission failed")
+
+    def _emit_stats(self) -> None:
+        """Operational metrics to stats_address as DogStatsD deltas
+        (the reference proxy's statsd reporting)."""
+        if not self.config.stats_address:
+            return
+        if not hasattr(self, "_stats_sock"):
+            self._stats_sock = socket.socket(socket.AF_INET,
+                                             socket.SOCK_DGRAM)
+            self._stats_last: dict[str, int] = {}
+            addr = self.config.stats_address
+            host, _, port = addr.removeprefix("udp://").rpartition(":")
+            self._stats_dest = (host or "127.0.0.1", int(port))
+        lines = []
+        with self._stats_lock:
+            snap = dict(self.stats)
+        for key in ("metrics_routed", "metrics_dropped",
+                    "forwards_sent", "forward_errors",
+                    "import_errors", "untraced_spans_total",
+                    "busy_dropped", "trace_busy_dropped",
+                    "columnar_fallbacks", "traces_routed",
+                    "traces_dropped", "traces_sent", "trace_errors"):
+            d = snap.get(key, 0) - self._stats_last.get(key, 0)
+            self._stats_last[key] = snap.get(key, 0)
+            if d:
+                lines.append(f"veneur.proxy.{key}:{d}|c")
+        lines.append(
+            f"veneur.proxy.destinations:{len(self.ring.ring)}|g")
+        # reason-tagged discovery refresh errors per ring: graceful
+        # degradation (keep-last-good) made visible as a counter
+        for label, ring in (("forward", self.ring),
+                            ("grpc", self.grpc_ring),
+                            ("trace", self.trace_ring)):
+            if ring is None:
+                continue
+            for reason, total in sorted(ring.refresh_errors.items()):
+                key = f"discovery_{label}_refresh_errors_{reason}"
+                d = total - self._stats_last.get(key, 0)
+                self._stats_last[key] = total
+                if d:
+                    lines.append(
+                        f"veneur.discovery.refresh_errors_total:{d}|c"
+                        f"|#reason:{reason},service:{label}")
+        try:
+            self._stats_sock.sendto("\n".join(lines).encode(),
+                                    self._stats_dest)
+        except OSError:
+            pass
+
+    def _refresh_loop(self) -> None:
+        interval = self.config.consul_refresh_interval_seconds()
+        while not self._shutdown.wait(interval):
+            self._refresh_once()
+
+    def _refresh_once(self) -> None:
+        """One discovery refresh + the housekeeping that rides on it:
+        stats emission, ledger interval seal, and eviction of cached
+        clients/workers/connections for departed destinations."""
+        self.ring.refresh()
+        for ring in (self.grpc_ring, self.trace_ring):
+            if ring is not None:
+                ring.refresh()
+        self._emit_stats()
+        # seal the routing-conservation interval (the proxy has
+        # no flush cycle, so discovery cadence doubles as the
+        # ledger interval); skip empty intervals to keep the
+        # /debug/ledger ring informative
+        cur = self.ledger._cur
+        rec = None
+        if cur.routed or cur.dropped or cur.fallbacks:
+            rec = self.ledger.roll()
+        # signal-history sample rides the same cadence: the sealed
+        # routing record (None on an idle interval) plus live
+        # destpool/breaker/discovery counters become one row
+        if self.signals is not None:
+            try:
+                self.signals.append(self._signal_row(rec))
+                self.bump("signal_rows")
+            except Exception:
+                log.exception("proxy signal sample failed")
+        # drop clients for destinations that left the ring the
+        # gRPC forwarders actually route on
+        grpc_members = (self.grpc_ring or self.ring).ring.members
+        with self._clients_lock:
+            gone = set(self._clients) - set(grpc_members)
+            for dest in gone:
+                try:
+                    self._clients.pop(dest).close()
+                except Exception:
+                    pass
+        # per-destination workers + persistent HTTP connections
+        # for destinations no ring routes to anymore
+        keep = set(grpc_members) | set(self.ring.ring.members)
+        for ring in (self.grpc_ring, self.trace_ring):
+            if ring is not None:
+                keep |= set(ring.ring.members)
+        self.destpool.retire(keep)
+        with self._http_conns_lock:
+            conn_gone = set(self._http_conns) - keep
+        self._close_http_conns(gone=conn_gone)
+
+    def shutdown(self) -> None:
+        self._shutdown.set()
+        if self.trace_client is not None:
+            self.trace_client.close()
+        if self.grpc_server is not None:
+            self.grpc_server.stop(0.5)
+        if self._httpd is not None:
+            self._httpd.shutdown()
+        self.destpool.stop()
+        self._close_http_conns()
+        with self._clients_lock:
+            for c in self._clients.values():
+                try:
+                    c.close()
+                except Exception:
+                    pass
+        self._pool.shutdown(wait=False)

@@ -36,6 +36,18 @@ merges it under the lock, ``dogstatsd.DogstatsdGRPC/SendPacket`` feeds
 mergeable state after every flush, POSTed to the global's ``/import``
 or, with ``forward_use_grpc``, sent as one MetricList through a client
 dialled once (a failed send is counted and logged, never retried).
+With ``tpu_sharded_global`` (gRPC only) the MetricList is split by
+route-key consistent hash across the ``forward_address`` members, or
+the members Consul names, through a ``ShardedForwarder``: one bounded
+worker per destination with a circuit breaker, a deadline per interval,
+and a ``WireSpool`` that parks a destination's wires while its breaker
+is open and replays them, flagged replay, once it recovers; the
+interval's ledger record credits the split, the spool and any reshard,
+and a ``SpoolLedger`` snapshot seals the spool each flush.  On
+``shutdown`` a local drains: one last flush whose forward wires are
+flagged drain (``tpu_drain_on_shutdown``).  A global counts the drain
+and replay wires it receives and books them under their own ledger
+protocols.
 Every cycle observes itself as the reference's server does: a flush
 tracer (``observe.FlushTracer``) hangs a span per stage off the cycle's
 root, sends them through a loopback trace client into the span worker
@@ -80,6 +92,10 @@ from veneur_tpu_torch.core.telemetry import Telemetry
 from veneur_tpu_torch.core.flusher import FlushResult, Flusher, ForwardRow
 from veneur_tpu_torch.core.table import MetricTable, TableConfig
 from veneur_tpu_torch.forward import grpc_forward, http_import
+from veneur_tpu_torch.forward.discovery import ConsulDiscoverer
+from veneur_tpu_torch.forward.shard import (DeadlineExceeded,
+                                            ShardedForwarder)
+from veneur_tpu_torch.forward.spool import Spooled, WireSpool
 from veneur_tpu_torch.protocol import addr as addrmod
 from veneur_tpu_torch.protocol import columnar
 from veneur_tpu_torch.protocol import dogstatsd as dsd
@@ -95,6 +111,20 @@ _DRAIN_MAX = 512
 _RCVBUF_BYTES = 2 * 1048576
 # /debug/cluster: seconds a peer's scraped summary is served from cache
 _CLUSTER_TTL = 10.0
+
+
+def _is_deadline_error(err) -> bool:
+    """True when a forward wire failed on a deadline: our own pre-send
+    cutoff (``DeadlineExceeded``) or gRPC's DEADLINE_EXCEEDED status."""
+    if isinstance(err, DeadlineExceeded):
+        return True
+    code = getattr(err, "code", None)
+    if callable(code):
+        try:
+            return getattr(code(), "name", "") == "DEADLINE_EXCEEDED"
+        except Exception:
+            return False
+    return False
 
 
 class Server:
@@ -173,6 +203,20 @@ class Server:
             strict=bool(config.tpu_ledger_strict),
             node="local" if self.is_local else "global",
             on_imbalance=lambda rec: self.bump("ledger_imbalance"))
+        # the outage spool's cross-interval conservation: one snapshot
+        # sealed per flush from WireSpool.stats()
+        self._spool_ledger = observe.SpoolLedger(
+            strict=bool(config.tpu_ledger_strict),
+            node="local" if self.is_local else "global",
+            on_imbalance=lambda rec: self.bump("spool_ledger_imbalance"))
+        # the sharded forward (built at the first forward), its
+        # discovery poll, the replayed items already credited to a
+        # ledger record, and the drain flag of the shutdown flush
+        self._sharded_fwd: ShardedForwarder | None = None
+        self._fwd_refresh_interval = 0.0
+        self._fwd_refresh_next = 0.0
+        self._replayed_credited = 0
+        self._draining = False
         # tier byte accounting from the last boundary (None until a
         # tiered flush; always None on a single-tier table)
         self._last_plane_bytes = None
@@ -311,10 +355,11 @@ class Server:
         """Decode one ``/import`` body and merge it into the table under
         the table lock (past the staging bound, the device step follows
         the lock's release).  The items credit the ledger in the same
-        critical section, under the protocol the wire's flags name
-        (their other effects — spool, checkpoints, handoff — are not in
-        this server); a trace header parents the ``import`` span under
-        the sender's forward span.  Raises ValueError (or zlib.error)
+        critical section, under the protocol the wire's flags name; a
+        drain or replay wire is also counted (``note_flagged_import``;
+        the effects of recovery and handoff are not in this server); a
+        trace header parents the ``import`` span under the sender's
+        forward span.  Raises ValueError (or zlib.error)
         on a malformed body, before anything is merged.  Returns the
         accepted item count."""
         t0 = time.monotonic_ns()
@@ -339,9 +384,19 @@ class Server:
         self.bump("imports_received", acc)
         self.bump("metrics_dropped", dropped)
         self.bump("import_flagged_wires", int(flagged))
+        self.note_flagged_import(flags, acc)
         self.bump("import_response_ns", time.monotonic_ns() - t0)
         self.bump("import_responses")
         return acc
+
+    def note_flagged_import(self, flags: dict, accepted: int) -> None:
+        """Count a peer's drain wire (its shutdown handoff) or replay
+        wire (its spool, after riding out our outage): both stage into
+        the current interval, late but counted."""
+        for key in ("drain", "replay"):
+            if flags[key]:
+                self.bump(f"{key}_wires_received")
+                self.bump(f"{key}_items_received", accepted)
 
     def note_import_span(self, protocol: str, accepted: int,
                          dropped: int, trace_id: int, span_id: int,
@@ -641,7 +696,8 @@ class Server:
             if self.is_local and res.forward:
                 with cyc.stage("forward") as sp:
                     sp.add_tag("rows", str(len(res.forward)))
-                    self._forward(res.forward, cyc.wire_context(sp), led)
+                    self._forward(res.forward, cyc.wire_context(sp), led,
+                                  cyc, sp)
             self.span_worker.flush()
         with self._stats_lock:
             sink_durs = dict(self._sink_durations)
@@ -690,38 +746,274 @@ class Server:
                     self._sink_durations.get(sink.name, 0)
                     + time.monotonic_ns() - t0)
 
-    def _forward(self, rows: list[ForwardRow], trace_ctx, led) -> None:
+    def _forward(self, rows: list[ForwardRow], trace_ctx, led, cyc=None,
+                 span=None) -> None:
         """Ship a flush's mergeable state upstream, over gRPC or HTTP
         (flusher.go:82-99); ``trace_ctx`` is the forward stage span's
         (trace_id, span_id), stamped on the wire unless
-        ``tpu_trace_propagation`` is off."""
+        ``tpu_trace_propagation`` is off.  ``cyc``/``span`` are the flush
+        cycle and its forward span: the sharded path hangs one child
+        span per destination off it.  A failure here never aborts the
+        flush."""
         t0 = time.monotonic_ns()
         if not self.config.tpu_trace_propagation:
             trace_ctx = None
         try:
             if self.config.forward_use_grpc:
-                self._forward_grpc(rows, trace_ctx, led)
-            else:
-                self._forward_http(rows, trace_ctx, led)
+                fwd = self._sharded_forwarder()
+                if fwd is not None:
+                    self._forward_sharded(fwd, rows, trace_ctx, led, cyc,
+                                          span)
+                else:
+                    self._forward_grpc(rows, trace_ctx, led)
+                return
+            if self.config.tpu_sharded_global:
+                # the split rides MetricList wires: the HTTP path falls
+                # back to one POST
+                self.bump("sharded_forward_fallbacks")
+            self._forward_http(rows, trace_ctx, led)
+        except Exception as e:
+            self.bump("metrics_dropped", len(rows))
+            self.bump("forward_errors")
+            if led is not None:
+                self.ledger.credit_forward_wire(led, errors=1)
+            log.exception("forward failed: %s", e)
         finally:
             self.bump("forward_duration_ns", time.monotonic_ns() - t0)
             self.bump("forward_post_metrics", len(rows))
+
+    def _sharded_forwarder(self) -> ShardedForwarder | None:
+        """The ShardedForwarder, built at the first forward, when
+        ``tpu_sharded_global`` is on; None keeps the single-global
+        path."""
+        if not self.config.tpu_sharded_global:
+            return None
+        if self._sharded_fwd is None:
+            cfg = self.config
+            addrs = [a.strip() for a in cfg.forward_address.split(",")
+                     if a.strip()]
+            discoverer = None
+            service = "forward"
+            if cfg.consul_forward_service_name:
+                discoverer = ConsulDiscoverer(cfg.consul_url)
+                service = cfg.consul_forward_service_name
+                self._fwd_refresh_interval = \
+                    cfg.consul_refresh_interval_seconds()
+            spool = None
+            if cfg.tpu_forward_spool:
+                spool = WireSpool(
+                    max_bytes=cfg.tpu_forward_spool_max_bytes,
+                    max_age=cfg.forward_spool_max_age_seconds(),
+                    dir=cfg.tpu_forward_spool_dir or None)
+            self._sharded_fwd = ShardedForwarder(
+                addrs, compression=float(cfg.tpu_compression),
+                discoverer=discoverer, service=service,
+                retry_budget=max(self.interval * 0.9, 1.0),
+                breaker_threshold=cfg.tpu_breaker_threshold,
+                breaker_cooldown=cfg.breaker_cooldown_seconds(),
+                spool=spool, on_replay=self._on_spool_replay)
+        return self._sharded_fwd
+
+    def _on_spool_replay(self, dest: str, n_items: int) -> None:
+        """Worker-thread callback: one spooled wire replayed to a
+        recovered destination (the ledger takes the replay by delta at
+        the next flush)."""
+        self.bump("replay_wires_sent")
+        self.bump("replay_items_sent", n_items)
+
+    def _forward_sharded(self, fwd: ShardedForwarder, rows, trace_ctx,
+                         led, cyc, span) -> None:
+        """Split the flush's forward wire by route-key hash across the
+        global ring and hand each destination's body to its worker
+        (``veneur_tpu/core/server.py`` ``_forward_sharded``; the port
+        has no collective stage).  The routing counts credit the
+        ledger's split synchronously; wire outcomes land through the
+        workers' callbacks.  A destination whose breaker is open gets
+        its wire spooled without taking a queue slot; a drain flush
+        never spools.  The tail waits for this flush's wires until the
+        deadline, then sweeps the spool, credits replays since the last
+        flush and seals a spool-ledger snapshot."""
+        # throttled discovery poll, so a scale-out reshards the ring
+        # before this flush routes (keep-last-good on failure)
+        if self._fwd_refresh_interval > 0 and not self._draining:
+            now = time.monotonic()
+            if now >= self._fwd_refresh_next:
+                self._fwd_refresh_next = now + self._fwd_refresh_interval
+                try:
+                    fwd.refresh()
+                except Exception:
+                    log.exception("forward discovery refresh failed")
+        # one ring snapshot per flush
+        ring = fwd.ring
+        data = fwd.serialize(rows)
+        routed = None
+        try:
+            routed = fwd.route(data, ring=ring)
+        except Exception:
+            log.exception("columnar forward route failed; falling back "
+                          "to the per-row path")
+        if routed is not None:
+            batches = [(routed.members[d], body, n)
+                       for d, body, n in routed.batches]
+            if routed.dropped:
+                self.bump("metrics_dropped", routed.dropped)
+                if led is not None:
+                    self.ledger.credit_forward_split(
+                        led, dropped=routed.dropped)
+        else:
+            self.bump("sharded_route_fallbacks")
+            batches = fwd.route_rows_scalar(rows)
+        # a membership change since the last flush: credit the moved
+        # arcs (rows whose owner differs under the pre-swap ring) so the
+        # record names a rebalance, not a loss
+        resh = fwd.take_reshard()
+        if resh is not None:
+            epoch, added, removed, prev_ring = resh
+            moved = 0
+            prev_routed = None
+            if routed is not None:
+                try:
+                    prev_routed = fwd.route(data, ring=prev_ring)
+                except Exception:
+                    log.exception("pre-reshard route diff failed")
+            if prev_routed is not None:
+                old_counts: dict[str, int] = {}
+                for d, _body, n in prev_routed.batches:
+                    m = prev_routed.members[d]
+                    old_counts[m] = old_counts.get(m, 0) + n
+                new_counts: dict[str, int] = {}
+                for d, _body, n in routed.batches:
+                    m = routed.members[d]
+                    new_counts[m] = new_counts.get(m, 0) + n
+                moved = sum(max(0, new_counts.get(m, 0)
+                                - old_counts.get(m, 0))
+                            for m in set(new_counts) | set(old_counts))
+            if led is not None:
+                self.ledger.credit_reshard(led, epoch, added, removed,
+                                           moved)
+            self.bump("forward_reshards")
+            self.bump("forward_reshard_moved_rows", moved)
+        # no send may block past the interval budget (a drain gets a
+        # wider floor so the final wires land before exit)
+        budget = max(self.interval * 0.9, 1.0)
+        if self._draining:
+            budget = max(self.interval, 5.0)
+        deadline = time.monotonic() + budget
+        done: list[threading.Event] = []
+        for dest, body, n in batches:
+            if not self._draining and fwd.should_spool(dest):
+                if fwd.spool.put(dest, body, n):
+                    self.bump("forward_spooled_wires")
+                    self.bump("forward_spooled_items", n)
+                    if led is not None:
+                        self.ledger.credit_forward_spooled(led, n)
+                else:
+                    # one body over the spool's byte cap: an attributed
+                    # drop
+                    self.bump("forward_spool_rejected_items", n)
+                    self.bump("metrics_dropped", n)
+                    if led is not None:
+                        self.ledger.credit_forward_split(led, dropped=n)
+                continue
+            ch = None
+            if cyc is not None and span is not None:
+                ch = cyc.child(span, "forward.shard",
+                               {"dest": dest, "rows": str(n)})
+            wire_ctx = trace_ctx
+            if trace_ctx and ch is not None and ch.trace_id:
+                # each shard's wire parents the remote import span
+                # under its own branch
+                wire_ctx = (ch.trace_id, ch.span_id)
+            landed = threading.Event()
+
+            def _result(dest, n_items, err, retries, ch=ch,
+                        nbytes=len(body), landed=landed):
+                if err is None:
+                    if led is not None:
+                        self.ledger.credit_forward_wire(
+                            led, rows=n_items, nbytes=nbytes)
+                elif isinstance(err, Spooled):
+                    # absorbed into the spool, not dropped: the spool
+                    # ledger owns these rows from here
+                    self.bump("forward_spooled_async_items", n_items)
+                    self.bump("forward_errors")
+                    if led is not None:
+                        self.ledger.credit_spool_outcome(
+                            led, spooled_async=n_items)
+                        self.ledger.credit_forward_wire(led, errors=1)
+                else:
+                    self.bump("metrics_dropped", n_items)
+                    self.bump("forward_errors")
+                    if _is_deadline_error(err):
+                        self.bump("forward_timeout_dropped", n_items)
+                        if led is not None:
+                            self.ledger.credit_forward_timeout(
+                                led, dest, n_items)
+                    if led is not None:
+                        self.ledger.credit_forward_wire(led, errors=1)
+                if ch is not None:
+                    if err is not None:
+                        ch.set_error(err)
+                    if retries:
+                        ch.add_tag("retries", str(retries))
+                    cyc.finish(ch)
+                landed.set()
+
+            if fwd.send(dest, body, n, trace_context=wire_ctx,
+                        on_result=_result, deadline=deadline,
+                        drain=self._draining):
+                self.bump("forward_shard_wires")
+                if self._draining:
+                    self.bump("drain_wires_sent")
+                    self.bump("drain_items_sent", n)
+                done.append(landed)
+                if led is not None:
+                    self.ledger.credit_forward_split(led, dest, n)
+            else:
+                # bounded-queue busy-drop: the wedged shard loses its
+                # own wire, the others sail on
+                self.bump("forward_busy_dropped", n)
+                self.bump("metrics_dropped", n)
+                if led is not None:
+                    self.ledger.credit_forward_split(led, dropped=n)
+                if ch is not None:
+                    ch.add_tag("busy_dropped", "true")
+                    ch.set_error(True)
+                    cyc.finish(ch)
+        for landed in done:
+            if not landed.wait(max(0.0, deadline - time.monotonic())):
+                self.bump("forward_shard_overruns")
+        if fwd.spool is not None:
+            expired = fwd.spool.sweep()
+            if expired:
+                self.bump("spool_expired_swept_items", expired)
+            replayed_now = fwd.replayed_items
+            delta = replayed_now - self._replayed_credited
+            if delta > 0:
+                self._replayed_credited = replayed_now
+                if led is not None:
+                    self.ledger.credit_spool_outcome(led, replayed=delta)
+            self._spool_ledger.seal_snapshot(
+                fwd.spool.stats(), seq=led.seq if led is not None else 0)
 
     def _forward_http(self, rows: list[ForwardRow], trace_ctx=None,
                       led=None) -> None:
         """POST a flush's forward rows to the global's /import (the
         reference's flusher.go flushForward); a failed send drops and
-        counts the rows and logs, as the reference does."""
+        counts the rows and logs, as the reference does.  The drain
+        flush's POST carries the drain header."""
         try:
             if self.config.forward_json_schema == "reference":
                 body, headers = http_import.encode_rows_reference(
                     rows, compression=float(self.config.tpu_compression))
             else:
                 body, headers = http_import.encode_rows(rows)
+            headers = dict(headers)
             if trace_ctx and trace_ctx[0]:
-                headers = dict(headers)
                 headers[http_import.TRACE_HEADER] = \
                     http_import.encode_trace_header(*trace_ctx)
+            if self._draining:
+                headers[http_import.DRAIN_HEADER] = "1"
             url = self.config.forward_address.rstrip("/") + "/import"
             if not url.startswith("http"):
                 url = "http://" + url
@@ -737,6 +1029,7 @@ class Server:
             log.warning("forward failed: %s", e)
             return
         self.bump("forwarded_rows", len(rows))
+        self._note_drain_sent(len(rows))
         if led is not None:
             self.ledger.credit_forward_wire(led, rows=len(rows),
                                             nbytes=len(body))
@@ -745,13 +1038,15 @@ class Server:
                       led=None) -> None:
         """Send a flush's forward rows to the global's Forward service
         through a client dialled once (flusher.go:499 forwardGRPC); a
-        failed send drops and counts the rows and logs, never retried."""
+        failed send drops and counts the rows and logs, never retried.
+        The drain flush's wire carries the drain flag."""
         if self._grpc_client is None:
             self._grpc_client = grpc_forward.ForwardClient(
                 self.config.forward_address,
                 compression=float(self.config.tpu_compression))
         try:
-            self._grpc_client.send(rows, trace_context=trace_ctx)
+            self._grpc_client.send(rows, trace_context=trace_ctx,
+                                   drain=self._draining)
         except grpc.RpcError as e:
             self.bump("metrics_dropped", len(rows))
             self.bump("forward_errors")
@@ -760,8 +1055,29 @@ class Server:
             log.warning("grpc forward failed: %s", e)
             return
         self.bump("forwarded_rows", len(rows))
+        self._note_drain_sent(len(rows))
         if led is not None:
             self.ledger.credit_forward_wire(led, rows=len(rows))
+
+    def _note_drain_sent(self, n_rows: int) -> None:
+        if self._draining:
+            self.bump("drain_wires_sent")
+            self.bump("drain_items_sent", n_rows)
+
+    def _drain_handoff(self) -> None:
+        """The final-interval handoff: one last flush whose forward
+        wires are flagged drain, so the receiving global books this
+        local's staged samples past its interval cutoff and a rolling
+        restart conserves them.  Runs before the shutdown flag is
+        set."""
+        self._draining = True
+        try:
+            self.flush_once()
+            self.bump("drain_flushes")
+        except Exception:
+            log.exception("drain handoff flush failed")
+        finally:
+            self._draining = False
 
     # ------------------------------------------------------------------
     # signal history, flight recorder, fleet view, /debug/vars
@@ -771,9 +1087,10 @@ class Server:
         """One row of every internal signal, in the reference's fixed
         schema (``veneur_tpu/core/server.py`` ``_signal_row``): called
         with no arguments at construction to derive the schema.  A
-        subsystem the port does not run yet (pressure, shedding,
-        breakers, the spool, the collective path, sink workers,
-        handoff and recovery) samples 0."""
+        subsystem the port does not run yet (pressure, shedding, the
+        collective path, sink workers, handoff and recovery) samples
+        0, as do the forward's columns until the sharded forwarder is
+        built."""
         with self._stats_lock:
             st = dict(self.stats)
         row = {
@@ -834,16 +1151,30 @@ class Server:
             if idx.capacity:
                 occ = max(occ, idx.occupancy() / idx.capacity)
         row["table.occupancy"] = round(occ, 6)
-        for key in ("breaker.closed", "breaker.half_open",
-                    "breaker.open", "breaker.opens_total",
-                    "forward.sent_items", "forward.error_items",
-                    "forward.busy_dropped_items",
-                    "forward.replayed_items", "forward.queued",
-                    "forward.destinations", "reshard.epoch",
-                    "reshard.moved_rows", "spool.queued_items",
-                    "spool.queued_bytes", "spool.spooled_items",
-                    "spool.replayed_items", "spool.expired_items",
-                    "spool.inflight_items", "forward.collective.cycles",
+        fwd = self._sharded_fwd
+        states = fwd.breaker_states() if fwd is not None else {}
+        for state in ("closed", "half_open", "open"):
+            row[f"breaker.{state}"] = sum(
+                1 for b in states.values() if b["state"] == state)
+        tot = fwd.totals() if fwd is not None else {}
+        row["breaker.opens_total"] = tot.get("breaker_opens", 0)
+        row["forward.sent_items"] = tot.get("sent_items", 0)
+        row["forward.error_items"] = tot.get("error_items", 0)
+        row["forward.busy_dropped_items"] = tot.get(
+            "busy_dropped_items", 0)
+        row["forward.replayed_items"] = tot.get("replayed_items", 0)
+        row["forward.queued"] = sum(
+            w.get("queued", 0)
+            for w in (fwd.stats() if fwd is not None else {}).values())
+        disc = fwd.discovery_stats() if fwd is not None else {}
+        row["forward.destinations"] = len(disc.get("members", ()))
+        row["reshard.epoch"] = disc.get("epoch", 0)
+        row["reshard.moved_rows"] = st.get("forward_reshard_moved_rows", 0)
+        sp = (fwd.spool_stats() if fwd is not None else None) or {}
+        for key in ("queued_items", "queued_bytes", "spooled_items",
+                    "replayed_items", "expired_items", "inflight_items"):
+            row[f"spool.{key}"] = sp.get(key, 0)
+        for key in ("forward.collective.cycles",
                     "forward.collective.rows",
                     "forward.collective.rejected_rows",
                     "forward.collective.fallback_cycles",
@@ -900,9 +1231,20 @@ class Server:
         if rec is not None:
             out["flush_record"] = rec.to_dict()
             out["trace"] = self.trace_index.get(rec.trace_id)
+        out.update(self._forward_vars())
+        out["spool_ledger"] = self._spool_ledger.summary()
         with self._stats_lock:
             out["stats"] = dict(self.stats)
         return out
+
+    def _forward_vars(self) -> dict:
+        """The sharded forward's state: ring membership and refresh
+        health, per-destination breakers, and the spool (None when off
+        or the forwarder never built)."""
+        fwd = self._sharded_fwd
+        return {"discovery": fwd.discovery_stats() if fwd else {},
+                "breakers": fwd.breaker_states() if fwd else {},
+                "spool": fwd.spool_stats() if fwd else None}
 
     def _scrape_peer(self, addr: str) -> dict:
         url = addr if "://" in addr else f"http://{addr}"
@@ -958,8 +1300,10 @@ class Server:
             # handlers
             "forward": {"decode_scratch_bytes":
                         grpc_forward.decode_scratch_bytes()},
+            **self._forward_vars(),
             "planes": self.table.plane_bytes(),
             "ledger": self.ledger.summary(),
+            "spool_ledger": self._spool_ledger.summary(),
             "signals": (self.signals.summary()
                         if self.signals is not None else None),
             "flight": (self.flight.stats()
@@ -995,6 +1339,12 @@ class Server:
             self._pprof_lock.release()
 
     def shutdown(self) -> None:
+        """Stop the server.  A local first drains (``_drain_handoff``,
+        unless ``tpu_drain_on_shutdown`` is off); a global never does."""
+        if (not self._shutdown.is_set()
+                and self.config.tpu_drain_on_shutdown
+                and self.config.is_local()):
+            self._drain_handoff()
         self._shutdown.set()
         if self._httpd is not None:
             self._httpd.shutdown()
@@ -1012,6 +1362,8 @@ class Server:
         if self._grpc_client is not None:
             self._grpc_client.close()
             self._grpc_client = None
+        if self._sharded_fwd is not None:
+            self._sharded_fwd.stop()
         self._stop_profiling()
         self.trace_client.close()
         self.span_worker.stop()

@@ -8,9 +8,11 @@ subsystems the port runs: worker, packet, import and forward counts,
 the flush's total and per-stage durations, the device-cost registry
 (``veneur.device.*``; ``veneur.xla.*`` counts the builds of the port's
 native and CUDA libraries), the ledger's verdict, the tier accounting,
-the signal history and flight recorder, gc and memory.  The metrics of
-the spool, breakers, checkpoints, overload, span sinks and the
-collective path come with those subsystems.
+the signal history and flight recorder, the sharded forward (its
+wires, busy drops, fallbacks, reshards, deadline drops, breakers,
+spool and discovery health), drain and replay traffic in both
+directions, gc and memory.  The metrics of checkpoints, overload, span
+sinks and the collective path come with those subsystems.
 
 Two emission paths, as in the reference:
 - ``stats_address`` set: DogStatsD datagrams to an external agent
@@ -180,6 +182,92 @@ class Telemetry:
                   tally.get(mtype, 0), (f"metric_type:{mtype}",))
         count("veneur.forward.post_metrics_total",
               self._delta("forward_post_metrics"))
+        # sharded global forward: per-destination wires shipped, items
+        # busy-dropped on a wedged shard's bounded queue, and the
+        # fail-open takes (columnar router -> per-row path, or sharded
+        # -> the single-destination HTTP POST)
+        count("veneur.forward.shard.wires_total",
+              self._delta("forward_shard_wires"))
+        count("veneur.forward.shard.busy_dropped_total",
+              self._delta("forward_busy_dropped"))
+        count("veneur.forward.shard.fallback_total",
+              self._delta("sharded_route_fallbacks"), ("reason:route",))
+        count("veneur.forward.shard.fallback_total",
+              self._delta("sharded_forward_fallbacks"),
+              ("reason:forward",))
+        # live reshards, the rows they moved, and rows dropped because
+        # a send missed the interval deadline
+        count("veneur.forward.shard.reshards_total",
+              self._delta("forward_reshards"))
+        count("veneur.forward.shard.moved_rows_total",
+              self._delta("forward_reshard_moved_rows"))
+        count("veneur.forward.shard.timeout_dropped_total",
+              self._delta("forward_timeout_dropped"))
+        # drain and replay traffic, both directions: wires this node
+        # sent (its shutdown flush; its spool after a destination
+        # recovered) and flagged wires accepted from peers
+        for key, metric in (
+                ("drain_wires_sent", "veneur.forward.drain.wires_total"),
+                ("drain_items_sent", "veneur.forward.drain.items_total"),
+                ("drain_wires_received",
+                 "veneur.import.drain_wires_total"),
+                ("drain_items_received",
+                 "veneur.import.drain_items_total"),
+                ("replay_wires_sent", "veneur.forward.replay.wires_total"),
+                ("replay_items_sent", "veneur.forward.replay.items_total"),
+                ("replay_wires_received",
+                 "veneur.import.replay_wires_total"),
+                ("replay_items_received",
+                 "veneur.import.replay_items_total")):
+            count(metric, self._delta(key))
+        fwd = self.server._sharded_fwd
+        if fwd is not None:
+            # discovery refresh errors by reason (keep-last-good)
+            disc = fwd.discovery_stats()
+            for reason, total in sorted(
+                    disc.get("refresh_errors", {}).items()):
+                key = f"discovery_refresh_errors_{reason}"
+                stats[key] = int(total)
+                count("veneur.discovery.refresh_errors_total",
+                      self._delta(key), (f"reason:{reason}",))
+            # per-destination breakers: state gauge (0 closed, 1
+            # half-open, 2 open), trips and short-circuited sends
+            for dest, bs in sorted(fwd.breaker_states().items()):
+                gauge("veneur.forward.breaker.state", bs["state_code"],
+                      (f"destination:{dest}",))
+                key = f"breaker_opens_{dest}"
+                stats[key] = int(bs["opens"])
+                count("veneur.forward.breaker.opens_total",
+                      self._delta(key), (f"destination:{dest}",))
+                key = f"breaker_short_circuits_{dest}"
+                stats[key] = int(bs["short_circuits"])
+                count("veneur.forward.breaker.short_circuit_total",
+                      self._delta(key), (f"destination:{dest}",))
+            # the spool: lifetime intake and replay, expiry by reason,
+            # and the live backlog
+            sp = fwd.spool_stats()
+            if sp is not None:
+                for skey, metric in (
+                        ("spooled_items",
+                         "veneur.forward.spool.spooled_items_total"),
+                        ("replayed_items",
+                         "veneur.forward.spool.replayed_items_total"),
+                        ("rejected_items",
+                         "veneur.forward.spool.rejected_items_total")):
+                    key = f"spool_{skey}"
+                    stats[key] = int(sp[skey])
+                    count(metric, self._delta(key))
+                for reason, n in sorted(sp["expired_by_reason"].items()):
+                    key = f"spool_expired_{reason}"
+                    stats[key] = int(n)
+                    count("veneur.forward.spool.expired_items_total",
+                          self._delta(key), (f"reason:{reason}",))
+                gauge("veneur.forward.spool.queued_items",
+                      sp["queued_items"])
+                gauge("veneur.forward.spool.queued_bytes",
+                      sp["queued_bytes"])
+        count("veneur.ledger.spool_imbalance_total",
+              self._delta("spool_ledger_imbalance"))
         fwd_ns = self._delta("forward_duration_ns")
         if fwd_ns:
             timer("veneur.forward.duration_ns", fwd_ns)

@@ -48,9 +48,11 @@ _METHOD = "/forwardrpc.Forward/SendMetrics"
 
 # Invocation metadata the reference's tiers exchange beside the wire
 # (keys are lowercase ASCII).  As on the HTTP path, the trace context
-# parents the import span and the flags name the ledger protocol; their
-# other effects (spool, checkpoints, arc handoff) are not ported.  Every
-# decoder fails open: a bad or missing key never rejects an import.
+# parents the import span and the flags name the ledger protocol; a
+# drain or replay wire is also counted (``drain_*_received``,
+# ``replay_*_received``); the effects of recovery and handoff
+# (checkpoint dedup, arc handoff) are not ported.  Every decoder fails
+# open: a bad or missing key never rejects an import.
 TRACE_ID_KEY = "veneur-trace-id"
 SPAN_ID_KEY = "veneur-span-id"
 DRAIN_KEY = "veneur-drain"
@@ -748,6 +750,7 @@ class ImportServer:
             core.bump("received_grpc", acc + dropped)
             core.bump("metrics_dropped", dropped)
             core.bump("import_flagged_wires", int(flagged))
+            core.note_flagged_import(flags, acc)
             core.note_import_span("grpc", acc, dropped, *flags["trace"],
                                   nbytes=len(request))
         except DecodeError as e:
@@ -808,16 +811,20 @@ class ForwardClient:
                        metadata=metadata)
 
     def send(self, rows: list[ForwardRow],
-             trace_context: tuple[int, int] | None = None) -> None:
+             trace_context: tuple[int, int] | None = None,
+             drain: bool = False) -> None:
         """Encode and send a flush's rows; ``trace_context`` = (trace_id,
         span_id) of the sending flush cycle, stamped as invocation
-        metadata when set.  Raises grpc.RpcError on failure."""
-        metadata = None
+        metadata when set; ``drain`` flags the wire as a shutdown
+        handoff.  Raises grpc.RpcError on failure."""
+        metadata = []
         if trace_context and trace_context[0] and trace_context[1]:
             metadata = [(TRACE_ID_KEY, str(trace_context[0])),
                         (SPAN_ID_KEY, str(trace_context[1]))]
+        if drain:
+            metadata.append((DRAIN_KEY, "1"))
         self._call(rows_to_metric_list(rows, self._compression),
-                   timeout=self._timeout, metadata=metadata)
+                   timeout=self._timeout, metadata=metadata or None)
 
     def close(self) -> None:
         self._channel.close()

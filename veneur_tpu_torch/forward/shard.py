@@ -1,0 +1,398 @@
+"""Sharded global forward: consistent-hash keyspace split of the
+local tier's forward wire across M global destinations.
+
+Port of ``veneur_tpu/forward/shard.py``.  Without it every keyspace
+funnels into the ONE node named by ``forward_address``.  Gated by
+``tpu_sharded_global`` (``VENEUR_TPU_SHARDED_GLOBAL``), the flush's
+forward rows are serialized ONCE into a MetricList wire and split by
+route-key hash across the global members, reusing the proxy's
+vectorized routing machinery end to end:
+
+- ``route_metric_list`` — native columnar decode + ``vtpu_proxy_keyhash``
+  off-the-wire hashing + ``ConsistentRing.assign`` owner vectors +
+  ``vtpu_metriclist_spans`` ragged byte gather into per-destination
+  MetricList bodies (plain slices of one destination-major blob)
+- ``DestinationPool`` — one bounded worker per global, so a wedged
+  shard busy-drops its own wires instead of stalling the others
+- ``ForwardClient.send_wire`` — the pre-serialized bodies go out
+  verbatim on cached per-destination channels
+
+Membership is LIVE: the forwarder owns a ``DestinationRing`` (static
+list when ``forward_address`` names the members, Consul/Kubernetes
+discovery otherwise), and ``refresh()``/``set_members()`` swap a new
+``ConsistentRing`` epoch mid-stream.  A swap retires departed members'
+workers and cached clients and leaves a pending reshard record
+(``take_reshard``) carrying the pre-swap ring, so the server can diff
+per-destination routed counts old-vs-new and credit the moved arcs in
+the ledger — a rebalance is accounted, not mistaken for a loss.
+
+With M=1 the routed body is the concatenation of every record span in
+wire order — byte-identical to the legacy single-global send (pinned
+as the parity oracle in tests).  When the native router can't run the
+scalar fallback groups rows by the same ``name|type|tags`` key the
+wire hasher streams (``row_route_key``), so the split survives with
+identical ownership, just slower.
+
+Mergeable sketches make the split safe: counters/sets/digest unions
+are order-independent CRDT merges, so M independent globals each own
+an exact subset of the keyspace.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+import time
+
+from veneur_tpu_torch.forward.destpool import DestinationPool
+from veneur_tpu_torch.forward.discovery import (DestinationRing,
+                                                StaticDiscoverer)
+from veneur_tpu_torch.forward.grpc_forward import (DRAIN_KEY, REPLAY_KEY,
+                                                   SPAN_ID_KEY,
+                                                   TRACE_ID_KEY,
+                                                   _TYPE_TO_PB,
+                                                   ForwardClient,
+                                                   rows_to_metric_list)
+from veneur_tpu_torch.forward.ring import ConsistentRing
+from veneur_tpu_torch.forward.route import (_TYPE_NAMES, RoutedWire,
+                                            route_metric_list)
+from veneur_tpu_torch.forward.spool import Spooled, WireSpool
+
+log = logging.getLogger("veneur_tpu_torch.forward.shard")
+
+
+class DeadlineExceeded(Exception):
+    """A forward send reached its worker after the interval deadline
+    already passed — the batch is dropped (and ledger-credited as a
+    timeout) instead of blocking into the next interval."""
+
+
+def row_route_key(row) -> str:
+    """The routing identity of one ForwardRow — exactly the
+    ``name|type|tags`` key ``vtpu_proxy_keyhash`` streams off the
+    serialized wire (and the proxy's ``_pb_key`` builds per item), so
+    the scalar fallback assigns every row to the same owner the
+    columnar path would."""
+    tname = _TYPE_NAMES[int(_TYPE_TO_PB[row.meta.type])].decode()
+    return f"{row.meta.name}|{tname}|{','.join(row.meta.tags)}"
+
+
+class ShardedForwarder:
+    """Route one flush's forward wire across the M-member global ring.
+
+    Owns the discovery-refreshed ring over the destination set, the
+    per-destination bounded workers, and the cached gRPC clients; the
+    server drives it from the ``flush.forward`` stage and keeps all
+    stats/ledger/trace crediting to itself (callbacks), so this stays
+    a pure routing + shipping surface that tests can drive without a
+    Server.
+    """
+
+    def __init__(self, addresses=(), compression: float = 100.0,
+                 timeout: float = 10.0,
+                 queue_size: int = 8, retries: int = 2,
+                 backoff: float = 0.25, discoverer=None,
+                 service: str = "forward",
+                 retry_budget: float | None = None,
+                 breaker_threshold: int = 5,
+                 breaker_cooldown: float = 5.0,
+                 spool: WireSpool | None = None,
+                 on_replay=None):
+        addresses = tuple(addresses)
+        if discoverer is None:
+            if not addresses:
+                raise ValueError(
+                    "sharded forward needs >= 1 destination")
+            discoverer = StaticDiscoverer(list(addresses))
+        self._disc_ring = DestinationRing(discoverer, service)
+        if addresses:
+            self._disc_ring.apply(addresses)
+        else:
+            self._disc_ring.refresh()
+        # seeding the initial membership is not a reshard
+        self._disc_ring.take_change()
+        self.addresses = self._disc_ring.snapshot().members
+        if not self.addresses:
+            raise ValueError("sharded forward needs >= 1 destination")
+        self.compression = float(compression)
+        self._timeout = timeout
+        self.spool = spool
+        self.on_replay = on_replay
+        self.replayed_wires = 0
+        self.replayed_items = 0
+        self.replay_failures = 0
+        self.pool = DestinationPool(queue_size=queue_size,
+                                    retries=retries, backoff=backoff,
+                                    retry_budget=retry_budget,
+                                    breaker_threshold=breaker_threshold,
+                                    breaker_cooldown=breaker_cooldown,
+                                    on_sent=self._maybe_replay)
+        self._clients: dict[str, object] = {}
+        self._clients_lock = threading.Lock()
+        self.reshards = 0
+        # (epoch, added, removed, prev_ring) merged across swaps since
+        # the server last took it — oldest prev_ring survives a burst
+        self._pending_reshard: tuple | None = None
+        self._reshard_lock = threading.Lock()
+
+    @property
+    def ring(self) -> ConsistentRing:
+        """The current membership epoch's immutable ring — one
+        lock-free snapshot per batch, so a whole flush hashes against
+        a single epoch even while discovery swaps underneath."""
+        return self._disc_ring.snapshot()
+
+    # -- live membership -----------------------------------------------
+
+    def refresh(self) -> bool:
+        """One discovery poll; on a membership change swaps the ring
+        epoch, retires departed workers/clients, and records the
+        pending reshard.  Keep-last-good on failure (the error is
+        counted in ``discovery_stats``)."""
+        changed = self._disc_ring.refresh()
+        if changed:
+            self._apply_change()
+        return changed
+
+    def set_members(self, members) -> bool:
+        """Explicit membership swap (config reload, drain handoff, or
+        chaos injection) — same rebalance path as :meth:`refresh`."""
+        changed = self._disc_ring.apply(members)
+        if changed:
+            self._apply_change()
+        return changed
+
+    def _apply_change(self) -> None:
+        change = self._disc_ring.take_change()
+        if change is None:
+            return
+        epoch, added, removed, prev = change
+        self.addresses = self._disc_ring.snapshot().members
+        # departed members: stop their bounded workers and close their
+        # cached channels — the leak a static member list never had
+        self.pool.retire(self.addresses)
+        if self.spool is not None:
+            # wires spooled for a member that left the ring for good
+            # will never replay there — expire them (reason
+            # ``retired``) so the spool ledger stays sealed
+            for dest in removed:
+                self.spool.drop_dest(dest)
+        evicted = []
+        with self._clients_lock:
+            for dest in removed:
+                cl = self._clients.pop(dest, None)
+                if cl is not None:
+                    evicted.append(cl)
+        for cl in evicted:
+            try:
+                cl.close()
+            except Exception:
+                pass
+        with self._reshard_lock:
+            self.reshards += 1
+            if self._pending_reshard is None:
+                self._pending_reshard = (epoch, added, removed, prev)
+            else:
+                _, a0, r0, prev0 = self._pending_reshard
+                a = sorted((set(a0) | set(added)) - set(removed))
+                r = sorted((set(r0) | set(removed)) - set(added))
+                self._pending_reshard = (epoch, a, r, prev0)
+        log.info("forward ring resharded (epoch %d): +%s -%s -> %d "
+                 "members", epoch, added, removed, len(self.addresses))
+
+    def take_reshard(self) -> tuple | None:
+        """Pop the pending membership change as (epoch, added,
+        removed, prev_ring); None when membership is unchanged since
+        the last take.  The server diffs routed counts against
+        ``prev_ring`` to credit moved arcs in the ledger."""
+        with self._reshard_lock:
+            resh, self._pending_reshard = self._pending_reshard, None
+            return resh
+
+    # -- wire assembly + routing ---------------------------------------
+
+    def serialize(self, rows) -> bytes:
+        """One MetricList wire for the whole flush — the single
+        serialization every destination's body is then a byte-gather
+        of."""
+        return rows_to_metric_list(
+            rows, self.compression).SerializeToString()
+
+    def route(self, data: bytes,
+              ring: ConsistentRing | None = None) -> RoutedWire | None:
+        """Columnar split of a serialized MetricList by route-key hash
+        against ``ring`` (default: the current epoch's snapshot); None
+        when the native path can't run (caller falls back to
+        :meth:`route_rows_scalar`)."""
+        return route_metric_list(
+            data, ring if ring is not None else self.ring)
+
+    def route_rows_scalar(self, rows) -> list[tuple[str, bytes, int]]:
+        """Per-row oracle fallback: group rows by the ring owner of
+        ``row_route_key`` and serialize one MetricList per
+        destination.  Same ownership as :meth:`route`, kept as the
+        fail-open path and the parity oracle."""
+        ring = self.ring
+        groups: dict[str, list] = {}
+        for row in rows:
+            groups.setdefault(
+                ring.get(row_route_key(row)), []).append(row)
+        return [(dest,
+                 rows_to_metric_list(
+                     batch, self.compression).SerializeToString(),
+                 len(batch))
+                for dest, batch in groups.items()]
+
+    # -- shipping ------------------------------------------------------
+
+    def client(self, dest: str):
+        with self._clients_lock:
+            cl = self._clients.get(dest)
+            if cl is None:
+                cl = ForwardClient(dest, timeout=self._timeout,
+                                   compression=self.compression)
+                self._clients[dest] = cl
+        return cl
+
+    def send(self, dest: str, body: bytes, n_items: int,
+             trace_context=None, on_result=None,
+             deadline: float | None = None,
+             drain: bool = False) -> bool:
+        """Enqueue one destination's body on its worker; False is a
+        busy-drop (bounded queue full — the wedged-shard isolation).
+        ``on_result(dest, n_items, err, retries)`` fires after the
+        final attempt.  ``deadline`` is an absolute ``time.monotonic``
+        cutoff: a send whose turn comes after it raises
+        :class:`DeadlineExceeded` instead of blocking past the
+        interval.  ``drain`` flags the wire as a shutdown handoff so
+        the receiving global accepts it past its interval cutoff —
+        and bypasses an open breaker (the final handoff is attempted
+        even to a flapping peer).
+
+        When a :class:`WireSpool` is attached, a send that fails for
+        any reason (breaker open, retry budget exhausted, deadline
+        missed) parks its body in the spool instead of dropping;
+        ``on_result`` then fires with :class:`Spooled` wrapping the
+        original error so the caller books an absorbed wire, not a
+        loss.  Drain wires never spool — shutdown is the last chance
+        to ship, not to buffer."""
+        md = []
+        if trace_context and trace_context[0] and trace_context[1]:
+            md.append((TRACE_ID_KEY, str(trace_context[0])))
+            md.append((SPAN_ID_KEY, str(trace_context[1])))
+        if drain:
+            md.append((DRAIN_KEY, "1"))
+        metadata = tuple(md) if md else None
+
+        def _ship(dest=dest, body=body, metadata=metadata,
+                  deadline=deadline):
+            timeout = None
+            if deadline is not None:
+                timeout = deadline - time.monotonic()
+                if timeout <= 0.0:
+                    raise DeadlineExceeded(
+                        f"forward to {dest} missed the interval "
+                        f"deadline")
+            self.client(dest).send_wire(body, timeout=timeout,
+                                        metadata=metadata)
+
+        spool = self.spool
+        if spool is not None and not drain:
+            orig_cb = on_result
+
+            def _absorb(dest_, n, err, tries, body=body,
+                        orig_cb=orig_cb):
+                if err is not None and spool.put(dest_, body, n):
+                    err = Spooled(err)
+                if orig_cb is not None:
+                    orig_cb(dest_, n, err, tries)
+
+            on_result = _absorb
+
+        return self.pool.submit(dest, _ship, n_items=n_items,
+                                on_result=on_result,
+                                bypass_breaker=drain)
+
+    def should_spool(self, dest: str) -> bool:
+        """Route-time decision: True when ``dest``'s breaker is open
+        (cooldown still running) and a spool is attached — the wire
+        goes straight to the spool without occupying a queue slot.
+        Returns False once the cooldown elapses so exactly one routed
+        wire rides through as the half-open probe."""
+        return self.spool is not None \
+            and not self.pool.would_allow(dest)
+
+    def _maybe_replay(self, dest: str) -> None:
+        """Drain the spool for a destination that just took a
+        successful send (runs ON its worker thread, so replay
+        serializes with normal sends).  Stops on the first failure:
+        the entry goes back to the front of the queue and the
+        breaker books the failure."""
+        spool = self.spool
+        if spool is None:
+            return
+        while True:
+            entry = spool.take(dest)
+            if entry is None:
+                return
+            body = entry.read()
+            if body is None:
+                # disk segment vanished underneath us: expired, never
+                # unattributed
+                spool.discard(entry, "age")
+                continue
+            try:
+                self.client(dest).send_wire(
+                    body, timeout=self._timeout,
+                    metadata=((REPLAY_KEY, "1"),))
+            except Exception as e:
+                spool.requeue(entry)
+                self.replay_failures += 1
+                br = self.pool.breaker(dest)
+                if br is not None:
+                    br.record_failure()
+                log.warning("spool replay to %s failed; requeued "
+                            "(%s)", dest, e)
+                return
+            spool.mark_replayed(entry)
+            self.replayed_wires += 1
+            self.replayed_items += entry.n_items
+            if self.on_replay is not None:
+                try:
+                    self.on_replay(dest, entry.n_items)
+                except Exception:
+                    pass
+
+    # -- lifecycle / introspection -------------------------------------
+
+    def discovery_stats(self) -> dict:
+        st = self._disc_ring.stats()
+        st["reshards"] = self.reshards
+        return st
+
+    def stats(self) -> dict:
+        return self.pool.stats()
+
+    def totals(self) -> dict:
+        out = self.pool.totals()
+        out["replayed_wires"] = self.replayed_wires
+        out["replayed_items"] = self.replayed_items
+        out["replay_failures"] = self.replay_failures
+        return out
+
+    def breaker_states(self) -> dict:
+        return self.pool.breaker_states()
+
+    def spool_stats(self) -> dict | None:
+        return None if self.spool is None else self.spool.stats()
+
+    def stop(self) -> None:
+        self.pool.stop()
+        with self._clients_lock:
+            clients = list(self._clients.values())
+            self._clients.clear()
+        for cl in clients:
+            try:
+                cl.close()
+            except Exception:
+                pass

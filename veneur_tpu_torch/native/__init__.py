@@ -163,6 +163,17 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         i64p, i32p,
         i64p, i32p,
         u64p]
+    lib.vtpu_metriclist_spans.restype = i64
+    lib.vtpu_metriclist_spans.argtypes = [
+        u8p, i64, i64, i64p, i64p, i64p]
+    lib.vtpu_proxy_keyhash.restype = None
+    lib.vtpu_proxy_keyhash.argtypes = [
+        u8p, i64,
+        i64p, i32p,
+        i32p,
+        i64p, i32p,
+        i64p, i32p,
+        u64p, u8p]
     return lib
 
 

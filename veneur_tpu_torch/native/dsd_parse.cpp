@@ -1842,4 +1842,80 @@ void vtpu_metriclist_keyhash(
   }
 }
 
+
+// Top-level record spans of a serialized MetricList: one (offset,
+// length) per `metrics` entry, INCLUDING the field tag + varint
+// length prefix, so a destination's re-encoded body is simply the
+// concatenation of its records' byte slices (proto wire concatenation
+// of repeated-field records is a valid message).  Non-metrics fields
+// are skipped (MetricList has none today).  Returns the record count,
+// -1 malformed, -2 capacity exceeded (out_needed holds the need).
+int64_t vtpu_metriclist_spans(const uint8_t* buf, int64_t n,
+                              int64_t cap, int64_t* rec_off,
+                              int64_t* rec_len, int64_t* out_needed) {
+  int64_t nm = 0, pos = 0;
+  while (pos < n) {
+    const int64_t start = pos;
+    uint64_t tag;
+    if (!read_varint(buf, n, &pos, &tag)) return -1;
+    if ((tag >> 3) != 1 || (tag & 7) != 2) {
+      if (!skip_field(buf, n, &pos, (uint32_t)(tag & 7))) return -1;
+      continue;
+    }
+    uint64_t mlen;
+    if (!read_varint(buf, n, &pos, &mlen)) return -1;
+    if (mlen > (uint64_t)(n - pos)) return -1;
+    pos += (int64_t)mlen;
+    if (nm < cap) {
+      rec_off[nm] = start;
+      rec_len[nm] = pos - start;
+    }
+    nm++;
+  }
+  out_needed[0] = nm;
+  return nm <= cap ? nm : -2;
+}
+
+// Proxy route-key hash: fmix64(fnv1a64("<name>|<typename>|<tags
+// joined by ','>")) streamed straight off the wire columns — the
+// EXACT bytes ProxyServer._pb_key assembles, so the vectorized
+// searchsorted router stays bit-parity with ConsistentRing.get on
+// the key string (ring._h) without materializing any key.  Metrics
+// whose type enum has no name (outside 0..4) set need_py=1 and the
+// caller hashes their str(enum) key in Python (the oracle's
+// fallback spelling).
+void vtpu_proxy_keyhash(const uint8_t* buf, int64_t nm,
+                        const int64_t* name_off,
+                        const int32_t* name_len,
+                        const int32_t* mtype,
+                        const int64_t* tag_start,
+                        const int32_t* tag_cnt,
+                        const int64_t* tag_off,
+                        const int32_t* tag_len,
+                        uint64_t* out_hash, uint8_t* need_py) {
+  static const char* kTypeNames[5] = {"counter", "gauge", "histogram",
+                                      "set", "timer"};
+  static const int64_t kTypeLens[5] = {7, 5, 9, 3, 5};
+  const uint8_t pipe = '|', comma = ',';
+  for (int64_t i = 0; i < nm; i++) {
+    const int32_t t = mtype[i];
+    if (t < 0 || t > 4) {
+      need_py[i] = 1;
+      out_hash[i] = 0;
+      continue;
+    }
+    need_py[i] = 0;
+    uint64_t h = fnv1a64(kFnvOffset, buf + name_off[i], name_len[i]);
+    h = (h ^ pipe) * kFnvPrime;
+    h = fnv1a64(h, (const uint8_t*)kTypeNames[t], kTypeLens[t]);
+    h = (h ^ pipe) * kFnvPrime;
+    const int64_t ts = tag_start[i];
+    for (int32_t j = 0; j < tag_cnt[i]; j++) {
+      if (j) h = (h ^ comma) * kFnvPrime;
+      h = fnv1a64(h, buf + tag_off[ts + j], tag_len[ts + j]);
+    }
+    out_hash[i] = fmix64(h);
+  }
+}
+
 }  // extern "C"
