@@ -16,8 +16,8 @@ Run from the root of a checkout.  Phases, one JSON line each:
    (union), K = 512 with unsorted state rows and K = 512 with f32
    subnormal keys and weights: mass, packing contract, no subnormal
    written, quantiles; times with CUDA events.  After phases 4, 6, 8,
-   9, 10 and 12 the same check runs at every other (R, K) they merged
-   at (the global folds with weighted centroids);
+   9, 10, 12 and 13 the same check runs at every other (R, K) they
+   merged at (the global folds with weighted centroids);
 3. ``entry("cuda")`` against ``entry("cpu")`` on the same arrays, then
    F1: f32 subnormal samples on every histogram path, a subnormal
    counter and a subnormal gauge through the table on the card and on
@@ -66,7 +66,7 @@ Run from the root of a checkout.  Phases, one JSON line each:
    once, then decoded and merged into a global table per interval
    (``decode_body`` + ``apply_import``, ``device_step`` at the staging
    bound, ``swap`` + flush): 10,000 timer series (the flat fold) over
-   two intervals plus one profiled, and 4,096 series (the stacked fold,
+   one interval plus one profiled, and 4,096 series (the stacked fold,
    one kernel launch per wire); each held against a CPU global on the
    same bodies and against the exact p99 of every local's samples;
 8. the global tier over gRPC (run right after phase 6): the flat
@@ -109,6 +109,28 @@ Run from the root of a checkout.  Phases, one JSON line each:
    as replay), a drain on ``shutdown()`` (booked as drain at both) —
    its union held to the same intervals into one global with no
    outage, the spool ledger and every ledger balanced;
+13. crash riding (run right after phase 10), the reference's overload
+   and chaos soaks at their non-QUICK sizes, each leg a line of its
+   gates: (a) ``bench.py --overload`` through a port ``Server`` (40,000
+   offered non-counter lines and 10,000 counters from 20 Zipf(1.5)
+   tenants against rate = burst = 50 buckets, then the pressure tiers at
+   level 3 and a flush overrun with its coalesced tick: every gate of
+   the reference, counters conserved exactly, every ledger balanced);
+   (b) the histogram width ladder at full width: 10,000 timer series
+   (300 gamma(2, 30) samples each) through a table at the server's
+   default sizes at pressure levels 0-3, each level's flush held to a
+   CPU table's at the same level (order-free values and sums bit for
+   bit, percentiles within rtol 2e-3 / atol 1e-3), merges at K = 256,
+   128 and 64 recorded, the p99 and p50 errors against exact reported;
+   (c) ``_chaos_crash(3000)``: port locals on the card as child
+   processes adopting a UDP socket this script binds and cloaks, the
+   first SIGKILLed after a fresh checkpoint segment, the second
+   recovering it over gRPC flagged recovery to a port global here (the
+   seven ``crash_*`` gates), then a global's staged timers checkpointed
+   and recovered through the import fold on the card, held to the CPU;
+   (d) ``_chaos_scale_out(1200, 48, 256)``: a port global hands its
+   departing arcs to a second (the four ``scaleout_*`` gates), their
+   union held to one global's flush;
 7. the chain: a global (HTTP and gRPC listeners) and three locals (one
    per /import schema, one forwarding over gRPC) as server processes on
    the card: the global flushes the JAX chain's ``lat.99percentile``
@@ -119,7 +141,8 @@ Run from the root of a checkout.  Phases, one JSON line each:
    ``import`` span under each local's ``flush.forward`` span (HTTP in
    both schemas, gRPC);
 11. the kernels line (launches by path, phase 12's as
-    ``routing_tiers``), then the last line
+    ``routing_tiers``, phase 13's as ``crash_riding``), then the last
+    line
     ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero before the last
@@ -132,6 +155,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import signal
 import socket
 import subprocess
 import sys
@@ -589,18 +613,19 @@ def exact_quantiles(bufs, p: float) -> dict:
     return dict(zip(uniq.tolist(), q.tolist()))
 
 
-def p99_errors(metrics, bufs, exact=None) -> np.ndarray:
-    """Relative error of every flushed p99 of a ``t<i>`` timer series
-    (tagged ``env:smoke``) against the exact p99 of the text's values
-    (``exact``, when the caller has it already)."""
+def p99_errors(metrics, bufs, exact=None, pct: int = 99) -> np.ndarray:
+    """Relative error of every flushed p99 (``pct``) of a ``t<i>`` timer
+    series (tagged ``env:smoke``) against the exact quantile of the
+    text's values (``exact``, when the caller has it already)."""
     from veneur_tpu_torch.protocol import columnar
     from veneur_tpu_torch.utils import hashing
     if exact is None:
-        exact = exact_quantiles(bufs, 0.99)
+        exact = exact_quantiles(bufs, pct / 100)
     est = {}
+    suffix = f".{pct}percentile"
     for m in metrics:
-        if m.name.startswith("t") and m.name.endswith(".99percentile"):
-            name = m.name[:-len(".99percentile")]
+        if m.name.startswith("t") and m.name.endswith(suffix):
+            name = m.name[:-len(suffix)]
             est[hashing.key_hash64(name, columnar.CODE_TIMER,
                                    ("env:smoke",), 0)] = m.value
     check(est.keys() == exact.keys(), "timer series differ between the "
@@ -609,11 +634,13 @@ def p99_errors(metrics, bufs, exact=None) -> np.ndarray:
 
 
 def compare_flush(dev_metrics, cpu_metrics,
-                  hold_percentiles: bool = True) -> dict:
+                  hold_percentiles: bool = True,
+                  sums_exact: bool = False) -> dict:
     """Hold a flush to another: order-free values bit for bit, sums to
-    rtol 1e-6, percentiles to rtol 2e-3 / atol 1e-3 (with
-    ``hold_percentiles`` false they are only measured: how many fall
-    outside that tolerance, and the largest relative gap)."""
+    rtol 1e-6 (``sums_exact``: bit for bit), percentiles to rtol 2e-3 /
+    atol 1e-3 (with ``hold_percentiles`` false they are only measured:
+    how many fall outside that tolerance, and the largest relative
+    gap)."""
     d = {(m.name, m.tags): m.value for m in dev_metrics}
     c = {(m.name, m.tags): m.value for m in cpu_metrics}
     check(d.keys() == c.keys(), "cuda and cpu flushes emit different "
@@ -633,7 +660,8 @@ def compare_flush(dev_metrics, cpu_metrics,
                                    abs(dv - cv) / max(abs(cv), 1e-30))
         elif name.endswith(".sum"):
             rel = abs(dv - cv) / max(abs(cv), 1e-30)
-            check(rel <= 1e-6, f"{key}: {dv} vs {cv}")
+            check(rel == 0 if sums_exact else rel <= 1e-6,
+                  f"{key}: {dv} vs {cv}")
             worst["sum"] = max(worst["sum"], rel)
         else:
             check(dv == cv, f"{key}: {dv} vs {cv} not bit-equal")
@@ -1687,9 +1715,9 @@ def phase_global(dev: str = "cuda", scale: int = 1, n_wires: int = N_WIRES,
                           "encode_s": wt["grpc_encode_s"],
                           "bytes": wt["grpc_bytes"]}
         del wires, texts, table, res, runs
-    out["cut"] = ("the flat shape two intervals plus one profiled, the "
-                  "stacked shape one; the wires are built once, outside "
-                  "the timed window")
+    out["cut"] = (f"the flat shape {intervals} timed interval(s) plus "
+                  "one profiled, the stacked shape one; the wires are "
+                  "built once, outside the timed window")
     emit(out)
     out["shapes"] = shapes
     if with_grpc:
@@ -2415,6 +2443,698 @@ def merge_tables(tables) -> list:
             for (r, k), c in sorted(acc.items())]
 
 
+# ---- phase 13: crash riding -------------------------------------------------
+
+# (a) bench.py --overload, non-QUICK: offered non-counter lines, counters,
+# Zipf(1.5) tenants
+OVL_OFFERED, OVL_COUNTERS, OVL_TENANTS = 40_000, 10_000, 20
+# (b) phase 4's 10,000 timer series, gamma(2, 30); samples per series cut
+# from phase 4's 1,000 to 300 (every row still deeper than the widest
+# ladder width, 256)
+LADDER_SERIES, LADDER_SAMPLES = 10_000, 300
+# (c) bench.py _chaos_crash(3000); the card's recovery fold: a crashed
+# global's staged timers
+CRASH_PACKETS, CRASH_CKPT_S = 3000, 0.3
+RECOVERY_SERIES, RECOVERY_SAMPLES = 2000, 64
+# (d) bench.py _chaos_scale_out(1200, 48, 256)
+SO_COUNTERS, SO_HISTO, SO_SET_SAMPLES = 1200, 48, 256
+
+
+def flight_summary(flight) -> dict:
+    """``bench.py``'s ``_flight_summary`` on the port's recorder: settle
+    the writer, then read every retained bundle back through its CRC
+    framing and count those carrying a ledger record and a trace."""
+    from veneur_tpu_torch.observe.recorder import read_bundle
+    if flight is None:
+        return {"bundles_total": 0, "by_trigger": {}, "retained": 0,
+                "crc_verified": 0, "with_ledger_record": 0,
+                "with_trace": 0, "errors_total": 0}
+    flight.drain()
+    deadline = time.monotonic() + 5.0
+    st, stable = flight.stats(), None
+    while time.monotonic() < deadline:
+        snap = (st["bundles_total"], st["retained"], st["errors_total"])
+        if snap == stable and flight._q.empty():
+            break
+        stable = snap
+        time.sleep(0.05)
+        st = flight.stats()
+    crc = led = trace = 0
+    for meta in flight.list_bundles():
+        blob = flight.get(meta["name"])
+        parsed = read_bundle(blob) if blob is not None else None
+        if parsed is None:
+            continue
+        crc += 1
+        ctx = parsed[1].get("context") or {}
+        led += bool(ctx.get("ledger_records"))
+        trace += bool(ctx.get("trace"))
+    return {"bundles_total": st["bundles_total"],
+            "by_trigger": st["by_trigger"],
+            "errors_total": st["errors_total"], "retained": st["retained"],
+            "crc_verified": crc, "with_ledger_record": led,
+            "with_trace": trace}
+
+
+def flight_ok(f: dict, trigger: str, context: bool = True) -> bool:
+    """A leg's recorder dumped a CRC-clean bundle naming ``trigger``
+    (and, from a server, every bundle carries its ledger record and at
+    least one its trace)."""
+    ok = (f["by_trigger"].get(trigger, 0) >= 1 and f["retained"] >= 1
+          and f["crc_verified"] == f["retained"] and f["errors_total"] == 0)
+    if context:
+        ok = ok and (f["with_ledger_record"] == f["retained"]
+                     and f["with_trace"] >= 1)
+    return ok
+
+
+def overload_soak(dev: str) -> dict:
+    """(a) ``bench.py --overload`` at its non-QUICK size through a port
+    ``Server`` on ``dev``: phase A, Zipf tenants against their token
+    buckets; phase B, the pressure tiers the phase A flush engaged
+    (new-series freeze, class sampling, the width ladder at level 3);
+    phase C, a flush slowed past its budget, then the coalesced tick
+    and the one swap that covers both intervals.  The reference's gates
+    and its flight-recorder gates."""
+    from veneur_tpu_torch.core.config import read_config
+    from veneur_tpu_torch.core.server import Server
+    srv = Server(read_config(data={
+        "interval": "1s", "hostname": "bench-overload",
+        "tpu_overload_tenant_rate": 50.0,
+        "tpu_overload_tenant_burst": 50.0,
+        "tpu_overload_max_tenants": 64,
+        "tpu_overload_occupancy_hi": 0.05,
+        "tpu_gauge_rows": 4096, "tpu_flight_cooldown": "0s"}, env={}),
+        device=dev)
+    rng = np.random.default_rng(20260806)
+    counted = [0.0]
+
+    def feed(lines):
+        for i in range(0, len(lines), 128):
+            srv.handle_packet_batch([b"\n".join(lines[i:i + 128])])
+
+    def flush():
+        res = srv.flush_once()
+        counted[0] += sum(m.value for m in res.metrics
+                          if m.name.startswith("ovl.count."))
+        return srv.ledger.last()
+
+    out = {"offered_noncounter": OVL_OFFERED, "tenants": OVL_TENANTS,
+           "offered_counters": 0}
+    rec = MergeRecorder().__enter__()
+    try:
+        flush()  # the idle baseline row the pressure transition needs
+        z = np.minimum(rng.zipf(1.5, size=OVL_OFFERED), OVL_TENANTS)
+        lines = []
+        for i, t in enumerate(z):
+            c = i % 3
+            if c == 0:
+                lines.append(b"ovl.timer.%d:%d|ms|#tenant:t%d"
+                             % (i % 50, i % 997, t))
+            elif c == 1:
+                lines.append(b"ovl.gauge.%d:%d|g|#tenant:t%d"
+                             % (i % 50, i, t))
+            else:
+                lines.append(b"ovl.set.%d:m%d|s|#tenant:t%d"
+                             % (i % 20, i, t))
+        counters_a = [b"ovl.count.%d:1|c|#tenant:t%d"
+                      % (i % 16, (i % OVL_TENANTS) + 1)
+                      for i in range(OVL_COUNTERS)]
+        out["offered_counters"] += OVL_COUNTERS
+        t0 = time.perf_counter()
+        feed(lines)
+        feed(counters_a)
+        out["ingest_seconds_a"] = time.perf_counter() - t0
+        rec_a = flush()
+        out["phase_a"] = {"shed": rec_a.shed,
+                          "admitted_noncounter": OVL_OFFERED - rec_a.shed,
+                          "balanced": rec_a.balanced}
+        engaged_a = srv.overload.pressure.engaged
+
+        width_base = srv.table._eff_histo_slots_base
+        lines_b = [b"ovl.fresh.%d:1|g|#tenant:t%d"
+                   % (i, (i % OVL_TENANTS) + 1)
+                   for i in range(OVL_OFFERED // 8)]
+        lines_b += [b"ovl.timer.%d:%d|ms|#tenant:t%d"
+                    % (i % 50, i, (i % OVL_TENANTS) + 1)
+                    for i in range(OVL_OFFERED // 8)]
+        counters_b = [b"ovl.count.%d:1|c|#tenant:t%d"
+                      % (i % 16, (i % OVL_TENANTS) + 1)
+                      for i in range(OVL_COUNTERS // 4)]
+        out["offered_counters"] += OVL_COUNTERS // 4
+        feed(lines_b)
+        feed(counters_b)
+        rec_b = flush()
+        out["phase_b"] = {"shed": rec_b.shed, "balanced": rec_b.balanced,
+                          "pressure_engaged_entering": engaged_a,
+                          "pressure": srv.overload.pressure.to_dict(),
+                          "histo_width_base": int(width_base),
+                          "histo_width_now":
+                              int(srv.table._eff_histo_slots)}
+
+        # the synchronous pipeline (not a sink) overruns the budget
+        orig = srv.flusher.flush
+
+        def slow_flush(*a, **kw):
+            time.sleep(max(1.0 * 0.9, 1.0) + 0.6)
+            return orig(*a, **kw)
+        srv.flusher.flush = slow_flush
+        flush()
+        srv.flusher.flush = orig
+        counters_c = [b"ovl.count.%d:1|c|#tenant:t1" % (i % 16,)
+                      for i in range(OVL_COUNTERS // 4)]
+        out["offered_counters"] += OVL_COUNTERS // 4
+        feed(counters_c)
+        flush()  # coalesced: no swap
+        skipped = srv.stats.get("flush_coalesced", 0)
+        rec_cover = flush()
+        out["phase_c"] = {"flush_overruns": srv.overload.flush_overruns,
+                          "coalesced_ticks": skipped,
+                          "cover_coalesced": rec_cover.coalesced,
+                          "cover_balanced": rec_cover.balanced}
+        ledsum = srv.ledger.summary()
+        out["overload"] = srv.overload.snapshot()
+        out["flight"] = flight_summary(srv.flight)
+    finally:
+        rec.__exit__(None, None, None)
+        srv.shutdown()
+    out["cluster_merge_launches"] = rec.launches
+    out["merge_shapes"] = rec.table()
+    shed_by = ledsum.get("shed_by", {})
+    reasons = {r for t in shed_by.values() for r in t}
+    admitted = OVL_OFFERED - rec_a.shed
+    unattributed = (ledsum["imbalanced"] + ledsum["owed_total"]
+                    + ledsum.get("shed_owed_total", 0))
+    out.update(shed_total=ledsum.get("shed_total", 0), shed_by=shed_by,
+               flushed_counter_sum=counted[0],
+               unattributed_lost=int(unattributed))
+    gates = {
+        "unattributed_zero": unattributed == 0,
+        "ledgers_balanced": ledsum["imbalanced"] == 0,
+        "overloaded_2x": OVL_OFFERED >= 2 * max(admitted, 1),
+        "shed_nonempty": ledsum.get("shed_total", 0) > 0,
+        "shed_fully_attributed": (
+            ledsum.get("shed_owed_total", 1) == 0
+            and all(t and r for t in shed_by for r in shed_by[t])),
+        "counters_never_shed": not any(
+            "count" in r for t in shed_by.values() for r in t),
+        "counters_conserved_exactly":
+            counted[0] == float(out["offered_counters"]),
+        "pressure_engaged": engaged_a,
+        "series_freeze_fired": "series_freeze" in reasons,
+        "pressure_class_shed_fired": any(r.startswith("pressure:")
+                                         for r in reasons),
+        "width_ladder_engaged":
+            out["phase_b"]["histo_width_now"] < width_base,
+        "flush_overrun_observed": out["phase_c"]["flush_overruns"] >= 1,
+        "coalesce_named_in_ledger": rec_cover.coalesced >= 1,
+        "coalesced_tick_counted": skipped >= 1,
+        "flight_pressure_change": flight_ok(out["flight"],
+                                            "pressure_change", False),
+        "flight_flush_overrun": flight_ok(out["flight"], "flush_overrun",
+                                          False),
+    }
+    out["gates"] = gates
+    return out
+
+
+def ladder_text(seed: int = 13) -> list[bytes]:
+    """Phase 4's timer series (``t<i>``, tagged ``env:smoke``, gamma(2,
+    30)) at LADDER_SAMPLES each, shuffled, in CHUNK-line buffers."""
+    rng = np.random.default_rng(seed)
+    n = LADDER_SERIES * LADDER_SAMPLES
+    series = rng.integers(0, LADDER_SERIES, n).tolist()
+    vals = rng.gamma(2.0, 30.0, n).tolist()
+    names = [b"t%d:" % i for i in range(LADDER_SERIES)]
+    tail = b"|ms" + TAGS
+    lines = [b"%s%.3f%s" % (names[i], v, tail) for i, v in zip(series, vals)]
+    return [b"\n".join(lines[lo:lo + CHUNK]) for lo in range(0, n, CHUNK)]
+
+
+def width_ladder(dev: str, sync) -> dict:
+    """(b) A table at the server's default sizes (16384 histo rows,
+    616-slot digests, the deep batch at ``histo_merge_samples``) flushed
+    once at each pressure level 0-3 on the card and on the CPU, on the
+    same text: order-free values bit for bit (sums too), percentiles
+    within rtol 2e-3 / atol 1e-3; each level's median and maximum p99
+    error against the exact p99 (reported, not gated: the ladder trades
+    precision by design; the p50 beside it) and the (rows, K) of every
+    card merge."""
+    from veneur_tpu_torch.core.flusher import Flusher
+    from veneur_tpu_torch.core.table import MetricTable, TableConfig
+    t0 = time.perf_counter()
+    bufs = ladder_text()
+    exact = exact_quantiles(bufs, 0.99)
+    exact50 = exact_quantiles(bufs, 0.5)
+    out = {"series": LADDER_SERIES, "samples_per_series": LADDER_SAMPLES,
+           "gen_s": time.perf_counter() - t0, "levels": {}}
+    cfg = dict(counter_rows=16384, gauge_rows=16384, histo_rows=16384,
+               set_rows=1024)
+    launches, shapes = 0, []
+    for level in (0, 1, 2, 3):
+        table = MetricTable(TableConfig(**cfg), device=dev)
+        table.set_pressure_level(level)
+        with MergeRecorder() as rec:
+            res, n, st = run_interval(table, Flusher(device=dev), bufs, sync)
+        ctable = MetricTable(TableConfig(**cfg), device="cpu")
+        ctable.set_pressure_level(level)
+        cres, _, _ = run_interval(ctable, Flusher(device="cpu"), bufs,
+                                  lambda: None)
+        check(table._eff_histo_slots == ctable._eff_histo_slots,
+              "ladder widths differ between the card and the CPU")
+        rel = p99_errors(res.metrics, bufs, exact)
+        rel50 = p99_errors(res.metrics, bufs, exact50, pct=50)
+        out["levels"][level] = {
+            "eff_histo_slots": table._eff_histo_slots, "samples": n,
+            "parse_ingest_s": st["parse_ingest_s"],
+            "device_step_s": st["device_step_s"],
+            "flush_s": st["flush_s"], "routes": st["routes"],
+            "vs_cpu": compare_flush(res.metrics, cres.metrics,
+                                    sums_exact=True),
+            "p99_rel_err_median": float(np.median(rel)),
+            "p99_rel_err_max": float(rel.max()),
+            "p50_rel_err_median": float(np.median(rel50)),
+            "p50_rel_err_max": float(rel50.max()),
+            "cluster_merge_launches": rec.launches,
+            "merge_shapes": rec.table()}
+        launches += rec.launches
+        shapes += rec.table()
+        del table, ctable, res, cres
+    ks = {m["k"] for lv in out["levels"].values() for m in lv["merge_shapes"]}
+    check({256, 128, 64} <= ks, f"the ladder merged at K = {sorted(ks)}")
+    out["cluster_merge_launches"] = launches
+    out["merge_shapes"] = shapes
+    return out
+
+
+_CRASH_CHILD = r"""
+import json, signal, sys, time
+from veneur_tpu_torch.core.config import read_config
+from veneur_tpu_torch.core.server import Server
+from veneur_tpu_torch.ops import cluster_merge
+ckdir, fwd, dev = sys.argv[1:4]
+s = Server(read_config(data={
+    "statsd_listen_addresses": ["udp://127.0.0.1:0"],
+    "grpc_listen_addresses": [],
+    "interval": "500ms", "hostname": "crash-local",
+    "forward_address": fwd, "forward_use_grpc": True,
+    "tpu_checkpoint_dir": ckdir,
+    "tpu_checkpoint_interval": "300ms"}), device=dev)
+if dev == "cuda":
+    # the built kernel loads (from the checkout's _build/) before READY
+    cluster_merge.occupancy(s.table.capacity, 512)
+s.start()
+print("READY", s.statsd_ports[0], s.incarnation, s.restarts_adopted,
+      flush=True)
+stop = []
+signal.signal(signal.SIGTERM, lambda *_a: stop.append(1))
+while not stop:
+    time.sleep(0.05)
+s.shutdown()
+ov = s.overload.snapshot()
+print(json.dumps({"flush_overruns": ov["flush_overruns"],
+                  "coalesced_total": ov["coalesced_total"],
+                  "flushes": s.stats.get("flushes", 0),
+                  "compile_total":
+                      s.device_costs.totals()["compile_total"]}),
+      flush=True)
+"""
+
+
+def crash_leg(dev: str) -> dict:
+    """(c) ``bench.py``'s ``_chaos_crash(3000)`` on the card.  This
+    process plays the master: it binds the UDP socket once and cloaks
+    it into each child (``VENEUR_TPU_SOCK_CLOAKED`` + ``pass_fds``);
+    each child is a port local on ``dev`` (500 ms interval, 300 ms
+    checkpoints) forwarding over gRPC to a port global here.  The first
+    child is SIGKILLed once a fresh segment covers recent ingest,
+    datagrams go into the dead window (the kernel queue holds them),
+    the second child adopts the socket, recovers the segment over the
+    wire flagged recovery, and drains on SIGTERM.  The reference's seven
+    ``crash_*`` gates and its flight gate."""
+    import shutil
+    from veneur_tpu_torch.core import overload as ovl
+    from veneur_tpu_torch.core.config import read_config
+    from veneur_tpu_torch.core.server import Server
+    from veneur_tpu_torch.ops import checkpoint as ckpt
+    from veneur_tpu_torch.ops import fdpass
+    from veneur_tpu_torch.sinks.simple import CaptureSink
+    out: dict = {"n_packets": CRASH_PACKETS,
+                 "checkpoint_interval": CRASH_CKPT_S}
+    cap = CaptureSink()
+    g = Server(read_config(data={
+        "grpc_listen_addresses": ["tcp://127.0.0.1:0"],
+        "statsd_listen_addresses": [], "interval": "30s",
+        "hostname": "crash-g", "tpu_flight_cooldown": "0s"}, env={}),
+        device=dev, extra_sinks=[cap])
+    g.start()
+    g.flush_once()  # the baseline signal row
+    fwd_addr = f"127.0.0.1:{g.grpc_ports[0]}"
+    sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 1 << 22)
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    rcvbuf = sock.getsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF)
+    dead_budget = max(50, rcvbuf // 1024)
+    tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    ckdir = tempfile.mkdtemp(prefix=".smoke-crash-", dir=HERE)
+    env = dict(os.environ)
+    env[fdpass.ENV_VAR] = fdpass.socket_cloak({"statsd.udp.0.0": sock})
+    env["VENEUR_TPU_CHECKPOINT_INTERVAL"] = f"{CRASH_CKPT_S}s"
+    errlog = open(os.path.join(ckdir, "children.log"), "ab")
+    sent = []
+
+    def spawn():
+        t0 = time.perf_counter()
+        p = subprocess.Popen(
+            [sys.executable, "-c", _CRASH_CHILD, ckdir, fwd_addr, dev],
+            stdout=subprocess.PIPE, stderr=errlog, env=env,
+            pass_fds=[sock.fileno()], cwd=HERE)
+        line = p.stdout.readline().split()
+        check(line and line[0] == b"READY", f"child said {line}")
+        return p, int(line[1]), int(line[2]), int(line[3]), \
+            time.perf_counter() - t0
+
+    def blast(n, names=32, batch=20, gap=0.004):
+        i = 0
+        while i < n:
+            k = min(batch, n - i)
+            for j in range(k):
+                tx.sendto(b"crash.%d:1|c|#veneurglobalonly"
+                          % ((i + j) % names), ("127.0.0.1", port))
+            sent.append((time.time(), k))
+            i += k
+            time.sleep(gap)
+
+    procs = []
+    rec = MergeRecorder().__enter__()
+    try:
+        p1, p1_port, p1_inc, p1_adopted, p1_s = spawn()
+        procs.append(p1)
+        check(p1_port == port, f"first child bound {p1_port}, not {port}")
+        out["first_child"] = {"incarnation": p1_inc,
+                              "fds_adopted": p1_adopted, "ready_s": p1_s}
+        blast(int(0.55 * CRASH_PACKETS))
+        deadline = time.time() + 15
+        while time.time() < deadline:
+            segs = [s for s in ckpt.scan_recoverable(ckdir, 0, max_age=60)
+                    if s.header.get("incarnation") == p1_inc
+                    and int(s.header.get("items", 0)) > 0]
+            if segs and time.time() - segs[-1].header["wall"] < 1.0:
+                break
+            blast(10)
+            time.sleep(0.02)
+        os.kill(p1.pid, signal.SIGKILL)
+        kill_wall = time.time()
+        p1.wait(10)
+        segs = [s for s in ckpt.scan_recoverable(ckdir, 0, max_age=60)
+                if s.header.get("incarnation") == p1_inc]
+        last_ckpt_wall = max((float(s.header["wall"]) for s in segs),
+                             default=0.0)
+        out["surviving_segments"] = len(segs)
+        out["surviving_items"] = sum(int(s.header.get("items", 0))
+                                     for s in segs)
+        t_dead = time.perf_counter()
+        blast(min(int(0.15 * CRASH_PACKETS), dead_budget))
+        p2, p2_port, p2_inc, p2_adopted, p2_s = spawn()
+        procs.append(p2)
+        out["dead_window_s"] = time.perf_counter() - t_dead
+        check(p2_port == port, f"second child bound {p2_port}")
+        out["second_child"] = {"incarnation": p2_inc,
+                               "fds_adopted": p2_adopted, "ready_s": p2_s}
+        blast(CRASH_PACKETS - sum(n for _w, n in sent))
+        time.sleep(2 * CRASH_CKPT_S)
+        p2.send_signal(signal.SIGTERM)
+        p2.wait(60)
+        tail = p2.stdout.read().decode().strip().splitlines()
+        out["second_child"]["overload"] = json.loads(tail[-1])
+        deadline = time.time() + 10
+        landed = prev = -1
+        while time.time() < deadline:
+            g.flush_once()
+            landed = int(sum(m.value for m in cap.metrics
+                             if m.name.startswith("crash.")
+                             and m.type == "counter"))
+            if landed == prev:
+                break
+            prev = landed
+            time.sleep(0.3)
+        offered = sum(n for _w, n in sent)
+        out.update(offered_items=offered, landed_items=landed,
+                   unattributed_lost=offered - landed,
+                   loss_bound_items=sum(
+                       n for w, n in sent
+                       if last_ckpt_wall - 0.1 <= w <= kill_wall),
+                   kernel_drops=sum(ovl.read_kernel_drops([sock])
+                                    .values()))
+        for k in ("recovery_wires_received", "recovery_items_received",
+                  "recovery_wires_deduped", "drain_wires_received"):
+            out[k] = g.stats.get(k, 0)
+        led = g.ledger.summary()
+        out["global_ledger"] = {k: led.get(k) for k in (
+            "imbalanced", "recovered_total", "intervals")}
+        out["recovered_total"] = led.get("recovered_total", 0)
+        out["flight"] = flight_summary(g.flight)
+    finally:
+        rec.__exit__(None, None, None)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(10)
+            p.stdout.close()
+        errlog.close()
+        tx.close()
+        sock.close()
+        g.shutdown()
+        shutil.rmtree(ckdir, ignore_errors=True)
+    out["cluster_merge_launches"] = rec.launches
+    out["merge_shapes"] = rec.table()
+    out["gates"] = {
+        "crash_kernel_drops_zero": out["kernel_drops"] == 0,
+        "crash_fd_adopted": out["second_child"]["fds_adopted"] >= 1,
+        "crash_recovery_flagged": out["recovery_wires_received"] >= 1,
+        "crash_no_double_delivery": out["unattributed_lost"] >= 0,
+        "crash_unattributed_bounded":
+            out["unattributed_lost"] <= out["loss_bound_items"],
+        "crash_recovered_credited": out["recovered_total"] > 0,
+        "crash_ledger_balanced": out["global_ledger"]["imbalanced"] == 0,
+        "flight_crash_recovery_replay":
+            flight_ok(out["flight"], "recovery_replay"),
+    }
+    return out
+
+
+def recovery_fold(dev: str) -> dict:
+    """(c) continued: the recovery fold on the card.  A global's staged
+    timers (RECOVERY_SERIES x RECOVERY_SAMPLES) checkpointed, the
+    server shut down (the crash), and a new incarnation on ``dev``
+    recovering the segment through its import fold; held against a CPU
+    server recovering a copy of the same directory (order-free values
+    bit for bit, percentiles within rtol 2e-3 / atol 1e-3)."""
+    import shutil
+    from veneur_tpu_torch.core.config import read_config
+    from veneur_tpu_torch.core.server import Server
+    from veneur_tpu_torch.sinks.simple import CaptureSink
+    rng = np.random.default_rng(17)
+    n = RECOVERY_SERIES * RECOVERY_SAMPLES
+    series = rng.integers(0, RECOVERY_SERIES, n).tolist()
+    vals = rng.gamma(2.0, 30.0, n).tolist()
+    text = b"\n".join(b"rc%d:%.3f|ms" % (i, v) for i, v in zip(series, vals))
+    base = tempfile.mkdtemp(prefix=".smoke-recovery-", dir=HERE)
+    data = {"statsd_listen_addresses": [], "grpc_listen_addresses": [],
+            "interval": "600s", "hostname": "rc",
+            "percentiles": [0.5, 0.9, 0.99],
+            "tpu_checkpoint_interval": "600s"}
+    out = {"series": RECOVERY_SERIES, "samples": n}
+    try:
+        d = os.path.join(base, "card")
+        s1 = Server(read_config(data=dict(data, tpu_checkpoint_dir=d),
+                                env={}), device=dev)
+        s1.start()
+        s1.handle_packet_batch([], drained=text, drained_pkts=1)
+        check(s1._checkpointer.run_once() is not None, "no segment")
+        out["segment_bytes"] = s1._checkpointer.stats["bytes"]
+        s1.shutdown()
+        shutil.copytree(d, os.path.join(base, "cpu"))
+        flushes = {}
+        for label, where in (("card", dev), ("cpu", "cpu")):
+            cap = CaptureSink()
+            s2 = Server(read_config(data=dict(
+                data, tpu_checkpoint_dir=os.path.join(base, label)),
+                env={}), device=where, extra_sinks=[cap])
+            if label == "card":
+                with MergeRecorder() as rec:
+                    s2.start()
+                    s2.flush_once()
+                out["cluster_merge_launches"] = rec.launches
+                out["merge_shapes"] = rec.table()
+            else:
+                s2.start()
+                s2.flush_once()
+            check(s2.stats.get("recovery_items_replayed") == n,
+                  f"{label}: replayed {s2.stats}")
+            rec2 = s2.ledger.last()
+            check(rec2.balanced and rec2.recovered > 0,
+                  f"{label}: {rec2.to_dict()}")
+            s2.shutdown()
+            flushes[label] = user_metrics(cap.metrics)
+        out["vs_cpu"] = compare_flush(flushes["card"], flushes["cpu"])
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    return out
+
+
+def scale_out_leg(dev: str) -> dict:
+    """(d) ``bench.py``'s ``_chaos_scale_out(1200, 48, 256)``: an
+    incumbent port global on ``dev`` holding the keyspace hands the
+    arcs of a second port global (``arc_handoff``) over the import wire
+    flagged handoff; the four ``scaleout_*`` gates and the flight gate,
+    and the union of the two flushes held to one global's flush of the
+    same datagrams: every order-free value bit for bit, percentiles
+    measured (a handed-off digest is merged once more on its new
+    owner)."""
+    from veneur_tpu_torch.core.config import read_config
+    from veneur_tpu_torch.core.server import Server
+    from veneur_tpu_torch.sinks.simple import CaptureSink
+
+    def mk(cap, name):
+        g = Server(read_config(data={
+            "grpc_listen_addresses": ["tcp://127.0.0.1:0"],
+            "statsd_listen_addresses": [], "interval": "30s",
+            "hostname": name, "tpu_flight_cooldown": "0s"}, env={}),
+            device=dev, extra_sinks=[cap])
+        g.start()
+        return g
+
+    def feed(g):
+        for i in range(SO_COUNTERS):
+            g.handle_packet(b"scale.c.%d:%d|c" % (i, i))
+        for i in range(SO_HISTO * 16):
+            g.handle_packet(b"scale.h.%d:%d|h" % (i % SO_HISTO, i % 97))
+        for i in range(SO_SET_SAMPLES):
+            g.handle_packet(b"scale.s.%d:u%d|s" % (i % 8, i))
+
+    out: dict = {"n_counters": SO_COUNTERS, "n_histo": SO_HISTO,
+                 "n_set_samples": SO_SET_SAMPLES}
+    caps = [CaptureSink(), CaptureSink()]
+    g0, g1 = mk(caps[0], "scale-g0"), mk(caps[1], "scale-g1")
+    try:
+        addrs = [f"127.0.0.1:{g.grpc_ports[0]}" for g in (g0, g1)]
+        with MergeRecorder() as rec:
+            feed(g0)
+            g1.flush_once()  # the receiver's baseline signal row
+            ho = g0.arc_handoff(addrs, addrs[0])
+            g1.flush_once()
+        out["handoff"] = ho
+        out["cluster_merge_launches"] = rec.launches
+        out["merge_shapes"] = rec.table()
+        names, double = {}, 0
+        for cap in caps:
+            for m in cap.metrics:
+                if not m.name.startswith("scale."):
+                    continue
+                key = (m.name, m.type)
+                double += key in names
+                names[key] = names.get(key, 0.0) + m.value
+        rec0, rec1 = g0.ledger.last(), g1.ledger.last()
+        out.update(
+            counter_mass=sum(v for (k, t), v in names.items()
+                             if k.startswith("scale.c.")
+                             and t == "counter"),
+            counter_mass_expected=sum(range(SO_COUNTERS)),
+            double_emitted_series=double,
+            histo_medians_seen=sum(1 for (k, _t) in names
+                                   if k.startswith("scale.h.")
+                                   and k.endswith("50percentile")),
+            sender_ledger_balanced=bool(rec0 and rec0.balanced),
+            receiver_ledger_balanced=bool(rec1 and rec1.balanced),
+            handoff_wires_received=g1.stats.get("handoff_wires_received",
+                                                0),
+            reshard_received_items=rec1.reshard_received_items,
+            flight=flight_summary(g1.flight))
+        union = union_flush([c.metrics for c in caps])
+    finally:
+        g0.shutdown()
+        g1.shutdown()
+    one = CaptureSink()
+    g = mk(one, "scale-one")
+    try:
+        feed(g)
+        g.flush_once()
+    finally:
+        g.shutdown()
+    single = {(m.name, m.tags): m for m in user_metrics(one.metrics)}
+    u = {(m.name, m.tags): m for m in union}
+    check(set(u) <= set(single), "the union emits a series one global "
+                                 "does not")
+    # a handed-off histogram is imported state on its new owner: it
+    # emits percentiles, not the local-sample aggregates
+    missing = set(single) - set(u)
+    check(all(k[0].startswith("scale.h.") and "percentile" not in k[0]
+              for k in missing), f"the union lost {sorted(missing)[:3]}")
+    out["vs_single"] = compare_flush(
+        union, [single[k] for k in u], hold_percentiles=False,
+        sums_exact=True)
+    out["mass_conserved"] = bool(
+        out["counter_mass"] == out["counter_mass_expected"]
+        and double == 0 and out["histo_medians_seen"] == SO_HISTO
+        and ho.get("errors", 1) == 0 and ho.get("dropped_items", 1) == 0)
+    out["gates"] = {
+        "scaleout_mass_conserved": out["mass_conserved"],
+        "scaleout_handoff_flagged": out["handoff_wires_received"] >= 1,
+        "scaleout_arrival_credited": (
+            out["reshard_received_items"] == ho.get("items", -1)
+            and out["reshard_received_items"] > 0),
+        "scaleout_ledgers_balanced": (out["sender_ledger_balanced"]
+                                      and out["receiver_ledger_balanced"]),
+        "flight_scaleout_handoff": flight_ok(out["flight"], "handoff"),
+    }
+    return out
+
+
+def phase_crash_riding(dev: str = "cuda") -> dict:
+    """Phase 13: the reference's overload and chaos soaks at their
+    non-QUICK sizes on the card, one line of gates a leg; every gate
+    must hold.  Each leg reads its own cluster-merge launches (set to 0
+    as it starts): the sample merges of legs (a) and (b), the import
+    folds of (c) and (d)."""
+    import torch
+
+    def sync():
+        torch.cuda.synchronize()
+    out = {"phase": "crash_riding", "device": dev, "legs": {}}
+    legs = (("overload", lambda: overload_soak(dev), False),
+            ("width_ladder", lambda: width_ladder(dev, sync), False),
+            ("crash", lambda: crash_leg(dev), True),
+            ("recovery_fold", lambda: recovery_fold(dev), True),
+            ("scale_out", lambda: scale_out_leg(dev), True))
+    launches, unit, weighted = 0, [], []
+    for name, fn, fold in legs:
+        t0 = time.perf_counter()
+        res = fn()
+        res["seconds"] = time.perf_counter() - t0
+        launches += res["cluster_merge_launches"]
+        (weighted if fold else unit).extend(res["merge_shapes"])
+        emit({"phase": "crash_riding_leg", "leg": name, **res})
+        failed = [g for g, ok in res.get("gates", {}).items() if not ok]
+        check(not failed, f"crash_riding {name}: gates failed {failed}")
+        out["legs"][name] = {"seconds": res["seconds"],
+                             "launches": res["cluster_merge_launches"]}
+    out["cluster_merge_launches"] = launches
+    emit(out)
+
+    def merged(shapes):
+        calls: dict = {}
+        for m in shapes:
+            key = (m["rows"], m["k"])
+            calls[key] = calls.get(key, 0) + m["calls"]
+        return [{"rows": r, "k": k, "calls": c}
+                for (r, k), c in sorted(calls.items())]
+    out["unit_shapes"] = merged(unit)
+    out["weighted_shapes"] = merged(weighted)
+    return out
+
+
 # ---- phase 5: the server ----------------------------------------------------
 
 def free_udp_port() -> int:
@@ -2458,8 +3178,9 @@ def check_debug_surface(hport: int, tsv_rows: list, sent: int) -> dict:
     the next interval carried the first telemetry tick: the launch
     registry (CUDA-event device time for every step that ran, readback
     bytes), the flush ring's stages, the sealed ledger, the last
-    flush's trace tree, the signal history, the flight recorder, and
-    the TSV's ``veneur.*`` rows."""
+    flush's trace tree, the signal history, the flight recorder,
+    overload control (``/debug/overload``: its overruns on the card),
+    and the TSV's ``veneur.*`` rows."""
     dv = json.loads(http_get(hport, "/debug/vars"))
     dc = dv["devicecost"]
     ran = {n: e for n, e in dc["kernels"].items() if e["calls"]}
@@ -2501,7 +3222,15 @@ def check_debug_surface(hport: int, tsv_rows: list, sent: int) -> dict:
     check(processed == sent,
           f"veneur.worker.metrics_processed_total {processed} of {sent}")
     veneur = sorted({r[0] for r in tsv_rows if r[0].startswith("veneur.")})
-    return {"steps_ran": {n: {"calls": e["calls"],
+    # overload control runs by default: whether this server's flushes
+    # on the card (its first included) overran the interval budget
+    ov = json.loads(http_get(hport, "/debug/overload"))
+    check(dv["overload"] is not None and "pressure" in ov,
+          f"overload control: {ov}")
+    return {"overload": {k: ov[k] for k in ("flush_overruns",
+                                            "coalesced_total")},
+            "pressure": ov["pressure"],
+            "steps_ran": {n: {"calls": e["calls"],
                               "device_ns": e["device_duration_ns"],
                               "dispatch_ns": e["dispatch_duration_ns"],
                               "est_bytes": e["est_bytes_accessed_per_call"]}
@@ -3000,16 +3729,19 @@ def main() -> int:
     table = phase_table()
     readers = phase_readers(table)
     del table["bufs"], table["exact_p99"], table["metrics"]
-    glob = phase_global()
+    # one timed flat interval (and the profiled one) keeps the whole
+    # script, phase 13 included, well inside 1,200 s
+    glob = phase_global(intervals=1)
     grpc_in = glob.pop("grpc_input")
     grpc_glob = phase_global_grpc(grpc_in)
     routing = phase_routing(grpc_in, grpc_glob.pop("metrics"))
     del grpc_in
     tiers = phase_tiers()
-    # phase 2 again, at every other shape phases 4, 6, 8, 9, 10 and 12
-    # merged at: the locals' sample batches unit-weight, the globals'
+    crash = phase_crash_riding()
+    # phase 2 again, at every other shape phases 4, 6, 8, 9, 10, 12 and
+    # 13 merged at: the locals' sample batches unit-weight, the globals'
     # wires weighted (phase 12's local and globals merge together: their
-    # shapes are re-checked weighted)
+    # shapes are re-checked weighted; phase 13's import folds too)
     cases = recorded_cases(table["merge_shapes"])
     for run in readers["runs"].values():
         cases += recorded_cases(run["merge_shapes"], timed=cases)
@@ -3023,6 +3755,9 @@ def main() -> int:
     cases += recorded_cases(routing["merge_shapes"], weighted=True,
                             timed=cases)
     cases += recorded_cases(tiers["merge_shapes"], timed=cases)
+    cases += recorded_cases(crash["unit_shapes"], timed=cases)
+    cases += recorded_cases(crash["weighted_shapes"], weighted=True,
+                            timed=cases)
     kern.update(phase_kernel(cases=cases))
     phase_server()
     phase_chain()
@@ -3038,11 +3773,15 @@ def main() -> int:
                "multi_reader": {n: r["cluster_merge_launches"]
                                 for n, r in readers["runs"].items()},
                "tiers": tiers["cluster_merge_launches"],
-               "routing_tiers": routing["cluster_merge_launches"]}
+               "routing_tiers": routing["cluster_merge_launches"],
+               "crash_riding": crash["cluster_merge_launches"]}
     shapes_by_path = {"multi_reader": {n: r["merge_shapes"] for n, r in
                                        readers["runs"].items()},
                       "tiers": tiers["merge_shapes"],
-                      "routing_tiers": routing["merge_shapes"]}
+                      "routing_tiers": routing["merge_shapes"],
+                      "crash_riding": {"unit": crash["unit_shapes"],
+                                       "weighted":
+                                           crash["weighted_shapes"]}}
     emit({"kernels": [{
         "name": "cluster_merge", "route": "cuda",
         "source": "veneur_tpu_torch/csrc/cluster_merge.cu",

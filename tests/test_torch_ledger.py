@@ -212,8 +212,12 @@ def zero_compile_counters(monkeypatch):
 
 
 def _pair(**cfg):
-    data = {"interval": "10s", "hostname": "h", **_ROWS, **cfg}
-    jsrv = JServer(jread_config(data=dict(data, tpu_overload=False)),
+    # overload off on both servers: with the small classes here a
+    # flush's pressure tick would engage it; its parity is held in
+    # tests/test_torch_overload.py
+    data = {"interval": "10s", "hostname": "h", **_ROWS,
+            "tpu_overload": False, **cfg}
+    jsrv = JServer(jread_config(data=data),
                    extra_sinks=[JCaptureSink()])
     # the port has no span sinks yet: the JAX server runs without its
     # ssfmetrics extraction sink (flush spans carry no samples, so it

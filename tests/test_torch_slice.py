@@ -729,12 +729,13 @@ def test_port_imports_no_jax():
     """Importing the package and every module, building a table
     (untiered and tiered, the latter through an interval), running a
     server through two observed flushes and a device profile capture,
-    and a sharded local forwarding through a proxy to a global over
-    gRPC (routed columnar by the native entries, drained on shutdown),
-    loads neither jax nor any veneur_tpu module, maps the port's own
-    native library, never the JAX package's, and exits with every
-    worker thread stopped (checked in a fresh interpreter: this test
-    process has imported both)."""
+    a sharded local forwarding through a proxy to a global over gRPC
+    (routed columnar by the native entries, drained on shutdown), and a
+    global with overload control, a checkpointer writing segments and
+    an arc handoff to a second global, loads neither jax nor any
+    veneur_tpu module, maps the port's own native library, never the
+    JAX package's, and exits with every worker thread stopped (checked
+    in a fresh interpreter: this test process has imported both)."""
     code = """
 import importlib, pkgutil, sys
 import veneur_tpu_torch
@@ -774,7 +775,13 @@ assert {"veneur_tpu_torch.core.frame",
         "veneur_tpu_torch.forward.shard",
         "veneur_tpu_torch.core.proxy",
         "veneur_tpu_torch.cli.proxy",
-        "veneur_tpu_torch.trace.metrics"} <= set(names)
+        "veneur_tpu_torch.trace.metrics",
+        "veneur_tpu_torch.core.overload",
+        "veneur_tpu_torch.ops.checkpoint",
+        "veneur_tpu_torch.ops.fdpass",
+        "veneur_tpu_torch.forward.handoff",
+        "veneur_tpu_torch.chaos",
+        "veneur_tpu_torch.chaos.injector"} <= set(names)
 from veneur_tpu_torch.core.table import MetricTable, TableConfig
 from veneur_tpu_torch.forward import gob_codec
 MetricTable(TableConfig(histo_rows=8), device="cpu")
@@ -821,8 +828,28 @@ while (px.stats.get("metrics_routed", 0) < 1 or
 assert px.stats.get("columnar_fallbacks", 0) == 0
 px.shutdown()
 glob.shutdown()
+import tempfile
+ckdir = tempfile.mkdtemp()
+gcfg = {"tpu_histo_rows": 8, "grpc_listen_addresses": ["tcp://127.0.0.1:0"]}
+g1 = Server(read_config(data=dict(gcfg, tpu_checkpoint_dir=ckdir,
+    tpu_checkpoint_interval="50ms")), device="cpu")
+g1.start()
+g2 = Server(read_config(data=gcfg), device="cpu")
+g2.start()
+assert g1.overload is not None and g1._checkpointer is not None
+g1.handle_packet(b"\\n".join(b"k%d:1|c" % i for i in range(20)))
+deadline = time.monotonic() + 20
+while g1._checkpointer.stats["written"] < 1:
+    assert time.monotonic() < deadline, g1._checkpointer.stats
+    time.sleep(0.02)
+addrs = [f"127.0.0.1:{g.grpc_ports[0]}" for g in (g1, g2)]
+ho = g1.arc_handoff(addrs, addrs[0])
+assert ho["errors"] == 0 and ho["moved_rows"] == ho["items"] > 0
+g1.shutdown()
+g2.shutdown()
 left = [t.name for t in threading.enumerate()
-        if t.name.startswith(("proxy-dest-", "discovery-refresh"))
+        if t.name.startswith(("proxy-dest-", "discovery-refresh",
+                              "checkpointer"))
         and t.is_alive()]
 assert not left, left
 bad = sorted(m for m in sys.modules

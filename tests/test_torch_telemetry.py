@@ -67,8 +67,12 @@ def zero_compile_counters(monkeypatch):
 
 
 def _pair(**cfg):
-    data = {"interval": "10s", "hostname": "h", **_ROWS, **cfg}
-    jsrv = JServer(jread_config(data=dict(data, tpu_overload=False)),
+    # overload off on both servers: with the small classes here a
+    # flush's pressure tick would engage it; its parity is held in
+    # tests/test_torch_overload.py
+    data = {"interval": "10s", "hostname": "h", **_ROWS,
+            "tpu_overload": False, **cfg}
+    jsrv = JServer(jread_config(data=data),
                    extra_sinks=[JCaptureSink()])
     jsrv.span_sinks.clear()
     jsrv.span_worker.sinks.clear()
@@ -189,7 +193,7 @@ def test_telemetry_via_stats_address_matches_jax():
         jsrv.span_sinks.clear()
         jsrv.span_worker.sinks.clear()
         tsrv = Server(read_config(data={
-            "interval": "10s", **_ROWS,
+            "interval": "10s", **_ROWS, "tpu_overload": False,
             "stats_address": f"udp://{addrs[1]}"}), device="cpu")
         parser = jcolumnar.ColumnarParser()
         for pkts in _traffic(5):
@@ -306,6 +310,6 @@ def test_stats_address_without_port_is_config_error(addr):
 def test_unknown_scope_refused_and_later_keys_still_refused():
     with pytest.raises(ValueError, match="veneur_metrics_scopes"):
         read_config(data={"veneur_metrics_scopes": {"counter": "nope"}})
-    for key in ("tpu_overload", "span_channel_capacity", "sentry_dsn"):
+    for key in ("tls_key", "span_channel_capacity", "sentry_dsn"):
         with pytest.raises(ValueError, match="not supported"):
             read_config(data={key: 1})

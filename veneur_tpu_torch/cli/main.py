@@ -5,6 +5,13 @@
 Runs until SIGINT or SIGTERM, then shuts the server down cleanly.  The
 device defaults to ``cuda``; without a card the server refuses to start
 unless ``--device cpu`` is given.
+
+A replacement generation started with ``VENEUR_TPU_SOCK_CLOAKED``
+(``statsd.udp.<address>.<reader>=<fd>``, ``http=<fd>``) and those fds
+passed down (``pass_fds``) adopts its predecessor's bound listeners, so
+datagrams parked in the kernel across the restart are read; with
+``tpu_checkpoint_dir`` set it takes the next incarnation id and replays
+the predecessor's surviving checkpoint segments at start.
 """
 
 from __future__ import annotations
@@ -47,6 +54,9 @@ def main(argv: list[str] | None = None) -> int:
         srv.grpc_ports, srv.device,
         f"local forwarding to {cfg.forward_address}" if cfg.is_local()
         else "global")
+    logging.getLogger("veneur_tpu_torch").info(
+        "statsd ports %s, incarnation %d, %d listener fd(s) adopted",
+        srv.statsd_ports, srv.incarnation, srv.restarts_adopted)
     stop.wait()
     srv.shutdown()
     return 0

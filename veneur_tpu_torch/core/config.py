@@ -148,6 +148,38 @@ class Config:
     # disk segments for the spool (<dir>/<dest>/<...>.wire); empty keeps
     # it in memory
     tpu_forward_spool_dir: str = ""
+    # -- overload, checkpoints and crash riding ------------------------
+    # overload control (core/overload.py): per-tenant admission buckets,
+    # class-ordered shedding under pressure, the histogram width ladder
+    # and the flush-overrun coalesce; with no tenant rate and pressure
+    # disengaged the ingest paths pay one boolean a batch
+    tpu_overload: bool = True
+    # the tag whose value names a series' tenant ("default" without it)
+    tpu_overload_tenant_tag: str = "tenant"
+    # admitted non-counter samples a second per tenant (0: no budget)
+    # and the bucket depth (0: twice the rate)
+    tpu_overload_tenant_rate: float = 0.0
+    tpu_overload_tenant_burst: float = 0.0
+    # tenants tracked before the rest share the "other" bucket
+    tpu_overload_max_tenants: int = 256
+    # pressure ceilings (1.0 = saturated): staged samples, class-index
+    # occupancy, flush time over the interval (EWMA); engaged at a score
+    # of 1.0, released at the exit ratio
+    tpu_overload_staging_hi: int = 1_000_000
+    tpu_overload_occupancy_hi: float = 0.95
+    tpu_overload_lag_hi: float = 1.0
+    tpu_overload_exit_ratio: float = 0.7
+    # a flush past its budget makes the next tick coalesce (one swap
+    # covers two intervals, named in the ledger)
+    tpu_overload_coalesce: bool = True
+    # crash-riding checkpoints (ops/checkpoint.py): the open interval's
+    # host staging written as a cumulative segment under the directory
+    # at this cadence, replayed by the next incarnation; on iff the
+    # directory is set and the interval > 0
+    tpu_checkpoint_interval: str = "1s"
+    tpu_checkpoint_dir: str = ""
+    # a global's scale-out arc handoff (Server.arc_handoff)
+    tpu_arc_handoff: bool = True
 
     def interval_seconds(self) -> float:
         return parse_duration(self.interval)
@@ -167,6 +199,13 @@ class Config:
 
     def forward_spool_max_age_seconds(self) -> float:
         return parse_duration(self.tpu_forward_spool_max_age)
+
+    def checkpoint_interval_seconds(self) -> float:
+        return parse_duration(self.tpu_checkpoint_interval or "0")
+
+    def checkpoint_enabled(self) -> bool:
+        return bool(self.tpu_checkpoint_dir) and \
+            self.checkpoint_interval_seconds() > 0
 
     def resolve_aliases(self) -> None:
         """Fold the deprecated ``grpc_address`` into
@@ -256,6 +295,22 @@ class Config:
                     "tpu_forward_spool_max_age must be positive")
         except ValueError as e:
             problems.append(str(e))
+        if self.tpu_overload_tenant_rate < 0:
+            problems.append("tpu_overload_tenant_rate must be >= 0")
+        if self.tpu_overload_tenant_burst < 0:
+            problems.append("tpu_overload_tenant_burst must be >= 0")
+        if self.tpu_overload_max_tenants <= 0:
+            problems.append("tpu_overload_max_tenants must be positive")
+        if self.tpu_overload_staging_hi <= 0:
+            problems.append("tpu_overload_staging_hi must be positive")
+        if not (0.0 < self.tpu_overload_occupancy_hi <= 1.0):
+            problems.append(
+                "tpu_overload_occupancy_hi must be in (0, 1]")
+        if self.tpu_overload_lag_hi <= 0:
+            problems.append("tpu_overload_lag_hi must be positive")
+        if not (0.0 < self.tpu_overload_exit_ratio <= 1.0):
+            problems.append(
+                "tpu_overload_exit_ratio must be in (0, 1]")
         if self.http_address and not self.http_address.rpartition(
                 ":")[2].isdigit():
             problems.append(
@@ -294,7 +349,14 @@ _ENV_KEYS = ("tpu_pipeline", "tpu_multi_reader_fused",
              "consul_refresh_interval", "tpu_drain_on_shutdown",
              "tpu_breaker_threshold", "tpu_breaker_cooldown",
              "tpu_forward_spool", "tpu_forward_spool_max_bytes",
-             "tpu_forward_spool_max_age", "tpu_forward_spool_dir")
+             "tpu_forward_spool_max_age", "tpu_forward_spool_dir",
+             "tpu_overload", "tpu_overload_tenant_tag",
+             "tpu_overload_tenant_rate", "tpu_overload_tenant_burst",
+             "tpu_overload_max_tenants", "tpu_overload_staging_hi",
+             "tpu_overload_occupancy_hi", "tpu_overload_lag_hi",
+             "tpu_overload_exit_ratio", "tpu_overload_coalesce",
+             "tpu_checkpoint_interval", "tpu_checkpoint_dir",
+             "tpu_arc_handoff")
 
 
 def _coerce(cls, name: str, raw: str):

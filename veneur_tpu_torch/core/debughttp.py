@@ -28,6 +28,8 @@ proxy.go:533-538), and so does the port:
   ``signals_dump``
 - ``/debug/flight``: flight-recorder bundle listing + fetch
   (``/debug/flight/<name>``), via ``flight_dump``
+- ``/debug/overload``: overload control on its own (pressure, tenant
+  buckets, shed attribution, the coalesce state); the server routes it
 
 ``SERVER_DEBUG_ENDPOINTS`` and ``PROXY_DEBUG_ENDPOINTS`` are the
 authoritative inventories of every /debug/* path the port's server and
@@ -53,6 +55,7 @@ SERVER_DEBUG_ENDPOINTS = (
     "/debug/flushes",
     "/debug/ledger",
     "/debug/trace",
+    "/debug/overload",
     "/debug/signals",
     "/debug/flight",
     "/debug/cluster",

@@ -214,6 +214,11 @@ class Flusher:
         self.aggregates = tuple(aggregates)
         self.hostname = hostname
         self.columnar = columnar
+        # scale-out arc handoff: a ``(meta) -> bool`` installed for one
+        # flush (``Server.arc_handoff``).  True forwards the row even on
+        # a global, and only forwards it: its keyspace arc now belongs
+        # to another member.  None otherwise.
+        self.handoff = None
 
     def flush(self, snap: Snapshot, now: int | None = None,
               cycle=None, retain_frame: bool = False) -> FlushResult:
@@ -537,7 +542,10 @@ class Flusher:
     def _forwardable(self, meta: RowMeta, always: bool) -> bool:
         """Whether a local forwards the row: never local-scope rows;
         digests and sets always, counters and gauges when global-scope
-        (``always`` False)."""
+        (``always`` False); on either tier, every row the handoff gate
+        names."""
+        if self.handoff is not None and self.handoff(meta):
+            return True
         if not self.is_local or meta.scope == dsd.SCOPE_LOCAL:
             return False
         return always or meta.scope == dsd.SCOPE_GLOBAL
@@ -608,6 +616,9 @@ class Flusher:
                     means=pre["fwd_means"][pos].copy(),
                     weights=pre["fwd_weights"][pos].copy()))
                 n_fwd += 1
+                # a handed-off arc forwards only: its new owner emits it
+                if self.handoff is not None and self.handoff(meta):
+                    continue
             if meta.scope == dsd.SCOPE_GLOBAL and self.is_local:
                 if pos is None:
                     n_ret += 1
@@ -707,10 +718,9 @@ class Flusher:
         if not len(rows):
             return
         v64 = np.asarray(vals)[rows].astype(np.float64)
+        fwd = self._handoff_mask(metas, rows)
         if self.is_local:
-            fwd = _scope_codes(metas, rows) == _SCOPE_GLOBAL
-        else:
-            fwd = np.zeros(len(rows), dtype=bool)
+            fwd |= _scope_codes(metas, rows) == _SCOPE_GLOBAL
         for r, v in zip(rows[fwd], v64[fwd]):
             res.forward.append(ForwardRow(metas[r], kind,
                                           value=float(v)))
@@ -718,6 +728,13 @@ class Flusher:
         frame.add_block(metas, rows[emit], v64[emit], type_code=type_code)
         res.account_rows(staged=len(rows), emitted=int(emit.sum()),
                          forwarded=int(fwd.sum()))
+
+    def _handoff_mask(self, metas, rows) -> np.ndarray:
+        """The handoff gate over ``rows`` (all False without one)."""
+        if self.handoff is None:
+            return np.zeros(len(rows), dtype=bool)
+        return np.fromiter((bool(self.handoff(metas[int(r)]))
+                            for r in rows), dtype=bool, count=len(rows))
 
     def _frame_counters(self, snap: Snapshot, res: FlushResult,
                         pre: dict, frame: MetricFrame) -> None:
@@ -760,17 +777,19 @@ class Flusher:
         # routing counts mirror the per-row emit: on a local every
         # non-local-scope row forwards and every non-global-scope row
         # emits (default scope does both: its local aggregates emit
-        # while its digest forwards); a global emits all
+        # while its digest forwards); a global emits all.  A handed-off
+        # row forwards only, on either tier
+        ho = self._handoff_mask(metas, rows)
         if self.is_local:
-            fwd_mask = sc != _SCOPE_LOCAL
-            emit_mask = sc != _SCOPE_GLOBAL
+            fwd_mask = ho | (sc != _SCOPE_LOCAL)
+            emit_mask = ~ho & (sc != _SCOPE_GLOBAL)
             gm = np.zeros(int(emit_mask.sum()), dtype=bool)
             with_pcts = sc[emit_mask] == _SCOPE_LOCAL
         else:
-            fwd_mask = np.zeros(len(rows), dtype=bool)
-            emit_mask = np.ones(len(rows), dtype=bool)
-            gm = sc == _SCOPE_GLOBAL
-            with_pcts = np.ones(len(rows), dtype=bool)
+            fwd_mask = ho
+            emit_mask = ~ho
+            gm = sc[emit_mask] == _SCOPE_GLOBAL
+            with_pcts = np.ones(int(emit_mask.sum()), dtype=bool)
         res.account_rows(
             staged=len(rows), emitted=int(emit_mask.sum()),
             forwarded=len(pre["histo_fwd"]),

@@ -86,16 +86,20 @@ from veneur_tpu_torch import native, observe, resolve_device
 from veneur_tpu_torch import trace as vtrace
 from veneur_tpu_torch.core import debughttp
 from veneur_tpu_torch.core import metrics as im
+from veneur_tpu_torch.core import overload as ovl
 from veneur_tpu_torch.core.config import Config, parse_duration
 from veneur_tpu_torch.core.spans import SpanWorker
 from veneur_tpu_torch.core.telemetry import Telemetry
 from veneur_tpu_torch.core.flusher import FlushResult, Flusher, ForwardRow
 from veneur_tpu_torch.core.table import MetricTable, TableConfig
-from veneur_tpu_torch.forward import grpc_forward, http_import
+from veneur_tpu_torch.forward import grpc_forward, handoff, http_import
+from veneur_tpu_torch.forward.ring import ConsistentRing
 from veneur_tpu_torch.forward.discovery import ConsulDiscoverer
 from veneur_tpu_torch.forward.shard import (DeadlineExceeded,
                                             ShardedForwarder)
 from veneur_tpu_torch.forward.spool import Spooled, WireSpool
+from veneur_tpu_torch.ops import checkpoint as ckpt
+from veneur_tpu_torch.ops import fdpass
 from veneur_tpu_torch.protocol import addr as addrmod
 from veneur_tpu_torch.protocol import columnar
 from veneur_tpu_torch.protocol import dogstatsd as dsd
@@ -220,6 +224,54 @@ class Server:
         # tier byte accounting from the last boundary (None until a
         # tiered flush; always None on a single-tier table)
         self._last_plane_bytes = None
+        # overload control (core/overload.py; on by default, as in the
+        # reference): admission buckets, class shedding under pressure,
+        # the width ladder and the flush-overrun coalesce.  None when
+        # tpu_overload is off; every call site guards
+        self.overload = None
+        if config.tpu_overload:
+            self.overload = ovl.Overload(
+                tenant_tag=config.tpu_overload_tenant_tag,
+                tenant_rate=float(config.tpu_overload_tenant_rate),
+                tenant_burst=float(config.tpu_overload_tenant_burst),
+                max_tenants=int(config.tpu_overload_max_tenants),
+                staging_hi=int(config.tpu_overload_staging_hi),
+                occupancy_hi=float(config.tpu_overload_occupancy_hi),
+                lag_hi=float(config.tpu_overload_lag_hi),
+                exit_ratio=float(config.tpu_overload_exit_ratio),
+                coalesce=bool(config.tpu_overload_coalesce))
+        # kernel UDP receive drops: socket inode -> the cumulative count
+        # at the last flush, so each interval records its delta
+        self._kernel_drops_last: dict[int, int] = {}
+        # crash riding: listener fds a predecessor handed down
+        # (VENEUR_TPU_SOCK_CLOAKED), the live listeners by slot name for
+        # a successor, the incarnation id stamping checkpoint segments
+        # and spool files, and the recovery ids already applied here
+        # (under self.lock, atomic with the apply)
+        self.start_epoch = time.time()
+        self.statsd_ports: list[int] = []
+        self._adopted_socks: dict[str, socket.socket] = {}
+        for slot, fd in fdpass.parse_cloak().items():
+            try:
+                self._adopted_socks[slot] = fdpass.adopt_socket(fd)
+            except OSError as e:
+                # a dead fd degrades its slot to a fresh bind
+                log.warning("cloaked fd %d for slot %s unusable: %s",
+                            fd, slot, e)
+        self.restarts_adopted = 0
+        self._cloak_slots: dict[str, socket.socket] = {}
+        self.incarnation = 0
+        self._checkpointer: ckpt.Checkpointer | None = None
+        if config.checkpoint_enabled():
+            self.incarnation = ckpt.next_incarnation(
+                config.tpu_checkpoint_dir)
+        self._recovery_seen: set[str] = set()
+        # scale-out arc handoff: (ring, self_member) for the one flush
+        # arc_handoff runs, the shipper (built at the first handoff) and
+        # the last handoff's stats
+        self._handoff_pending = None
+        self._handoff_shipper: handoff.HandoffShipper | None = None
+        self._handoff_last: dict = {}
         self.telemetry = Telemetry(self)
         self._sink_durations: dict[str, int] = {}
         # the signal history (one fixed-schema row per seal) and the
@@ -248,25 +300,39 @@ class Server:
     # ------------------------------------------------------------------
 
     def start(self) -> None:
+        """Bind (or adopt) the listeners and start every thread; with
+        checkpoints on, start the checkpointer and replay a crashed
+        predecessor's surviving segments."""
         n = max(1, self.config.num_readers)
-        for a in self.config.statsd_listen_addresses:
+        for ai, a in enumerate(self.config.statsd_listen_addresses):
             _, host, port, _ = addrmod.parse_addr(a)
             for i in range(n):
-                sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
-                if n > 1:
-                    sock.setsockopt(socket.SOL_SOCKET,
-                                    socket.SO_REUSEPORT, 1)
-                sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF,
-                                _RCVBUF_BYTES)
-                sock.bind((host, port))
+                slot = f"statsd.udp.{ai}.{i}"
+                sock = self._adopted_socks.pop(slot, None)
+                if sock is not None:
+                    # the predecessor's bound socket: datagrams queued
+                    # in the kernel across the restart are read here
+                    self.restarts_adopted += 1
+                    self.bump("listener_fds_adopted")
+                else:
+                    sock = socket.socket(socket.AF_INET,
+                                         socket.SOCK_DGRAM)
+                    if n > 1:
+                        sock.setsockopt(socket.SOL_SOCKET,
+                                        socket.SO_REUSEPORT, 1)
+                    sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF,
+                                    _RCVBUF_BYTES)
+                    sock.bind((host, port))
                 # the kernel hashes a wake datagram to one member of a
                 # reuseport group: the timeout is what makes every
                 # reader see shutdown
                 sock.settimeout(0.2)
                 port = sock.getsockname()[1]  # port 0 resolved once
                 self.sockets.append(sock)
+                self._cloak_slots[slot] = sock
                 self._spawn(f"udp-reader-{len(self.sockets) - 1}",
                             self._udp_reader, sock, i)
+            self.statsd_ports.append(port)
         self.span_worker.start()
         if self.config.enable_profiling:
             self._start_profiling()
@@ -279,6 +345,23 @@ class Server:
             self.grpc_servers.append(srv)
             self.grpc_ports.append(srv.port)
         self._spawn("flush-loop", self._flush_loop)
+        # cloak slots no listener claimed: close them (their queued
+        # datagrams are orphaned, so say so)
+        for name, sock in self._adopted_socks.items():
+            log.warning("unclaimed cloaked listener %r; closing it", name)
+            sock.close()
+        self._adopted_socks.clear()
+        if self.config.checkpoint_enabled():
+            self._checkpointer = ckpt.Checkpointer(
+                self, self.config.tpu_checkpoint_dir,
+                self.config.checkpoint_interval_seconds(),
+                self.incarnation)
+            self._checkpointer.start()
+            try:
+                self._recover_from_checkpoints()
+            except Exception:
+                self.bump("recovery_errors")
+                log.exception("checkpoint recovery failed")
 
     def _start_http(self, address: str) -> None:
         host, _, port = address.rpartition(":")
@@ -322,6 +405,13 @@ class Server:
                         "application/json")
                 elif path.startswith("/debug/trace"):
                     debughttp.trace_dump(self, server.trace_index, path)
+                elif path.startswith("/debug/overload"):
+                    debughttp.respond_ok(
+                        self, json.dumps(
+                            server.overload.snapshot()
+                            if server.overload is not None
+                            else {"enabled": False}, indent=2).encode(),
+                        "application/json")
                 elif path.startswith("/debug/vars"):
                     debughttp.vars_dump(self, server.debug_vars())
                 else:
@@ -344,56 +434,101 @@ class Server:
                 self._ok(json.dumps({"accepted": acc}).encode(),
                          "application/json")
 
-        self._httpd = http.server.ThreadingHTTPServer(
-            (host or "127.0.0.1", int(port)), Handler)
+        adopted = self._adopted_socks.pop("http", None)
+        if adopted is not None:
+            # the predecessor's listening socket: connections queued in
+            # its accept backlog are served and the port never frees
+            self._httpd = http.server.ThreadingHTTPServer(
+                adopted.getsockname()[:2], Handler,
+                bind_and_activate=False)
+            self._httpd.socket.close()
+            self._httpd.socket = adopted
+            (self._httpd.server_name,
+             self._httpd.server_port) = adopted.getsockname()[:2]
+            self.restarts_adopted += 1
+            self.bump("listener_fds_adopted")
+        else:
+            self._httpd = http.server.ThreadingHTTPServer(
+                (host or "127.0.0.1", int(port)), Handler)
         self._httpd.daemon_threads = True
         self.http_port = self._httpd.server_port
+        self._cloak_slots["http"] = self._httpd.socket
         self._spawn("http", self._httpd.serve_forever)
 
     def handle_import(self, body: bytes, content_encoding: str = "",
                       headers=None) -> int:
         """Decode one ``/import`` body and merge it into the table under
         the table lock (past the staging bound, the device step follows
-        the lock's release).  The items credit the ledger in the same
-        critical section, under the protocol the wire's flags name; a
-        drain or replay wire is also counted (``note_flagged_import``;
-        the effects of recovery and handoff are not in this server); a
+        the lock's release) through ``apply_import_locked``: a recovery
+        wire already applied here is accepted and discarded, the rest
+        credit the ledger under the protocol the wire's flags name.  A
         trace header parents the ``import`` span under the sender's
-        forward span.  Raises ValueError (or zlib.error)
-        on a malformed body, before anything is merged.  Returns the
-        accepted item count."""
+        forward span.  Raises ValueError (or zlib.error) on a malformed
+        body, before anything is merged.  Returns the accepted item
+        count."""
         t0 = time.monotonic_ns()
         items = http_import.decode_body(body, content_encoding)
         flags = http_import.decode_headers(headers or {})
         flagged = any(flags[k] for k in ("drain", "replay", "recovery",
                                          "handoff"))
         with self.lock:
-            # the overflow delta splits the drops into overflow (the
-            # table counted them) and invalid (dropped before it)
-            ov0 = self.table.overflow_total()
-            acc, dropped = http_import.apply_import(self.table, items)
-            ov = self.table.overflow_total() - ov0
-            self.ledger.ingest(
-                http_import.import_protocol("http-import", flags),
-                processed=acc + dropped, staged=acc, overflow=ov,
-                invalid=dropped - ov)
-            work = self._maybe_device_step_locked()
+            acc, dropped, deduped = self.apply_import_locked(
+                "http-import", flags,
+                lambda: http_import.apply_import(self.table, items))
+            work = (None if deduped
+                    else self._maybe_device_step_locked())
         self._apply_staged(work)
         self.note_import_span("http", acc, dropped, *flags["trace"],
                               nbytes=len(body))
         self.bump("imports_received", acc)
         self.bump("metrics_dropped", dropped)
         self.bump("import_flagged_wires", int(flagged))
-        self.note_flagged_import(flags, acc)
+        self.note_flagged_import(flags, acc, deduped)
         self.bump("import_response_ns", time.monotonic_ns() - t0)
         self.bump("import_responses")
         return acc
 
-    def note_flagged_import(self, flags: dict, accepted: int) -> None:
-        """Count a peer's drain wire (its shutdown handoff) or replay
-        wire (its spool, after riding out our outage): both stage into
-        the current interval, late but counted."""
-        for key in ("drain", "replay"):
+    def apply_import_locked(self, base: str, flags: dict, apply
+                            ) -> tuple[int, int, bool]:
+        """Apply one decoded import wire (``apply()`` returns
+        (accepted, dropped)) and credit the ledger, under ``base``
+        suffixed by the wire's flag.  The caller holds ``self.lock``, so
+        the recovery dedup is atomic with the apply: a recovery id
+        already applied here is not applied again (returns deduped
+        True).  A recovery wire also credits the ledger's ``recover``
+        arm, a handoff wire the reshard arrival.  Returns (accepted,
+        dropped, deduped)."""
+        rid = flags["recovery"]
+        if rid:
+            if rid in self._recovery_seen:
+                return 0, 0, True
+            self._recovery_seen.add(rid)
+        # the overflow delta splits the drops into overflow (the table
+        # counted them) and invalid (dropped before it)
+        ov0 = self.table.overflow_total()
+        acc, dropped = apply()
+        ov = self.table.overflow_total() - ov0
+        self.ledger.ingest(http_import.import_protocol(base, flags),
+                           processed=acc + dropped, staged=acc,
+                           overflow=ov, invalid=dropped - ov)
+        if rid:
+            self.ledger.recover(f"incarnation:{rid.split(':', 1)[0]}",
+                                acc)
+        if flags["handoff"]:
+            self.ledger.credit_reshard_received(acc)
+        return acc, dropped, False
+
+    def note_flagged_import(self, flags: dict, accepted: int,
+                            deduped: bool = False) -> None:
+        """Count a flagged wire: a peer's drain (its shutdown flush),
+        replay (its spool, after riding out our outage), recovery (a
+        crashed peer's checkpoint; a retransmit counts as deduped) or
+        handoff (arcs this node now owns).  All stage into the current
+        interval, late but counted."""
+        if deduped:
+            self.bump("recovery_wires_deduped")
+            return
+        for key in ("drain", "replay", "recovery", "handoff"):
             if flags[key]:
                 self.bump(f"{key}_wires_received")
                 self.bump(f"{key}_items_received", accepted)
@@ -519,8 +654,13 @@ class Server:
         from elsewhere, e.g. gRPC SendPacket) the batch parses into
         columns outside the lock and ``ingest_columns`` runs under it.
         Each branch credits the ledger in the critical section of its
-        merge (a shard's lock-free ``parse`` does no ledger work).
-        Returns the processed sample count."""
+        merge (a shard's lock-free ``parse`` does no ledger work).  While
+        overload admission is active (tenant budgets, or pressure
+        engaged) the batch takes the columnar branch, whose
+        ``admit_columns`` rewrites shed lines to ``CODE_SHED`` under the
+        lock, and the per-line samples pass ``admit_sample``; otherwise
+        the fused branches run with one boolean check.  Returns the
+        processed sample count."""
         errors = oversize
         good = []
         for p in packets:
@@ -532,7 +672,9 @@ class Server:
         if drained is not None:
             good.append(drained)
         buf = b"\n".join(good)
-        if shard is not None:
+        adm = self.overload is not None and self.overload.admission_active
+        shed = 0
+        if shard is not None and not adm:
             shard.parse(buf)
             with self.lock:
                 processed, dropped, others = shard.commit()
@@ -543,7 +685,7 @@ class Server:
             self._apply_staged(work)
             shard.reset()
             lines = [buf[off:off + ln] for off, ln, _kind in others]
-        elif self.config.num_readers <= 1:
+        elif self.config.num_readers <= 1 and not adm:
             with self.lock:
                 processed, dropped, others = self.table.ingest_buffer(buf)
                 self.ledger.ingest("dogstatsd", processed=processed,
@@ -560,14 +702,23 @@ class Server:
                 parser = self._parsers.p = columnar.ColumnarParser()
             pb = parser.parse(buf, copy=False)
             with self.lock:
+                if adm:
+                    # shed lines leave this critical section attributed
+                    shed, shed_by = self.overload.admit_columns(
+                        pb, self.table)
                 processed, dropped = self.table.ingest_columns(pb)
-                self.ledger.ingest("dogstatsd", processed=processed,
+                self.ledger.ingest("dogstatsd", processed=processed + shed,
                                    staged=processed - dropped,
-                                   overflow=dropped)
+                                   overflow=dropped, shed=shed)
+                if shed:
+                    self.ledger.credit_shed(shed_by)
                 work = self._maybe_device_step_locked()
             self._apply_staged(work)
+            processed += shed
+            # shed lines are accounted above: not errors, not events
+            tc = pb.type_code[:pb.n]
             lines = [pb.line(int(i)) for i in np.nonzero(
-                pb.type_code[:pb.n] > columnar.CODE_SET)[0]]
+                (tc > columnar.CODE_SET) & (tc != columnar.CODE_SHED))[0]]
         # events, service checks and malformed lines: per-line parse
         slow = []
         for line in lines:
@@ -585,19 +736,32 @@ class Server:
                     message=parsed.message))
         if slow:
             n_status = sum(1 for s in slow if s.type == dsd.STATUS)
-            slow_dropped = 0
+            slow_dropped = slow_shed = 0
+            slow_shed_by: dict = {}
             with self.lock:
                 for sample in slow:
+                    if adm and sample.type != dsd.STATUS:
+                        ok, tenant, reason = self.overload.admit_sample(
+                            sample, self.table)
+                        if not ok:
+                            slow_shed += 1
+                            k = (tenant, reason)
+                            slow_shed_by[k] = slow_shed_by.get(k, 0) + 1
+                            continue
                     if not self.table.ingest(sample):
                         slow_dropped += 1
                 self.ledger.ingest(
                     "dogstatsd", processed=len(slow),
-                    staged=len(slow) - slow_dropped - n_status,
-                    overflow=slow_dropped, status=n_status)
+                    staged=len(slow) - slow_dropped - n_status - slow_shed,
+                    overflow=slow_dropped, status=n_status,
+                    shed=slow_shed)
+                if slow_shed:
+                    self.ledger.credit_shed(slow_shed_by)
                 work = self._maybe_device_step_locked()
             self._apply_staged(work)
             processed += len(slow)
             dropped += slow_dropped
+            shed += slow_shed
         if errors:
             # informational, not a balance input: out of the lock
             self.ledger.ingest("dogstatsd", parse_errors=errors)
@@ -606,6 +770,9 @@ class Server:
             self.stats["packet_errors"] += errors
             self.stats["metrics_processed"] += processed
             self.stats["metrics_dropped"] += dropped
+            if shed:
+                self.stats["metrics_shed"] = (
+                    self.stats.get("metrics_shed", 0) + shed)
         return processed
 
     def _maybe_device_step_locked(self):
@@ -643,16 +810,36 @@ class Server:
         """One flush: swap the table (pipelined: detach under the lock,
         apply the final staging outside it), read it out, route it to
         every sink and plugin, forward on a local, then seal the
-        interval's ledger record, sample the signal row and tick
+        interval's ledger record, tick overload pressure, sample the
+        signal row, prune delivered checkpoints and tick
         self-telemetry.  The cycle is traced: one span per stage, a
-        record in the /debug/flushes ring.  Returns the FlushResult
-        with the frame materialized into ``metrics``."""
+        record in the /debug/flushes ring.  After a flush that overran
+        its budget the next tick coalesces: no swap, an empty result,
+        the skip named in the ledger (a drain flush never coalesces).
+        Returns the FlushResult with the frame materialized into
+        ``metrics``."""
         with self._flush_serial:
-            t_flush0 = time.monotonic_ns()
-            with self.flush_tracer.cycle() as cyc:
-                return self._flush_stages(cyc, t_flush0)
+            return self._flush_once_locked()
+
+    def _flush_once_locked(self) -> FlushResult:
+        if (self.overload is not None and not self._draining
+                and self.overload.take_coalesce()):
+            self.bump("flush_coalesced")
+            self.ledger.note_coalesced()
+            log.warning("flush overran its budget last interval; "
+                        "coalescing this tick (one swap will cover two "
+                        "intervals)")
+            return FlushResult()
+        t_flush0 = time.monotonic_ns()
+        with self.flush_tracer.cycle() as cyc:
+            return self._flush_stages(cyc, t_flush0)
 
     def _flush_stages(self, cyc, t_flush0: int) -> FlushResult:
+        # kernel receive drops of the closing interval: lost before the
+        # process saw them, named on the record and fed to the pressure
+        # signal
+        kdrops = self._sample_kernel_drops()
+        compiles0 = self.device_costs.totals()["compile_total"]
         with cyc.stage("snapshot"):
             with self.lock:
                 if self.pipeline:
@@ -667,7 +854,8 @@ class Server:
                 led = self.ledger.close_interval(
                     seq=cyc.record.seq, trace_id=cyc.record.trace_id,
                     table_staged=swapped.ingested,
-                    table_overflow=swapped.overflow)
+                    table_overflow=swapped.overflow,
+                    kernel_drops=kdrops)
         if self.pipeline:
             with cyc.stage("swap_apply"):
                 snap = self.table.complete_swap(pend)
@@ -688,26 +876,45 @@ class Server:
                 name=name, timestamp=ts, value=val, tags=stags,
                 type=im.STATUS, message=msg,
                 hostname=self.flusher.hostname))
+        t_sink0 = time.monotonic_ns()
         with cyc.stage("sink_flush"):
             for sink in self.metric_sinks:
                 self._flush_sink(sink, res, cyc, led)
             for plugin in self.plugins:
                 plugin.flush(res.all_metrics(), self.flusher.hostname)
-            if self.is_local and res.forward:
+            handoff_pending = self._handoff_pending
+            if handoff_pending is not None and res.forward:
+                # the arcs the new ring gives other members leave over
+                # the import wire flagged handoff, not the forward path
+                with cyc.stage("handoff") as sp:
+                    sp.add_tag("rows", str(len(res.forward)))
+                    self._ship_handoff(res.forward, *handoff_pending, led,
+                                       cyc.wire_context(sp))
+            elif self.is_local and res.forward:
                 with cyc.stage("forward") as sp:
                     sp.add_tag("rows", str(len(res.forward)))
                     self._forward(res.forward, cyc.wire_context(sp), led,
                                   cyc, sp)
             self.span_worker.flush()
+        sink_ns = time.monotonic_ns() - t_sink0
         with self._stats_lock:
             sink_durs = dict(self._sink_durations)
             self._sink_durations.clear()
         cyc.record.metrics_emitted = res.metric_count()
         cyc.record.forward_rows = len(res.forward)
         cyc.record.tally = dict(res.tally)
+        if self.overload is not None:
+            self._overload_tick(t_flush0, sink_ns, compiles0, kdrops)
         self.ledger.seal(led)
         self._sample_signals(led, cyc.record,
                              time.monotonic_ns() - t_flush0)
+        if self._checkpointer is not None:
+            # the sealed interval is delivered: its segments (and every
+            # older gen's) would double-deliver if replayed
+            try:
+                self._checkpointer.on_flush(int(snap.gen))
+            except Exception:
+                log.exception("checkpoint prune after flush failed")
         try:
             self.telemetry.flush_tick(
                 res.tally, time.monotonic_ns() - t_flush0, sink_durs,
@@ -718,6 +925,47 @@ class Server:
             res.metrics = res.frame.materialize() + res.metrics
             res.frame = None
         return res
+
+    def _overload_tick(self, t_flush0: int, sink_ns: int, compiles0: int,
+                       kdrops: int) -> None:
+        """Once a flush: the overrun watchdog and the pressure tick,
+        then the width ladder follows the pressure level.  The sink,
+        forward and handoff stage is left out of the flush's duration,
+        as the reference leaves out its bounded sink waits; a flush that
+        built a library is exempt from the watchdog."""
+        ov = self.overload
+        dur_s = max(0, time.monotonic_ns() - t_flush0 - sink_ns) / 1e9
+        compiled = (self.device_costs.totals()["compile_total"]
+                    - compiles0) > 0
+        ov.note_flush(dur_s, max(self.interval * 0.9, 1.0),
+                      compiled=compiled)
+        ov.tick(staging_depth=int(self.table.staged()),
+                occupancy=self._occupancy(),
+                flush_lag_ratio=dur_s / max(self.interval, 1e-9),
+                socket_drop_delta=kdrops)
+        with self.lock:
+            self.table.set_pressure_level(ov.pressure.level)
+
+    def _occupancy(self) -> float:
+        """The fullest class index's occupied share."""
+        occ = 0.0
+        for idx in (self.table.counter_idx, self.table.gauge_idx,
+                    self.table.histo_idx, self.table.set_idx):
+            if idx.capacity:
+                occ = max(occ, idx.occupancy() / idx.capacity)
+        return occ
+
+    def _sample_kernel_drops(self) -> int:
+        """The interval's kernel receive drops over the reader sockets
+        (``/proc/net/udp{,6}``' drops column), cumulative in
+        ``stats[socket_kernel_drops]``."""
+        cur = ovl.read_kernel_drops(self.sockets)
+        delta = sum(max(0, drops - self._kernel_drops_last.get(inode, 0))
+                    for inode, drops in cur.items())
+        self._kernel_drops_last = cur
+        if delta:
+            self.bump("socket_kernel_drops", delta)
+        return delta
 
     def _flush_sink(self, sink, res: FlushResult, cyc, led) -> None:
         """Route the flush to one sink (the frame, or the materialized
@@ -804,7 +1052,8 @@ class Server:
                 spool = WireSpool(
                     max_bytes=cfg.tpu_forward_spool_max_bytes,
                     max_age=cfg.forward_spool_max_age_seconds(),
-                    dir=cfg.tpu_forward_spool_dir or None)
+                    dir=cfg.tpu_forward_spool_dir or None,
+                    incarnation=self.incarnation)
             self._sharded_fwd = ShardedForwarder(
                 addrs, compression=float(cfg.tpu_compression),
                 discoverer=discoverer, service=service,
@@ -1087,10 +1336,10 @@ class Server:
         """One row of every internal signal, in the reference's fixed
         schema (``veneur_tpu/core/server.py`` ``_signal_row``): called
         with no arguments at construction to derive the schema.  A
-        subsystem the port does not run yet (pressure, shedding, the
-        collective path, sink workers, handoff and recovery) samples
-        0, as do the forward's columns until the sharded forwarder is
-        built."""
+        subsystem the port does not run yet (the collective path, sink
+        workers) samples 0, as do the forward's columns until the
+        sharded forwarder is built and the pressure columns with
+        overload off."""
         with self._stats_lock:
             st = dict(self.stats)
         row = {
@@ -1100,18 +1349,19 @@ class Server:
             "ingest.metrics_dropped": st.get("metrics_dropped", 0),
             "ingest.imports_received": st.get("imports_received", 0),
             "ingest.import_errors": st.get("import_errors", 0),
-            "ingest.kernel_drops": 0,
+            "ingest.kernel_drops": st.get("socket_kernel_drops", 0),
             "flush.count": st.get("flushes", 0),
             "flush.errors": st.get("flush_errors", 0),
-            "flush.slow_tasks": 0,
+            "flush.slow_tasks": st.get("flush_slow_tasks", 0),
             "flush.duration_ns": int(flush_ns),
             "flush.compiles":
                 self.device_costs.totals()["compile_total"],
-            "handoff.shipped_items": 0,
-            "handoff.received_items": 0,
-            "recover.recovered_items": 0,
-            "recover.replay_wires": 0,
-            "recover.segments_replayed": 0,
+            "handoff.shipped_items": st.get("handoff_items_sent", 0),
+            "handoff.received_items": st.get("handoff_items_received", 0),
+            "recover.recovered_items": st.get("recovery_items_received", 0),
+            "recover.replay_wires": st.get("replay_wires_received", 0),
+            "recover.segments_replayed":
+                st.get("recovery_segments_replayed", 0),
             "trace.spans_sent": self.trace_client.sent,
             "trace.spans_dropped": self.trace_client.dropped,
         }
@@ -1121,11 +1371,17 @@ class Server:
             row[f"flush.stage.{stage}_ns"] = stages.get(stage, 0)
         row["flush.readback_bytes"] = (
             record.readback_bytes if record is not None else 0)
-        for key in ("pressure.score", "pressure.level",
-                    "pressure.engaged", "pressure.transitions",
-                    "flush.overruns", "flush.coalesced", "shed.total",
-                    "shed.tenants"):
-            row[key] = 0
+        ov = self.overload
+        p = ov.pressure if ov is not None else None
+        row["pressure.score"] = p.score if p is not None else 0.0
+        row["pressure.level"] = p.level if p is not None else 0
+        row["pressure.engaged"] = int(p.engaged if p is not None else False)
+        row["pressure.transitions"] = p.transitions if p is not None else 0
+        row["flush.overruns"] = ov.flush_overruns if ov is not None else 0
+        row["flush.coalesced"] = ov.coalesced_total if ov is not None else 0
+        row["shed.total"] = ov.shed_total if ov is not None else 0
+        row["shed.tenants"] = (len({t for t, _ in ov.shed_by_total})
+                               if ov is not None else 0)
         rec = led
         row["ledger.received"] = (
             rec.received_total() if rec is not None else 0)
@@ -1145,12 +1401,7 @@ class Server:
             rec.reshard_received_items if rec is not None else 0)
         table = self.table
         row["table.staged"] = int(table.staged())
-        occ = 0.0
-        for idx in (table.counter_idx, table.gauge_idx,
-                    table.histo_idx, table.set_idx):
-            if idx.capacity:
-                occ = max(occ, idx.occupancy() / idx.capacity)
-        row["table.occupancy"] = round(occ, 6)
+        row["table.occupancy"] = round(self._occupancy(), 6)
         fwd = self._sharded_fwd
         states = fwd.breaker_states() if fwd is not None else {}
         for state in ("closed", "half_open", "open"):
@@ -1284,8 +1535,11 @@ class Server:
 
     def debug_vars(self) -> dict:
         """The /debug/vars page: counters, the device-cost registry,
-        the trace client, the tier byte accounting and summaries of
-        the ledger, signal history and flight recorder."""
+        the trace client, the tier byte accounting, overload control,
+        the kernel receive drops, the crash-riding lifecycle
+        (incarnation, adopted fds, the checkpointer), the last arc
+        handoff and summaries of the ledger, signal history and flight
+        recorder."""
         with self._stats_lock:
             stats = dict(self.stats)
         return {
@@ -1304,11 +1558,145 @@ class Server:
             "planes": self.table.plane_bytes(),
             "ledger": self.ledger.summary(),
             "spool_ledger": self._spool_ledger.summary(),
+            "overload": (self.overload.snapshot()
+                         if self.overload is not None else None),
+            "sockets": {
+                "kernel_drops_total": stats.get("socket_kernel_drops", 0),
+                "by_inode": dict(self._kernel_drops_last)},
+            "start_epoch": self.start_epoch,
+            "incarnation": self.incarnation,
+            "restarts_adopted": self.restarts_adopted,
+            "checkpoint": (dict(self._checkpointer.stats)
+                           if self._checkpointer is not None else None),
+            "handoff": dict(self._handoff_last),
             "signals": (self.signals.summary()
                         if self.signals is not None else None),
             "flight": (self.flight.stats()
                        if self.flight is not None else None),
         }
+
+    # ------------------------------------------------------------------
+    # crash recovery and the scale-out arc handoff
+
+    def _recover_from_checkpoints(self) -> None:
+        """Replay a crashed predecessor's surviving checkpoint segments
+        (newest per incarnation and gen, unconsumed, younger than the
+        recovery grace).  A local forwarding over gRPC sends each body
+        to its (first) global flagged recovery, where it is deduped by
+        its ``inc:seq`` id; any other node re-ingests it locally
+        (``_recover_local``).  Each replayed id is registered in the
+        checkpoint directory, so a crash during recovery replays
+        nothing twice."""
+        directory = self.config.tpu_checkpoint_dir
+        max_age = ckpt.RECOVERY_GRACE * max(
+            self.config.checkpoint_interval_seconds(), self.interval)
+        segs = ckpt.scan_recoverable(directory, self.incarnation, max_age)
+        if not segs:
+            return
+        client = None
+        if (self.is_local and self.config.forward_use_grpc
+                and self.config.forward_address):
+            client = grpc_forward.ForwardClient(
+                self.config.forward_address.split(",")[0].strip(),
+                compression=float(self.config.tpu_compression))
+        try:
+            for seg in segs:
+                rid = seg.recovery_id
+                items = int(seg.header.get("items", 0))
+                try:
+                    if client is not None:
+                        client.send_wire(
+                            seg.body,
+                            metadata=[(grpc_forward.RECOVERY_KEY, rid)])
+                    else:
+                        self._recover_local(seg, rid)
+                except Exception:
+                    self.bump("recovery_errors")
+                    log.exception("recovery replay of %s failed",
+                                  seg.path)
+                    continue
+                ckpt.mark_consumed(directory, rid)
+                self.bump("recovery_segments_replayed")
+                self.bump("recovery_items_replayed", items)
+                log.info("recovered checkpoint %s (%d items; %d device-"
+                         "staged beyond its reach) via %s", rid, items,
+                         int(seg.header.get("device_staged", 0)),
+                         "forward wire" if client is not None
+                         else "local re-ingest")
+        finally:
+            if client is not None:
+                client.close()
+
+    def _recover_local(self, seg, rid: str) -> None:
+        """Re-ingest one segment body through the gRPC import fold under
+        the ingest lock, with the receiver's dedup, credited
+        ``checkpoint-recovery`` and to the ledger's ``recover`` arm."""
+        flags = {"recovery": rid, "handoff": False, "drain": False,
+                 "replay": False}
+        with self.lock:
+            acc, dropped, deduped = self.apply_import_locked(
+                "checkpoint", flags,
+                lambda: grpc_forward.apply_metric_list_bytes(self.table,
+                                                             seg.body))
+            work = None if deduped else self._maybe_device_step_locked()
+        self._apply_staged(work)
+        if deduped:
+            self.bump("recovery_wires_deduped")
+            return
+        self.bump("imports_received", acc)
+        self.bump("metrics_dropped", dropped)
+
+    def arc_handoff(self, members: list[str], self_member: str) -> dict:
+        """Scale-out keyspace handoff on a global: one flush with the
+        flusher's handoff gate installed, so every resident row whose
+        route-key arc the ring of ``members`` gives another member
+        forwards (only), and those rows ship to their new owners over
+        the import wire flagged handoff (``_ship_handoff``).  Run on
+        each incumbent before the locals' rings change.  Returns the
+        shipped stats (``{"enabled": False}`` with
+        ``tpu_arc_handoff`` off)."""
+        if not self.config.tpu_arc_handoff:
+            return {"enabled": False}
+        ring = ConsistentRing(list(members))
+        with self._flush_serial:
+            self._handoff_last = {}
+            self.flusher.handoff = handoff.make_flusher_gate(
+                ring, self_member)
+            self._handoff_pending = (ring, self_member)
+            try:
+                self._flush_once_locked()
+            finally:
+                self.flusher.handoff = None
+                self._handoff_pending = None
+        self.bump("arc_handoffs")
+        return dict(self._handoff_last)
+
+    def _ship_handoff(self, rows, ring, self_member, led,
+                      trace_ctx=None) -> None:
+        """Partition a handoff flush's forward rows by the new ring and
+        send each member its arcs; a failed wire drops loudly (counted
+        and credited to the ledger)."""
+        if self._handoff_shipper is None:
+            self._handoff_shipper = handoff.HandoffShipper(
+                compression=float(self.config.tpu_compression))
+        by_member, kept = handoff.partition(rows, ring, self_member)
+        moved = sum(len(v) for v in by_member.values())
+        stats = self._handoff_shipper.ship(by_member, trace_ctx)
+        stats["moved_rows"] = moved
+        stats["kept_rows"] = kept
+        self._handoff_last = stats
+        self.bump("handoff_wires_sent", stats["wires"])
+        self.bump("handoff_items_sent", stats["items"])
+        if stats["errors"]:
+            self.bump("handoff_errors", stats["errors"])
+            self.bump("metrics_dropped", stats["dropped_items"])
+        if led is not None:
+            # the outward rebalance, named on the interval's record
+            self.ledger.credit_reshard(
+                led, 0, [m for m in ring.members if m != self_member], [],
+                moved)
+            self.ledger.credit_forward_wire(
+                led, rows=stats["items"], errors=stats["errors"])
 
     def _start_profiling(self) -> None:
         """``enable_profiling``: a torch.profiler trace of CPU and CUDA
@@ -1346,6 +1734,12 @@ class Server:
                 and self.config.is_local()):
             self._drain_handoff()
         self._shutdown.set()
+        if self._checkpointer is not None:
+            self._checkpointer.stop()
+            self._checkpointer = None
+        if self._handoff_shipper is not None:
+            self._handoff_shipper.close()
+            self._handoff_shipper = None
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()
@@ -1354,7 +1748,10 @@ class Server:
             g.stop()
         self.grpc_servers = []
         for sock in self.sockets:
-            sock.close()
+            try:
+                sock.close()
+            except OSError:
+                pass  # an adopted fd its other owner already closed
         for t in self._threads:
             t.join(timeout=5.0)
         self._threads = []

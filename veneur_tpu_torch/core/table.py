@@ -502,6 +502,14 @@ class MetricTable:
             self._eff_histo_slots = min(c.histo_slots, mb)
         self._staged_n = 0
         self._interval_ingested = 0
+        # samples that left host staging mid-interval (threshold device
+        # steps): a checkpoint cannot see them, so its header names the
+        # count (checkpoint_capture)
+        self._interval_device_staged = 0
+        # overload pressure: set_pressure_level walks the histogram
+        # merge width down the ladder; the base restores it on release
+        self._eff_histo_slots_base = self._eff_histo_slots
+        self._pressure_level = 0
 
         # global-tier import staging: forwarded digests merged item by
         # item (digest-only samples), forwarded stat rows, register rows
@@ -838,6 +846,86 @@ class MetricTable:
         return (self.counter_idx.overflow + self.gauge_idx.overflow +
                 self.histo_idx.overflow + self.set_idx.overflow)
 
+    def set_pressure_level(self, level: int) -> None:
+        """Overload pressure hook (core/overload.py): level > 0 steps the
+        effective histogram merge width down the ladder, one halving a
+        level floored at the ladder minimum, so deep batches collapse
+        earlier (less sketch resolution, no dropped samples); level 0
+        restores the configured width.  It takes effect at the next
+        merge; the stacked wire fold's width (``_wire_stack_kmax``)
+        stays as the table was built.  On a tiered table, levels >= 2
+        also freeze boundary promotions."""
+        level = max(0, int(level))
+        if level == self._pressure_level:
+            return
+        self._pressure_level = level
+        base = self._eff_histo_slots_base
+        if level == 0:
+            self._eff_histo_slots = base
+        else:
+            self._eff_histo_slots = _ladder_floor(max(base >> level, 1))
+        if self.tiers is not None:
+            with self.tiers.lock:
+                self.tiers.promote_frozen = level >= 2
+
+    def checkpoint_capture(self) -> dict | None:
+        """Copy the open interval's host staging for a crash checkpoint
+        (``ops/checkpoint.py``).  Runs under the caller's ingest lock,
+        detaches nothing and touches no device tensor: every buffer it
+        reads is host numpy, so it never waits on the card.  Dense
+        counter and gauge accumulators are copied; the staging lists are
+        shallow-copied (their ndarray chunks are never mutated after
+        they are appended); each class's meta list is captured as
+        (reference, length) since it is append-only and compaction
+        replaces the list at a swap.  ``device_staged`` counts what
+        mid-interval device steps already moved out of reach.  Returns
+        None when nothing is staged."""
+        cap: dict = {"gen": self.gen,
+                     "ingested": self._interval_ingested,
+                     "device_staged": self._interval_device_staged}
+        data = False
+        if self._counter_dirty:
+            cap["counter"] = self._counter_dense.copy()
+            data = True
+        if self._gauge_dirty:
+            cap["gauge"] = (self._gauge_dense.copy(),
+                            self._gauge_mask.copy())
+            data = True
+        for key, stage in (("histo", self._histo_stage),
+                           ("digest", self._digest_stage)):
+            if stage.rows:
+                cap[key] = (list(stage.rows), list(stage.values),
+                            list(stage.weights))
+                data = True
+        if self._wire_digest_parts:
+            cap["wire_parts"] = list(self._wire_digest_parts)
+            data = True
+        if self._stats_import_parts:
+            cap["stats_parts"] = list(self._stats_import_parts)
+            data = True
+        if self._set_rows:
+            cap["set_members"] = (list(self._set_rows),
+                                  list(self._set_members))
+            data = True
+        if self._set_pos_rows:
+            cap["set_pos"] = (list(self._set_pos_rows),
+                              list(self._set_pos))
+            data = True
+        if (self._set_import_touched is not None and
+                self._set_import_touched.any()):
+            rows = np.flatnonzero(self._set_import_touched)
+            cap["set_import"] = (rows.astype(np.int32),
+                                 self._set_import_plane[rows].copy())
+            data = True
+        if not data:
+            return None
+        for key, idx in (("counter_meta", self.counter_idx),
+                         ("gauge_meta", self.gauge_idx),
+                         ("histo_meta", self.histo_idx),
+                         ("set_meta", self.set_idx)):
+            cap[key] = (idx.meta, len(idx.meta))
+        return cap
+
     def _note_staged(self, n: int) -> None:
         self._staged_n += n
         self._interval_ingested += n
@@ -1109,6 +1197,20 @@ class MetricTable:
                    w.histo is None and w.digest is None and
                    w.wire_parts is None and w.set_parts is None and
                    w.stats_parts is None and w.set_import is None)
+        if not final and not w.empty:
+            # mid-interval detach: out of any later checkpoint's view
+            n = 0
+            for stage in (w.histo, w.digest):
+                if stage is not None:
+                    n += sum(len(r) for r in stage.rows)
+            if w.wire_parts is not None:
+                n += sum(len(p[0]) for p in w.wire_parts)
+            if w.set_parts is not None:
+                sr, _sm, spr, _sp = w.set_parts
+                n += len(sr) + sum(len(r) for r in spr)
+            if w.stats_parts is not None:
+                n += sum(len(p[0]) for p in w.stats_parts)
+            self._interval_device_staged += n
         return w
 
     def _apply_work(self, w: _StagedWork) -> None:
@@ -2096,6 +2198,7 @@ class MetricTable:
         }
         pend.ingested = self._interval_ingested
         self._interval_ingested = 0
+        self._interval_device_staged = 0
         # the new interval adopts the plane references with every kind
         # marked fresh: new planes are allocated on first touch
         ns = _IntervalState(self.gen + 1)

@@ -10,9 +10,11 @@ the flush's total and per-stage durations, the device-cost registry
 native and CUDA libraries), the ledger's verdict, the tier accounting,
 the signal history and flight recorder, the sharded forward (its
 wires, busy drops, fallbacks, reshards, deadline drops, breakers,
-spool and discovery health), drain and replay traffic in both
-directions, gc and memory.  The metrics of checkpoints, overload, span
-sinks and the collective path come with those subsystems.
+spool and discovery health), drain, replay, recovery and handoff
+traffic in both directions, adopted listener fds, the checkpointer,
+overload control (shed by tenant and reason, pressure, overruns,
+coalesced ticks), kernel receive drops, gc and memory.  The metrics of
+span sinks and the collective path come with those subsystems.
 
 Two emission paths, as in the reference:
 - ``stats_address`` set: DogStatsD datagrams to an external agent
@@ -218,8 +220,48 @@ class Telemetry:
                 ("replay_wires_received",
                  "veneur.import.replay_wires_total"),
                 ("replay_items_received",
-                 "veneur.import.replay_items_total")):
+                 "veneur.import.replay_items_total"),
+                # crash recovery: segments this node replayed at start,
+                # and recovery wires accepted from restarting peers
+                # (deduped: retransmits the inc:seq registry absorbed)
+                ("recovery_segments_replayed",
+                 "veneur.recovery.segments_total"),
+                ("recovery_items_replayed", "veneur.recovery.items_total"),
+                ("recovery_errors", "veneur.recovery.errors_total"),
+                ("recovery_wires_received",
+                 "veneur.import.recovery_wires_total"),
+                ("recovery_items_received",
+                 "veneur.import.recovery_items_total"),
+                ("recovery_wires_deduped",
+                 "veneur.import.recovery_deduped_total"),
+                # the scale-out arc handoff, both directions
+                ("handoff_wires_sent", "veneur.forward.handoff.wires_total"),
+                ("handoff_items_sent", "veneur.forward.handoff.items_total"),
+                ("handoff_errors", "veneur.forward.handoff.errors_total"),
+                ("handoff_wires_received",
+                 "veneur.import.handoff_wires_total"),
+                ("handoff_items_received",
+                 "veneur.import.handoff_items_total"),
+                # listener fds adopted from a predecessor at start
+                ("listener_fds_adopted",
+                 "veneur.restart.fds_adopted_total")):
             count(metric, self._delta(key))
+        # the staged-plane checkpointer: segments written, pruned after
+        # a seal, and stale captures a flush overtook
+        ckpt = self.server._checkpointer
+        if ckpt is not None:
+            for attr, metric in (
+                    ("written", "veneur.checkpoint.written_total"),
+                    ("bytes", "veneur.checkpoint.bytes_total"),
+                    ("rows", "veneur.checkpoint.rows_total"),
+                    ("pruned", "veneur.checkpoint.pruned_total"),
+                    ("stale_discarded",
+                     "veneur.checkpoint.stale_discarded_total"),
+                    ("errors", "veneur.checkpoint.errors_total")):
+                key = f"checkpoint_{attr}"
+                stats[key] = int(ckpt.stats[attr])
+                count(metric, self._delta(key))
+            gauge("veneur.checkpoint.last_items", ckpt.stats["last_items"])
         fwd = self.server._sharded_fwd
         if fwd is not None:
             # discovery refresh errors by reason (keep-last-good)
@@ -366,6 +408,26 @@ class Telemetry:
                   abs(rec.recovered_owed))
             count("veneur.ledger.reshard_received_items_total",
                   rec.reshard_received_items)
+        # overload control: every shed sample by tenant and reason, the
+        # pressure state, the overrun watchdog and coalesced ticks, and
+        # the kernel receive drops
+        ovl = self.server.overload
+        if ovl is not None:
+            for (tenant, reason), total in sorted(
+                    ovl.shed_by_total.items()):
+                key = f"overload_shed_{tenant}_{reason}"
+                stats[key] = int(total)
+                count("veneur.overload.shed_total", self._delta(key),
+                      (f"tenant:{tenant}", f"reason:{reason}"))
+            gauge("veneur.overload.pressure_level", ovl.pressure.level)
+            gauge("veneur.overload.pressure_score", ovl.pressure.score)
+            stats["flush_overruns"] = int(ovl.flush_overruns)
+            count("veneur.flush.overrun_total",
+                  self._delta("flush_overruns"))
+        count("veneur.flush.coalesced_total",
+              self._delta("flush_coalesced"))
+        count("veneur.socket.kernel_drops_total",
+              self._delta("socket_kernel_drops"))
         # signal-history plane + flight recorder: rows sampled into
         # the columnar ring, bundles dumped by trigger, dumps the
         # cooldown suppressed and writer errors

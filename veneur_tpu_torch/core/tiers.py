@@ -221,9 +221,8 @@ class TierDirectory:
     """Per-table tier state: one ClassTiers per sketch class plus the
     shared lock and the pressure-freeze flag.  The flag freezes
     BOUNDARY promotions while an overload ladder narrows the wide pool
-    (correctness escalations still run); the port has no overload
-    ladder yet, so it stays False, and the boundary reads it where the
-    reference does."""
+    (correctness escalations still run); ``MetricTable.
+    set_pressure_level`` sets it at levels >= 2 under the lock."""
 
     def __init__(self, histo_rows: int, set_rows: int,
                  thresholds: TierThresholds | None = None):

@@ -36,7 +36,6 @@ from veneur_tpu_torch import native
 from veneur_tpu_torch.core.flusher import ForwardRow
 from veneur_tpu_torch.core.table import MetricTable
 from veneur_tpu_torch.forward import hll_codec
-from veneur_tpu_torch.forward.http_import import import_protocol
 from veneur_tpu_torch.forward.gen import forward_pb2, metric_pb2
 from veneur_tpu_torch.ops import segment
 from veneur_tpu_torch.protocol import dogstatsd as dsd
@@ -49,10 +48,11 @@ _METHOD = "/forwardrpc.Forward/SendMetrics"
 # Invocation metadata the reference's tiers exchange beside the wire
 # (keys are lowercase ASCII).  As on the HTTP path, the trace context
 # parents the import span and the flags name the ledger protocol; a
-# drain or replay wire is also counted (``drain_*_received``,
-# ``replay_*_received``); the effects of recovery and handoff
-# (checkpoint dedup, arc handoff) are not ported.  Every decoder fails
-# open: a bad or missing key never rejects an import.
+# flagged wire is also counted (``drain_*``, ``replay_*``,
+# ``recovery_*``, ``handoff_*_received``), a recovery wire is applied
+# once per ``incarnation:seq`` id and credits the ledger's recover arm,
+# a handoff wire its reshard arrival.  Every decoder fails open: a bad
+# or missing key never rejects an import.
 TRACE_ID_KEY = "veneur-trace-id"
 SPAN_ID_KEY = "veneur-span-id"
 DRAIN_KEY = "veneur-drain"
@@ -721,30 +721,32 @@ class ImportServer:
         the staged work there and apply it to the device after the lock
         is released.  A wire that neither the native
         walker nor protobuf can read is counted in ``import_errors`` and
-        answered INVALID_ARGUMENT.  The wire's items credit the server's
-        ledger under the lock (``grpc-import``; its drops split into
-        overflow and invalid by the table's overflow delta), and a wire
-        carrying a trace context records the ``import`` span under the
-        sender's forward span."""
+        answered INVALID_ARGUMENT.  The apply and its ledger credit run
+        through the server's ``apply_import_locked`` (``grpc-import``
+        suffixed by the wire's flag; a recovery id seen before is
+        counted deduped and never merged), and a wire carrying a trace
+        context records the ``import`` span under the sender's forward
+        span."""
         core = self._core
         flags = decode_metadata(context.invocation_metadata())
         flagged = any(flags[k] for k in ("drain", "replay", "recovery",
                                          "handoff"))
         cols = decode_metric_list(request)
+
+        def apply():
+            if cols is None:
+                return apply_metric_list(
+                    core.table, forward_pb2.MetricList.FromString(request))
+            return apply_decoded(core.table, request, cols)
         try:
             with core.lock:
-                ov0 = core.table.overflow_total()
-                if cols is None:
-                    acc, dropped = apply_metric_list(
-                        core.table,
-                        forward_pb2.MetricList.FromString(request))
-                else:
-                    acc, dropped = apply_decoded(core.table, request, cols)
-                ov = core.table.overflow_total() - ov0
-                core.ledger.ingest(import_protocol("grpc-import", flags),
-                                   processed=acc + dropped, staged=acc,
-                                   overflow=ov, invalid=dropped - ov)
-                work = core._maybe_device_step_locked()
+                acc, dropped, deduped = core.apply_import_locked(
+                    "grpc-import", flags, apply)
+                work = (None if deduped
+                        else core._maybe_device_step_locked())
+            if deduped:
+                core.note_flagged_import(flags, 0, deduped=True)
+                return empty_pb2.Empty()
             core._apply_staged(work)
             core.bump("imports_received", acc)
             core.bump("received_grpc", acc + dropped)

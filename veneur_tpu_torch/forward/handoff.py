@@ -1,0 +1,150 @@
+"""Global-side keyspace-arc handoff on scale-out.
+
+Port of ``veneur_tpu/forward/handoff.py``.
+
+When discovery adds global M+1, the locals' consistent-hash ring
+reassigns ~1/(M+1) of the keyspace arcs to the new member — but the
+sketch rows for those arcs are RESIDENT on the incumbent globals,
+mid-interval.  Without a handoff the cluster double-reports for one
+interval (incumbent emits the old mass, newcomer accumulates the new)
+and the per-key merge history splits across two nodes.
+
+This module is the sender half: an incumbent partitions its flush's
+rows by the NEW ring (vectorized ``ConsistentRing.assign`` over the
+route-key column — the same ``name|type|tags`` identity the sharded
+forwarder and proxy hash), keeps its own arcs, and ships the departing
+rows over the existing columnar import wire flagged ``veneur-handoff``
+so the receiver books them as a rebalance arrival
+(``grpc-import-handoff`` + ``reshard_received_items`` in its ledger).
+The receiving half lives in ``grpc_forward.ImportServer``.
+
+The flusher integration: ``Flusher.handoff`` (installed by
+``Server.arc_handoff`` for exactly one flush) force-forwards rows the
+new ring assigns elsewhere — a global's flusher otherwise never
+produces ForwardRows — and the server ships ``FlushResult.forward``
+through a :class:`HandoffShipper` instead of the (unconfigured) local
+forward path.
+"""
+
+from __future__ import annotations
+
+import logging
+
+from veneur_tpu_torch.forward.ring import ConsistentRing, hash_keys
+from veneur_tpu_torch.protocol import dogstatsd as dsd
+
+log = logging.getLogger("veneur_tpu_torch.forward.handoff")
+
+
+def meta_route_key(meta) -> str:
+    """Routing identity of one table row — the meta half of
+    ``shard.row_route_key``, byte-identical so an arc handed off here
+    lands on exactly the owner the locals' forward ring will pick."""
+    from veneur_tpu_torch.forward.grpc_forward import _TYPE_TO_PB
+    from veneur_tpu_torch.forward.route import _TYPE_NAMES
+    tname = _TYPE_NAMES[int(_TYPE_TO_PB[meta.type])].decode()
+    return f"{meta.name}|{tname}|{','.join(meta.tags)}"
+
+
+def make_flusher_gate(ring: ConsistentRing, self_member: str):
+    """A ``Flusher.handoff`` callable: True for metas whose route-key
+    arc belongs to another member under ``ring``.  SCOPE_LOCAL rows
+    never hand off (they are this node's own emission, not keyspace
+    state)."""
+    cache: dict[int, bool] = {}
+
+    def gate(meta) -> bool:
+        if meta.scope == dsd.SCOPE_LOCAL:
+            return False
+        key = id(meta)
+        hit = cache.get(key)
+        if hit is None:
+            hit = ring.get(meta_route_key(meta)) != self_member
+            cache[key] = hit
+        return hit
+
+    return gate
+
+
+def partition(rows: list, ring: ConsistentRing,
+              self_member: str) -> tuple[dict[str, list], int]:
+    """Split ForwardRows by the new ring's arc ownership.
+
+    Returns ``({member: rows}, kept)`` where ``kept`` counts rows the
+    ring still assigns to ``self_member`` (callers shipping a
+    handoff-gated flush expect 0 — the gate already filtered them).
+    Vectorized: one ``hash_keys`` pass over the route-key column, one
+    ``searchsorted`` assign."""
+    if not rows:
+        return {}, 0
+    keys = [meta_route_key(r.meta).encode() for r in rows]
+    owners = ring.assign(hash_keys(keys))
+    members = ring.members
+    out: dict[str, list] = {}
+    kept = 0
+    for row, mi in zip(rows, owners):
+        member = members[int(mi)]
+        if member == self_member:
+            kept += 1
+        else:
+            out.setdefault(member, []).append(row)
+    return out, kept
+
+
+class HandoffShipper:
+    """Dial-per-member gRPC shipper for handoff wires.  Plain and
+    synchronous: a handoff is a rare membership event, not a hot
+    path — clarity over pipelining."""
+
+    def __init__(self, compression: float = 100.0,
+                 timeout: float = 10.0):
+        self.compression = compression
+        self.timeout = timeout
+        self._clients: dict[str, object] = {}
+
+    def _client(self, member: str):
+        cli = self._clients.get(member)
+        if cli is None:
+            from veneur_tpu_torch.forward.grpc_forward import ForwardClient
+            cli = ForwardClient(member, timeout=self.timeout,
+                                compression=self.compression)
+            self._clients[member] = cli
+        return cli
+
+    def ship(self, rows_by_member: dict[str, list],
+             trace_context: tuple[int, int] | None = None) -> dict:
+        """Send each member its arcs, flagged ``veneur-handoff``.
+        Returns ``{"wires": n, "items": n, "errors": n,
+        "dropped_items": n, "per_member": {member: items}}`` —
+        ``dropped_items`` are rows whose wire failed (the caller
+        attributes them; a handoff loses loudly, never silently)."""
+        from veneur_tpu_torch.forward import grpc_forward as gf
+        stats = {"wires": 0, "items": 0, "errors": 0,
+                 "dropped_items": 0, "per_member": {}}
+        metadata = [(gf.HANDOFF_KEY, "1")]
+        if trace_context and trace_context[0] and trace_context[1]:
+            metadata += [(gf.TRACE_ID_KEY, str(trace_context[0])),
+                         (gf.SPAN_ID_KEY, str(trace_context[1]))]
+        for member, rows in sorted(rows_by_member.items()):
+            body = gf.rows_to_metric_list(
+                rows, self.compression).SerializeToString()
+            try:
+                self._client(member).send_wire(body,
+                                               metadata=metadata)
+            except Exception as e:  # grpc.RpcError and dial errors
+                log.warning("arc handoff to %s failed: %s", member, e)
+                stats["errors"] += 1
+                stats["dropped_items"] += len(rows)
+                continue
+            stats["wires"] += 1
+            stats["items"] += len(rows)
+            stats["per_member"][member] = len(rows)
+        return stats
+
+    def close(self) -> None:
+        for cli in self._clients.values():
+            try:
+                cli.close()
+            except Exception:
+                pass
+        self._clients.clear()

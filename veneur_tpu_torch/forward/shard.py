@@ -134,6 +134,10 @@ class ShardedForwarder:
         # the server last took it — oldest prev_ring survives a burst
         self._pending_reshard: tuple | None = None
         self._reshard_lock = threading.Lock()
+        # chaos seam: called as fault_hook(dest, body) inside the
+        # worker before each send attempt; may raise (wire drop) or
+        # sleep (wire delay / stalled destination)
+        self.fault_hook = None
 
     @property
     def ring(self) -> ConsistentRing:
@@ -286,6 +290,8 @@ class ShardedForwarder:
 
         def _ship(dest=dest, body=body, metadata=metadata,
                   deadline=deadline):
+            if self.fault_hook is not None:
+                self.fault_hook(dest, body)
             timeout = None
             if deadline is not None:
                 timeout = deadline - time.monotonic()

@@ -1,0 +1,525 @@
+"""Crash-riding staged-plane checkpoints.
+
+Port of ``veneur_tpu/ops/checkpoint.py``: the capture is host numpy
+(the table's staging), so nothing here touches the card.
+
+A SIGKILL/OOM between two flushes loses the whole open interval: the
+staged counter/gauge planes, every raw histogram sample, the HLL
+member stream, and whatever imports landed since the last swap —
+silently, because the ledger that would have named the loss dies with
+the process.  This module bounds that loss to one checkpoint interval
+(Ray's bounded-staleness checkpointing argument: checkpoint cheap,
+replay only the tail):
+
+- ``Checkpointer`` snapshots the table's host staging every K seconds
+  (``MetricTable.checkpoint_capture`` — a memcpy under the ingest
+  lock; serialization runs off-lock on the copies, so snapshot cost
+  never blocks ingest) and writes an atomically-renamed segment under
+  ``VENEUR_TPU_CHECKPOINT_DIR``.
+- Segments are CUMULATIVE per interval generation: mid-interval the
+  staging buffers only grow (dense accumulators combine in place,
+  list stagings append), so the newest segment for a gen supersedes
+  every older one and recovery replays exactly ONE segment per gen.
+- The segment body is a serialized ``forwardrpc.MetricList`` — the
+  same columnar wire the drain-and-handoff path ships — so recovery
+  re-ingests through the EXISTING import path, either locally or
+  forwarded to the global tier flagged ``veneur-recovery``.
+- A monotonic incarnation id (fcntl-locked counter file in the
+  checkpoint dir) plus the per-process segment sequence makes every
+  segment's ``inc:seq`` recovery id unique, so a double-recovery is
+  deduplicated at the receiver, never double-counted.
+
+What a checkpoint can NOT see: samples a threshold-triggered device
+step already moved out of host staging (>4M histo samples or >64K
+stat rows mid-interval).  Those are counted per interval and recorded
+in the segment header as ``device_staged`` — a named blind spot, not
+a silent one.
+"""
+
+from __future__ import annotations
+
+import fcntl
+import json
+import logging
+import os
+import threading
+import time
+import zlib
+
+import numpy as np
+
+log = logging.getLogger("veneur_tpu_torch.checkpoint")
+
+MAGIC = b"VTPUCKPT1\n"
+SEG_PREFIX = "ckpt-"
+SEG_SUFFIX = ".seg"
+INCARNATION_FILE = "incarnation"
+CONSUMED_FILE = "consumed.json"
+# recovery considers segments younger than GRACE checkpoint intervals:
+# older ones belong to an operator-abandoned deployment, and replaying
+# hours-stale counters into a live interval would corrupt, not recover
+RECOVERY_GRACE = 30.0
+
+
+# ----------------------------------------------------------------------
+# incarnation counter
+
+def next_incarnation(directory: str) -> int:
+    """Monotonic process incarnation id, fcntl-serialized so two
+    replacements racing through startup can never share one."""
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, INCARNATION_FILE)
+    fd = os.open(path, os.O_RDWR | os.O_CREAT, 0o644)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        raw = os.read(fd, 64)
+        try:
+            cur = int(raw.decode().strip() or 0)
+        except ValueError:
+            cur = 0
+        nxt = cur + 1
+        os.lseek(fd, 0, os.SEEK_SET)
+        os.ftruncate(fd, 0)
+        os.write(fd, f"{nxt}\n".encode())
+        return nxt
+    finally:
+        os.close(fd)  # releases the flock
+
+
+# ----------------------------------------------------------------------
+# row building: staged-capture -> ForwardRow list (the columnar wire's
+# native unit; grpc_forward.rows_to_metric_list does the encoding)
+
+def _condense(values: np.ndarray, weights: np.ndarray,
+              cap: int) -> tuple[np.ndarray, np.ndarray]:
+    """Collapse raw samples to at most ``cap`` weighted centroids by
+    equal-count binning over the sorted values — recovery fidelity,
+    not t-digest fidelity (the real digest re-forms when the replayed
+    centroids merge on device)."""
+    if len(values) <= cap:
+        return (values.astype(np.float32),
+                weights.astype(np.float32))
+    order = np.argsort(values, kind="stable")
+    v = values[order].astype(np.float64)
+    w = weights[order].astype(np.float64)
+    edges = np.linspace(0, len(v), cap + 1).astype(np.int64)
+    wsum = np.add.reduceat(w, edges[:-1])
+    wvsum = np.add.reduceat(w * v, edges[:-1])
+    live = wsum > 0
+    means = wvsum[live] / wsum[live]
+    return means.astype(np.float32), wsum[live].astype(np.float32)
+
+
+def build_rows(cap: dict, capacity: int = 1024) -> list:
+    """Materialize a ``MetricTable.checkpoint_capture`` dict into
+    ForwardRows, one per staged series.  ``capacity`` bounds centroids
+    per histogram row (the table's digest capacity)."""
+    from veneur_tpu_torch.core.flusher import ForwardRow
+    from veneur_tpu_torch.ops import hll, segment
+    from veneur_tpu_torch.utils import hashing
+
+    out: list = []
+    if "counter" in cap:
+        meta, n = cap["counter_meta"]
+        dense = cap["counter"]
+        for r in np.flatnonzero(dense[:n]):
+            out.append(ForwardRow(meta[int(r)], "counter",
+                                  value=float(dense[r])))
+    if "gauge" in cap:
+        meta, n = cap["gauge_meta"]
+        dense, mask = cap["gauge"]
+        for r in np.flatnonzero(mask[:n]):
+            out.append(ForwardRow(meta[int(r)], "gauge",
+                                  value=float(dense[r])))
+
+    # ---- histograms: fold raw samples + imported centroids +
+    # imported stat rows into one stats vector and <=capacity
+    # centroids per row
+    hmeta, hn = cap.get("histo_meta", ([], 0))
+    stats_acc: dict[int, np.ndarray] = {}
+    cent_acc: dict[int, list] = {}
+
+    def _stats_for(row: int) -> np.ndarray:
+        st = stats_acc.get(row)
+        if st is None:
+            st = np.array([0.0, segment.STAT_MIN_EMPTY,
+                           segment.STAT_MAX_EMPTY, 0.0, 0.0],
+                          np.float64)
+            stats_acc[row] = st
+        return st
+
+    def _add_centroids(rows, means, weights):
+        order = np.argsort(rows, kind="stable")
+        rows = rows[order]
+        means = means[order]
+        weights = weights[order]
+        uniq, starts = np.unique(rows, return_index=True)
+        bounds = np.append(starts, len(rows))
+        for i, row in enumerate(uniq):
+            if not (0 <= row < hn):
+                continue
+            cent_acc.setdefault(int(row), []).append(
+                (means[bounds[i]:bounds[i + 1]],
+                 weights[bounds[i]:bounds[i + 1]]))
+
+    if "histo" in cap:
+        rl, vl, wl = cap["histo"]
+        rows = np.concatenate(rl)
+        vals = np.concatenate(vl).astype(np.float64)
+        wts = (np.concatenate(wl).astype(np.float64) if wl
+               else np.ones(len(vals), np.float64))
+        for row in np.unique(rows):
+            if not (0 <= row < hn):
+                continue
+            m = rows == row
+            v, w = vals[m], wts[m]
+            st = _stats_for(int(row))
+            st[0] += w.sum()
+            st[1] = min(st[1], v.min())
+            st[2] = max(st[2], v.max())
+            st[3] += (w * v).sum()
+            nz = v != 0
+            st[4] += (w[nz] / v[nz]).sum()
+        _add_centroids(rows, vals.astype(np.float32),
+                       wts.astype(np.float32))
+    if "digest" in cap:
+        rl, vl, wl = cap["digest"]
+        _add_centroids(np.concatenate(rl), np.concatenate(vl),
+                       np.concatenate(wl))
+    for part in cap.get("wire_parts", ()):
+        prows, pmeans, pweights = part
+        _add_centroids(np.asarray(prows), np.asarray(pmeans),
+                       np.asarray(pweights))
+    for prows, pstats in cap.get("stats_parts", ()):
+        for i, row in enumerate(np.asarray(prows)):
+            if not (0 <= row < hn):
+                continue
+            st = _stats_for(int(row))
+            ps = np.asarray(pstats[i], np.float64)
+            st[0] += ps[segment.STAT_WEIGHT]
+            st[1] = min(st[1], ps[segment.STAT_MIN])
+            st[2] = max(st[2], ps[segment.STAT_MAX])
+            st[3] += ps[segment.STAT_SUM]
+            st[4] += ps[segment.STAT_RSUM]
+
+    for row in sorted(set(stats_acc) | set(cent_acc)):
+        st = stats_acc.get(row)
+        if st is None:
+            st = np.array([0.0, segment.STAT_MIN_EMPTY,
+                           segment.STAT_MAX_EMPTY, 0.0, 0.0],
+                          np.float64)
+        chunks = cent_acc.get(row, [])
+        if chunks:
+            means = np.concatenate([c[0] for c in chunks])
+            weights = np.concatenate([c[1] for c in chunks])
+            means, weights = _condense(means, weights, capacity)
+        else:
+            means = np.zeros(0, np.float32)
+            weights = np.zeros(0, np.float32)
+        out.append(ForwardRow(hmeta[row], "histo",
+                              stats=st.astype(np.float32),
+                              means=means, weights=weights))
+
+    # ---- sets: fold member hashes / packed positions / imported
+    # register rows into one u8[M] plane per touched row
+    smeta, sn = cap.get("set_meta", ([], 0))
+    srows_parts: list[np.ndarray] = []
+    spos_parts: list[np.ndarray] = []
+    if "set_members" in cap:
+        mrows, members = cap["set_members"]
+        if members:
+            idx, rank = hashing.hash_members(members)
+            srows_parts.append(np.asarray(mrows, np.int32))
+            spos_parts.append(hll.pack_positions(idx, rank))
+    if "set_pos" in cap:
+        prl, ppl = cap["set_pos"]
+        srows_parts.extend(np.asarray(r, np.int32) for r in prl)
+        spos_parts.extend(np.asarray(p, np.int32) for p in ppl)
+    touched: set[int] = set()
+    if srows_parts:
+        srows = np.concatenate(srows_parts)
+        spos = np.concatenate(spos_parts)
+        live = (srows >= 0) & (srows < sn)
+        srows, spos = srows[live], spos[live]
+        touched.update(int(r) for r in np.unique(srows))
+    imp_rows = imp_plane = None
+    if "set_import" in cap:
+        imp_rows, imp_plane = cap["set_import"]
+        touched.update(int(r) for r in imp_rows if 0 <= r < sn)
+    if touched:
+        order = sorted(touched)
+        cidx = {row: i for i, row in enumerate(order)}
+        plane = np.zeros((len(order), hll.M), np.uint8)
+        if srows_parts and len(srows):
+            crow = np.asarray([cidx[int(r)] for r in srows], np.int64)
+            np.maximum.at(plane, (crow, spos >> 6),
+                          (spos & 0x3F).astype(np.uint8))
+        if imp_rows is not None:
+            for i, row in enumerate(imp_rows):
+                k = cidx.get(int(row))
+                if k is not None:
+                    np.maximum(plane[k], imp_plane[i], out=plane[k])
+        for row in order:
+            out.append(ForwardRow(smeta[row], "set",
+                                  regs=plane[cidx[row]]))
+    return out
+
+
+def serialize_capture(cap: dict, capacity: int,
+                      compression: float) -> tuple[bytes, int]:
+    """(wire body, row count) for a capture — the body is a
+    ``forwardrpc.MetricList``, importable by every tier."""
+    from veneur_tpu_torch.forward.grpc_forward import rows_to_metric_list
+    rows = build_rows(cap, capacity)
+    body = rows_to_metric_list(rows, compression).SerializeToString()
+    return body, len(rows)
+
+
+# ----------------------------------------------------------------------
+# segment files
+
+class Segment:
+    __slots__ = ("path", "header", "body")
+
+    def __init__(self, path: str, header: dict, body: bytes):
+        self.path = path
+        self.header = header
+        self.body = body
+
+    @property
+    def recovery_id(self) -> str:
+        return (f"{self.header['incarnation']}:"
+                f"{self.header['seq']}")
+
+
+def segment_name(incarnation: int, seq: int) -> str:
+    return f"{SEG_PREFIX}{incarnation:08d}-{seq:08d}{SEG_SUFFIX}"
+
+
+def write_segment(directory: str, header: dict, body: bytes) -> str:
+    """Atomic tmp+rename write; the header rides as one JSON line
+    between the magic and the body, with a crc32 over the body so a
+    torn disk read is detected, never replayed."""
+    header = dict(header)
+    header["body_bytes"] = len(body)
+    header["crc32"] = zlib.crc32(body) & 0xFFFFFFFF
+    name = segment_name(header["incarnation"], header["seq"])
+    path = os.path.join(directory, name)
+    tmp = os.path.join(directory, f".tmp-{name}")
+    blob = MAGIC + json.dumps(header).encode() + b"\n" + body
+    with open(tmp, "wb") as f:
+        f.write(blob)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    return path
+
+
+def read_segment(path: str) -> Segment | None:
+    """None for torn/foreign/corrupt files (recovery skips them and
+    counts — a bad segment must not block adopting the good ones)."""
+    try:
+        with open(path, "rb") as f:
+            if f.read(len(MAGIC)) != MAGIC:
+                return None
+            header = json.loads(f.readline().decode())
+            body = f.read(int(header["body_bytes"]))
+        if len(body) != int(header["body_bytes"]):
+            return None
+        if (zlib.crc32(body) & 0xFFFFFFFF) != int(header["crc32"]):
+            return None
+        return Segment(path, header, body)
+    except (OSError, ValueError, KeyError,
+            json.JSONDecodeError):
+        return None
+
+
+def list_segments(directory: str) -> list[str]:
+    try:
+        names = os.listdir(directory)
+    except OSError:
+        return []
+    return sorted(os.path.join(directory, n) for n in names
+                  if n.startswith(SEG_PREFIX)
+                  and n.endswith(SEG_SUFFIX))
+
+
+# consumed registry: recovery ids already replayed from this dir, so
+# a crash DURING recovery (or two replacements racing) can re-run the
+# scan without double-ingesting locally.  The wire path has a second
+# dedup at the receiver (Server._recovery_seen) for retransmits.
+
+def load_consumed(directory: str) -> set[str]:
+    try:
+        with open(os.path.join(directory, CONSUMED_FILE)) as f:
+            return set(json.load(f).get("consumed", ()))
+    except (OSError, ValueError, json.JSONDecodeError):
+        return set()
+
+
+def mark_consumed(directory: str, rid: str) -> None:
+    consumed = load_consumed(directory)
+    consumed.add(rid)
+    tmp = os.path.join(directory, f".tmp-{CONSUMED_FILE}")
+    with open(tmp, "w") as f:
+        json.dump({"consumed": sorted(consumed)}, f)
+    os.replace(tmp, os.path.join(directory, CONSUMED_FILE))
+
+
+def scan_recoverable(directory: str, self_incarnation: int,
+                     max_age: float,
+                     now: float | None = None) -> list[Segment]:
+    """Surviving segments worth replaying: newest per (incarnation,
+    gen) from PRIOR incarnations, unconsumed, younger than
+    ``max_age`` seconds.  Cumulative segments make "newest per gen"
+    the complete story — older same-gen segments are strict subsets.
+    """
+    now = time.time() if now is None else now
+    consumed = load_consumed(directory)
+    best: dict[tuple[int, int], Segment] = {}
+    for path in list_segments(directory):
+        seg = read_segment(path)
+        if seg is None:
+            log.warning("skipping unreadable checkpoint segment %s",
+                        path)
+            continue
+        h = seg.header
+        if h.get("incarnation") == self_incarnation:
+            continue
+        if now - float(h.get("wall", 0)) > max_age:
+            continue
+        key = (int(h["incarnation"]), int(h.get("gen", 0)))
+        cur = best.get(key)
+        if cur is None or h["seq"] > cur.header["seq"]:
+            best[key] = seg
+    # the consumed filter runs AFTER newest-per-gen selection: a
+    # consumed newest segment closes out its whole gen — the older
+    # same-gen segments are strict subsets of mass already replayed,
+    # and resurrecting one would double-ingest it
+    return sorted((s for s in best.values()
+                   if s.recovery_id not in consumed),
+                  key=lambda s: (s.header["incarnation"],
+                                 s.header["seq"]))
+
+
+# ----------------------------------------------------------------------
+# the periodic writer
+
+class Checkpointer:
+    """Background staged-plane checkpointer for one Server.
+
+    Capture runs under the server's ingest lock (cheap: dense-plane
+    memcpy + list shallow-copies); row building, wire encoding, and
+    the fsynced write all run on this thread from the copies.  A
+    flush seal prunes every segment whose gen is now delivered
+    (``on_flush``), and an internal lock orders writes against
+    pruning so a slow write can never resurrect a sealed gen."""
+
+    def __init__(self, server, directory: str, interval: float,
+                 incarnation: int):
+        self._srv = server
+        self.dir = directory
+        self.interval = float(interval)
+        self.incarnation = int(incarnation)
+        self._seq = 0
+        self._flushed_gen = -1
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+        self.stats = {"written": 0, "bytes": 0, "rows": 0,
+                      "skipped_empty": 0, "stale_discarded": 0,
+                      "pruned": 0, "errors": 0, "last_gen": -1,
+                      "last_write_ns": 0, "last_items": 0,
+                      "last_device_staged": 0}
+        os.makedirs(directory, exist_ok=True)
+
+    # -- lifecycle
+
+    def start(self) -> None:
+        self._thread = threading.Thread(target=self._run,
+                                        name="checkpointer",
+                                        daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=self.interval + 5.0)
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.interval):
+            try:
+                self.run_once()
+            except Exception:
+                self.stats["errors"] += 1
+                log.exception("checkpoint write failed")
+
+    # -- one checkpoint
+
+    def run_once(self) -> str | None:
+        srv = self._srv
+        t0 = time.monotonic_ns()
+        with srv.lock:
+            cap = srv.table.checkpoint_capture()
+            led = (srv.ledger.open_to_dict()
+                   if getattr(srv, "ledger", None) is not None
+                   else None)
+        if cap is None:
+            self.stats["skipped_empty"] += 1
+            return None
+        body, n_rows = serialize_capture(cap, srv.table.capacity,
+                                         srv.table.config.compression)
+        with self._lock:
+            if cap["gen"] <= self._flushed_gen:
+                # the interval flushed (and its ledger record sealed)
+                # while we were serializing: this capture is already
+                # delivered state, writing it would invite a replay
+                self.stats["stale_discarded"] += 1
+                return None
+            self._seq += 1
+            header = {"incarnation": self.incarnation,
+                      "seq": self._seq, "gen": int(cap["gen"]),
+                      "items": int(cap["ingested"]),
+                      "device_staged": int(cap["device_staged"]),
+                      "rows": n_rows, "wall": time.time(),
+                      "interval": self.interval, "ledger": led}
+            path = write_segment(self.dir, header, body)
+            self._prune_below(int(cap["gen"]), keep=path)
+        st = self.stats
+        st["written"] += 1
+        st["bytes"] += len(body)
+        st["rows"] += n_rows
+        st["last_gen"] = int(cap["gen"])
+        st["last_items"] = int(cap["ingested"])
+        st["last_device_staged"] = int(cap["device_staged"])
+        st["last_write_ns"] = time.monotonic_ns() - t0
+        return path
+
+    def on_flush(self, flushed_gen: int) -> None:
+        """Called after the flush seals ``flushed_gen``'s ledger
+        record: that interval's mass is delivered, so its segments
+        (and every older one) are dead weight — and replaying one
+        after a crash would DOUBLE-deliver."""
+        with self._lock:
+            self._flushed_gen = max(self._flushed_gen,
+                                    int(flushed_gen))
+            self._prune_below(self._flushed_gen)
+
+    def _prune_below(self, gen: int, keep: str | None = None) -> None:
+        """Drop this incarnation's segments with gen <= ``gen``,
+        except ``keep`` (the segment just written — same-gen older
+        files are superseded cumulative snapshots).  Caller holds
+        self._lock."""
+        for path in list_segments(self.dir):
+            if path == keep:
+                continue
+            seg = read_segment(path)
+            if seg is None or seg.header.get("incarnation") != \
+                    self.incarnation:
+                continue
+            if seg.header.get("gen", 0) <= gen:
+                try:
+                    os.unlink(path)
+                    self.stats["pruned"] += 1
+                except OSError:
+                    pass
