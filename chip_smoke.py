@@ -15,9 +15,14 @@ Run from the root of a checkout.  Phases, one JSON line each:
    at R = 16384, C = 616, K = 512 (the deep plane), K = 256, K = 616
    (union), K = 512 with unsorted state rows and K = 512 with f32
    subnormal keys and weights: mass, packing contract, no subnormal
-   written, quantiles; times with CUDA events.  After phases 4, 6, 8,
-   9, 10, 12 and 13 the same check runs at every other (R, K) they
-   merged at (the global folds with weighted centroids);
+   written, quantiles; times with CUDA events.  F2: merges past the
+   reference's 2048 lanes (compression 300: C = 1824 + K = 512;
+   compression 500: C = 3032 with unsorted state rows) take the
+   kernel's wide route, counted as ``cluster_merge.wide``, with the
+   same checks and times.  After
+   phases 4, 6, 8, 9, 10, 12, 13 and 14 the same check runs at every
+   other (R, K) they merged at (the global folds with weighted
+   centroids);
 3. ``entry("cuda")`` against ``entry("cpu")`` on the same arrays, then
    F1: f32 subnormal samples on every histogram path, a subnormal
    counter and a subnormal gauge through the table on the card and on
@@ -131,6 +136,27 @@ Run from the root of a checkout.  Phases, one JSON line each:
    (d) ``_chaos_scale_out(1200, 48, 256)``: a port global hands its
    departing arcs to a second (the four ``scaleout_*`` gates), their
    union held to one global's flush;
+14. the server core and the span plane (run right after phase 13):
+   port servers from the repo's ``example.yaml`` as child processes on
+   the card, every address on a free loopback port or a temporary unix
+   socket (an SSF unix listener added), the build directory
+   (``compile_cache_dir``) a temporary one seeded with this checkout's
+   libraries.  Child A as written with ``tpu_warmup`` (its warm-up's
+   one merge launch and seconds read before traffic), child B with
+   ``percentile_naming`` and ``quantile_interpolation`` at
+   ``reference``: each takes one interval of SSF spans (10,000 timer
+   series of 100 gamma(2, 30) samples, one span each, plus a successful
+   and a failed indicator span for each of 1,000 services) over UDP,
+   a unix stream and gRPC ``SendSpan``, then DogStatsD over UDP and
+   TCP, paced so no socket buffer or span queue overflows; each flush
+   file is held to a CPU port server fed the same spans through
+   ``handle_ssf`` in the same order (percentiles within rtol 2e-3 /
+   atol 1e-3, the rest bit for bit, the delivery-sampled
+   ``ssf.names_unique`` aside), A's p99 median error against exact under
+   1%, every receive counter, the sealed ledger record, ``/version``,
+   ``/builddate`` and ``/quitquitquit`` (exit 0); child C, whose flush
+   file is a FIFO nobody reads, exits 2 by its flush watchdog.  READY
+   times with and without warm-up;
 7. the chain: a global (HTTP and gRPC listeners) and three locals (one
    per /import schema, one forwarding over gRPC) as server processes on
    the card: the global flushes the JAX chain's ``lat.99percentile``
@@ -141,7 +167,8 @@ Run from the root of a checkout.  Phases, one JSON line each:
    ``import`` span under each local's ``flush.forward`` span (HTTP in
    both schemas, gRPC);
 11. the kernels line (launches by path, phase 12's as
-    ``routing_tiers``, phase 13's as ``crash_riding``), then the last
+    ``routing_tiers``, phase 13's as ``crash_riding``, phase 14's as
+    ``span_plane``; F2's wide shapes as ``wide``), then the last
     line
     ``{"ok": true, "device": {...}}``.
 
@@ -152,6 +179,7 @@ prints no result.  It imports nothing of JAX.
 
 from __future__ import annotations
 
+import io
 import json
 import math
 import os
@@ -316,10 +344,11 @@ def recorded_cases(merge_shapes, weighted=False, timed=()) -> tuple:
 
 class MergeRecorder:
     """Counts every cluster merge by (rows, batch width K) while it is
-    entered, and the kernel launches made meanwhile (the wrapper's
-    counter, set to 0 on entry)."""
+    entered, and the kernel launches made meanwhile (the registry's
+    launch counts, set to 0 on entry)."""
 
     def __enter__(self):
+        from veneur_tpu_torch.observe import REGISTRY
         from veneur_tpu_torch.ops import cluster_merge
         self._cm = cluster_merge
         self._merge = cluster_merge.cluster_merge
@@ -331,11 +360,11 @@ class MergeRecorder:
             return self._merge(means, weights, new_means, new_weights,
                                **kw)
         cluster_merge.cluster_merge = recording_merge
-        cluster_merge.launches = 0
+        REGISTRY.reset_launches()
         return self
 
     def __exit__(self, *exc):
-        self.launches = self._cm.launches
+        self.launches = self._cm.launch_count()
         self._cm.cluster_merge = self._merge
         return False
 
@@ -344,14 +373,15 @@ class MergeRecorder:
                 for (r, k), c in sorted(self.shapes.items())]
 
 
-def phase_kernel(dev: str = "cuda", cases=KERNEL_CASES) -> dict:
+def phase_kernel(dev: str = "cuda", cases=KERNEL_CASES,
+                 compression: float = 100.0) -> dict:
     import torch
     from veneur_tpu_torch.ops import cluster_merge as cm
     from veneur_tpu_torch.ops import segment, tdigest
-    cap = tdigest.DEFAULT_CAPACITY
+    cap = tdigest.capacity_for(compression)
     tiny = torch.finfo(torch.float32).tiny
-    kw = dict(delta=tdigest._SCALE_MULT * 100.0,
-              tail_coeff=tdigest._TAIL_MULT * 100.0,
+    kw = dict(delta=tdigest._SCALE_MULT * compression,
+              tail_coeff=tdigest._TAIL_MULT * compression,
               tail_q0=tdigest._TAIL_Q0, tail_qmin=tdigest._TAIL_QMIN)
     rng = np.random.default_rng(7)
     qs = torch.tensor(QS, dtype=torch.float32, device=dev)
@@ -402,7 +432,8 @@ def phase_kernel(dev: str = "cuda", cases=KERNEL_CASES) -> dict:
         sort_ms = cuda_ms(lambda: torch.sort(keys, dim=1))
         bound, by = merge_bound_ms(rows, cap, k, sorted_state)
         res = {"phase": "kernel_vs_plain", "case": label, "rows": rows,
-               "cap": cap, "k": k, "sorted_state": sorted_state,
+               "cap": cap, "k": k, "route": cm.route(cap, k),
+               "sorted_state": sorted_state,
                "weighted_batch": weighted,
                "mass_rel_err_kernel": mass_k,
                "mass_rel_err_plain": mass_p,
@@ -418,6 +449,38 @@ def phase_kernel(dev: str = "cuda", cases=KERNEL_CASES) -> dict:
         emit(res)
         out[label] = res
         del a, km, kwt, pm, pwt, keys
+    return out
+
+
+# F2's shapes, past the reference's 2048-lane bound: compression 300
+# (C = 1824) at the deep plane's K = 512, and compression 500 (C =
+# 3032) with unsorted state rows, past the register sort
+WIDE_CASES = ((300.0, ("wide_c300_k512", 16384, 512, True, False)),
+              (500.0, ("wide_c500_k512_unsorted_state", 2048, 512, False,
+                       False)))
+
+
+def phase_wide_merge(dev: str = "cuda") -> dict:
+    """F2 in phase 2: merges wider than the reference's Pallas bound go
+    through ``cluster_merge``'s dispatch to the kernel's wide route,
+    counted as ``cluster_merge.wide`` and never on the narrow route, and
+    are held to ``cluster_merge_plain`` on the same inputs as every
+    phase 2 case is."""
+    from veneur_tpu_torch.observe import REGISTRY
+    from veneur_tpu_torch.ops import cluster_merge as cm
+    from veneur_tpu_torch.ops import tdigest
+    out = {}
+    for c, case in WIDE_CASES:
+        cap = tdigest.capacity_for(c)
+        check(cm.route(cap, case[2]) == "wide", f"route({cap}, {case[2]})")
+        before = REGISTRY.launches()
+        out.update(phase_kernel(dev, cases=(case,), compression=c))
+        after = REGISTRY.launches()
+        check(after.get("cluster_merge", 0) ==
+              before.get("cluster_merge", 0) and
+              after.get("cluster_merge.wide", 0) >
+              before.get("cluster_merge.wide", 0),
+              f"{case[0]}: the merge did not take the wide route")
     return out
 
 
@@ -2121,8 +2184,11 @@ ROUTING_CFG = {"interval": "600s", "percentiles": [0.5, 0.9, 0.99],
 
 
 def user_metrics(metrics) -> list:
-    """A flush without the servers' own ``veneur.*`` telemetry."""
-    return [m for m in metrics if not m.name.startswith("veneur.")]
+    """A flush without the servers' own ``veneur.*`` telemetry and the
+    span uniqueness sketch (``ssf.names_unique``: 1% of a global's
+    ``import`` spans, sampled at random by the reference's design)."""
+    return [m for m in metrics
+            if not m.name.startswith(("veneur.", "ssf.names_unique"))]
 
 
 def union_flush(caps_from) -> list:
@@ -3659,6 +3725,563 @@ def phase_chain(dev: str = "cuda") -> dict:
     return res
 
 
+# ---- phase 14: the server core and the span plane -------------------------
+
+SPAN_SERIES = 10_000        # span-borne timer series (phase 4's count)
+SPAN_SAMPLES = 100          # samples a series (the cut: phase 4 has 1,000)
+SPAN_SERVICES = 1_000       # services sending indicator spans
+SPAN_INTERVAL_S = 100       # the children's interval: all traffic in one
+SPAN_WINDOW = 64            # spans in flight to a child before a wait
+SPAN_QUEUE_SLACK = 512      # span-queue depth a feed may leave pending
+
+
+def read_example_yaml(path: str) -> dict:
+    """The subset of YAML the repo's example configs use (``key:
+    scalar``, ``key: [inline list]``, ``key:`` followed by ``- item``
+    lines, comments), parsed without PyYAML, which the card's machine
+    lacks.  Scalars are read as JSON where they are JSON (quoted
+    strings, numbers, booleans, lists), else kept as text."""
+    def scalar(text: str):
+        try:
+            return json.loads(text)
+        except ValueError:
+            return text
+
+    def strip_comment(line: str) -> str:
+        quoted = False
+        for i, ch in enumerate(line):
+            if ch == '"':
+                quoted = not quoted
+            elif ch == "#" and not quoted:
+                return line[:i]
+        return line
+
+    out: dict = {}
+    key = None
+    with open(path) as f:
+        for raw in f:
+            line = strip_comment(raw).rstrip()
+            if not line.strip():
+                continue
+            if line.lstrip().startswith("- "):
+                out[key].append(scalar(line.lstrip()[2:].strip()))
+                continue
+            key, _, value = line.partition(":")
+            key = key.strip()
+            value = value.strip()
+            out[key] = scalar(value) if value else []
+    return out
+
+
+def span_traffic(n_series: int = SPAN_SERIES,
+                 n_services: int = SPAN_SERVICES, seed: int = 14) -> dict:
+    """Phase 14's spans: ``SPAN_SERIES`` timer series of ``SPAN_SAMPLES``
+    gamma(2, 30) samples, one span each (every 500th span also carries
+    an invalid sample), then one successful and one failed indicator
+    span for each of ``SPAN_SERVICES`` services; split over the three
+    SSF transports in a fixed order.  The DogStatsD lines: counters,
+    gauges, timers and a set, each series inside one datagram (UDP) or
+    one connection (TCP)."""
+    from veneur_tpu_torch.protocol.gen import ssf_pb2
+    S = ssf_pb2.SSFSample
+    rng = np.random.default_rng(seed)
+    vals = rng.gamma(2.0, 30.0, (n_series, SPAN_SAMPLES)).astype(
+        np.float32)
+    timers = []
+    for i in range(n_series):
+        sp = ssf_pb2.SSFSpan(id=i + 1, trace_id=i + 1,
+                             start_timestamp=1_000_000,
+                             end_timestamp=2_000_000, name="op")
+        name, shard = f"span.lat{i % 100}", str(i // 100)
+        for v in vals[i]:
+            s = sp.metrics.add(metric=S.HISTOGRAM, name=name,
+                               value=float(v), sample_rate=1.0, unit="ms")
+            s.tags["shard"] = shard
+        if i % 500 == 0:
+            sp.metrics.add(metric=9, name="span.bad", value=1.0)
+        timers.append(sp.SerializeToString())
+    dur = rng.integers(10_000, 50_000_000, 2 * n_services)
+    indicators = []
+    for j in range(2 * n_services):
+        sp = ssf_pb2.SSFSpan(
+            id=n_series + j + 1, trace_id=n_series + j + 1,
+            start_timestamp=1_000_000,
+            end_timestamp=1_000_000 + int(dur[j]),
+            service=f"svc{j // 2}", name=f"op{j % 7}", indicator=True,
+            error=bool(j % 2))
+        indicators.append(sp.SerializeToString())
+    # 40% over UDP, 30% over the unix stream, 30% over gRPC
+    cut = (0, n_series * 4 // 10, n_series * 7 // 10, n_series)
+    icut = (0, n_services * 7 // 10, n_services * 14 // 10,
+            2 * n_services)
+    by = {t: timers[cut[k]:cut[k + 1]] + indicators[icut[k]:icut[k + 1]]
+          for k, t in enumerate(("udp", "unix", "grpc"))}
+    udp = []
+    for c in range(200):
+        udp.append(b"\n".join(b"dsd.hits%d:%d|c|#src:udp" % (c, k + 1)
+                              for k in range(5)))
+    for g in range(100):
+        udp.append(b"dsd.depth%d:%d|g" % (g, g * 3))
+    tvals = rng.gamma(2.0, 30.0, (100, 20)).astype(np.float32)
+    for t in range(100):
+        udp.append(b"\n".join(b"dsd.lat%d:%r|ms" % (t, float(v))
+                              for v in tvals[t]))
+    for m in range(0, 300, 50):
+        udp.append(b"\n".join(b"dsd.users:u%d|s" % k
+                              for k in range(m, m + 50)))
+    tcp = [b"dsd.tcp.hits%d:%d|c" % (k % 50, k) for k in range(1000)]
+    tcp += [b"dsd.tcp.depth%d:%d|g" % (k % 20, k) for k in range(200)]
+    tcp += [b"dsd.tcp.lat:%r|ms" % float(v) for v in tvals[0]]
+    return {"ssf": by, "udp": udp, "tcp": tcp, "values": vals,
+            "n_spans": sum(len(v) for v in by.values())}
+
+
+def span_child_config(base: dict, tmp: str, name: str, **over) -> tuple:
+    """``base`` (the repo's example.yaml) with every address on a free
+    loopback port or a temporary unix socket, an SSF unix listener
+    added, ``http_quit`` and a flush file; the rest as written but
+    ``over``.  Returns (config path, ports, flush file)."""
+    ports = {"udp": free_udp_port(), "tcp": free_tcp_port(),
+             "ssf": free_udp_port(), "grpc": free_tcp_port(),
+             "http": free_tcp_port()}
+    cfg = dict(base)
+    cfg["statsd_listen_addresses"] = [
+        f"{a.split('://')[0]}://127.0.0.1:"
+        f"{ports['udp' if a.startswith('udp') else 'tcp']}"
+        for a in base["statsd_listen_addresses"]]
+    cfg["ssf_listen_addresses"] = [f"udp://127.0.0.1:{ports['ssf']}",
+                                   f"unix://{tmp}/{name}-ssf.sock"]
+    cfg["grpc_listen_addresses"] = [f"tcp://127.0.0.1:{ports['grpc']}"]
+    cfg["http_address"] = f"127.0.0.1:{ports['http']}"
+    cfg["http_quit"] = True
+    flush = os.path.join(tmp, f"{name}.tsv")
+    cfg["flush_file"] = flush
+    cfg.update(over)
+    path = os.path.join(tmp, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    ports["unix"] = f"{tmp}/{name}-ssf.sock"
+    return path, ports, flush
+
+
+def child_stats(port: int) -> dict:
+    return json.loads(http_get(port, "/debug/vars"))
+
+
+def tsv_metrics(path: str) -> dict:
+    """(name, tags) -> sorted values of a flush file's rows."""
+    out: dict = {}
+    with open(path) as f:
+        for ln in f.read().splitlines():
+            r = ln.split("\t")
+            out.setdefault((r[0], r[1]), []).append(float(r[5]))
+    return {k: sorted(v) for k, v in out.items()}
+
+
+def compare_span_flush(got: dict, want: dict) -> dict:
+    """A child's flush against the CPU server's: every series but the
+    delivery-sampled ``ssf.names_unique`` (a 1% random roll per span, by
+    the reference's design) on both sides; percentiles within rtol 2e-3
+    / atol 1e-3, everything else bit for bit."""
+    def user(d):
+        return {k: v for k, v in d.items()
+                if not k[0].startswith(("veneur.", "ssf.names_unique"))}
+    g, w = user(got), user(want)
+    check(g.keys() == w.keys(),
+          f"series differ: {sorted(set(g) - set(w))[:5]} "
+          f"{sorted(set(w) - set(g))[:5]}")
+    n_pct = n_exact = 0
+    max_pct = 0.0
+    for key, wv in w.items():
+        gv = g[key]
+        check(len(gv) == len(wv), f"{key}: {gv} vs {wv}")
+        if key[0].endswith("percentile"):
+            a, b = np.asarray(gv), np.asarray(wv)
+            excess = float((np.abs(a - b) - (1e-3 + 2e-3 * np.abs(b)))
+                           .max())
+            check(excess <= 0, f"{key}: {gv} vs {wv}")
+            max_pct = max(max_pct, float(np.abs(a - b).max()))
+            n_pct += len(gv)
+        else:
+            check(gv == wv, f"{key}: {gv} vs {wv}")
+            n_exact += len(gv)
+    uniq = {k: v for k, v in got.items() if k[0] == "ssf.names_unique"}
+    # one span name per service and error flag
+    check(all(x <= 2 for v in uniq.values() for x in v),
+          f"ssf.names_unique {uniq}")
+    return {"series": len(w), "percentiles": n_pct, "exact": n_exact,
+            "percentile_max_abs_diff": max_pct,
+            "names_unique_series": len(uniq)}
+
+
+def span_p99_errors(metrics: dict, vals: np.ndarray, suffix: str) -> dict:
+    """Relative p99 error of every span timer series against exact
+    ``np.quantile`` over its samples."""
+    errs = []
+    for i in range(len(vals)):
+        key = (f"span.lat{i % 100}.{suffix}", f"shard:{i // 100},"
+               "veneurglobalonly")
+        got = metrics[key][-1]
+        want = float(np.quantile(vals[i].astype(np.float64), 0.99))
+        errs.append(abs(got - want) / abs(want))
+    e = np.asarray(errs)
+    return {"median": float(np.median(e)), "max": float(e.max())}
+
+
+def feed_children(children: list, items: list, send, key: str,
+                  processed: bool = True) -> None:
+    """Send ``items`` to every child in windows of ``SPAN_WINDOW``
+    through ``send(child, chunk)``; before the next window each child's
+    ``stats[key]`` must have taken the chunk and (``processed``) its span
+    workers must be within ``SPAN_QUEUE_SLACK`` spans of it, so neither
+    a socket buffer nor the span queue can overflow."""
+    base = {id(c): child_stats(c["ports"]["http"])["stats"]
+            for c in children}
+    for lo in range(0, len(items), SPAN_WINDOW):
+        chunk = items[lo:lo + SPAN_WINDOW]
+        for c in children:
+            send(c, chunk)
+        n = lo + len(chunk)
+        for c in children:
+            b = base[id(c)]
+
+            def caught_up(c=c, b=b):
+                st = child_stats(c["ports"]["http"])["stats"]
+                ok = st.get(key, 0) - b.get(key, 0) >= n
+                if processed:
+                    done = (st.get("spans_processed", 0)
+                            - b.get("spans_processed", 0))
+                    ok = ok and done >= n - SPAN_QUEUE_SLACK
+                return ok
+            # a poll builds the child's whole /debug/vars page under
+            # its GIL: poll at 5 Hz, not wait_for's 20
+            deadline = time.monotonic() + 60
+            while not caught_up():
+                check(c["proc"].poll() is None,
+                      f"child {c['name']} exited during the feed")
+                check(time.monotonic() < deadline,
+                      f"timed out feeding {c['name']}'s {key}")
+                time.sleep(0.2)
+
+
+def phase_span_plane(dev: str = "cuda", scale: int = 1) -> dict:
+    """Phase 14: port servers from the repo's example.yaml as child
+    processes on the card, fed one interval over every listener (SSF
+    over UDP, a unix stream and gRPC ``SendSpan``; DogStatsD over UDP
+    and TCP), each flush held to a CPU port server's on the same
+    spans in the same order: child A as written (with ``tpu_warmup``),
+    child B with ``percentile_naming`` and ``quantile_interpolation``
+    at ``reference``; then the ledger, ``/version``, ``/builddate``,
+    ``/quitquitquit`` (exit 0) and, in child C whose flush file is a
+    FIFO nobody reads, the flush watchdog (exit 2).  ``scale`` > 1
+    (a CPU rehearsal) divides the series, the services and the table
+    rows."""
+    import grpc
+    from veneur_tpu_torch import native
+    from veneur_tpu_torch.core.config import read_config
+    from veneur_tpu_torch.core.flusher import Flusher
+    from veneur_tpu_torch.core.server import Server
+    from veneur_tpu_torch.ops import cluster_merge
+    from veneur_tpu_torch.protocol import wire
+    from veneur_tpu_torch.protocol.gen import ssf_pb2
+
+    t_phase = time.perf_counter()
+    base = read_example_yaml(os.path.join(HERE, "example.yaml"))
+    if scale > 1:
+        for key in ("tpu_counter_rows", "tpu_gauge_rows",
+                    "tpu_histo_rows", "tpu_set_rows"):
+            base[key] = max(1024, base[key] // scale)
+    n_series, n_services = SPAN_SERIES // scale, SPAN_SERVICES // scale
+    ref = {"percentile_naming": "reference",
+           "quantile_interpolation": "reference"}
+    out = {"phase": "span_plane", "device": dev}
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke-") as tmp:
+        # the children build into (and load from) a temporary directory:
+        # seeded with this checkout's libraries, so none rebuilds
+        cache = os.path.join(tmp, "build")
+        os.makedirs(cache)
+        libs = [native.build()]
+        if dev == "cuda":
+            libs.append(cluster_merge.build())
+        for lib in libs:
+            with open(lib, "rb") as src, \
+                    open(os.path.join(cache, os.path.basename(lib)),
+                         "wb") as dst:
+                dst.write(src.read())
+        common = {"compile_cache_dir": cache,
+                  "interval": f"{SPAN_INTERVAL_S}s"}
+        fifo = os.path.join(tmp, "held.tsv")
+        os.mkfifo(fifo)
+        specs = (("A", dict(common, tpu_warmup=True)),
+                 ("B", dict(common, tpu_warmup=False, **ref)),
+                 ("C", dict(common, tpu_warmup=False, interval="1s")))
+        children = []
+        try:
+            for name, over in specs:
+                path, ports, flush = span_child_config(base, tmp, name,
+                                                       **over)
+                if name == "C":
+                    with open(path) as f:
+                        cfg = json.load(f)
+                    cfg["flush_file"] = flush = fifo
+                    with open(path, "w") as f:
+                        json.dump(cfg, f)
+                log = open(os.path.join(tmp, f"{name}.log"), "w")
+                proc = subprocess.Popen(
+                    [sys.executable, "-m", "veneur_tpu_torch.cli.main",
+                     "-f", path, "--device", dev], cwd=HERE, stdout=log,
+                    stderr=subprocess.STDOUT)
+                children.append({"name": name, "proc": proc, "log": log,
+                                 "ports": ports, "flush": flush,
+                                 "t0": time.perf_counter()})
+            traffic = span_traffic(n_series, n_services)
+            a, b, c = children
+
+            def all_ready():
+                for ch in children:
+                    if ("ready_s" not in ch
+                            and _healthy(ch["ports"]["http"])):
+                        ch["ready_s"] = time.perf_counter() - ch["t0"]
+                    # the watchdog child may be gone again by now
+                    check("ready_s" in ch or ch["proc"].poll() is None,
+                          f"child {ch['name']} exited before READY")
+                return all("ready_s" in ch for ch in children)
+            wait_for(all_ready, 120, "the children READY")
+            t_ready = time.perf_counter()
+            warm = child_stats(a["ports"]["http"])
+            fed = (a, b)
+            n_spans = traffic["n_spans"]
+
+            def cpu_reference():
+                """The CPU server: the same spans through handle_ssf in
+                the same order, then the same DogStatsD, one swap, and
+                the snapshot through A's and B's flush keys."""
+                cpu = Server(read_config(data=dict(
+                    {k: v for k, v in base.items()
+                     if not k.endswith(("_addresses", "_address"))},
+                    compile_cache_dir="", tpu_warmup=False,
+                    interval="3600s")), device="cpu")
+                cpu.start()
+                t_cpu = time.perf_counter()
+                try:
+                    with MergeRecorder() as rec:
+                        for t in ("udp", "unix", "grpc"):
+                            for raw in traffic["ssf"][t]:
+                                while cpu.span_worker.queue.qsize() > \
+                                        SPAN_QUEUE_SLACK:
+                                    time.sleep(0.001)
+                                cpu.handle_ssf(wire.parse_ssf(raw))
+                        wait_for(lambda: cpu.stats.get(
+                            "spans_processed", 0) >= n_spans, 300,
+                            "the CPU server's spans")
+                        for d in traffic["udp"]:
+                            cpu.handle_packet(d)
+                        cpu.handle_packet_batch(traffic["tcp"])
+                        snap = cpu.table.swap()
+                    cpu_s = time.perf_counter() - t_cpu
+                    kw = dict(is_local=False,
+                              percentiles=tuple(base["percentiles"]),
+                              aggregates=tuple(base["aggregates"]),
+                              hostname=socket.gethostname(),
+                              tags=tuple(base["tags"]), device="cpu")
+                    return (Flusher(**kw).flush(snap).metrics,
+                            Flusher(**kw, **ref).flush(snap).metrics,
+                            rec.table(), cpu_s)
+                finally:
+                    cpu.shutdown()
+            # the CPU server runs beside the children's feed
+            from concurrent.futures import ThreadPoolExecutor
+            pool = ThreadPoolExecutor(1)
+            cpu_ref = pool.submit(cpu_reference)
+            # SSF over UDP, then the unix stream, then gRPC SendSpan
+            udp = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+            feed_children(fed, traffic["ssf"]["udp"], lambda ch, chunk: [
+                udp.sendto(raw, ("127.0.0.1", ch["ports"]["ssf"]))
+                for raw in chunk], "received_ssf-udp")
+            marks = {"ssf_udp": time.perf_counter()}
+            streams = {}
+            for ch in fed:
+                s = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+                s.connect(ch["ports"]["unix"])
+                streams[ch["name"]] = s
+
+            def send_unix(ch, chunk):
+                buf = io.BytesIO()
+                for raw in chunk:
+                    wire.write_ssf(buf, ssf_pb2.SSFSpan.FromString(raw))
+                streams[ch["name"]].sendall(buf.getvalue())
+            feed_children(fed, traffic["ssf"]["unix"], send_unix,
+                          "received_ssf-unix")
+            marks["ssf_unix"] = time.perf_counter()
+            for s in streams.values():
+                s.close()
+            chans = {ch["name"]: grpc.insecure_channel(
+                f"127.0.0.1:{ch['ports']['grpc']}") for ch in fed}
+            calls = {n: ch.unary_unary("/ssf.SSFGRPC/SendSpan",
+                                       request_serializer=lambda x: x,
+                                       response_deserializer=lambda x: x)
+                     for n, ch in chans.items()}
+            feed_children(fed, traffic["ssf"]["grpc"], lambda ch, chunk: [
+                calls[ch["name"]](raw, timeout=30) for raw in chunk],
+                "received_ssf-grpc")
+            for ch in chans.values():
+                ch.close()
+            for ch in fed:
+                wait_for(lambda ch=ch: child_stats(ch["ports"]["http"])[
+                    "stats"].get("spans_processed", 0) >= n_spans, 120,
+                    f"child {ch['name']}'s span workers", ch["proc"])
+            marks["ssf_grpc"] = time.perf_counter()
+            # DogStatsD last, each series inside one datagram or stream
+            feed_children(fed, traffic["udp"], lambda ch, chunk: [
+                udp.sendto(d, ("127.0.0.1", ch["ports"]["udp"]))
+                for d in chunk], "received_dogstatsd-udp",
+                processed=False)
+            udp.close()
+            for ch in fed:
+                with socket.create_connection(
+                        ("127.0.0.1", ch["ports"]["tcp"])) as conn:
+                    conn.sendall(b"\n".join(traffic["tcp"]) + b"\n")
+            for ch in fed:
+                wait_for(lambda ch=ch: child_stats(ch["ports"]["http"])[
+                    "stats"].get("received_dogstatsd-tcp", 0) == len(
+                    traffic["tcp"]), 60, "the TCP lines", ch["proc"])
+            marks["dogstatsd"] = fed_end = time.perf_counter()
+            fed_s = fed_end - t_ready
+            prev, feed_s = t_ready, {}
+            for key, t in marks.items():
+                feed_s[key], prev = t - prev, t
+            for ch in fed:
+                check(not os.path.exists(ch["flush"]),
+                      f"child {ch['name']} flushed before its traffic "
+                      f"was in ({fed_s:.1f} s after READY)")
+            want_a, want_b, shapes, cpu_s = cpu_ref.result()
+            pool.shutdown()
+            for ch in fed:
+                wait_for(lambda ch=ch: os.path.exists(ch["flush"]), 120,
+                         f"child {ch['name']}'s flush", ch["proc"])
+            for ch in fed:
+                def sealed(ch=ch):
+                    return json.loads(http_get(
+                        ch["ports"]["http"], "/debug/ledger"))["records"]
+                wait_for(sealed, 60, "the sealed ledger record",
+                         ch["proc"])
+                ch["ledger"] = sealed()
+                ch["vars"] = child_stats(ch["ports"]["http"])
+            version = http_get(a["ports"]["http"], "/version").decode()
+            builddate = http_get(a["ports"]["http"], "/builddate").decode()
+            for ch in fed:
+                check(http_get(ch["ports"]["http"], "/quitquitquit")
+                      == b"terminating", "/quitquitquit")
+            for ch in children:
+                try:
+                    ch["proc"].wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    pass
+        finally:
+            for ch in children:
+                if ch["proc"].poll() is None:
+                    ch["proc"].kill()
+                    ch["proc"].wait()
+                ch["log"].close()
+        logs = {}
+        for ch in children:
+            with open(os.path.join(tmp, f"{ch['name']}.log")) as f:
+                logs[ch["name"]] = f.read()
+        got = {ch["name"]: tsv_metrics(ch["flush"]) for ch in fed}
+    for ch in fed:
+        check(ch["proc"].returncode == 0,
+              f"child {ch['name']} exit {ch['proc'].returncode} after "
+              f"/quitquitquit: {logs[ch['name']][-2000:]}")
+    check(c["proc"].returncode == 2 and "flush watchdog" in logs["C"],
+          f"watchdog child exit {c['proc'].returncode}: "
+          f"{logs['C'][-2000:]}")
+    check(version and builddate == "dev", f"/version {version!r}, "
+                                          f"/builddate {builddate!r}")
+
+    def as_tsv(metrics):
+        d: dict = {}
+        for m in metrics:
+            d.setdefault((m.name, ",".join(m.tags)), []).append(m.value)
+        return {k: sorted(v) for k, v in d.items()}
+    flushes = {"A": compare_span_flush(got["A"], as_tsv(want_a)),
+               "B": compare_span_flush(got["B"], as_tsv(want_b))}
+    p99 = {"A": span_p99_errors(got["A"], traffic["values"],
+                                "99percentile"),
+           "B": span_p99_errors(got["B"], traffic["values"],
+                                "99percentile")}
+    check(p99["A"]["median"] < 0.01, f"p99 median error {p99['A']}")
+    w = warm["warmup"]
+    check(w is not None and w["merge_launches"] == (dev == "cuda"),
+          f"child A's warm-up: {w}")
+    calls = sum(m["calls"] for m in shapes)
+    launches = {}
+    for ch in fed:
+        st = ch["vars"]["stats"]
+        for key, want in (("received_ssf-udp", len(traffic["ssf"]["udp"])),
+                          ("received_ssf-unix",
+                           len(traffic["ssf"]["unix"])),
+                          ("received_ssf-grpc",
+                           len(traffic["ssf"]["grpc"])),
+                          ("received_dogstatsd-udp", len(traffic["udp"])),
+                          ("received_dogstatsd-tcp", len(traffic["tcp"]))):
+            check(st.get(key) == want, f"{ch['name']} {key} "
+                                       f"{st.get(key)} != {want}")
+        check(st.get("ssf_invalid_samples") == -(-n_series // 500),
+              f"invalid samples {st.get('ssf_invalid_samples')}")
+        rec0 = ch["ledger"][0]
+        check(rec0["balanced"] and rec0["received"].get("dogstatsd", 0)
+              > n_series * SPAN_SAMPLES,
+              f"{ch['name']}'s ledger record {rec0}")
+        n = ch["vars"]["devicecost"]["launches"]
+        launches[ch["name"]] = n.get("cluster_merge", 0)
+        check(launches[ch["name"]] > 0 or dev != "cuda",
+              f"child {ch['name']} launched no cluster merge")
+        check(n.get("cluster_merge.wide", 0) == 0,
+              f"child {ch['name']} merged wide: {n}")
+    out.update({
+        "ready_s": {ch["name"]: ch["ready_s"] for ch in children},
+        "warmup": w, "fed_s": fed_s, "feed_s": feed_s,
+        "cpu_reference_s": cpu_s,
+        "child_device_steps": {ch["name"]: _device_steps(
+            ch["vars"]["devicecost"]) for ch in fed},
+        "spans": n_spans,
+        "series": n_series, "services": n_services,
+        "samples": n_series * SPAN_SAMPLES + 4 * n_services,
+        "flush_vs_cpu": flushes, "p99_rel_err": p99,
+        "version": version, "builddate": builddate,
+        "watchdog_exit": c["proc"].returncode,
+        "quit_exit": {ch["name"]: ch["proc"].returncode for ch in fed},
+        "ledger_received": {ch["name"]: ch["ledger"][0]["received"]
+                            for ch in fed},
+        "kernel_drops": {ch["name"]: ch["vars"]["sockets"][
+            "kernel_drops_total"] for ch in fed},
+        "cluster_merge_launches": sum(launches.values()),
+        "launches_by_child": launches, "cpu_merges": calls,
+        "launches_match_cpu_merges": all(v == calls
+                                         for v in launches.values()),
+        "merge_shapes": shapes,
+        "phase_s": time.perf_counter() - t_phase})
+    emit(out)
+    return out
+
+
+def _device_steps(dc: dict) -> dict:
+    """A child's launch registry in brief: device steps run, the host
+    seconds spent enqueueing them and their CUDA-event seconds."""
+    ks = dc["kernels"].values()
+    dev_ns = dc["device_duration_ns"]
+    return {"calls": sum(k["calls"] for k in ks),
+            "dispatch_s": sum(k["dispatch_duration_ns"] for k in ks) / 1e9,
+            "device_s": dev_ns / 1e9 if dev_ns is not None else None}
+
+
+def _healthy(port: int) -> bool:
+    try:
+        return http_get(port, "/healthcheck", timeout=2) == b"ok"
+    except OSError:
+        return False
+
+
 def phase_env() -> dict:
     """The gRPC transport's package versions on this host; importing the
     port's generated protobuf modules (they need protobuf >= 3.20) and
@@ -3724,6 +4347,7 @@ def main() -> int:
     phase_env()
     phase_build()
     kern = phase_kernel()
+    wide = phase_wide_merge()
     phase_entry()
     phase_f1()
     table = phase_table()
@@ -3738,6 +4362,7 @@ def main() -> int:
     del grpc_in
     tiers = phase_tiers()
     crash = phase_crash_riding()
+    span = phase_span_plane()
     # phase 2 again, at every other shape phases 4, 6, 8, 9, 10, 12 and
     # 13 merged at: the locals' sample batches unit-weight, the globals'
     # wires weighted (phase 12's local and globals merge together: their
@@ -3758,6 +4383,7 @@ def main() -> int:
     cases += recorded_cases(crash["unit_shapes"], timed=cases)
     cases += recorded_cases(crash["weighted_shapes"], weighted=True,
                             timed=cases)
+    cases += recorded_cases(span["merge_shapes"], timed=cases)
     kern.update(phase_kernel(cases=cases))
     phase_server()
     phase_chain()
@@ -3774,14 +4400,16 @@ def main() -> int:
                                 for n, r in readers["runs"].items()},
                "tiers": tiers["cluster_merge_launches"],
                "routing_tiers": routing["cluster_merge_launches"],
-               "crash_riding": crash["cluster_merge_launches"]}
+               "crash_riding": crash["cluster_merge_launches"],
+               "span_plane": span["cluster_merge_launches"]}
     shapes_by_path = {"multi_reader": {n: r["merge_shapes"] for n, r in
                                        readers["runs"].items()},
                       "tiers": tiers["merge_shapes"],
                       "routing_tiers": routing["merge_shapes"],
                       "crash_riding": {"unit": crash["unit_shapes"],
                                        "weighted":
-                                           crash["weighted_shapes"]}}
+                                           crash["weighted_shapes"]},
+                      "span_plane": span["merge_shapes"]}
     emit({"kernels": [{
         "name": "cluster_merge", "route": "cuda",
         "source": "veneur_tpu_torch/csrc/cluster_merge.cu",
@@ -3793,7 +4421,11 @@ def main() -> int:
         "max_abs_err": k["quantile_max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None,
-        "rows": k["rows"], "k": k["k"]}]})
+        "rows": k["rows"], "k": k["k"],
+        "wide": {label: {key: r[key] for key in
+                         ("rows", "cap", "k", "ms", "plain_ms", "bound_ms",
+                          "quantile_max_abs_err")}
+                 for label, r in wide.items()}}]})
     check("jax" not in sys.modules, "something imported jax")
     check(not any(m.startswith("veneur_tpu.") for m in sys.modules),
           "something imported the JAX package")

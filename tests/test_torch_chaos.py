@@ -37,6 +37,8 @@ from veneur_tpu_torch import chaos
 from veneur_tpu_torch.forward.shard import ShardedForwarder
 from veneur_tpu_torch.forward.spool import Spooled, WireSpool
 from veneur_tpu_torch.observe import ledger
+from tests.torch_fixtures import unsampled_span_uniqueness  # noqa: F401
+
 
 PKGS = {"torch": (chaos, ShardedForwarder, WireSpool, Spooled, ledger),
         "jax": (jchaos, JForwarder, JWireSpool, JSpooled, jledger)}

@@ -54,6 +54,8 @@ from veneur_tpu_torch.ops import checkpoint as ckpt
 from veneur_tpu_torch.ops import fdpass
 from veneur_tpu_torch.protocol import columnar
 from veneur_tpu_torch.sinks.simple import CaptureSink
+from tests.torch_fixtures import unsampled_span_uniqueness  # noqa: F401
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -81,8 +83,6 @@ def _server(ckdir=None, cap=None, **extra):
 def _jserver(ckdir=None, cap=None, **extra):
     s = JServer(jread_config(data=_data(ckdir, **extra)),
                 extra_sinks=[cap] if cap is not None else [])
-    s.span_sinks.clear()
-    s.span_worker.sinks.clear()
     s.start()
     return s
 

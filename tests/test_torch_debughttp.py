@@ -37,6 +37,8 @@ from veneur_tpu_torch.core.config import read_config
 from veneur_tpu_torch.core.server import Server
 from veneur_tpu_torch.observe import recorder
 from veneur_tpu_torch.sinks.simple import CaptureSink
+from tests.torch_fixtures import unsampled_span_uniqueness  # noqa: F401
+
 
 _ROWS = {"tpu_counter_rows": 64, "tpu_gauge_rows": 64,
          "tpu_histo_rows": 64, "tpu_set_rows": 8}

@@ -46,6 +46,8 @@ from veneur_tpu_torch.ops import tdigest
 from veneur_tpu_torch.protocol import dogstatsd as dsd
 from veneur_tpu_torch.protocol.gen import dogstatsd_grpc_pb2, health_pb2
 from veneur_tpu_torch.sinks.simple import CaptureSink
+from tests.torch_fixtures import unsampled_span_uniqueness  # noqa: F401
+
 
 PCTS = (0.5, 0.9, 0.99)
 AGGS = ("min", "max", "count", "sum", "avg", "median", "hmean")
@@ -545,7 +547,8 @@ def _send_metrics(srv, body: bytes, metadata=None):
 
 def test_import_server_services(grpc_global):
     """One listener: SendMetrics (the Go-side fixture wire), SendPacket
-    (multi-line DogStatsD), Health; SendSpan answers UNIMPLEMENTED; a
+    (multi-line DogStatsD), Health; SendSpan takes a span (an empty one
+    is counted received and dropped by the span worker); a
     garbage body gets INVALID_ARGUMENT and is counted, and the server
     keeps importing; flagged metadata is counted; /debug/vars carries
     the decode scratch."""
@@ -569,9 +572,12 @@ def test_import_server_services(grpc_global):
     span = chan.unary_unary("/ssf.SSFGRPC/SendSpan",
                             request_serializer=lambda b: b,
                             response_deserializer=lambda b: b)
-    with pytest.raises(grpc.RpcError) as e:
-        span(b"", timeout=5)
-    assert e.value.code() == grpc.StatusCode.UNIMPLEMENTED
+    assert span(b"", timeout=5) == b""
+    deadline = time.monotonic() + 10.0
+    while srv.stats.get("empty_ssf", 0) < 1:
+        assert time.monotonic() < deadline, "the span worker's verdict"
+        time.sleep(0.01)
+    assert srv.stats["received_ssf-grpc"] == 1
     with pytest.raises(grpc.RpcError) as e:
         _send_metrics(srv, b"\xff\xff\xff\x01garbage")
     assert e.value.code() == grpc.StatusCode.INVALID_ARGUMENT

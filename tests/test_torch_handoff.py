@@ -41,6 +41,8 @@ from veneur_tpu_torch.forward.ring import ConsistentRing
 from veneur_tpu_torch.protocol import columnar
 from veneur_tpu_torch.protocol import dogstatsd as dsd
 from veneur_tpu_torch.sinks.simple import CaptureSink
+from tests.torch_fixtures import unsampled_span_uniqueness  # noqa: F401
+
 
 _ROWS = {"tpu_counter_rows": 512, "tpu_gauge_rows": 64,
          "tpu_histo_rows": 64, "tpu_set_rows": 16}
@@ -154,8 +156,6 @@ def _port_global(cap):
 
 def _jax_global(cap):
     g = JServer(jread_config(data=_cfg()), extra_sinks=[cap])
-    g.span_sinks.clear()
-    g.span_worker.sinks.clear()
     g.start()
     return g
 

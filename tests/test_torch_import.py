@@ -43,6 +43,8 @@ from veneur_tpu_torch.ops import hll, tdigest
 from veneur_tpu_torch.protocol import dogstatsd as dsd
 from veneur_tpu_torch.sinks.simple import CaptureSink
 from veneur_tpu_torch.utils import hashing
+from tests.torch_fixtures import unsampled_span_uniqueness  # noqa: F401
+
 
 PCTS = (0.5, 0.9, 0.99)
 AGGS = ("min", "max", "count", "sum", "avg", "median", "hmean")

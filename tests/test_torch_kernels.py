@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from veneur_tpu_torch import observe
 from veneur_tpu_torch.ops import cluster_merge, segment, tdigest
 
 QS = torch.tensor([0.01, 0.1, 0.5, 0.9, 0.99], dtype=torch.float32)
@@ -127,13 +128,25 @@ def _case(name: str):
         perm = np.argsort(rng.random((64, 64)), axis=1)
         return (*state(64, 616, 0.9), np.take_along_axis(v, perm, 1),
                 np.take_along_axis(w, perm, 1), 100.0)
+    # past the reference's 2048-lane bound: the kernel's wide route
+    if name == "wide_c300":              # compression 300, C = 1824
+        return (*state(32, 1824, 0.9), *batch(32, 512), 300.0)
+    if name == "wide_long_unsorted":     # C = 3032: shared-memory sort
+        m, w = state(16, 3032, 0.95)
+        perm = np.argsort(rng.random((16, 3032)), axis=1)
+        return (np.take_along_axis(m, perm, 1),
+                np.take_along_axis(w, perm, 1), *batch(16, 512), 500.0)
+    if name == "wide_long_unit_batch":   # K = 2600 unit samples
+        return (*state(16, 616, 0.5), *batch(16, 2600, live_p=0.95),
+                100.0)
     raise KeyError(name)
 
 
 CASES = ["ingest_full_width", "union_616", "shallow_256", "small_width",
          "empty_batch", "empty_rows", "ties", "unsorted_state",
          "sorted_union", "all_empty_rows", "unaligned_batch", "wire_k8",
-         "wire_k32", "wire_k64_unsorted", "subnormal"]
+         "wire_k32", "wire_k64_unsorted", "subnormal", "wide_c300",
+         "wide_long_unsorted", "wide_long_unit_batch"]
 
 
 def _tensor(a: np.ndarray, device: str) -> torch.Tensor:
@@ -188,11 +201,15 @@ def test_kernel_matches_plain(name):
                     "mode")
     *arrays, comp = _case(name)
     args = [_tensor(a, "cuda") for a in arrays]
-    before = cluster_merge.launches
+    route = cluster_merge.LAUNCH_NAMES[cluster_merge.route(
+        args[0].shape[1], args[2].shape[1])]
+    before = observe.REGISTRY.launches().get(route, 0)
+    total = cluster_merge.launch_count()
     km, kw = cluster_merge.cluster_merge(*args, **_scale(comp))
     pm, pw = cluster_merge.cluster_merge_plain(*args, **_scale(comp))
     torch.cuda.synchronize()
-    assert cluster_merge.launches == before + 1
+    assert observe.REGISTRY.launches()[route] == before + 1
+    assert cluster_merge.launch_count() == total + 1
     _check_contract(km, kw, _mass(args[1], args[3]))
     qs = QS.cuda()
     qk = tdigest.quantile(km, kw, qs)
@@ -204,7 +221,9 @@ def test_kernel_matches_plain(name):
 @pytest.mark.cuda
 def test_kernel_strided_batch_and_bound():
     """Column slices of a wider plane go in without a copy; widths past
-    the 2048 bound raise instead of falling back."""
+    the reference's 2048-lane bound launch the kernel on its wide route
+    (F2), counted as ``cluster_merge.wide``, and a row past one CTA's
+    shared memory raises by name."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU "
                     "mode")
@@ -220,9 +239,21 @@ def test_kernel_strided_batch_and_bound():
         **_scale(comp))
     assert torch.equal(km, cm) and torch.equal(kw, cw)
     wide = torch.zeros((4, 1500), device="cuda")
-    with pytest.raises(ValueError, match="2048"):
-        cluster_merge.cluster_merge(wide, wide, wide, wide,
-                                    **_scale(comp))
+    launches = observe.REGISTRY.launches()
+    om, ow = cluster_merge.cluster_merge(wide, wide, wide, wide,
+                                         **_scale(comp))
+    pm, pw = cluster_merge.cluster_merge_plain(wide, wide, wide, wide,
+                                               **_scale(comp))
+    assert om.device.type == "cuda"
+    assert torch.equal(om, pm) and torch.equal(ow, pw)
+    after = observe.REGISTRY.launches()
+    assert after.get("cluster_merge", 0) == launches.get("cluster_merge", 0)
+    assert after["cluster_merge.wide"] == \
+        launches.get("cluster_merge.wide", 0) + 1
+    huge = torch.zeros((1, 40000), device="cuda")
+    assert not cluster_merge.fits(40000, 40000)
+    with pytest.raises(ValueError, match="shared memory"):
+        cluster_merge.cluster_merge(huge, huge, huge, huge, **_scale(comp))
 
 
 def test_plain_merge_flushes_subnormals_as_jax_pallas():

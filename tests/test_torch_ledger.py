@@ -14,8 +14,8 @@ flush's ``row_accounting`` must equal the JAX flush's.  The
 reference's ``veneur.xla.*`` self-telemetry counts a process-global
 registry (JIT compiles in the reference, library builds in the port):
 both registries' compile counters read zero here, so the loopback
-telemetry of both servers is the same sample set; and the JAX server
-runs without the span sink the port does not have yet.  Also the
+telemetry of both servers is the same sample set (both run their
+ssfmetrics span sink and count its deliveries).  Also the
 reference's ledger scenarios on the port alone: a shard's lock-free
 ``parse`` does no ledger work, concurrent reader shards balance to the
 sample, strict mode names an injected loss.  Exact equality: the
@@ -47,6 +47,8 @@ from veneur_tpu_torch.observe import ledger
 from veneur_tpu_torch.protocol import dogstatsd as dsd
 from veneur_tpu_torch.protocol.gen import dogstatsd_grpc_pb2
 from veneur_tpu_torch.sinks.simple import CaptureSink
+from tests.torch_fixtures import unsampled_span_uniqueness  # noqa: F401
+
 
 _MODS = {"jax": jledger, "torch": ledger}
 
@@ -219,11 +221,6 @@ def _pair(**cfg):
             "tpu_overload": False, **cfg}
     jsrv = JServer(jread_config(data=data),
                    extra_sinks=[JCaptureSink()])
-    # the port has no span sinks yet: the JAX server runs without its
-    # ssfmetrics extraction sink (flush spans carry no samples, so it
-    # extracts nothing; it only counts them, veneur.sink.spans_*)
-    jsrv.span_sinks.clear()
-    jsrv.span_worker.sinks.clear()
     tsrv = Server(read_config(data=data), device="cpu",
                   extra_sinks=[CaptureSink()])
     return jsrv, tsrv

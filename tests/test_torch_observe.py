@@ -34,6 +34,8 @@ from veneur_tpu_torch.observe import devicecost, recorder, tracer
 from veneur_tpu_torch.ops import cluster_merge, tdigest
 from veneur_tpu_torch.protocol import wire
 from veneur_tpu_torch.protocol.gen import ssf_pb2
+from tests.torch_fixtures import unsampled_span_uniqueness  # noqa: F401
+
 
 PKGS = {"jax": (jobs, jtrace, jrecorder, jtracer),
         "torch": (observe, ttrace, recorder, tracer)}

@@ -222,7 +222,7 @@ def test_cluster_merge_plain_matches_scatter_path(rows, slots):
     np.testing.assert_allclose(N(tw).sum(axis=1), total, rtol=1e-6)
     _packing_ok(tm, tw)
     _quantiles_close(jm, jw, tm, tw)
-    assert cluster_merge.launches == 0  # CPU tensors never launch
+    assert cluster_merge.launch_count() == 0  # CPU tensors never launch
 
 
 def test_cluster_merge_plain_matches_pallas_interpret():

@@ -33,6 +33,7 @@ from veneur_tpu.core.table import MetricTable as JTable
 from veneur_tpu.core.table import TableConfig as JTableConfig
 from veneur_tpu.core.table import _ClassIndex as JClassIndex
 from veneur_tpu.protocol import columnar as jcolumnar
+from veneur_tpu.protocol import dogstatsd as jdsd
 from veneur_tpu_torch.core import overload
 from veneur_tpu_torch.core.config import read_config
 from veneur_tpu_torch.core.flusher import Flusher
@@ -40,6 +41,7 @@ from veneur_tpu_torch.core.server import Server
 from veneur_tpu_torch.core.table import MetricTable, TableConfig
 from veneur_tpu_torch.core.table import _ClassIndex
 from veneur_tpu_torch.protocol import columnar
+from veneur_tpu_torch.protocol import dogstatsd as tdsd
 
 _ROWS = {"tpu_counter_rows": 256, "tpu_gauge_rows": 256,
          "tpu_histo_rows": 256, "tpu_set_rows": 16}
@@ -50,8 +52,6 @@ def _pair(**kw):
     frozen (buckets start full at the burst)."""
     data = {"interval": "10s", "hostname": "h", **_ROWS, **kw}
     j = JServer(jread_config(data=data))
-    j.span_sinks.clear()
-    j.span_worker.sinks.clear()
     t = Server(read_config(data=data), device="cpu")
     for srv in (j, t):
         srv.overload._refill = lambda: None
@@ -460,3 +460,36 @@ def test_pressure_level_flush_matches_jax(level):
         else:
             assert g[name] == v, name
     assert n_pct == 40 * 3
+
+
+@pytest.mark.parametrize("burst", [None, 5.0])
+def test_ingest_parsed_matches_jax(burst):
+    """``Server.ingest_parsed``, the reference's one-object entry (the
+    span plane's samples go through the same ``ingest_samples``), with
+    and without tenant admission: the same returns, shed, stats, ledger
+    record and flush as the JAX server's."""
+    kw = {} if burst is None else {"tpu_overload_tenant_rate": burst,
+                                   "tpu_overload_tenant_burst": burst}
+    j, t = _pair(**kw)
+    try:
+        out = {}
+        for k, srv, mod in (("jax", j, jdsd), ("torch", t, tdsd)):
+            got = []
+            for i in range(12):
+                got.append(srv.ingest_parsed(mod.Sample(
+                    f"p.timer.{i % 3}", mod.TIMER, float(i),
+                    tags=("tenant:acme",))))
+                got.append(srv.ingest_parsed(mod.Sample(
+                    "p.count", mod.COUNTER, 1.0, tags=("tenant:acme",))))
+            got.append(srv.ingest_parsed(mod.ServiceCheck(
+                "p.check", 1, tags=("tenant:acme",), message="warn")))
+            out[k] = (got, _user(srv.flush_once()),
+                      {s: srv.stats.get(s, 0) for s in (
+                          "metrics_processed", "metrics_dropped",
+                          "metrics_shed")})
+        assert out["torch"] == out["jax"]
+        tr = _rec(t)
+        assert tr == _rec(j) and tr["balanced"]
+        assert tr["shed"]["total"] == (0 if burst is None else 7)
+    finally:
+        _shutdown(j, t)

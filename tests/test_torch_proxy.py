@@ -47,6 +47,8 @@ from veneur_tpu_torch.forward import grpc_forward as gf
 from veneur_tpu_torch.forward import http_import as hi
 from veneur_tpu_torch.forward.gen import forward_pb2
 from veneur_tpu_torch.sinks.simple import CaptureSink
+from tests.torch_fixtures import unsampled_span_uniqueness  # noqa: F401
+
 
 ROOT = Path(__file__).resolve().parent.parent
 DESTS = "10.0.0.1:8128,10.0.0.2:8128,10.0.0.3:8128"

@@ -21,6 +21,7 @@ rtol 2e-3 / atol 1e-3 (tests/test_pallas_merge.py).
 
 from __future__ import annotations
 
+import socket
 import threading
 import time
 
@@ -40,6 +41,8 @@ from veneur_tpu_torch.core.table import MetricTable, TableConfig
 from veneur_tpu_torch.forward import grpc_forward as gf
 from veneur_tpu_torch.forward import shard, spool
 from veneur_tpu_torch.sinks.simple import CaptureSink
+from tests.torch_fixtures import unsampled_span_uniqueness  # noqa: F401
+
 
 _WAIT = 15.0
 _SRV = {"interval": "60s", "tpu_counter_rows": 256, "tpu_gauge_rows": 256,
@@ -287,7 +290,30 @@ def test_drain_wire_bypasses_open_breaker_as_jax():
 
 # ---- the ride on real gRPC --------------------------------------------------
 
-COOLDOWN_S = 4  # long enough that interval 3 routes inside it
+COOLDOWN_S = 4
+
+
+class _HandClock:
+    """A breaker clock that moves only when the ride advances it: the
+    breaker B trips at interval 2 stays open through interval 3 however
+    long the host takes, and reaches its cooldown when the ride says."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def _hold_port(port: int) -> socket.socket:
+    """Keep ``port`` out of the kernel's ephemeral picks between the
+    rides: a bound, non-listening SO_REUSEPORT socket.  The gRPC
+    listeners bind with SO_REUSEPORT too, so they still take the port;
+    a port-0 bind elsewhere skips it."""
+    s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+    s.bind(("127.0.0.1", port))
+    return s
 
 def _start_global(server_cls, cfg_read, port, cap, **dev):
     """A global on ``port`` (0: any); a port just released may take a
@@ -305,18 +331,25 @@ def _start_global(server_cls, cfg_read, port, cap, **dev):
             time.sleep(0.1)
 
 
-def _ride(server_cls, cfg_read, cap_cls, ports=(0, 0), **dev):
+def _ride(server_cls, cfg_read, cap_cls, ports=(0, 0), holds=None,
+          **dev):
     """Interval 1 with both globals up; global B stopped for intervals
     2 and 3 (the breaker opens at 2's failed send, 3's wire spools at
     route time); B restarted on its port and, past the cooldown,
     interval 4's probe replays the spool; interval 5's samples staged
-    and the local shut down (the drain).  Returns the globals' flushed
+    and the local shut down (the drain).  The local's breakers run on a
+    hand-advanced clock, so the ride follows its own events, not the
+    host's speed; ``holds`` collects sockets that keep the globals'
+    ports for B's restart and the next ride.  Returns the globals' flushed
     metrics, their counters and ledger protocols, the local's counters,
     its spool ledger and every ledger's balance."""
     caps = [cap_cls(), cap_cls(), cap_cls()]
     ga = _start_global(server_cls, cfg_read, ports[0], caps[0], **dev)
     gb = _start_global(server_cls, cfg_read, ports[1], caps[1], **dev)
     ports = (ga.grpc_ports[0], gb.grpc_ports[0])
+    if holds is not None:
+        # the ride restarts B on its port, and the next ride rebinds both
+        holds.extend(_hold_port(p) for p in ports)
     gb2 = local = None
     try:
         local = server_cls(cfg_read(data=dict(
@@ -332,6 +365,10 @@ def _ride(server_cls, cfg_read, cap_cls, ports=(0, 0), **dev):
             local.flush_once()
 
         interval(1)
+        # the breakers run on a clock the ride advances by hand
+        clock = _HandClock()
+        for addr in (f"127.0.0.1:{p}" for p in ports):
+            local._sharded_fwd.pool.breaker(addr)._clock = clock
         # both globals flush interval 1 before B stops (a global never
         # drains: what it had not flushed would be lost)
         ga.flush_once()
@@ -346,8 +383,10 @@ def _ride(server_cls, cfg_read, cap_cls, ports=(0, 0), **dev):
         breaker = local._sharded_fwd.breaker_states()[b_addr]["state"]
         spooled = local._sharded_fwd.spool_stats()["queued_wires"]
         gb2 = _start_global(server_cls, cfg_read, ports[1], caps[2], **dev)
-        # the cooldown, and the cached channel's reconnect backoff
-        time.sleep(COOLDOWN_S + 0.1)
+        # the cooldown passes, and the cached channel leaves its
+        # reconnect backoff
+        clock.t += COOLDOWN_S
+        assert local._sharded_fwd.pool.breaker(b_addr).would_allow()
         grpc.channel_ready_future(
             local._sharded_fwd.client(b_addr)._channel).result(_WAIT)
         interval(4)
@@ -473,8 +512,15 @@ def test_outage_ride_and_drain_match_jax():
     the globals' union flush of each epoch (interval 1; intervals 2 to
     5) equal to the same intervals forwarded to one global with no
     outage, and to the JAX ride's."""
-    got = _ride(Server, read_config, CaptureSink, device="cpu")
-    want = _ride(JServer, jread_config, JCaptureSink, ports=got["ports"])
+    holds = []
+    try:
+        got = _ride(Server, read_config, CaptureSink, device="cpu",
+                    holds=holds)
+        want = _ride(JServer, jread_config, JCaptureSink,
+                     ports=got["ports"])
+    finally:
+        for h in holds:
+            h.close()
     assert got["ports"] == want["ports"]
     for key in ("local", "globals", "protocols", "breaker", "spooled"):
         assert got[key] == want[key], key

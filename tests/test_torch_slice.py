@@ -39,6 +39,8 @@ from veneur_tpu_torch.ops import cluster_merge, superbatch, tdigest
 from veneur_tpu_torch.protocol import columnar, dogstatsd as dsd
 from veneur_tpu_torch.sinks.simple import CaptureSink
 from veneur_tpu_torch.utils import hashing
+from tests.torch_fixtures import unsampled_span_uniqueness  # noqa: F401
+
 
 PCTS = (0.5, 0.9, 0.99)
 AGGS = ("min", "max", "count", "sum", "avg", "median", "hmean")
@@ -269,9 +271,9 @@ def test_interval_matches_jax(monkeypatch, path, extra, deep):
     else:
         tb, jb = _batch(lines)
         assert jt.ingest_columns(jb) == tt.ingest_columns(tb)
-    before = cluster_merge.launches
+    before = cluster_merge.launch_count()
     jsnap, tsnap = jt.swap(), tt.swap()
-    assert cluster_merge.launches == before  # CPU: plain version only
+    assert cluster_merge.launch_count() == before  # CPU: plain only
     routes.same()
     assert tt.superbatch_applies == routes.steps["torch"] == 1
     kw = dict(percentiles=PCTS, aggregates=AGGS, hostname="h")

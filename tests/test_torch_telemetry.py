@@ -12,9 +12,9 @@ timing rows (``*_duration_ns``, gc, memory, the flush timestamp) and
 the device-cost registry's rows (``veneur.device.*``) by name only.
 Every user metric is held as ``tests/test_torch_slice.py`` holds it.
 The two registries' compile counters read zero (the reference counts
-JIT compiles, the port library builds), and the JAX server runs without
-the span sink the port has not ported.  The flush ring's stage names
-must be equal too.
+JIT compiles, the port library builds); both servers run their
+ssfmetrics span sink, whose delivery counts (``veneur.sink.*``) are
+held by value too.  The flush ring's stage names must be equal too.
 
 Also: the ``stats_address`` path (DogStatsD datagrams), scopes and
 extra tags, the per-protocol receive counter over a real socket, and
@@ -49,7 +49,8 @@ _BY_VALUE = ("veneur.worker.", "veneur.packet.", "veneur.listen.",
              "veneur.import.request_error_total", "veneur.ledger.",
              "veneur.tier.", "veneur.signals.", "veneur.flush.error_total",
              "veneur.forward.post_metrics_total",
-             "veneur.forward.error_total", "veneur.flight.")
+             "veneur.forward.error_total", "veneur.flight.",
+             "veneur.sink.spans_", "veneur.sink.metrics_flushed_total")
 
 
 @pytest.fixture(autouse=True)
@@ -74,8 +75,6 @@ def _pair(**cfg):
             "tpu_overload": False, **cfg}
     jsrv = JServer(jread_config(data=data),
                    extra_sinks=[JCaptureSink()])
-    jsrv.span_sinks.clear()
-    jsrv.span_worker.sinks.clear()
     tsrv = Server(read_config(data=data), device="cpu",
                   extra_sinks=[CaptureSink()])
     return jsrv, tsrv
@@ -190,8 +189,6 @@ def test_telemetry_via_stats_address_matches_jax():
         jsrv = JServer(jread_config(data={
             "interval": "10s", **_ROWS, "tpu_overload": False,
             "stats_address": addrs[0]}))
-        jsrv.span_sinks.clear()
-        jsrv.span_worker.sinks.clear()
         tsrv = Server(read_config(data={
             "interval": "10s", **_ROWS, "tpu_overload": False,
             "stats_address": f"udp://{addrs[1]}"}), device="cpu")
@@ -310,6 +307,6 @@ def test_stats_address_without_port_is_config_error(addr):
 def test_unknown_scope_refused_and_later_keys_still_refused():
     with pytest.raises(ValueError, match="veneur_metrics_scopes"):
         read_config(data={"veneur_metrics_scopes": {"counter": "nope"}})
-    for key in ("tls_key", "span_channel_capacity", "sentry_dsn"):
+    for key in ("tls_key", "tpu_ingest_backend", "sentry_dsn"):
         with pytest.raises(ValueError, match="not supported"):
             read_config(data={key: 1})

@@ -1,10 +1,16 @@
 """Server entry point:
 
     python -m veneur_tpu_torch.cli.main -f config.yaml [--device cuda|cpu]
+    python -m veneur_tpu_torch.cli.main -f config.yaml --validate-config
 
-Runs until SIGINT or SIGTERM, then shuts the server down cleanly.  The
-device defaults to ``cuda``; without a card the server refuses to start
-unless ``--device cpu`` is given.
+Runs until SIGINT or SIGTERM (or, with ``http_quit``, a GET of
+``/quitquitquit``), then shuts the server down cleanly and exits 0.
+The device defaults to ``cuda``; without a card the server refuses to
+start unless ``--device cpu`` is given.  ``--validate-config`` (and
+``--validate-config-strict``, the same here: every key the port does
+not run is refused) parses and validates the file, prints
+``config ok`` and exits; a bad config exits 1.  ``debug: true`` logs at
+debug level.
 
 A replacement generation started with ``VENEUR_TPU_SOCK_CLOAKED``
 (``statsd.udp.<address>.<reader>=<fd>``, ``http=<fd>``) and those fds
@@ -31,11 +37,24 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("-f", dest="config", required=True,
                     help="YAML config file")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--validate-config", action="store_true",
+                    help="parse and validate the config, then exit")
+    ap.add_argument("--validate-config-strict", action="store_true",
+                    help="the same (unknown keys always fail here)")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: "
                                "%(message)s")
-    cfg = read_config(args.config)
+    try:
+        cfg = read_config(args.config)
+    except (ValueError, OSError) as e:
+        print(f"config error: {e}", file=sys.stderr)
+        return 1
+    if cfg.debug:
+        logging.getLogger().setLevel(logging.DEBUG)
+    if args.validate_config or args.validate_config_strict:
+        print("config ok")
+        return 0
     srv = Server(cfg, device=args.device)
     stop = threading.Event()
 
@@ -57,7 +76,9 @@ def main(argv: list[str] | None = None) -> int:
     logging.getLogger("veneur_tpu_torch").info(
         "statsd ports %s, incarnation %d, %d listener fd(s) adopted",
         srv.statsd_ports, srv.incarnation, srv.restarts_adopted)
-    stop.wait()
+    # a signal, or a /quitquitquit that already stopped the server
+    while not (stop.wait(0.2) or srv.stopped.is_set()):
+        pass
     srv.shutdown()
     return 0
 

@@ -14,6 +14,8 @@ import os
 import re
 from dataclasses import dataclass, field, fields
 
+from veneur_tpu_torch.protocol import addr as addrmod
+
 _DURATION_RE = re.compile(r"^\s*([\d.]+)\s*(ms|s|m|h|us)?\s*$")
 _DURATION_UNITS = {"us": 1e-6, "ms": 1e-3, "s": 1.0, "m": 60.0,
                    "h": 3600.0, None: 1.0}
@@ -32,8 +34,66 @@ def parse_duration(text: str | float | int) -> float:
 @dataclass
 class Config:
     hostname: str = ""
+    # common tags on every flushed metric ("k:v" or bare) and, as a
+    # map of the "k:v" ones, on every span that lacks the key
+    tags: list[str] = field(default_factory=list)
     interval: str = "10s"
+    # debug-level logging
+    debug: bool = False
+    # the flush watchdog: this many intervals without a flush and the
+    # process exits (code 2) for its supervisor to restart it; 0: off
+    flush_watchdog_missed_flushes: int = 0
+    # the first flush lands on a multiple of the interval (wall clock)
+    synchronize_with_interval: bool = False
+    # statsd listeners: udp:// (num_readers readers each), tcp://
+    # (newline-delimited lines per connection), unix:// or unixgram://
+    # (a datagram socket, locked against a second owner)
     statsd_listen_addresses: list[str] = field(default_factory=list)
+    # SSF listeners: udp:// (one span per datagram) or unix:// (framed
+    # spans on a stream socket)
+    ssf_listen_addresses: list[str] = field(default_factory=list)
+    # GET /quitquitquit shuts the server down
+    http_quit: bool = False
+    # a datagram SSF span longer than this is cut at 64 KiB, the UDP
+    # limit
+    trace_max_length_bytes: int = 16 * 1024 * 1024
+    # SO_RCVBUF of every datagram listener
+    read_buffer_size_bytes: int = 2 * 1048576
+    # parsed for the reference's config surface; the one table replaces
+    # its worker shards (num_readers sizes the readers)
+    num_workers: int = 0
+    # "precise" names 0.999 .999percentile; "reference" keeps the Go
+    # fleet's int(p*100) truncation (.99percentile)
+    percentile_naming: str = "precise"
+    # "interp" (singleton-exact rank-space interpolation) or
+    # "reference" (the Go digest's uniform-bounds walk)
+    quantile_interpolation: str = "interp"
+    # an empty hostname stays empty on emitted metrics instead of
+    # taking the machine's
+    omit_empty_hostname: bool = False
+    # veneur.flush.unique_timeseries_total each flush
+    count_unique_timeseries: bool = False
+    # the span plane: ssfmetrics extraction's indicator and objective
+    # timers (empty: off), the span queue and its worker threads, and a
+    # debug log line per ingested span
+    indicator_span_timer_name: str = ""
+    objective_span_timer_name: str = ""
+    span_channel_capacity: int = 1024
+    num_span_workers: int = 1
+    debug_ingested_spans: bool = False
+    # the simple sinks: discard everything, or log every flushed metric
+    blackhole_sink: bool = False
+    debug_flushed_metrics: bool = False
+    # start-up: load the native and kernel libraries and take one
+    # sample of each kind through a scratch table before READY
+    tpu_warmup: bool = False
+    # the directory nvcc and g++ build into (empty: the package's
+    # _build/)
+    compile_cache_dir: str = ""
+    # the reference probes its accelerator for this long and falls back
+    # to the CPU; the port's server runs where it was asked and raises
+    # when the card is missing (parsed, not a fallback)
+    accelerator_probe_timeout: str = "60s"
     flush_file: str = ""
     flush_file_format: str = "native"
     percentiles: list[float] = field(
@@ -184,6 +244,9 @@ class Config:
     def interval_seconds(self) -> float:
         return parse_duration(self.interval)
 
+    def accelerator_probe_timeout_seconds(self) -> float:
+        return parse_duration(self.accelerator_probe_timeout)
+
     def is_local(self) -> bool:
         """A node with a forward destination — a static address or a
         discovered service — is a local (reference server.go:1609
@@ -234,11 +297,21 @@ class Config:
         if self.flush_file_format not in ("native", "reference"):
             problems.append(
                 "flush_file_format must be 'native' or 'reference'")
+        if self.percentile_naming not in ("precise", "reference"):
+            problems.append(
+                "percentile_naming must be 'precise' or 'reference'")
+        if self.quantile_interpolation not in ("interp", "reference"):
+            problems.append(
+                "quantile_interpolation must be 'interp' or "
+                "'reference'")
         for n in ("tpu_counter_rows", "tpu_gauge_rows", "tpu_histo_rows",
                   "tpu_set_rows", "tpu_histo_slots", "metric_max_length",
-                  "reader_batch_packets", "tpu_stage_flush_samples"):
+                  "span_channel_capacity", "reader_batch_packets",
+                  "tpu_stage_flush_samples"):
             if getattr(self, n) <= 0:
                 problems.append(f"{n} must be positive")
+        if self.num_span_workers <= 0:
+            problems.append("num_span_workers must be positive")
         pin = self.tpu_reader_pin_cores
         if pin not in ("auto", "off"):
             try:
@@ -249,10 +322,18 @@ class Config:
                 problems.append(
                     "tpu_reader_pin_cores must be auto, off or a "
                     "comma list of core ids")
-        for addr in self.statsd_listen_addresses:
-            if not addr.startswith("udp://"):
-                problems.append(
-                    f"only udp:// statsd listeners are supported: {addr}")
+        for key, schemes in (("statsd_listen_addresses",
+                              ("udp", "tcp", "unix")),
+                             ("ssf_listen_addresses", ("udp", "unix"))):
+            for addr in getattr(self, key):
+                try:
+                    scheme = addrmod.parse_addr(addr)[0]
+                except ValueError as e:
+                    problems.append(f"{key}: {e}")
+                    continue
+                if scheme not in schemes:
+                    problems.append(f"{key}: unsupported address "
+                                    f"{addr!r}")
         for addr in self.grpc_listen_addresses:
             if not addr.startswith("tcp://"):
                 problems.append(
@@ -337,7 +418,18 @@ class Config:
 
 # keys the reference lets VENEUR_<KEY upper-cased> override, among those
 # the port runs
-_ENV_KEYS = ("tpu_pipeline", "tpu_multi_reader_fused",
+_ENV_KEYS = ("tags", "debug", "flush_watchdog_missed_flushes",
+             "synchronize_with_interval", "ssf_listen_addresses",
+             "http_quit", "trace_max_length_bytes",
+             "read_buffer_size_bytes", "num_workers",
+             "percentile_naming", "quantile_interpolation",
+             "omit_empty_hostname", "count_unique_timeseries",
+             "indicator_span_timer_name", "objective_span_timer_name",
+             "span_channel_capacity", "num_span_workers",
+             "debug_ingested_spans", "blackhole_sink",
+             "debug_flushed_metrics", "tpu_warmup", "compile_cache_dir",
+             "accelerator_probe_timeout",
+             "tpu_pipeline", "tpu_multi_reader_fused",
              "tpu_reader_pin_cores", "tpu_columnar_emit",
              "stats_address", "veneur_metrics_scopes",
              "veneur_metrics_additional_tags", "enable_profiling", "tpu_ledger_strict",

@@ -76,35 +76,42 @@ def _combine_stats_fn(stats: torch.Tensor,
     ], dim=1))
 
 
-def _histo_readout_fn(stats, imp, means, weights, qs):
-    """Combined stats plus the per-row quantile readout (the
-    reference's default "interp" interpolation)."""
+def _quantile_fn(method: str):
+    """The readout of ``quantile_interpolation``: "interp" (the
+    default, singleton-exact) or "reference" (the Go digest's walk)."""
+    return (tdigest._quantile if method == "reference"
+            else tdigest._quantile_interp)
+
+
+def _histo_readout_fn(stats, imp, means, weights, qs, method="interp"):
+    """Combined stats plus the per-row quantile readout."""
     comb = _combine_stats_fn(stats, imp)
-    qvals = tdigest._quantile_interp(means, weights, qs,
-                                     comb[:, segment.STAT_MIN],
-                                     comb[:, segment.STAT_MAX])
+    qvals = _quantile_fn(method)(means, weights, qs,
+                                 comb[:, segment.STAT_MIN],
+                                 comb[:, segment.STAT_MAX])
     return comb, qvals
 
 
-def _histo_readout_rows_fn(stats, imp, means, weights, qs, idx):
+def _histo_readout_rows_fn(stats, imp, means, weights, qs, idx,
+                           method="interp"):
     """_histo_readout restricted to the touched rows ``idx``: both the
     readback and the quantile readout's sort scale with the touched
     row count instead of the table capacity."""
     st = stats[idx]
     comb, qvals = _histo_readout_fn(st, imp[idx], means[idx],
-                                    weights[idx], qs)
+                                    weights[idx], qs, method)
     return st, comb, qvals
 
 
 def _histo_quantiles_slots_fn(stats, imp, means, weights, qs, row_idx,
-                              slot_idx):
+                              slot_idx, method="interp"):
     """The quantile readout of a tiered table's wide rows: min/max from
     the row-indexed stat planes at ``row_idx``, centroids from the
     wide-slot pool at ``slot_idx`` (position-aligned)."""
     comb = _combine_stats_fn(stats[row_idx], imp[row_idx])
-    return tdigest._quantile_interp(means[slot_idx], weights[slot_idx],
-                                    qs, comb[:, segment.STAT_MIN],
-                                    comb[:, segment.STAT_MAX])
+    return _quantile_fn(method)(means[slot_idx], weights[slot_idx], qs,
+                                comb[:, segment.STAT_MIN],
+                                comb[:, segment.STAT_MAX])
 
 
 def _gather_rows_fn(plane: torch.Tensor,
@@ -130,10 +137,13 @@ _union_host_plane = observe.instrument("flusher.hll_union_host_plane",
                                        hll.union)
 
 
-def _percentile_suffix(p: float) -> str:
+def _percentile_suffix(p: float, naming: str = "precise") -> str:
     """``.50percentile`` for 0.5; sub-percent quantiles keep their
-    digits (``.999percentile``) — the reference's default "precise"
-    naming."""
+    digits (``.999percentile``), the default "precise" naming.
+    ``naming="reference"`` keeps the Go fleet's ``int(p*100)``
+    truncation (0.999 -> ``99percentile``)."""
+    if naming == "reference":
+        return f"{int(p * 100)}percentile"
     scaled = p * 100
     if abs(scaled - round(scaled)) < 1e-9:
         return f"{int(round(scaled))}percentile"
@@ -200,20 +210,27 @@ class Flusher:
     ``"cuda"``; raises without CUDA unless the caller passes
     ``"cpu"``); snapshot planes elsewhere are moved there first.
     ``columnar`` (default) assembles a MetricFrame; False runs the
-    per-row emit."""
+    per-row emit.  ``tags`` are appended to every emitted metric's;
+    ``percentile_naming`` and ``quantile_interpolation`` are the
+    config keys of the same names."""
 
     def __init__(self, is_local: bool = False,
                  percentiles: tuple[float, ...] = DEFAULT_PERCENTILES,
                  aggregates: tuple[str, ...] = DEFAULT_AGGREGATES,
                  hostname: str = "",
                  device: "str | torch.device" = "cuda",
-                 columnar: bool = True):
+                 columnar: bool = True, tags: tuple[str, ...] = (),
+                 percentile_naming: str = "precise",
+                 quantile_interpolation: str = "interp"):
         self.device = resolve_device(device)
         self.is_local = is_local
         self.percentiles = tuple(percentiles)
         self.aggregates = tuple(aggregates)
         self.hostname = hostname
         self.columnar = columnar
+        self.common_tags = tuple(tags)
+        self.percentile_naming = percentile_naming
+        self.quantile_interpolation = quantile_interpolation
         # scale-out arc handoff: a ``(meta) -> bool`` installed for one
         # flush (``Server.arc_handoff``).  True forwards the row even on
         # a global, and only forwards it: its keyspace arc now belongs
@@ -236,7 +253,7 @@ class Flusher:
         pre = self._prefetch(snap, cycle)
         with cycle.stage("host_emit"):
             if self.columnar:
-                frame = MetricFrame(ts, self.hostname)
+                frame = MetricFrame(ts, self.hostname, self.common_tags)
                 self._frame_counters(snap, res, pre, frame)
                 self._frame_gauges(snap, res, pre, frame)
                 self._frame_histos(snap, res, pre, frame)
@@ -335,7 +352,8 @@ class Flusher:
                 idx = torch.as_tensor(histo_rows, device=dev)
                 if need_q:
                     st_g, comb_g, qvals_g = _histo_readout_rows(
-                        stats, imp, means, weights, qs, idx)
+                        stats, imp, means, weights, qs, idx,
+                        method=self.quantile_interpolation)
                     devs["qvals_g"] = qvals_g
                     expand.append(("qvals_g", "qvals", histo_rows,
                                    (R, len(all_pcts))))
@@ -350,7 +368,8 @@ class Flusher:
             else:
                 if need_q:
                     comb, devs["qvals"] = _histo_readout(
-                        stats, imp, means, weights, qs)
+                        stats, imp, means, weights, qs,
+                        method=self.quantile_interpolation)
                 else:
                     comb = _combine_stats(stats, imp)
                 devs["stats"] = stats
@@ -441,7 +460,8 @@ class Flusher:
                     stats, imp, means, weights, qs,
                     torch.as_tensor(wrows, device=dev),
                     torch.as_tensor(ti.histo_slot[wrows].astype(np.int64),
-                                    device=dev))
+                                    device=dev),
+                    method=self.quantile_interpolation)
                 expand.append(("qvals_w", "qvals", wrows,
                                (R, len(all_pcts))))
 
@@ -527,7 +547,7 @@ class Flusher:
             mx = np.zeros(n, np.float32)
             mn[:len(sel)] = comb[rr, segment.STAT_MIN]
             mx[:len(sel)] = comb[rr, segment.STAT_MAX]
-            cq = tdigest._quantile_interp(
+            cq = _quantile_fn(self.quantile_interpolation)(
                 *(torch.from_numpy(a).to(dev) for a in (cm, cw)), qs,
                 *(torch.from_numpy(a).to(dev) for a in (mn, mx)))
             out[sel] = cq.cpu().numpy()[:len(sel)]
@@ -553,7 +573,7 @@ class Flusher:
     def _mk(self, name: str, ts: int, value: float, meta: RowMeta,
             mtype: str) -> im.InterMetric:
         return im.InterMetric(name=name, timestamp=ts, value=value,
-                              tags=meta.tags,
+                              tags=meta.tags + self.common_tags,
                               type=mtype, hostname=self.hostname)
 
     def _flush_scalars(self, snap, ts, res, pre, key, kind, mtype
@@ -677,7 +697,8 @@ class Flusher:
         if with_percentiles and qvals is not None:
             for pi, p in enumerate(self.percentiles):
                 out.append(self._mk(
-                    f"{meta.name}.{_percentile_suffix(p)}",
+                    f"{meta.name}."
+                    f"{_percentile_suffix(p, self.percentile_naming)}",
                     ts, float(qvals[row, pi]), meta, im.GAUGE))
 
     def _flush_sets(self, snap, ts, res, pre) -> None:
@@ -840,7 +861,7 @@ class Flusher:
                 block(m, q64[:, len(all_pcts) - 1], ".median")
             for pi, p in enumerate(self.percentiles):
                 block(with_pcts, q64[with_pcts, pi],
-                      "." + _percentile_suffix(p))
+                      "." + _percentile_suffix(p, self.percentile_naming))
         res.tally["histograms"] = tally
 
     def _frame_sets(self, snap: Snapshot, res: FlushResult,

@@ -1,4 +1,5 @@
-"""The server: UDP DogStatsD and HTTP /import in, interval flushes out.
+"""The server: DogStatsD, SSF spans and HTTP /import in, interval
+flushes out.
 
 Port of ``veneur_tpu/core/server.py``.  Each ``udp://`` statsd address
 gets ``num_readers`` reader threads, each on its own socket (bound with
@@ -13,6 +14,22 @@ several each parse into a ``ReaderShard`` of their own without the
 lock and merge under it (or, with ``tpu_multi_reader_fused: false``,
 parse into columns outside the lock and ``ingest_columns`` under it).
 Events, service checks and malformed lines take the per-line parser.
+A ``tcp://`` statsd address gets an acceptor and a thread a connection
+(each read's complete lines go through ``handle_packet_batch``); a
+``unix://`` one (``unixgram://``) a datagram reader on a path held by a
+``<path>.lock`` flock.
+
+SSF spans arrive over ``ssf_listen_addresses`` (``udp://``: one span a
+datagram; ``unix://``: framed spans on a stream) and gRPC
+``ssf.SSFGRPC/SendSpan``; ``handle_ssf`` queues them for the span
+worker, whose first sink is ssfmetrics extraction: each span's samples,
+and the indicator and objective timers of an indicator span, go through
+``ingest_samples`` (admission, the ledger; one span under one hold of
+the lock) into the table.  With ``tpu_warmup`` a scratch table takes
+one sample of each kind through a device step, swap and readout before
+``start``; with ``flush_watchdog_missed_flushes`` a watchdog exits the
+process (code 2) when flushes stop; ``http_quit`` serves
+``/quitquitquit``.
 
 Every ingest and import site checks the staging against
 ``tpu_stage_flush_samples``: past it the staged work is detached under
@@ -77,12 +94,13 @@ import threading
 import time
 import urllib.request
 import zlib
+from pathlib import Path
 
 import grpc
 import numpy as np
 import torch
 
-from veneur_tpu_torch import native, observe, resolve_device
+from veneur_tpu_torch import __version__, native, observe, resolve_device
 from veneur_tpu_torch import trace as vtrace
 from veneur_tpu_torch.core import debughttp
 from veneur_tpu_torch.core import metrics as im
@@ -99,22 +117,41 @@ from veneur_tpu_torch.forward.shard import (DeadlineExceeded,
                                             ShardedForwarder)
 from veneur_tpu_torch.forward.spool import Spooled, WireSpool
 from veneur_tpu_torch.ops import checkpoint as ckpt
-from veneur_tpu_torch.ops import fdpass
+from veneur_tpu_torch.ops import cluster_merge, fdpass
 from veneur_tpu_torch.protocol import addr as addrmod
-from veneur_tpu_torch.protocol import columnar
+from veneur_tpu_torch.protocol import columnar, wire
 from veneur_tpu_torch.protocol import dogstatsd as dsd
 from veneur_tpu_torch.sinks.base import route
-from veneur_tpu_torch.sinks.simple import LocalFilePlugin
+from veneur_tpu_torch.sinks.simple import (BlackholeSink, DebugSink,
+                                           LocalFilePlugin)
+from veneur_tpu_torch.sinks.ssfmetrics import MetricExtractionSink
 from veneur_tpu_torch.trace.spans import Span
 
 log = logging.getLogger("veneur_tpu_torch.server")
 
 # drain sweep bound: vtpu_recv_drain takes at most this many datagrams
 _DRAIN_MAX = 512
-# socket receive buffer: the reference's read_buffer_size_bytes default
-_RCVBUF_BYTES = 2 * 1048576
 # /debug/cluster: seconds a peer's scraped summary is served from cache
 _CLUSTER_TTL = 10.0
+# a TCP statsd connection idle this long is closed (reference
+# server.go:80)
+_TCP_IDLE_S = 600.0
+# the largest SSF datagram (a UDP payload)
+_SSF_DATAGRAM_MAX = 65536
+
+
+def tags_to_dict(tags) -> dict[str, str]:
+    """``["k:v", ...]`` config tags -> dict, skipping bare tags: the
+    shape the span worker takes its common tags in."""
+    return dict(t.split(":", 1) for t in tags if ":" in t)
+
+
+def use_build_dir(path: str) -> None:
+    """``compile_cache_dir``: nvcc and g++ build into (and load from)
+    ``path`` instead of the package's ``_build/``."""
+    d = Path(path).resolve()
+    native.BUILD_DIR = d
+    cluster_merge.BUILD_DIR = d
 
 
 def _is_deadline_error(err) -> bool:
@@ -134,9 +171,16 @@ def _is_deadline_error(err) -> bool:
 class Server:
     def __init__(self, config: Config,
                  device: "str | torch.device" = "cuda",
-                 extra_sinks: list | None = None):
+                 extra_sinks: list | None = None,
+                 extra_span_sinks: list | None = None):
         self.config = config
         self.device = resolve_device(device)
+        # the reference's accelerator probe falls back to the CPU; the
+        # port runs where it was asked (resolve_device raises without
+        # a card), so the key is only read
+        config.accelerator_probe_timeout_seconds()
+        if config.compile_cache_dir:
+            use_build_dir(config.compile_cache_dir)
         self.interval = config.interval_seconds()
         self.table = MetricTable(TableConfig(
             counter_rows=config.tpu_counter_rows,
@@ -151,9 +195,18 @@ class Server:
             is_local=self.is_local,
             percentiles=tuple(config.percentiles),
             aggregates=tuple(config.aggregates),
-            hostname=config.hostname or socket.gethostname(),
-            device=self.device, columnar=bool(config.tpu_columnar_emit))
+            hostname=(config.hostname if (config.hostname or
+                                          config.omit_empty_hostname)
+                      else socket.gethostname()),
+            device=self.device, columnar=bool(config.tpu_columnar_emit),
+            tags=tuple(config.tags),
+            percentile_naming=config.percentile_naming,
+            quantile_interpolation=config.quantile_interpolation)
         self.metric_sinks = list(extra_sinks or [])
+        if config.blackhole_sink:
+            self.metric_sinks.append(BlackholeSink())
+        if config.debug_flushed_metrics:
+            self.metric_sinks.append(DebugSink())
         self.plugins = []
         if config.flush_file:
             self.plugins.append(LocalFilePlugin(
@@ -167,7 +220,19 @@ class Server:
         self._flush_serial = threading.Lock()
         self._shutdown = threading.Event()
         self._threads: list[threading.Thread] = []
+        # set once shutdown() has finished (the CLI waits on it after a
+        # /quitquitquit)
+        self.stopped = threading.Event()
+        self._shutdown_lock = threading.Lock()
+        # the UDP statsd readers' sockets; the other listeners (TCP and
+        # unixgram statsd, SSF) and their live connections; flocks held
+        # on unix socket paths (lock path, fd)
         self.sockets: list[socket.socket] = []
+        self._listeners: list[socket.socket] = []
+        self._conns: set[socket.socket] = set()
+        self._conns_lock = threading.Lock()
+        self._socket_locks: list[tuple[str, int]] = []
+        self.ssf_ports: list[int] = []
         self._httpd: http.server.ThreadingHTTPServer | None = None
         self.http_port: int | None = None
         self.grpc_servers: list[grpc_forward.ImportServer] = []
@@ -183,11 +248,18 @@ class Server:
         self._profiler = None
         self.last_flush = time.monotonic()
 
-        # the span plane: the server's loopback trace client feeds its
-        # own span worker (reference server.go:347-354); the port has
-        # no span sinks yet, so the worker validates and counts
-        self.span_worker = SpanWorker([], common_tags={},
-                                      stats_cb=self.bump)
+        # the span plane: ssfmetrics extraction runs first, as part of
+        # the metric hot path (reference server.go:444-452); the
+        # server's loopback trace client feeds the same worker
+        # (server.go:347-354)
+        self.span_sinks = list(extra_span_sinks or [])
+        self.span_sinks.insert(0, MetricExtractionSink(
+            self, indicator_timer_name=config.indicator_span_timer_name,
+            objective_timer_name=config.objective_span_timer_name))
+        self.span_worker = SpanWorker(
+            self.span_sinks, common_tags=tags_to_dict(config.tags),
+            capacity=config.span_channel_capacity, stats_cb=self.bump,
+            workers=config.num_span_workers)
         self.trace_client = vtrace.Client(
             vtrace.ChannelBackend(self.span_worker.submit), capacity=256)
         # flush self-observation: every cycle leaves a span tree (also
@@ -296,6 +368,47 @@ class Server:
         # /debug/cluster peer-summary cache: addr -> (monotonic, summary)
         self._cluster_cache: dict = {}
         self._cluster_lock = threading.Lock()
+        # the start-up warm-up's seconds, launches and flush tally
+        self.warmup: dict | None = None
+        if config.tpu_warmup:
+            self._warmup()
+
+    def _warmup(self) -> None:
+        """Load the native and kernel libraries and take one sample of
+        each kind through a scratch table with the server's geometry:
+        device step, swap and flush readout (``tpu_warmup``; reference
+        server.go ``_warmup``), so the first interval's launches find
+        everything loaded.  The scratch steps stay out of the launch
+        registry; ``self.warmup`` keeps their seconds, the cluster
+        merge kernel's launches and the flush's tally."""
+        t0 = time.monotonic()
+        with self.device_costs.excluded() as launched:
+            native.load()
+            if self.device.type == "cuda":
+                cluster_merge.load()
+            scratch = MetricTable(TableConfig(
+                counter_rows=self.config.tpu_counter_rows,
+                gauge_rows=self.config.tpu_gauge_rows,
+                histo_rows=self.config.tpu_histo_rows,
+                set_rows=self.config.tpu_set_rows,
+                compression=float(self.config.tpu_compression),
+                histo_slots=self.config.tpu_histo_slots),
+                device=self.device)
+            for s in (dsd.Sample("veneur.warmup", dsd.COUNTER, 1.0),
+                      dsd.Sample("veneur.warmup", dsd.GAUGE, 1.0),
+                      dsd.Sample("veneur.warmup", dsd.HISTOGRAM, 1.0),
+                      dsd.Sample("veneur.warmup", dsd.TIMER, 1.0),
+                      dsd.Sample("veneur.warmup", dsd.SET, "w")):
+                scratch.ingest(s)
+            res = self.flusher.flush(scratch.swap())
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        secs = time.monotonic() - t0
+        self.warmup = {"seconds": secs,
+                       "merge_launches": sum(launched.values()),
+                       "tally": dict(res.tally),
+                       "metrics": res.metric_count()}
+        log.info("kernel warmup finished in %.2fs", secs)
 
     # ------------------------------------------------------------------
 
@@ -303,37 +416,14 @@ class Server:
         """Bind (or adopt) the listeners and start every thread; with
         checkpoints on, start the checkpointer and replay a crashed
         predecessor's surviving segments."""
-        n = max(1, self.config.num_readers)
         for ai, a in enumerate(self.config.statsd_listen_addresses):
-            _, host, port, _ = addrmod.parse_addr(a)
-            for i in range(n):
-                slot = f"statsd.udp.{ai}.{i}"
-                sock = self._adopted_socks.pop(slot, None)
-                if sock is not None:
-                    # the predecessor's bound socket: datagrams queued
-                    # in the kernel across the restart are read here
-                    self.restarts_adopted += 1
-                    self.bump("listener_fds_adopted")
-                else:
-                    sock = socket.socket(socket.AF_INET,
-                                         socket.SOCK_DGRAM)
-                    if n > 1:
-                        sock.setsockopt(socket.SOL_SOCKET,
-                                        socket.SO_REUSEPORT, 1)
-                    sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF,
-                                    _RCVBUF_BYTES)
-                    sock.bind((host, port))
-                # the kernel hashes a wake datagram to one member of a
-                # reuseport group: the timeout is what makes every
-                # reader see shutdown
-                sock.settimeout(0.2)
-                port = sock.getsockname()[1]  # port 0 resolved once
-                self.sockets.append(sock)
-                self._cloak_slots[slot] = sock
-                self._spawn(f"udp-reader-{len(self.sockets) - 1}",
-                            self._udp_reader, sock, i)
-            self.statsd_ports.append(port)
+            self._start_statsd(a, ai)
+        for a in self.config.ssf_listen_addresses:
+            self._start_ssf(a)
         self.span_worker.start()
+        for sink in self.span_sinks:
+            if hasattr(sink, "start"):
+                sink.start()
         if self.config.enable_profiling:
             self._start_profiling()
         if self.config.http_address:
@@ -345,6 +435,8 @@ class Server:
             self.grpc_servers.append(srv)
             self.grpc_ports.append(srv.port)
         self._spawn("flush-loop", self._flush_loop)
+        if self.config.flush_watchdog_missed_flushes > 0:
+            self._spawn("watchdog", self._watchdog)
         # cloak slots no listener claimed: close them (their queued
         # datagrams are orphaned, so say so)
         for name, sock in self._adopted_socks.items():
@@ -362,6 +454,272 @@ class Server:
             except Exception:
                 self.bump("recovery_errors")
                 log.exception("checkpoint recovery failed")
+
+    def _start_statsd(self, addr: str, index: int) -> None:
+        """One statsd address: ``udp://`` gets ``num_readers`` readers,
+        each on its own socket (SO_REUSEPORT when there are several, a
+        cloak slot each for fd adoption); ``tcp://`` an acceptor and a
+        thread per connection; ``unix://`` (``unixgram://``) one
+        datagram reader on a path no other server holds."""
+        scheme, host, port, path = addrmod.parse_addr(addr)
+        rcvbuf = self.config.read_buffer_size_bytes
+        if scheme == "udp":
+            n = max(1, self.config.num_readers)
+            for i in range(n):
+                slot = f"statsd.udp.{index}.{i}"
+                sock = self._adopted_socks.pop(slot, None)
+                if sock is not None:
+                    # the predecessor's bound socket: datagrams queued
+                    # in the kernel across the restart are read here
+                    self.restarts_adopted += 1
+                    self.bump("listener_fds_adopted")
+                else:
+                    sock = socket.socket(socket.AF_INET,
+                                         socket.SOCK_DGRAM)
+                    if n > 1:
+                        sock.setsockopt(socket.SOL_SOCKET,
+                                        socket.SO_REUSEPORT, 1)
+                    sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF,
+                                    rcvbuf)
+                    sock.bind((host, port))
+                # the kernel hashes a wake datagram to one member of a
+                # reuseport group: the timeout is what makes every
+                # reader see shutdown
+                sock.settimeout(0.2)
+                port = sock.getsockname()[1]  # port 0 resolved once
+                self.sockets.append(sock)
+                self._cloak_slots[slot] = sock
+                self._spawn(f"udp-reader-{len(self.sockets) - 1}",
+                            self._udp_reader, sock, i)
+            self.statsd_ports.append(port)
+        elif scheme == "tcp":
+            sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+            sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            sock.bind((host, port))
+            sock.listen(128)
+            sock.settimeout(0.2)
+            self._listeners.append(sock)
+            self.statsd_ports.append(sock.getsockname()[1])
+            self._spawn("tcp-acceptor", self._acceptor, sock,
+                        self._tcp_conn)
+        else:
+            self._acquire_socket_lock(path)
+            if os.path.exists(path):
+                os.unlink(path)
+            sock = socket.socket(socket.AF_UNIX, socket.SOCK_DGRAM)
+            sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, rcvbuf)
+            sock.bind(path)
+            sock.settimeout(0.2)
+            self._listeners.append(sock)
+            self._spawn("unixgram-reader", self._udp_reader, sock, 0,
+                        "dogstatsd-unixgram")
+
+    def _acquire_socket_lock(self, path: str) -> None:
+        """A single-owner flock on ``<path>.lock`` before binding a unix
+        socket (reference networking.go:362 acquireLockForSocket): a
+        second server refuses the path instead of unlinking it and
+        splitting the stream.  Held until shutdown; the lock file
+        stays."""
+        import fcntl
+        lockname = path + ".lock"
+        fd = os.open(lockname, os.O_CREAT | os.O_RDWR, 0o644)
+        try:
+            fcntl.flock(fd, fcntl.LOCK_EX | fcntl.LOCK_NB)
+        except OSError:
+            os.close(fd)
+            raise RuntimeError(
+                f"lock file {lockname!r} is held by another process "
+                f"already; refusing to take over {path!r}")
+        self._socket_locks.append((lockname, fd))
+
+    def _start_ssf(self, addr: str) -> None:
+        """An SSF listener (reference networking.go:205 StartSSF):
+        ``udp://`` datagrams carry one bare SSFSpan each, ``unix://``
+        streams carry framed spans."""
+        scheme, host, port, path = addrmod.parse_addr(addr)
+        if scheme == "udp":
+            sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+            sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF,
+                            self.config.read_buffer_size_bytes)
+            sock.bind((host, port))
+            sock.settimeout(0.2)
+            self._listeners.append(sock)
+            self.ssf_ports.append(sock.getsockname()[1])
+            self._spawn("ssf-udp", self._ssf_packet_reader, sock)
+        else:
+            self._acquire_socket_lock(path)
+            if os.path.exists(path):
+                os.unlink(path)
+            sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+            sock.bind(path)
+            sock.listen(64)
+            sock.settimeout(0.2)
+            self._listeners.append(sock)
+            self._spawn("ssf-unix", self._acceptor, sock,
+                        self._ssf_stream_conn)
+
+    def _acceptor(self, sock: socket.socket, handler) -> None:
+        """Accept stream connections until shutdown, one thread each
+        (tracked, so shutdown can end them)."""
+        while not self._shutdown.is_set():
+            try:
+                conn, _ = sock.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            conn.settimeout(None)
+            with self._conns_lock:
+                self._conns.add(conn)
+            # not in self._threads: shutdown ends connections by
+            # shutting their sockets down
+            threading.Thread(target=handler, args=(conn,), daemon=True,
+                             name=f"{threading.current_thread().name}"
+                                  f"-conn").start()
+
+    def _close_conn(self, conn: socket.socket) -> None:
+        with self._conns_lock:
+            self._conns.discard(conn)
+        conn.close()
+
+    def _tcp_conn(self, conn: socket.socket) -> None:
+        """Newline-delimited statsd over TCP (reference server.go:1374
+        handleTCPGoroutine): each read's complete lines go through
+        ``handle_packet_batch`` as one packet each; a partial line
+        longer than ``metric_max_length`` is a packet error; the
+        connection closes after ``_TCP_IDLE_S`` idle."""
+        conn.settimeout(_TCP_IDLE_S)
+        max_len = self.config.metric_max_length
+        buf = b""
+        try:
+            while not self._shutdown.is_set():
+                chunk = conn.recv(65536)
+                if not chunk:
+                    break
+                buf += chunk
+                *lines, buf = buf.split(b"\n")
+                lines = [ln for ln in lines if ln]
+                if lines:
+                    self.handle_packet_batch(lines)
+                    self.bump("received_dogstatsd-tcp", len(lines))
+                if len(buf) > max_len:
+                    self.bump("packet_errors")
+                    buf = b""
+        except OSError:
+            pass
+        finally:
+            self._close_conn(conn)
+
+    def _ssf_packet_reader(self, sock: socket.socket) -> None:
+        """UDP SSF: one span per datagram (reference server.go:1300
+        ReadSSFPacketSocket); an unparsable datagram counts in
+        ``ssf_errors``."""
+        bufsize = min(self.config.trace_max_length_bytes,
+                      _SSF_DATAGRAM_MAX)
+        while not self._shutdown.is_set():
+            try:
+                data = sock.recv(bufsize)
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            if not data:
+                continue
+            try:
+                span = wire.parse_ssf(data)
+            except wire.SSFParseError:
+                self.bump("ssf_errors")
+                continue
+            self.bump("received_ssf-udp")
+            self.handle_ssf(span)
+
+    def _ssf_stream_conn(self, conn: socket.socket) -> None:
+        """Framed SSF on a unix stream (reference server.go:1335
+        ReadSSFStreamSocket): a framing error drops the connection, a
+        bad payload only its span."""
+        f = conn.makefile("rb")
+        try:
+            while not self._shutdown.is_set():
+                try:
+                    span = wire.read_ssf(f)
+                except wire.SSFParseError:
+                    self.bump("ssf_errors")
+                    continue
+                except wire.FramingError:
+                    self.bump("ssf_errors")
+                    return
+                if span is None:
+                    return
+                self.bump("received_ssf-unix")
+                self.handle_ssf(span)
+        except OSError:
+            pass
+        finally:
+            f.close()
+            self._close_conn(conn)
+
+    def handle_ssf(self, span) -> None:
+        """Enqueue one span for the span workers (reference
+        server.go:1190 handleSSF); the listeners count receipts."""
+        if self.config.debug_ingested_spans:
+            log.debug("ingested span service=%s name=%s trace=%s",
+                      span.service, span.name, span.trace_id)
+        self.span_worker.submit(span)
+
+    def ingest_parsed(self, parsed, bump: bool = True) -> tuple[int, int]:
+        """Ingest one parsed sample or service check through
+        ``ingest_samples``.  Returns (processed, dropped)."""
+        if isinstance(parsed, dsd.ServiceCheck):
+            parsed = dsd.Sample(name=parsed.name, type=dsd.STATUS,
+                                value=float(parsed.status),
+                                tags=parsed.tags, message=parsed.message)
+        elif not isinstance(parsed, dsd.Sample):
+            return 0, 0
+        processed, dropped, _shed = self.ingest_samples([parsed], bump)
+        return processed, dropped
+
+    def ingest_samples(self, samples: list, bump: bool = False
+                       ) -> tuple[int, int, int]:
+        """Ingest parsed samples (service checks as STATUS samples) under
+        one hold of the lock: overload admission for all but STATUS, the
+        table, the ledger credit in the same critical section, and the
+        mid-interval device step.  The per-line path and the span
+        plane's extracted samples come here.  With ``bump`` the counts
+        go to the server's stats.  Returns (processed, dropped, shed)."""
+        if not samples:
+            return 0, 0, 0
+        adm = self.overload is not None and self.overload.admission_active
+        n_status = sum(1 for s in samples if s.type == dsd.STATUS)
+        dropped = shed = 0
+        shed_by: dict = {}
+        with self.lock:
+            for sample in samples:
+                if adm and sample.type != dsd.STATUS:
+                    ok, tenant, reason = self.overload.admit_sample(
+                        sample, self.table)
+                    if not ok:
+                        shed += 1
+                        k = (tenant, reason)
+                        shed_by[k] = shed_by.get(k, 0) + 1
+                        continue
+                if not self.table.ingest(sample):
+                    dropped += 1
+            self.ledger.ingest(
+                "dogstatsd", processed=len(samples),
+                staged=len(samples) - dropped - n_status - shed,
+                overflow=dropped, status=n_status, shed=shed)
+            if shed:
+                self.ledger.credit_shed(shed_by)
+            work = self._maybe_device_step_locked()
+        self._apply_staged(work)
+        if bump:
+            with self._stats_lock:
+                st = self.stats
+                st["metrics_processed"] += len(samples)
+                st["metrics_dropped"] += dropped
+                if shed:
+                    st["metrics_shed"] = st.get("metrics_shed", 0) + shed
+        return len(samples), dropped, shed
 
     def _start_http(self, address: str) -> None:
         host, _, port = address.rpartition(":")
@@ -383,6 +741,16 @@ class Server:
                 path = self.path
                 if path == "/healthcheck":
                     self._ok()
+                elif path == "/version":
+                    self._ok(__version__.encode())
+                elif path == "/builddate":
+                    self._ok(b"dev")
+                elif path == "/quitquitquit" and server.config.http_quit:
+                    # graceful shutdown (reference server.go:82
+                    # httpQuit): answer, then stop from another thread
+                    self._ok(b"terminating")
+                    threading.Thread(target=server.shutdown,
+                                     daemon=True).start()
                 elif path.startswith("/debug/pprof"):
                     debughttp.pprof(self, server._pprof_lock)
                 elif path.startswith("/debug/flushes"):
@@ -596,7 +964,8 @@ class Server:
             return self.table.make_reader_shard()
         return None
 
-    def _udp_reader(self, sock: socket.socket, index: int = 0) -> None:
+    def _udp_reader(self, sock: socket.socket, index: int = 0,
+                    proto: str = "dogstatsd-udp") -> None:
         self._pin_reader_core(index)
         shard = self._reader_shard()
         lib = native.load()
@@ -634,7 +1003,7 @@ class Server:
             self.device_costs.add_reader_batch(
                 threading.current_thread().name, n_pkts, processed,
                 time.monotonic_ns() - t0, fused=shard is not None)
-            self.bump("received_dogstatsd-udp", n_pkts)
+            self.bump(f"received_{proto}", n_pkts)
 
     def handle_packet(self, data: bytes) -> None:
         """Ingest one datagram (possibly multi-line)."""
@@ -735,31 +1104,8 @@ class Server:
                     value=float(parsed.status), tags=parsed.tags,
                     message=parsed.message))
         if slow:
-            n_status = sum(1 for s in slow if s.type == dsd.STATUS)
-            slow_dropped = slow_shed = 0
-            slow_shed_by: dict = {}
-            with self.lock:
-                for sample in slow:
-                    if adm and sample.type != dsd.STATUS:
-                        ok, tenant, reason = self.overload.admit_sample(
-                            sample, self.table)
-                        if not ok:
-                            slow_shed += 1
-                            k = (tenant, reason)
-                            slow_shed_by[k] = slow_shed_by.get(k, 0) + 1
-                            continue
-                    if not self.table.ingest(sample):
-                        slow_dropped += 1
-                self.ledger.ingest(
-                    "dogstatsd", processed=len(slow),
-                    staged=len(slow) - slow_dropped - n_status - slow_shed,
-                    overflow=slow_dropped, status=n_status,
-                    shed=slow_shed)
-                if slow_shed:
-                    self.ledger.credit_shed(slow_shed_by)
-                work = self._maybe_device_step_locked()
-            self._apply_staged(work)
-            processed += len(slow)
+            n, slow_dropped, slow_shed = self.ingest_samples(slow)
+            processed += n
             dropped += slow_dropped
             shed += slow_shed
         if errors:
@@ -796,8 +1142,16 @@ class Server:
 
     # ------------------------------------------------------------------
 
+    def _first_tick(self, wall: float, mono: float) -> float:
+        """The flush loop's first deadline (monotonic): one interval
+        out, or with ``synchronize_with_interval`` the next multiple of
+        the interval on the wall clock."""
+        if self.config.synchronize_with_interval:
+            return mono + (self.interval - wall % self.interval)
+        return mono + self.interval
+
     def _flush_loop(self) -> None:
-        next_tick = time.monotonic() + self.interval
+        next_tick = self._first_tick(time.time(), time.monotonic())
         while not self._shutdown.wait(
                 max(0.0, next_tick - time.monotonic())):
             next_tick += self.interval
@@ -805,6 +1159,20 @@ class Server:
                 self.flush_once()
             except Exception:
                 log.exception("flush failed")
+
+    def _watchdog(self) -> None:
+        """Exit the process (code 2) once ``flush_watchdog_missed_flushes``
+        intervals pass without a flush, for the supervisor to restart
+        it (reference server.go:1031 FlushWatchdog)."""
+        allowed = self.config.flush_watchdog_missed_flushes
+        while not self._shutdown.wait(self.interval):
+            missed = (time.monotonic() - self.last_flush) / self.interval
+            if missed > allowed:
+                log.critical(
+                    "flush watchdog: %.1f intervals without a flush "
+                    "(allowed %d); exiting for a supervisor restart",
+                    missed, allowed)
+                os._exit(2)
 
     def flush_once(self) -> FlushResult:
         """One flush: swap the table (pipelined: detach under the lock,
@@ -956,10 +1324,10 @@ class Server:
         return occ
 
     def _sample_kernel_drops(self) -> int:
-        """The interval's kernel receive drops over the reader sockets
-        (``/proc/net/udp{,6}``' drops column), cumulative in
-        ``stats[socket_kernel_drops]``."""
-        cur = ovl.read_kernel_drops(self.sockets)
+        """The interval's kernel receive drops over the UDP listeners,
+        statsd and SSF (``/proc/net/udp{,6}``' drops column), cumulative
+        in ``stats[socket_kernel_drops]``."""
+        cur = ovl.read_kernel_drops(self.sockets + self._listeners)
         delta = sum(max(0, drops - self._kernel_drops_last.get(inode, 0))
                     for inode, drops in cur.items())
         self._kernel_drops_last = cur
@@ -1538,12 +1906,13 @@ class Server:
         the trace client, the tier byte accounting, overload control,
         the kernel receive drops, the crash-riding lifecycle
         (incarnation, adopted fds, the checkpointer), the last arc
-        handoff and summaries of the ledger, signal history and flight
-        recorder."""
+        handoff, the start-up warm-up and summaries of the ledger,
+        signal history and flight recorder."""
         with self._stats_lock:
             stats = dict(self.stats)
         return {
             "stats": stats,
+            "warmup": self.warmup,
             "devicecost": self.device_costs.snapshot(),
             "trace_client": {"sent": self.trace_client.sent,
                              "dropped": self.trace_client.dropped,
@@ -1728,7 +2097,15 @@ class Server:
 
     def shutdown(self) -> None:
         """Stop the server.  A local first drains (``_drain_handoff``,
-        unless ``tpu_drain_on_shutdown`` is off); a global never does."""
+        unless ``tpu_drain_on_shutdown`` is off); a global never does.
+        A second call waits for the first and returns."""
+        with self._shutdown_lock:
+            if self.stopped.is_set():
+                return
+            self._shutdown_locked()
+            self.stopped.set()
+
+    def _shutdown_locked(self) -> None:
         if (not self._shutdown.is_set()
                 and self.config.tpu_drain_on_shutdown
                 and self.config.is_local()):
@@ -1747,15 +2124,29 @@ class Server:
         for g in self.grpc_servers:
             g.stop()
         self.grpc_servers = []
-        for sock in self.sockets:
+        for sock in self.sockets + self._listeners:
             try:
                 sock.close()
             except OSError:
                 pass  # an adopted fd its other owner already closed
+        with self._conns_lock:
+            conns = list(self._conns)
+        for conn in conns:
+            # wakes the connection's thread out of its read
+            try:
+                conn.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
         for t in self._threads:
             t.join(timeout=5.0)
         self._threads = []
         self.sockets = []
+        self._listeners = []
+        # closing releases the flock; the lock file stays, as the
+        # reference's does
+        for _lockname, fd in self._socket_locks:
+            os.close(fd)
+        self._socket_locks = []
         if self._grpc_client is not None:
             self._grpc_client.close()
             self._grpc_client = None

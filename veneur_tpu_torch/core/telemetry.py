@@ -4,8 +4,10 @@ flusher.go:32-47 runtime stats, :305-361 flush-count reporting), so
 existing veneur dashboards and alerts keep working.
 
 The port's copy of ``veneur_tpu/core/telemetry.py``, cut to the
-subsystems the port runs: worker, packet, import and forward counts,
-the flush's total and per-stage durations, the device-cost registry
+subsystems the port runs: worker, packet (SSF errors included), import
+and forward counts, the unique timeseries (``count_unique_timeseries``),
+the span sinks' delivery counts, the flush's total and per-stage
+durations, the device-cost registry
 (``veneur.device.*``; ``veneur.xla.*`` counts the builds of the port's
 native and CUDA libraries), the ledger's verdict, the tier accounting,
 the signal history and flight recorder, the sharded forward (its
@@ -14,7 +16,7 @@ spool and discovery health), drain, replay, recovery and handoff
 traffic in both directions, adopted listener fds, the checkpointer,
 overload control (shed by tenant and reason, pressure, overruns,
 coalesced ticks), kernel receive drops, gc and memory.  The metrics of
-span sinks and the collective path come with those subsystems.
+the other sinks and the collective path come with those subsystems.
 
 Two emission paths, as in the reference:
 - ``stats_address`` set: DogStatsD datagrams to an external agent
@@ -88,6 +90,8 @@ _COUNTER_MAP = {
     "flush_errors": ("veneur.flush.error_total", ()),
     "forward_errors": ("veneur.forward.error_total", ()),
     "spans_processed": ("veneur.worker.spans_processed_total", ()),
+    "ssf_errors": ("veneur.packet.error_total",
+                   ("packet_type:ssf_metric",)),
 }
 
 # per-protocol receive counters (README: veneur.listen.
@@ -377,9 +381,33 @@ class Telemetry:
               self._delta("xla_cache_hits"))
         count("veneur.xla.compile_cache_misses",
               self._delta("xla_cache_misses"))
+        if self.server.config.count_unique_timeseries:
+            # touched rows are the unique timeseries (one table needs
+            # no sketch, flusher.go:135)
+            uniq = sum(tally.get(k, 0) for k in _FLUSHED_TYPES)
+            is_global = not self.server.is_local
+            count("veneur.flush.unique_timeseries_total", uniq,
+                  (f"global_veneur:{str(is_global).lower()}",))
         for sink_name, dur_ns in sink_durations.items():
             timer("veneur.sink.metric_flush_total_duration_ns", dur_ns,
                   (f"sink:{sink_name}",))
+        # per-span-sink delivery counters (reference sinks.go
+        # MetricKeyTotalSpansFlushed/Dropped/Skipped): the sinks keep
+        # plain counters, the tick reports their deltas
+        for sink in self.server.span_sinks:
+            sname = getattr(sink, "name", type(sink).__name__)
+            for attr, metric in (
+                    ("submitted", "veneur.sink.spans_flushed_total"),
+                    ("dropped", "veneur.sink.spans_dropped_total"),
+                    ("skipped", "veneur.sink.spans_skipped_total"),
+                    ("metrics_generated",
+                     "veneur.sink.metrics_flushed_total")):
+                cur = getattr(sink, attr, None)
+                if cur is None:
+                    continue
+                key = f"span_sink_{sname}_{attr}"
+                stats[key] = int(cur)
+                count(metric, self._delta(key), (f"sink:{sname}",))
         # conservation-ledger verdict for the interval just sealed
         # (the seal runs before this tick)
         rec = self.server.ledger.last()

@@ -23,6 +23,11 @@
 // Design.  One CTA of 128 threads per row, the row in dynamic shared
 // memory (~18 KB at C + K = 1128), at most 64 registers a thread, so
 // eight rows are resident on an SM and hide each other's latency.
+// Nothing in the design needs C + K inside the reference's 2048-lane
+// bound: a wider row takes more shared memory (16 bytes a lane, ~37 KB
+// at compression 300's C + K = 1824 + 512), up to the card's per-CTA
+// opt-in limit (~227 KB on an H100, C + K near 12,000), which
+// cluster_merge_fits reports.
 //
 // - Loads: cp.async copies the whole row into shared memory at once,
 //   16 bytes at a time where the row pointers allow, 4 otherwise.  A
@@ -43,6 +48,10 @@
 //   the network sorts bare f32 keys with min / max; otherwise it sorts
 //   64-bit composites (order-preserving key bits, original column), so
 //   that ties keep arrival order as the reference's stable sort does.
+//   A segment longer than the registers hold (past 16 x 128 keys, which
+//   only a state wider than the reference's 2048-lane Pallas bound has)
+//   runs the same network on composites in shared memory, one barrier
+//   per step.
 // - The two sorted runs merge by rank: state element i goes to
 //   i + (batch keys < key_i), batch element j to j + (state keys <=
 //   key_j), both binary searches in shared memory.  Ties put the state
@@ -67,7 +76,7 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxWidth = 2048;
+constexpr int kRegSort = 16 * kThreads;  // widest register sort
 constexpr float kEps = 1e-30f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -382,6 +391,49 @@ __device__ void sort_keys(float* key, float* wt, int width, int top,
   __syncthreads();
 }
 
+// Stable ascending sort of key/wt[0, width) in place for a segment
+// past the register network (top > kRegSort): the same bitonic network
+// on (key bits, column) composites in shared memory (xbuf holds N =
+// pow2(top) of them), one barrier per step.  Ends with a barrier.
+__device__ void sort_long(float* key, float* wt, int width, int top,
+                          unsigned long long* xbuf) {
+  int n = kRegSort;
+  while (n < top) n <<= 1;
+  for (int g = threadIdx.x; g < n; g += kThreads) {
+    const float k = g < top ? key_of(key, wt, g) : INFINITY;
+    xbuf[g] = (static_cast<unsigned long long>(order_bits(k)) << 32) |
+              static_cast<unsigned>(g);
+  }
+  __syncthreads();
+  for (int k = 2; k <= n; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = threadIdx.x; i < (n >> 1); i += kThreads) {
+        const int a = ((i & ~(j - 1)) << 1) | (i & (j - 1));  // bit j clear
+        const unsigned long long x = xbuf[a];
+        const unsigned long long y = xbuf[a | j];
+        if ((x > y) == ((a & k) == 0)) {
+          xbuf[a] = y;
+          xbuf[a | j] = x;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  // the weight's bits replace the column, then both go back in place
+  for (int g = threadIdx.x; g < width; g += kThreads) {
+    const unsigned long long v = xbuf[g];
+    const int src = static_cast<int>(v & 0xffffffffu);
+    const float w = src < width ? wt[src] : 0.f;
+    xbuf[g] = (v & 0xffffffff00000000ull) | __float_as_uint(w);
+  }
+  __syncthreads();
+  for (int g = threadIdx.x; g < width; g += kThreads) {
+    key[g] = from_order_bits(static_cast<uint32_t>(xbuf[g] >> 32));
+    wt[g] = __uint_as_float(static_cast<uint32_t>(xbuf[g]));
+  }
+  __syncthreads();
+}
+
 // Sort a row that failed the check, by bare keys where its live
 // weights are all equal, else by (key, column) composites.
 __device__ void sort_row(float* key, float* wt, int width,
@@ -389,7 +441,9 @@ __device__ void sort_row(float* key, float* wt, int width,
   float* fx = static_cast<float*>(xbuf);
   unsigned long long* cx = static_cast<unsigned long long*>(xbuf);
   const int top = st.top;
-  if (st.wmin == st.wmax) {
+  if (top > kRegSort) {
+    sort_long(key, wt, width, top, cx);
+  } else if (st.wmin == st.wmax) {
     const float w0 = __int_as_float(st.wmin);
     if (top <= kThreads) {
       sort_keys<1>(key, wt, width, top, st.live, w0, fx);
@@ -623,30 +677,58 @@ Layout layout(int cap, int k_in) {
 }
 
 // Let the SM give shared memory its largest share, so that registers
-// and not the carveout bound the resident rows.
-cudaError_t prefer_shared() {
-  static const cudaError_t rc = cudaFuncSetAttribute(
-      cluster_merge_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-      (int)cudaSharedmemCarveoutMaxShared);
+// and not the carveout bound the resident rows, and let a CTA take up to
+// the card's opt-in limit of dynamic shared memory (a wide row).
+// *max_dyn gets that limit.
+cudaError_t setup_shared(int* max_dyn) {
+  static int limit = 0;
+  static const cudaError_t rc = [] {
+    int dev = 0, optin = 0;
+    cudaFuncAttributes fa;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (!e) e = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (!e) e = cudaFuncGetAttributes(&fa, cluster_merge_kernel);
+    if (!e) limit = optin - (int)fa.sharedSizeBytes;
+    if (!e) e = cudaFuncSetAttribute(
+        cluster_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        limit);
+    if (!e) e = cudaFuncSetAttribute(
+        cluster_merge_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+        (int)cudaSharedmemCarveoutMaxShared);
+    return e;
+  }();
+  *max_dyn = limit;
   return rc;
 }
 
 }  // namespace
 
+// 1 when a row of (cap, k_in) fits one CTA's shared memory on the
+// current card, 0 when it does not, -1 on error.
+extern "C" int cluster_merge_fits(int cap, int k_in) {
+  int max_dyn = 0;
+  if (setup_shared(&max_dyn) != cudaSuccess) return -1;
+  return layout(cap, k_in).bytes() <= (size_t)max_dyn ? 1 : 0;
+}
+
 // Launch one merge on `stream`.  `n` is the caller's power-of-two bound
-// on cap + k_in (at most 2048).  Returns cudaGetLastError() (0 = ok).
+// on cap + k_in.  Returns cudaGetLastError() (0 = ok); a row too wide
+// for shared memory (cluster_merge_fits) is cudaErrorInvalidValue.
 extern "C" int cluster_merge_launch(
     const float* means, const float* weights, long long ld_state,
     const float* new_means, const float* new_weights, long long ld_batch,
     float* out_m, float* out_w, int rows, int cap, int k_in, int n,
     float scale, float k0, float tail_coeff, float tail_q0,
     float tail_qmin, void* stream) {
-  if (n > kMaxWidth || n < cap + k_in || (n & (n - 1)) != 0 || cap < 1) {
+  if (n < cap + k_in || (n & (n - 1)) != 0 || cap < 1) {
     return (int)cudaErrorInvalidValue;
   }
   if (rows == 0) return 0;
-  if (const cudaError_t rc = prefer_shared()) return (int)rc;
+  int max_dyn = 0;
+  if (const cudaError_t rc = setup_shared(&max_dyn)) return (int)rc;
   const Layout l = layout(cap, k_in);
+  if (l.bytes() > (size_t)max_dyn) return (int)cudaErrorInvalidValue;
   cluster_merge_kernel<<<rows, kThreads, l.bytes(),
                          (cudaStream_t)stream>>>(
       means, weights, ld_state, new_means, new_weights, ld_batch, out_m,
@@ -660,8 +742,8 @@ extern "C" int cluster_merge_launch(
 extern "C" int cluster_merge_occupancy(int cap, int k_in, int* threads,
                                        int* smem_bytes) {
   const Layout l = layout(cap, k_in);
-  int per_sm = 0;
-  if (prefer_shared() != cudaSuccess ||
+  int per_sm = 0, max_dyn = 0;
+  if (setup_shared(&max_dyn) != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &per_sm, cluster_merge_kernel, kThreads, l.bytes()) !=
           cudaSuccess) {

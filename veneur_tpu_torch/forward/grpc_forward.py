@@ -39,7 +39,9 @@ from veneur_tpu_torch.forward import hll_codec
 from veneur_tpu_torch.forward.gen import forward_pb2, metric_pb2
 from veneur_tpu_torch.ops import segment
 from veneur_tpu_torch.protocol import dogstatsd as dsd
-from veneur_tpu_torch.protocol.gen import dogstatsd_grpc_pb2, health_pb2
+from veneur_tpu_torch.protocol import wire
+from veneur_tpu_torch.protocol.gen import (dogstatsd_grpc_pb2, health_pb2,
+                                           ssf_pb2)
 
 log = logging.getLogger("veneur_tpu_torch.grpc")
 
@@ -671,11 +673,10 @@ def apply_metric_list_bytes(table: MetricTable,
 # server (importsrv)
 
 class ImportServer:
-    """One gRPC listener serving forward import, DogStatsD packets and
-    grpc health (the reference's networking.go:295-358 startGRPCTCP),
-    merging into the port server's table under its lock.
-    ``ssf.SSFGRPC/SendSpan`` is not registered: it answers
-    UNIMPLEMENTED."""
+    """One gRPC listener serving forward import, SSF spans, DogStatsD
+    packets and grpc health (the reference's networking.go:295-358
+    startGRPCTCP), merging into the port server's table under its
+    lock."""
 
     def __init__(self, server, address: str = "127.0.0.1:0"):
         """``server`` is the port's core Server (its ``table``,
@@ -695,6 +696,13 @@ class ImportServer:
                     request_deserializer=lambda b: b,
                     response_serializer=(
                         empty_pb2.Empty.SerializeToString))}),
+            grpc.method_handlers_generic_handler(
+                "ssf.SSFGRPC",
+                {"SendSpan": grpc.unary_unary_rpc_method_handler(
+                    self._send_span,
+                    request_deserializer=ssf_pb2.SSFSpan.FromString,
+                    # ssf.Empty: no fields, an empty encoding
+                    response_serializer=lambda _: b"")}),
             grpc.method_handlers_generic_handler(
                 "dogstatsd.DogstatsdGRPC",
                 {"SendPacket": grpc.unary_unary_rpc_method_handler(
@@ -760,6 +768,13 @@ class ImportServer:
             context.abort(grpc.StatusCode.INVALID_ARGUMENT,
                           f"malformed MetricList: {e}")
         return empty_pb2.Empty()
+
+    def _send_span(self, request, context):
+        """ssf.SSFGRPC/SendSpan (networking.go:321 SendSpan ->
+        handleSSF)."""
+        self._core.bump("received_ssf-grpc")
+        self._core.handle_ssf(wire.normalize_span(request))
+        return None  # ssf.Empty
 
     def _send_packet(self, request, context):
         """dogstatsd.DogstatsdGRPC/SendPacket (networking.go:314): the

@@ -35,13 +35,20 @@ libraries at first use (g++ and nvcc), and ``compile_cache_hits`` /
 library against builds.  The operator names stay
 (``veneur.xla.compile_total``, ...) so dashboards keep working.
 
-``add_readback`` counts the flusher's device-to-host bytes, and
+``add_readback`` counts the flusher's device-to-host bytes,
 ``add_reader_batch`` the per-reader ingest counters of the multi-reader
-path.
+path, and ``note_launch`` the hand-written kernel's launches by route
+(``cluster_merge``, ``cluster_merge.wide``), their only count.
+
+``excluded()`` keeps one thread's launches out of the registry while
+it runs and hands them to the block instead: the server's warm-up takes
+its scratch steps under it, so the live table's counts start from its
+own traffic.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from collections import deque
@@ -163,6 +170,7 @@ class DeviceCostRegistry:
         self._compile_ns = 0
         self._cache_hits = 0
         self._cache_misses = 0
+        self._launches: dict[str, int] = {}
 
     def instrument(self, name: str, fn) -> InstrumentedStep:
         with self._lock:
@@ -189,10 +197,45 @@ class DeviceCostRegistry:
     def kernel_bytes(self) -> int:
         return getattr(_TLS, "kbytes", 0)
 
+    @contextlib.contextmanager
+    def excluded(self):
+        """Leave this thread's launches, copies and readbacks out of the
+        registry while the block runs (library builds still count); the
+        block's kernel launches go to the dict it yields instead."""
+        prev = getattr(_TLS, "excluded", None)
+        tally: dict[str, int] = {}
+        _TLS.excluded = tally
+        try:
+            yield tally
+        finally:
+            _TLS.excluded = prev
+            _TLS.h2d = 0
+            _TLS.kbytes = 0
+
     # -- recording -----------------------------------------------------
+
+    def note_launch(self, name: str) -> None:
+        """One launch of a hand-written kernel, by route: the only
+        count of it."""
+        tally = getattr(_TLS, "excluded", None)
+        if tally is not None:
+            tally[name] = tally.get(name, 0) + 1
+            return
+        with self._lock:
+            self._launches[name] = self._launches.get(name, 0) + 1
+
+    def launches(self) -> dict:
+        with self._lock:
+            return dict(self._launches)
+
+    def reset_launches(self) -> None:
+        with self._lock:
+            self._launches.clear()
 
     def _record(self, name: str, dt_ns: int, h2d_bytes: int,
                 bytes_accessed: int, events) -> None:
+        if getattr(_TLS, "excluded", None) is not None:
+            return
         with self._lock:
             e = self._entries.setdefault(name, _Entry())
             e.calls += 1
@@ -225,6 +268,8 @@ class DeviceCostRegistry:
     def add_readback(self, nbytes: int) -> None:
         """The flusher's readback bytes; the readback synchronized, so
         the interval's event pairs resolve here."""
+        if getattr(_TLS, "excluded", None) is not None:
+            return
         with self._lock:
             self._readback_bytes += int(nbytes)
             self._resolve_locked()
@@ -287,6 +332,7 @@ class DeviceCostRegistry:
             return {
                 "kernels": {name: e.snapshot()
                             for name, e in ents.items()},
+                "launches": dict(self._launches),
                 "readers": {name: r.snapshot()
                             for name, r in self._readers.items()},
                 "dispatch_total": sum(e.calls for e in ents.values()),

@@ -12,7 +12,14 @@ ids clipped to the capacity, weighted per-cluster means).
   CUDA tensor it launches the hand-written kernel
   (``csrc/cluster_merge.cu``, built with nvcc for sm_90a on first use
   and loaded with ctypes) or raises; for a CPU tensor it runs
-  ``cluster_merge_plain``.  There is no fallback from one to the other.
+  ``cluster_merge_plain``.  A failed build or launch raises: there is
+  no fallback from one to the other.  ``route`` names the kernel's two
+  routes by the reference's own rule (``supported``: its table runs the
+  Pallas kernel inside 2048 lanes and its XLA merge past them): a
+  ``"wide"`` merge launches the same kernel with a wider row in shared
+  memory and, for a segment past the register sort, a shared-memory
+  sort.  A row too wide for one CTA's shared memory (``fits``; past
+  C + K near 12,000 on an H100) raises by name.
 - ``cluster_merge_plain`` is the reference's scatter path in PyTorch:
   the CPU tests hold it against JAX, and the card holds the kernel
   against it.
@@ -21,11 +28,13 @@ Both flush f32 subnormals to a zero of their sign as they read the
 four planes and as they write the two results, as the reference's merge
 does under XLA (a subnormal weight is no weight).
 
-``launches`` counts kernel launches (not plain-version calls), so a run
-can show that its merges went through the kernel; ``occupancy`` reports
-the kernel's launch shape on the current card.  Every merge notes the
-bytes it moves (``merge_bytes``) to the device-cost registry, the
-estimate of the step that ran it.
+Launches are counted once, in the device-cost registry, by route
+(``LAUNCH_NAMES``: ``cluster_merge`` and ``cluster_merge.wide``, shown
+in ``/debug/vars``); ``launch_count`` sums them, so a run can show that
+its merges went through the kernel.  ``occupancy`` reports the kernel's
+launch shape on the current card.  Every merge notes the bytes it moves
+(``merge_bytes``) to the device-cost registry, the estimate of the step
+that ran it.
 """
 
 from __future__ import annotations
@@ -45,7 +54,7 @@ import torch
 from veneur_tpu_torch.observe.devicecost import REGISTRY
 from veneur_tpu_torch.ops.segment import ftz
 
-MAX_WIDTH = 2048    # pow2 sort width bound, as the TPU kernel's
+MAX_WIDTH = 2048    # the TPU kernel's pow2 width bound (``supported``)
 _EPS = 1e-30
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -53,7 +62,8 @@ SOURCE = _PKG / "csrc" / "cluster_merge.cu"
 BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
-launches = 0
+# the registry's launch counter of each route
+LAUNCH_NAMES = {"kernel": "cluster_merge", "wide": "cluster_merge.wide"}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -73,8 +83,24 @@ def _pow2_at_least(w: int) -> int:
 
 
 def supported(cap: int, batch_width: int) -> bool:
-    """Whether the kernel handles this (state, batch) shape."""
+    """The reference's ``pallas_merge.supported``: whether its Pallas
+    kernel takes this (state, batch) shape."""
     return _pow2_at_least(cap + batch_width) <= MAX_WIDTH
+
+
+def route(cap: int, batch_width: int) -> str:
+    """The kernel's route for a merge of a ``cap``-slot state with a
+    ``batch_width`` batch: ``"kernel"`` where the reference runs its
+    Pallas kernel (``supported``), ``"wide"`` where it runs its XLA
+    merge."""
+    return "kernel" if supported(cap, batch_width) else "wide"
+
+
+def launch_count() -> int:
+    """Kernel launches on both routes, from the registry (a thread's
+    launches inside ``REGISTRY.excluded()`` are not in it)."""
+    n = REGISTRY.launches()
+    return sum(n.get(name, 0) for name in LAUNCH_NAMES.values())
 
 
 def max_batch_slots(cap: int) -> int:
@@ -132,6 +158,9 @@ def bind(path) -> ctypes.CDLL:
     fn = lib.cluster_merge_launch
     fn.argtypes = [p, p, ll, p, p, ll, p, p, i, i, i, i, f, f, f, f, f, p]
     fn.restype = i
+    fits = lib.cluster_merge_fits
+    fits.argtypes = [i, i]
+    fits.restype = i
     occ = lib.cluster_merge_occupancy
     occ.argtypes = [i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
     occ.restype = i
@@ -148,6 +177,11 @@ def _load():
     return _lib
 
 
+def load() -> ctypes.CDLL:
+    """Build (once) and load the kernel's library."""
+    return _load()
+
+
 def occupancy(cap: int, batch_width: int) -> dict:
     """The kernel's launch shape at (cap, batch width) on the current
     card: threads and dynamic shared memory per row, and how many rows
@@ -160,6 +194,15 @@ def occupancy(cap: int, batch_width: int) -> dict:
         raise RuntimeError("cluster_merge occupancy query failed")
     return {"threads": threads.value, "smem_bytes": smem.value,
             "rows_per_sm": per_sm}
+
+
+def fits(cap: int, batch_width: int) -> bool:
+    """Whether a (cap, batch width) row fits one CTA's shared memory on
+    the current card (the kernel's only width limit)."""
+    rc = _load().cluster_merge_fits(cap, batch_width)
+    if rc < 0:
+        raise RuntimeError("cluster_merge shared-memory query failed")
+    return rc == 1
 
 
 def _k_scale(q: torch.Tensor, delta: float, tail_coeff: float,
@@ -246,9 +289,9 @@ def cluster_merge(means: torch.Tensor, weights: torch.Tensor,
     """Merge f32[R, K] incoming centroids into f32[R, C] digests.
 
     CPU tensors take the plain version.  CUDA tensors launch the
-    kernel on the current stream; a shape beyond the kernel's 2048
-    width bound raises ValueError, a failed build or launch raises
-    RuntimeError."""
+    kernel on the current stream, on the route ``route`` names; a row
+    too wide for one CTA's shared memory raises ValueError, a failed
+    build or launch raises RuntimeError."""
     kw = dict(delta=delta, tail_coeff=tail_coeff, tail_q0=tail_q0,
               tail_qmin=tail_qmin)
     dev = means.device
@@ -272,11 +315,12 @@ def cluster_merge(means: torch.Tensor, weights: torch.Tensor,
     if means.stride() != weights.stride() or \
             new_means.stride() != new_weights.stride():
         raise ValueError("means and weights must share strides")
+    way = route(cap, k_in)
     n = _pow2_at_least(cap + k_in)
-    if n > MAX_WIDTH:
-        raise ValueError(f"merge width {cap}+{k_in} exceeds the "
-                         f"kernel's {MAX_WIDTH} bound")
     lib = _load()
+    if way == "wide" and not fits(cap, k_in):
+        raise ValueError(f"merge width {cap}+{k_in} exceeds one CTA's "
+                         f"shared memory on {dev}")
     out_m = torch.empty((num_rows, cap), dtype=torch.float32, device=dev)
     out_w = torch.empty((num_rows, cap), dtype=torch.float32, device=dev)
     scale, k0 = _kernel_constants(**kw)
@@ -292,6 +336,5 @@ def cluster_merge(means: torch.Tensor, weights: torch.Tensor,
             float(tail_q0), float(tail_qmin), stream)
     if rc != 0:
         raise RuntimeError(f"cluster_merge launch failed: CUDA error {rc}")
-    global launches
-    launches += 1
+    REGISTRY.note_launch(LAUNCH_NAMES[way])
     return out_m, out_w

@@ -1,5 +1,9 @@
 """Simple sinks (port of ``veneur_tpu/sinks/simple.py``):
 
+- blackhole: discards everything (reference sinks/blackhole/
+  blackhole.go:12; ``blackhole_sink``)
+- debug: logs every flushed metric (reference sinks/debug;
+  ``debug_flushed_metrics``)
 - capture: holds flushed batches in memory (a server's extra sink in
   tests and embedding programs)
 - localfile plugin: appends flush batches as TSV
@@ -17,6 +21,29 @@ from veneur_tpu_torch.core.metrics import InterMetric
 from veneur_tpu_torch.sinks.base import SinkBase
 
 log = logging.getLogger("veneur_tpu_torch.sinks")
+
+
+class BlackholeSink(SinkBase):
+    name = "blackhole"
+
+    def flush(self, metrics: list[InterMetric]) -> None:
+        pass
+
+    def ingest(self, span) -> None:
+        pass
+
+
+class DebugSink(SinkBase):
+    name = "debug"
+
+    def flush(self, metrics: list[InterMetric]) -> None:
+        for m in metrics:
+            log.info("flushed metric %s=%s type=%s tags=%s", m.name,
+                     m.value, m.type, ",".join(m.tags))
+
+    def flush_other_samples(self, samples: list) -> None:
+        for s in samples:
+            log.info("flushed sample %r", s)
 
 
 class CaptureSink(SinkBase):

@@ -131,7 +131,8 @@ def _replace(src: str, old: str, new: str) -> str:
 
 
 _EDITS = {
-    "composite_sort": [("  if (st.wmin == st.wmax) {", "  if (false) {")],
+    "composite_sort": [("  } else if (st.wmin == st.wmax) {",
+                        "  } else if (false) {")],
     "fast_math": [
         ("    const float q = (cum - w) / denom;",
          "    const float q = (cum - w) * (1.f / denom);"),
