@@ -20,9 +20,11 @@ Run from the root of a checkout.  Phases, one JSON line each:
    compression 500: C = 3032 with unsorted state rows) take the
    kernel's wide route, counted as ``cluster_merge.wide``, with the
    same checks and times.  After
-   phases 4, 6, 8, 9, 10, 12, 13 and 14 the same check runs at every
-   other (R, K) they merged at (the global folds with weighted
-   centroids);
+   phases 4, 6, 8, 9, 10, 12, 13, 14 and 15 the same check runs at
+   every other (R, K) they merged at (the global folds with weighted
+   centroids) and at the warm-up's (256, 256); every case reports the
+   row and quantile of its largest kernel-vs-plain gap with both
+   values;
 3. ``entry("cuda")`` against ``entry("cpu")`` on the same arrays, then
    F1: f32 subnormal samples on every histogram path, a subnormal
    counter and a subnormal gauge through the table on the card and on
@@ -157,6 +159,30 @@ Run from the root of a checkout.  Phases, one JSON line each:
    ``/builddate`` and ``/quitquitquit`` (exit 0); child C, whose flush
    file is a FIFO nobody reads, exits 2 by its flush watchdog.  READY
    times with and without warm-up;
+15. the ingest edge (run right after phase 14): its provenance first
+   (the kernel release, the ring probe's errno, the io_uring sysctl,
+   the effective SO_RCVBUF, ``openssl`` on the PATH), then ten port
+   servers as child processes on the card: (a) phase 4's series at
+   full width, cut to 100 samples a timer series and set (1,294,400
+   lines in 25-line datagrams from eight source sockets, a series on
+   one socket), paced on each child's received counter into a
+   ``tpu_ingest_backend: uring`` and a ``recvmmsg`` server with one
+   reader (their flushes bit-equal), a ``uring`` server with four
+   (bit-equal to one: each series on one socket, one device step at
+   the swap), each held to a CPU port server on the same datagrams,
+   every ledger record balanced, 0 ENOBUFS and kernel drops; (b)
+   ``bench.py --sockets``' two packet shapes unpaced for 4 s into each
+   tier at 1 and 4 readers: packets/s, samples/s, delivery, ENOBUFS,
+   drops, fallbacks, the device steps' CUDA-event seconds and the
+   card's idle share, uring held to >= 0.9x of recvmmsg with delivery
+   within 2 points where the kernel grants the ring; (c) TLS: ECDSA
+   P-256 and RSA 2048 handshakes for 2 s each, a client without a
+   certificate refused by an mTLS server and counted, a local
+   forwarding (a)'s interval over gRPC with ``forward_grpc_tls_ca`` and
+   a client pair to an mTLS global whose flush equals the plaintext
+   chain's bit for bit; (d) a child on ``http_address: einhorn@0`` (a
+   listening socket this script bound, its ack read here, /healthcheck
+   and /version through it);
 7. the chain: a global (HTTP and gRPC listeners) and three locals (one
    per /import schema, one forwarding over gRPC) as server processes on
    the card: the global flushes the JAX chain's ``lat.99percentile``
@@ -168,8 +194,8 @@ Run from the root of a checkout.  Phases, one JSON line each:
    both schemas, gRPC);
 11. the kernels line (launches by path, phase 12's as
     ``routing_tiers``, phase 13's as ``crash_riding``, phase 14's as
-    ``span_plane``; F2's wide shapes as ``wide``), then the last
-    line
+    ``span_plane``, phase 15's as ``ingest_edge``; F2's wide shapes as
+    ``wide``), then the last line
     ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero before the last
@@ -330,6 +356,12 @@ KERNEL_CASES = (("k512", 16384, 512, True, False),
                 ("k512_subnormal", 16384, 512, True, False))
 
 
+# the start-up warm-up's one merge (``tpu_warmup``: the scratch table's
+# two histogram rows in a 256-row bucket at K = 256; MergeRecorder
+# around a CPU server's warm-up reads the same)
+WARMUP_SHAPES = ({"rows": 256, "k": 256, "calls": 1},)
+
+
 def recorded_cases(merge_shapes, weighted=False, timed=()) -> tuple:
     """Merge shapes of a path that KERNEL_CASES and ``timed`` (labels
     already run) do not time."""
@@ -423,6 +455,9 @@ def phase_kernel(dev: str = "cuda", cases=KERNEL_CASES,
         check(viol <= 0, f"{label}: quantiles outside rtol 2e-3/atol "
                          f"1e-3 (excess {viol})")
         max_abs = float((qk - qp).abs()[both].max())
+        # the row and quantile of the largest gap, with both values
+        gap = torch.where(both, (qk - qp).abs(), torch.zeros_like(qk))
+        row, qi = divmod(int(gap.argmax()), len(QS))
         ms = cuda_ms(lambda: cm.cluster_merge(*a, **kw))
         plain_ms = cuda_ms(lambda: cm.cluster_merge_plain(*a, **kw))
         n = 1 << (cap + k - 1).bit_length()
@@ -437,7 +472,10 @@ def phase_kernel(dev: str = "cuda", cases=KERNEL_CASES,
                "weighted_batch": weighted,
                "mass_rel_err_kernel": mass_k,
                "mass_rel_err_plain": mass_p,
-               "quantile_max_abs_err": max_abs, "ms": ms,
+               "quantile_max_abs_err": max_abs,
+               "largest_gap": {"row": row, "q": QS[qi],
+                               "kernel": float(qk[row, qi]),
+                               "plain": float(qp[row, qi])}, "ms": ms,
                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                "bound_share": bound / ms,
                "torch_sort_ms": sort_ms, "sort_n": n, "library_ms": None,
@@ -1694,14 +1732,16 @@ def run_global_interval(table, flusher, wires, sync):
 
 def phase_global(dev: str = "cuda", scale: int = 1, n_wires: int = N_WIRES,
                  intervals: int = 2, profiled: bool = True,
-                 cpu_reference: bool = True, with_grpc: bool = True) -> dict:
+                 cpu_reference: bool = True, with_grpc: bool = True,
+                 stack_wires: int | None = None) -> dict:
     """The global tier at BASELINE config 5's size: ``n_wires`` wires of
     10,000 timer series (the union-row bucket is past half the plane,
     so the fold takes the flat path) timed over ``intervals`` intervals
     plus one profiled, held against a CPU global on the same bodies and
-    against the exact p99 of every local's samples; then 4,096 timer
-    series, whose fold takes the stacked path: one kernel launch per
-    wire at (4096, K).  With ``with_grpc`` the flat shape's locals are
+    against the exact p99 of every local's samples; then the first
+    ``stack_wires`` (default ``n_wires``) wires of 4,096 timer series
+    (each wire the same whatever the count), whose fold takes the
+    stacked path: one kernel launch per wire at (4096, K).  With ``with_grpc`` the flat shape's locals are
     also encoded as MetricLists, kept with their texts and the HTTP
     global's flush under ``"grpc_input"`` for phase 8."""
     import torch
@@ -1712,18 +1752,19 @@ def phase_global(dev: str = "cuda", scale: int = 1, n_wires: int = N_WIRES,
         if dev == "cuda":
             torch.cuda.synchronize()
 
+    stack_wires = stack_wires or n_wires
     out = {"phase": "global_tier", "device": dev, "wires": n_wires,
            "reference_schema_wires": n_wires // REF_EVERY}
     shapes = {}
     # the stacked shape has no global-only timers: a reference-schema
     # wire carries no scope, so their rows would double in the union
-    for label, n_timer, n_gt, seed, route, n_int in (
+    for label, n_timer, n_gt, seed, route, n_int, n_w in (
             ("flat", N_TIMER // scale, N_GLOBAL_TIMER // scale, 1,
-             "wire_flat", intervals),
-            ("stack", 4096 // scale, 0, 2, "wire_stack", 1)):
+             "wire_flat", intervals, n_wires),
+            ("stack", 4096 // scale, 0, 2, "wire_stack", 1, stack_wires)):
         with MergeRecorder() as lrec:
             wires, texts, wt = build_wires(
-                dev, n_timer, n_gt, seed, scale, n_wires,
+                dev, n_timer, n_gt, seed, scale, n_w,
                 with_grpc=with_grpc and label == "flat")
         table = MetricTable(TableConfig(**table_sizes(scale)), device=dev)
         flusher = Flusher(**FLUSH_KW, device=dev)
@@ -1737,7 +1778,7 @@ def phase_global(dev: str = "cuda", scale: int = 1, n_wires: int = N_WIRES,
         if dev == "cuda":
             check(rec.launches > 0, f"{label}: the global launched no "
                                     "cluster merge kernel")
-        r = {"timer_series": n_timer, "wire_build": wt,
+        r = {"timer_series": n_timer, "wires": n_w, "wire_build": wt,
              "local_cluster_merge_launches": lrec.launches,
              "local_merge_shapes": lrec.table(),
              "intervals": [st for _, st in runs],
@@ -1747,8 +1788,8 @@ def phase_global(dev: str = "cuda", scale: int = 1, n_wires: int = N_WIRES,
             mb = 4096 // scale
             per_wire = sum(c for (rr, _k), c in rec.shapes.items()
                            if rr == mb)
-            check(per_wire == n_wires, f"stack: {per_wire} merges at "
-                                       f"{mb} rows for {n_wires} wires")
+            check(per_wire == n_w, f"stack: {per_wire} merges at "
+                                   f"{mb} rows for {n_w} wires")
         if profiled and label == "flat":
             r["profiled_interval"] = profile_device(
                 lambda: run_global_interval(table, flusher, wires, sync))
@@ -1779,8 +1820,9 @@ def phase_global(dev: str = "cuda", scale: int = 1, n_wires: int = N_WIRES,
                           "bytes": wt["grpc_bytes"]}
         del wires, texts, table, res, runs
     out["cut"] = (f"the flat shape {intervals} timed interval(s) plus "
-                  "one profiled, the stacked shape one; the wires are "
-                  "built once, outside the timed window")
+                  f"one profiled, the stacked shape one of {stack_wires} "
+                  "wires; the wires are built once, outside the timed "
+                  "window")
     emit(out)
     out["shapes"] = shapes
     if with_grpc:
@@ -4265,6 +4307,741 @@ def phase_span_plane(dev: str = "cuda", scale: int = 1) -> dict:
     return out
 
 
+# ---- phase 15: the ingest edge ----------------------------------------------
+
+EDGE_SHORT = 6            # samples a counter or gauge series (phase 4: ~62)
+EDGE_SAMPLES = 100        # samples a timer series, members a set (cut: 1,000)
+EDGE_LINES = 25           # lines a datagram (bench.py --sockets' batch shape)
+EDGE_SENDERS = 8          # source sockets; series i rides socket i % 8
+EDGE_WINDOW = 1024        # datagrams in flight to a child before a wait
+EDGE_INTERVAL_S = 30      # the UDP children's and the locals' interval
+EDGE_GLOBAL_S = 50        # the globals': one forward lands before it ends
+EDGE_STAGE = 4_000_000    # staging bound past the interval's samples
+RATE_WINDOW_S = 4.0       # an unpaced send (bench.py --sockets: 12 s)
+TLS_WINDOW_S = 2.0        # sequential handshakes (bench.py --tls: 8 s)
+
+# the unpaced sender of (b): bench.py --sockets' loadgen in a process of
+# its own (4,096 prebuilt counter datagrams over 1,000 names, round
+# robin over its sockets); prints datagrams offered and seconds
+RATE_SENDER = r"""
+import socket, sys, time
+port, lpp, n_socks, secs = (int(sys.argv[1]), int(sys.argv[2]),
+                            int(sys.argv[3]), float(sys.argv[4]))
+pkts = [b"\n".join(b"svc.req.count.%d:%d|c" % ((i * lpp + j) % 1000,
+                                               1 + j % 9)
+                   for j in range(lpp)) for i in range(4096)]
+socks = []
+for _ in range(n_socks):
+    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    s.connect(("127.0.0.1", port))
+    socks.append(s)
+mask, n, t0 = n_socks - 1, 0, time.perf_counter()
+end = t0 + secs
+while time.perf_counter() < end:
+    for k, p in enumerate(pkts):
+        try:
+            socks[k & mask].send(p)
+        except OSError:
+            pass
+        n += 1
+print(n, time.perf_counter() - t0)
+"""
+
+
+def edge_traffic(seed: int = 15, scale: int = 1) -> dict:
+    """Phase 15's interval: phase 4's series at full width (16,000
+    counters and 16,000 gauges of ``EDGE_SHORT`` samples, 10,000 timers
+    of ``EDGE_SAMPLES`` gamma(2, 30) samples, 1,024 sets of
+    ``EDGE_SAMPLES`` members; integer counter increments), each series
+    on one of ``EDGE_SENDERS`` source sockets, shuffled within its
+    socket and cut into ``EDGE_LINES``-line datagrams.  ``order`` is the
+    send order (the sockets in turn), the same for every child."""
+    rng = np.random.default_rng(seed)
+    per = [[] for _ in range(EDGE_SENDERS)]
+    nc, ng, nt, ns = (N_COUNTER // scale, N_GAUGE // scale,
+                      N_TIMER // scale, N_SET // scale)
+    cv = rng.integers(1, 10, (nc, EDGE_SHORT)).tolist()
+    gv = rng.normal(10.0, 3.0, (ng, EDGE_SHORT)).tolist()
+    tv = rng.gamma(2.0, 30.0, (nt, EDGE_SAMPLES))
+    sv = rng.integers(0, 2 ** 62, (ns, EDGE_SAMPLES)).tolist()
+    for i in range(nc):
+        per[i % EDGE_SENDERS] += [b"c%d:%d|c%s" % (i, v, TAGS)
+                                  for v in cv[i]]
+    for i in range(ng):
+        per[i % EDGE_SENDERS] += [b"g%d:%.3f|g%s" % (i, v, TAGS)
+                                  for v in gv[i]]
+    for i in range(nt):
+        per[i % EDGE_SENDERS] += [b"t%d:%.3f|ms%s" % (i, v, TAGS)
+                                  for v in tv[i].tolist()]
+    for i in range(ns):
+        per[i % EDGE_SENDERS] += [b"s%d:m%d|s%s" % (i, m, TAGS)
+                                  for m in sv[i]]
+    dgrams = []
+    for lines in per:
+        order = rng.permutation(len(lines)).tolist()
+        dgrams.append([b"\n".join(lines[j] for j in order[lo:lo +
+                                                           EDGE_LINES])
+                       for lo in range(0, len(order), EDGE_LINES)])
+    send = []
+    for k in range(max(len(d) for d in dgrams)):
+        send += [(s, d[k]) for s, d in enumerate(dgrams) if k < len(d)]
+    # the exact p99 of every timer series, as the flush names it
+    exact = {b"t%d" % i: float(np.quantile(
+        np.array([float(b"%.3f" % v) for v in tv[i].tolist()]), 0.99))
+        for i in range(nt)}
+    return {"order": send, "lines": sum(len(p) for p in per),
+            "series": {"counter": nc, "gauge": ng, "timer": nt,
+                       "set": ns}, "exact_p99": exact}
+
+
+def udp_drops(port: int) -> int:
+    """Kernel receive drops over every UDP socket bound to ``port``
+    (``/proc/net/udp{,6}``' drops column)."""
+    total = 0
+    for name in ("/proc/net/udp", "/proc/net/udp6"):
+        try:
+            with open(name) as f:
+                rows = f.read().splitlines()[1:]
+        except OSError:
+            continue
+        for r in rows:
+            col = r.split()
+            if int(col[1].rsplit(":", 1)[1], 16) == port:
+                total += int(col[-1])
+    return total
+
+
+def edge_provenance() -> dict:
+    """(0): the kernel release, the ring probe's errno from the port's
+    library, the io_uring sysctl, the effective SO_RCVBUF of a socket
+    asked for the readers' 2 MiB, and whether ``openssl`` is on the
+    PATH."""
+    import shutil
+    from veneur_tpu_torch import native
+    from veneur_tpu_torch.native import uring
+    err = uring.probe(native.load())
+    disabled = None
+    try:
+        with open("/proc/sys/kernel/io_uring_disabled") as f:
+            disabled = int(f.read().strip())
+    except OSError:
+        pass
+    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    s.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 2 * 1048576)
+    rcvbuf = s.getsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF)
+    s.close()
+    res = {"phase": "ingest_edge_env", "kernel_release": os.uname().release,
+           "uring_probe_errno": -err,
+           "uring_refusal": (None if err == 0 else
+                             uring.probe_reason(err) + ": " +
+                             os.strerror(-err)),
+           "io_uring_disabled": disabled, "effective_rcvbuf": rcvbuf,
+           "openssl": shutil.which("openssl")}
+    emit(res)
+    return res
+
+
+def edge_certs(d: str) -> dict:
+    """Certificates made with ``openssl`` (as tests/test_tls.py makes
+    them): a CA and a server and a client pair it signed, with the
+    loopback SAN gRPC verifies; a self-signed ECDSA P-256 and RSA 2048
+    pair for the handshake rates (bench.py --tls's key types)."""
+    def run(*args):
+        subprocess.run(["openssl", *args], check=True, capture_output=True,
+                       timeout=60)
+    out = {"ca": os.path.join(d, "ca.crt")}
+    run("req", "-x509", "-newkey", "rsa:2048", "-nodes", "-keyout",
+        os.path.join(d, "ca.key"), "-out", out["ca"], "-days", "1",
+        "-subj", "/CN=edge-ca")
+    ext = os.path.join(d, "san.ext")
+    with open(ext, "w") as f:
+        f.write("subjectAltName=IP:127.0.0.1,DNS:localhost\n")
+    for name in ("server", "client"):
+        key, csr, crt = (os.path.join(d, f"{name}.{x}")
+                         for x in ("key", "csr", "crt"))
+        run("req", "-newkey", "rsa:2048", "-nodes", "-keyout", key,
+            "-out", csr, "-subj", "/CN=127.0.0.1")
+        run("x509", "-req", "-in", csr, "-CA", out["ca"], "-CAkey",
+            os.path.join(d, "ca.key"), "-CAcreateserial", "-out", crt,
+            "-days", "1", "-extfile", ext)
+        out[f"{name}_key"], out[f"{name}_crt"] = key, crt
+    for label, spec in (("ecdsa_p256", ["-newkey", "ec", "-pkeyopt",
+                                        "ec_paramgen_curve:prime256v1"]),
+                        ("rsa_2048", ["-newkey", "rsa:2048"])):
+        key, crt = (os.path.join(d, f"{label}.{x}") for x in ("key", "crt"))
+        run("req", "-x509", *spec, "-nodes", "-keyout", key, "-out", crt,
+            "-days", "1", "-subj", "/CN=127.0.0.1", "-addext",
+            "subjectAltName=IP:127.0.0.1")
+        out[f"{label}_key"], out[f"{label}_crt"] = key, crt
+    return out
+
+
+def first_flush(path: str) -> dict:
+    """(name, tags) -> value of a flush file's first flush (the rows of
+    its earliest timestamp), self-telemetry aside."""
+    rows = []
+    with open(path) as f:
+        for ln in f.read().splitlines():
+            r = ln.split("\t")
+            rows.append((int(r[4]), r[0], r[1], float(r[5])))
+    t0 = min(r[0] for r in rows)
+    out = {}
+    for t, name, tags, v in rows:
+        if t == t0 and not name.startswith("veneur."):
+            check((name, tags) not in out, f"{name} twice in a flush")
+            out[(name, tags)] = v
+    return out
+
+
+def order_free(key) -> bool:
+    """A flushed value of phase 4's series (gauges are ``g<i>``) that
+    does not depend on the order samples came in: counters, set
+    cardinalities, counts, min, max, sums (a gauge's last write and a
+    percentile do)."""
+    name = key[0]
+    if name.endswith(("percentile", ".median")):
+        return False
+    return not name.startswith("g")
+
+
+def hold_to(got: dict, want: dict, what: str, exact_all: bool,
+            gate_pct: bool = True) -> dict:
+    """``got`` against ``want``: the same series; order-free values and
+    gauges bit for bit; percentiles bit for bit (``exact_all``) or
+    within rtol 2e-3 / atol 1e-3 (outside it: a failure, or with
+    ``gate_pct`` off a count)."""
+    check(got.keys() == want.keys(),
+          f"{what}: series differ: {sorted(set(got) - set(want))[:4]} "
+          f"{sorted(set(want) - set(got))[:4]}")
+    n_free = n_dep = n_pct_bits = n_outside = 0
+    max_pct = 0.0
+    for key, w in want.items():
+        g = got[key]
+        pct = key[0].endswith(("percentile", ".median"))
+        n_free += order_free(key)
+        n_dep += not order_free(key)
+        if not pct or exact_all:
+            check(g == w, f"{what}: {key} {g!r} != {w!r}")
+            n_pct_bits += pct
+            continue
+        n_pct_bits += g == w
+        max_pct = max(max_pct, abs(g - w))
+        if abs(g - w) > 1e-3 + 2e-3 * abs(w):
+            check(not gate_pct, f"{what}: {key} {g} vs {w}")
+            n_outside += 1
+    return {"series": len(want), "order_free": n_free,
+            "order_dependent": n_dep, "percentiles_bit_equal": n_pct_bits,
+            "percentiles_outside_tolerance": n_outside,
+            "percentile_max_abs_diff": max_pct}
+
+
+def edge_rate(child: dict, lpp: int, n_socks: int) -> dict:
+    """One unpaced ``RATE_WINDOW_S`` send from ``RATE_SENDER`` into a
+    child: what it received and processed, its ENOBUFS, kernel drops
+    and fallbacks, its device steps' CUDA-event seconds, and the card's
+    idle share over the window by them."""
+    port = child["ports"]["udp"]
+
+    def snap():
+        v = child_stats(child["ports"]["http"])
+        st = v["stats"]
+        return {"pkts": st.get("received_dogstatsd-udp", 0),
+                "samples": st.get("metrics_processed", 0),
+                "enobufs": st.get("socket_uring_enobufs", 0),
+                "fallbacks": st.get("socket_backend_fallback", 0),
+                "device_ns": v["devicecost"]["device_duration_ns"] or 0,
+                "drops": udp_drops(port)}
+    before = snap()
+    run = subprocess.run(
+        [sys.executable, "-c", RATE_SENDER, str(port), str(lpp),
+         str(n_socks), str(RATE_WINDOW_S)], capture_output=True,
+        text=True, timeout=RATE_WINDOW_S + 30)
+    check(run.returncode == 0, f"rate sender: {run.stderr[-500:]}")
+    offered, secs = run.stdout.split()
+    offered, secs = int(offered), float(secs)
+    time.sleep(0.5)  # the readers' last batches
+    after = snap()
+    d = {k: after[k] - before[k] for k in before}
+    device_s = d["device_ns"] / 1e9
+    return {"backend": child["backend"], "readers": child["readers"],
+            "lines_per_packet": lpp, "sockets": n_socks, "seconds": secs,
+            "offered_packets": offered, "received_packets": d["pkts"],
+            "received_pct": 100.0 * d["pkts"] / max(offered, 1),
+            "packets_per_s": d["pkts"] / secs,
+            "samples_per_s": d["samples"] / secs,
+            "enobufs": d["enobufs"], "kernel_drops": d["drops"],
+            "fallbacks": d["fallbacks"], "device_steps_s": device_s,
+            "card_idle_share": 1.0 - device_s / secs}
+
+
+def tls_rate(port: int) -> dict:
+    """Sequential full handshakes against a TLS TCP statsd listener for
+    ``TLS_WINDOW_S`` (connect, handshake, one line, close; the client
+    verifies no chain, as bench.py --tls)."""
+    import ssl
+    ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_CLIENT)
+    ctx.check_hostname = False
+    ctx.verify_mode = ssl.CERT_NONE
+    conns = 0
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < TLS_WINDOW_S:
+        raw = socket.create_connection(("127.0.0.1", port), timeout=5)
+        with ctx.wrap_socket(raw) as tls:
+            tls.sendall(b"tls.bench:1|c\n")
+        conns += 1
+    dt = time.perf_counter() - t0
+    return {"conns": conns, "seconds": dt, "conns_per_s": conns / dt}
+
+
+def phase_ingest_edge(dev: str = "cuda", scale: int = 1) -> dict:
+    """Phase 15: the ingest edge, port servers as child processes.
+    (a) phase 4's series over loopback UDP, paced on each child's
+    received counter, into a ``uring`` server and a ``recvmmsg`` server
+    with one reader each (their flushes bit-equal) and a ``uring``
+    server with four (bit-equal too: each series rides one source
+    socket, so one reader, and the interval's one device step runs at
+    the swap), each held to a CPU port server on the same datagrams;
+    (b) unpaced rates, both packet shapes, both tiers, 1 and 4 readers;
+    (c) TLS handshake rates for ECDSA and RSA keys, a client without a
+    certificate refused by an mTLS server, and a local forwarding (a)'s
+    interval over gRPC with ``forward_grpc_tls_ca`` and a client pair
+    to an mTLS global, whose flush equals the plaintext chain's; (d) a
+    child on ``http_address: einhorn@0``.  ``scale`` > 1 (a CPU
+    rehearsal) divides the series and the table rows."""
+    from concurrent.futures import ThreadPoolExecutor
+    from veneur_tpu_torch import native
+    from veneur_tpu_torch.core.config import read_config
+    from veneur_tpu_torch.core.server import Server
+    from veneur_tpu_torch.ops import cluster_merge
+
+    t_phase = time.perf_counter()
+    env = edge_provenance()
+    granted = env["uring_probe_errno"] == 0
+    check(env["openssl"] is not None, "openssl is not on the PATH")
+    traffic = edge_traffic(scale=scale)
+    # rows past the series (phase 4's fill 16,000 of 16,384 counter and
+    # gauge rows and all 1,024 set rows): at the default sizes the
+    # occupancy input (0.95) would engage overload pressure after the
+    # first flush, and the readers would take the admission path
+    rows = {"tpu_counter_rows": 32768 // scale, "tpu_gauge_rows":
+            32768 // scale, "tpu_histo_rows": 16384 // scale,
+            "tpu_set_rows": 2048 // scale}
+    out = {"phase": "ingest_edge", "device": dev,
+           "lines": traffic["lines"], "datagrams": len(traffic["order"]),
+           "series": traffic["series"]}
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke-") as tmp:
+        certs = edge_certs(tmp)
+        cache = os.path.join(tmp, "build")
+        os.makedirs(cache)
+        libs = [native.build()]
+        if dev == "cuda":
+            libs.append(cluster_merge.build())
+        for lib in libs:
+            with open(lib, "rb") as src, \
+                    open(os.path.join(cache, os.path.basename(lib)),
+                         "wb") as dst:
+                dst.write(src.read())
+        base = {"hostname": "edge", "interval": f"{EDGE_INTERVAL_S}s",
+                "http_quit": True, "percentiles": [0.5, 0.75, 0.99],
+                "tpu_stage_flush_samples": EDGE_STAGE,
+                "compile_cache_dir": cache, **rows}
+        g_ports = {n: free_tcp_port() for n in ("tls", "plain")}
+        specs = {
+            "uring1": {"tpu_ingest_backend": "uring", "num_readers": 1},
+            "recvmmsg1": {"tpu_ingest_backend": "recvmmsg",
+                          "num_readers": 1},
+            "uring4": {"tpu_ingest_backend": "uring", "num_readers": 4},
+            "recvmmsg4": {"tpu_ingest_backend": "recvmmsg",
+                          "num_readers": 4},
+            "local_tls": {"forward_use_grpc": True,
+                          "forward_address": f"127.0.0.1:{g_ports['tls']}",
+                          "forward_grpc_tls_ca": certs["ca"],
+                          "tls_key": certs["client_key"],
+                          "tls_certificate": certs["client_crt"]},
+            "local_plain": {"forward_use_grpc": True, "forward_address":
+                            f"127.0.0.1:{g_ports['plain']}"},
+            "global_tls": {"interval": f"{EDGE_GLOBAL_S}s",
+                           "grpc_listen_addresses": [
+                               f"tcp://127.0.0.1:{g_ports['tls']}"],
+                           "tls_key": certs["server_key"],
+                           "tls_certificate": certs["server_crt"],
+                           "tls_authority_certificate": certs["ca"]},
+            "global_plain": {"interval": f"{EDGE_GLOBAL_S}s",
+                             "grpc_listen_addresses": [
+                                 f"tcp://127.0.0.1:{g_ports['plain']}"]},
+            "tls_ecdsa": {"tls_key": certs["ecdsa_p256_key"],
+                          "tls_certificate": certs["ecdsa_p256_crt"],
+                          "http_address": "einhorn@0"},
+            "tls_rsa": {"tls_key": certs["rsa_2048_key"],
+                        "tls_certificate": certs["rsa_2048_crt"]}}
+        fed = ("uring1", "recvmmsg1", "uring4", "local_tls", "local_plain")
+        # einhorn's master: a listening socket handed down as fd 0 of
+        # the worker's set, and a control socket for its ack
+        ein = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        ein.bind(("127.0.0.1", 0))
+        ein.listen(64)
+        ctrl_path = os.path.join(tmp, "einhorn.sock")
+        ctrl = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        ctrl.bind(ctrl_path)
+        ctrl.listen(1)
+        ctrl.setblocking(False)
+        children = {}
+        try:
+            for name, over in specs.items():
+                ports = {"http": (ein.getsockname()[1]
+                                  if name == "tls_ecdsa"
+                                  else free_tcp_port())}
+                cfg = dict(base, **over)
+                if name.startswith(("uring", "recvmmsg", "local")):
+                    ports["udp"] = free_udp_port()
+                    cfg["statsd_listen_addresses"] = [
+                        f"udp://127.0.0.1:{ports['udp']}"]
+                if name.startswith("tls") or name == "global_tls":
+                    ports["tcp"] = free_tcp_port()
+                    cfg["statsd_listen_addresses"] = [
+                        f"tcp://127.0.0.1:{ports['tcp']}"]
+                cfg.setdefault("http_address",
+                               f"127.0.0.1:{ports['http']}")
+                cfg["flush_file"] = os.path.join(tmp, f"{name}.tsv")
+                path = os.path.join(tmp, f"{name}.json")
+                with open(path, "w") as f:
+                    json.dump(cfg, f)
+                kw = {}
+                if name == "tls_ecdsa":
+                    kw = {"pass_fds": [ein.fileno()], "env": dict(
+                        os.environ, EINHORN_FD_0=str(ein.fileno()),
+                        EINHORN_SOCK_PATH=ctrl_path)}
+                log = open(os.path.join(tmp, f"{name}.log"), "w")
+                proc = subprocess.Popen(
+                    [sys.executable, "-m", "veneur_tpu_torch.cli.main",
+                     "-f", path, "--device", dev], cwd=HERE, stdout=log,
+                    stderr=subprocess.STDOUT, **kw)
+                children[name] = {
+                    "name": name, "proc": proc, "log": log,
+                    "ports": ports, "flush": cfg["flush_file"],
+                    "t0": time.perf_counter(),
+                    "backend": over.get("tpu_ingest_backend", "auto"),
+                    "readers": over.get("num_readers", 1)}
+            ack = []
+
+            def all_ready():
+                if not ack:
+                    try:
+                        conn, _ = ctrl.accept()
+                        conn.settimeout(10)
+                        with conn:
+                            ack.append(json.loads(conn.recv(4096)))
+                    except BlockingIOError:
+                        pass
+                for ch in children.values():
+                    check(ch["proc"].poll() is None,
+                          f"child {ch['name']} exited before READY")
+                    if ("ready_s" not in ch
+                            and _healthy(ch["ports"]["http"])):
+                        ch["ready_s"] = time.perf_counter() - ch["t0"]
+                return all("ready_s" in ch for ch in children.values())
+            wait_for(all_ready, 180, "the edge children READY")
+            wait_for(lambda: all_ready() and ack, 30, "the einhorn ack")
+            t_ready = time.perf_counter()
+            einhorn = {"ack": ack[0],
+                       "child_pid": children["tls_ecdsa"]["proc"].pid,
+                       "healthcheck": http_get(ein.getsockname()[1],
+                                               "/healthcheck").decode(),
+                       "version": http_get(ein.getsockname()[1],
+                                           "/version").decode()}
+            check(einhorn["ack"] == {"command": "worker:ack",
+                                     "pid": einhorn["child_pid"]},
+                  f"einhorn ack {einhorn}")
+            check(einhorn["healthcheck"] == "ok" and einhorn["version"],
+                  f"einhorn endpoints {einhorn}")
+            for ch in children.values():
+                ch["vars0"] = child_stats(ch["ports"]["http"])
+            backends = {n: children[n]["vars0"]["sockets"]["backend"]
+                        for n in ("uring1", "recvmmsg1", "uring4",
+                                  "recvmmsg4")}
+            if granted:
+                check(backends["uring1"] == backends["uring4"] == "uring",
+                      f"the probe grants io_uring, yet {backends}")
+            else:
+                reason = env["uring_refusal"].split(":")[0]
+                for n in ("uring1", "uring4"):
+                    st = children[n]["vars0"]["stats"]
+                    check(backends[n] == "recvmmsg" and st.get(
+                        f"socket_backend_fallback_{reason}") == 1,
+                          f"{n} on a refusing kernel: {backends[n]} "
+                          f"{st}")
+            check(backends["recvmmsg1"] == backends["recvmmsg4"] ==
+                  "recvmmsg", f"backends {backends}")
+            out.update({"ready_s": {n: ch["ready_s"]
+                                    for n, ch in children.items()},
+                        "backends": backends, "einhorn": einhorn})
+
+            # (a) the interval, paced, to the fed children
+            def cpu_reference():
+                """A CPU global and a CPU local -> CPU global chain on
+                the same datagrams (batches of 512, the sweep's bound),
+                each flushed once, then once more: the flushes and the
+                merges by shape the children's run (unit: the swaps of
+                the UDP children and the locals, and the next
+                interval's self-telemetry timers; weighted: the
+                globals' import folds)."""
+                t_cpu = time.perf_counter()
+                order = traffic["order"]
+                cfg = {k: v for k, v in base.items()
+                       if k not in ("compile_cache_dir", "http_quit")}
+                cfg["interval"] = "3600s"
+                g = Server(read_config(data=dict(
+                    cfg, grpc_listen_addresses=["tcp://127.0.0.1:0"]),
+                    env={}), device="cpu")
+                g.start()
+                srvs = [Server(read_config(data=cfg, env={}),
+                               device="cpu"),
+                        Server(read_config(data=dict(
+                            cfg, forward_use_grpc=True,
+                            forward_address=f"127.0.0.1:{g.grpc_ports[0]}"),
+                            env={}), device="cpu")]
+                try:
+                    for lo in range(0, len(order), 512):
+                        batch = [d for _s, d in order[lo:lo + 512]]
+                        for s in srvs:
+                            s.handle_packet_batch(batch)
+                    with MergeRecorder() as unit:
+                        flushes = [s.flush_once().metrics for s in srvs]
+                    wait_for(lambda: g.stats.get("imports_received", 0)
+                             >= 1, 120, "the CPU global's import")
+                    with MergeRecorder() as weighted:
+                        glob = g.flush_once().metrics
+                    # the next interval: the self-telemetry's timers
+                    with MergeRecorder() as tele:
+                        for s in srvs + [g]:
+                            s.flush_once()
+                    shapes: dict = {}
+                    for m in unit.table() + tele.table():
+                        key = (m["rows"], m["k"])
+                        shapes[key] = shapes.get(key, 0) + m["calls"]
+                    return (flushes[0], glob,
+                            [{"rows": r, "k": k, "calls": c}
+                             for (r, k), c in sorted(shapes.items())],
+                            weighted.table(), time.perf_counter() - t_cpu)
+                finally:
+                    for s in srvs + [g]:
+                        s.shutdown()
+            socks = [socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+                     for _ in range(EDGE_SENDERS)]
+            t_feed = time.perf_counter()
+            order = traffic["order"]
+            for lo in range(0, len(order), EDGE_WINDOW):
+                chunk = order[lo:lo + EDGE_WINDOW]
+                for n in fed:
+                    addr = ("127.0.0.1", children[n]["ports"]["udp"])
+                    for s, d in chunk:
+                        socks[s].sendto(d, addr)
+                want = lo + len(chunk)
+                for n in fed:
+                    ch = children[n]
+                    wait_for(lambda ch=ch: child_stats(ch["ports"][
+                        "http"])["stats"].get("received_dogstatsd-udp", 0)
+                        >= want, 60, f"{n}'s read of the window",
+                        ch["proc"])
+            for s in socks:
+                s.close()
+            fed_s = time.perf_counter() - t_feed
+            pool = ThreadPoolExecutor(1)
+            cpu_ref = pool.submit(cpu_reference)
+            fed_vars = {}
+            for n in fed:
+                v = child_stats(children[n]["ports"]["http"])
+                st = v["stats"]
+                check(st.get("flushes", 0) == 0,
+                      f"{n} flushed before its traffic was in "
+                      f"({fed_s:.1f} s of feed)")
+                check(st.get("received_dogstatsd-udp") == len(order),
+                      f"{n} received {st.get('received_dogstatsd-udp')}")
+                check(st.get("socket_uring_enobufs", 0) == 0,
+                      f"{n}: ENOBUFS {st.get('socket_uring_enobufs')}")
+                check(udp_drops(children[n]["ports"]["udp"]) == 0,
+                      f"{n}: kernel drops")
+                fed_vars[n] = v
+            want_one, want_glob, unit_shapes, w_shapes, cpu_s = \
+                cpu_ref.result()
+            pool.shutdown()
+
+            def sealed(ch):
+                return json.loads(http_get(ch["ports"]["http"],
+                                           "/debug/ledger"))["records"]
+            for n in ("uring1", "recvmmsg1", "uring4"):
+                ch = children[n]
+                wait_for(lambda ch=ch: sealed(ch), 120,
+                         f"{n}'s first flush", ch["proc"])
+                ch["ledger"] = sealed(ch)[0]
+            flushes = {n: first_flush(children[n]["flush"])
+                       for n in ("uring1", "recvmmsg1", "uring4")}
+            parity = {
+                "uring1_vs_recvmmsg1": hold_to(
+                    flushes["uring1"], flushes["recvmmsg1"],
+                    "uring1 vs recvmmsg1", exact_all=True),
+                "uring4_vs_uring1": hold_to(
+                    flushes["uring4"], flushes["uring1"],
+                    "uring4 vs uring1", exact_all=True)}
+
+            def as_flush(metrics):
+                return {(m.name, ",".join(m.tags)): m.value for m in metrics
+                        if not m.name.startswith("veneur.")}
+            parity["uring1_vs_cpu"] = hold_to(
+                flushes["uring1"], as_flush(want_one), "uring1 vs the CPU",
+                exact_all=False)
+            ledgers = {}
+            for n in ("uring1", "recvmmsg1", "uring4"):
+                rec = children[n]["ledger"]
+                check(rec["balanced"] and rec["received"].get(
+                    "dogstatsd") == traffic["lines"],
+                      f"{n}'s ledger record {rec}")
+                ledgers[n] = {k: rec[k] for k in ("balanced", "received")}
+            errs = []
+            for name, exact in traffic["exact_p99"].items():
+                key = (name.decode() + ".99percentile", "env:smoke")
+                errs.append(abs(flushes["uring1"][key] - exact) / exact)
+            p99 = {"median": float(np.median(errs)),
+                   "max": float(np.max(errs))}
+            check(p99["median"] < 0.01, f"p99 median error {p99}")
+            out.update({"feed_s": fed_s, "cpu_reference_s": cpu_s,
+                        "parity": parity, "ledgers": ledgers,
+                        "p99_rel_err": p99,
+                        "merge_shapes": unit_shapes,
+                        "weighted_shapes": w_shapes})
+
+            # (b) unpaced rates: both shapes, both tiers, 1 and 4 readers
+            rates = {}
+            for lpp, label in ((1, "single_line"), (25, "batch_25")):
+                for readers, socks_n in ((1, 1), (4, 8)):
+                    for tier in ("uring", "recvmmsg"):
+                        key = f"{label}_{tier}{readers}"
+                        rates[key] = edge_rate(
+                            children[f"{tier}{readers}"], lpp, socks_n)
+                        emit({"phase": "ingest_edge_rate", "run": key,
+                              **rates[key]})
+            ratios = {}
+            for lpp, label in ((1, "single_line"), (25, "batch_25")):
+                for readers in (1, 4):
+                    u = rates[f"{label}_uring{readers}"]
+                    r = rates[f"{label}_recvmmsg{readers}"]
+                    ratios[f"{label}_{readers}"] = {
+                        "pps_ratio": u["packets_per_s"] /
+                        max(r["packets_per_s"], 1.0),
+                        "delivery_points": u["received_pct"] -
+                        r["received_pct"]}
+            if granted:
+                for key, rt in ratios.items():
+                    check(rt["pps_ratio"] >= 0.9 and
+                          rt["delivery_points"] >= -2.0,
+                          f"uring under recvmmsg at {key}: {rt}")
+            out.update({"rates": rates, "uring_over_recvmmsg": ratios})
+
+            # (c) TLS: handshake rates, the mTLS refusal, the chain
+            import ssl
+            tls = {"ecdsa_p256": tls_rate(children["tls_ecdsa"]["ports"]
+                                          ["tcp"]),
+                   "rsa_2048": tls_rate(children["tls_rsa"]["ports"]
+                                        ["tcp"])}
+            for label, n in (("ecdsa_p256", "tls_ecdsa"),
+                             ("rsa_2048", "tls_rsa")):
+                ch = children[n]
+                wait_for(lambda ch=ch, label=label: child_stats(
+                    ch["ports"]["http"])["stats"].get(
+                    "received_dogstatsd-tcp", 0) == tls[label]["conns"],
+                    30, f"{n}'s lines", ch["proc"])
+            gtls = children["global_tls"]
+            ctx = ssl.create_default_context(cafile=certs["ca"])
+            ctx.check_hostname = False
+            raw = socket.create_connection(
+                ("127.0.0.1", gtls["ports"]["tcp"]), timeout=10)
+            try:
+                with ctx.wrap_socket(raw) as s:
+                    s.sendall(b"edge.nocert:1|c\n")
+                    # TLS 1.3: the server's alert comes after the
+                    # client's handshake; an end of stream is a refusal
+                    refused = s.recv(1) == b""
+            except (ssl.SSLError, ConnectionResetError):
+                refused = True
+            wait_for(lambda: child_stats(gtls["ports"]["http"])["stats"].get(
+                "tls_handshake_errors", 0) == 1, 30,
+                "the refused handshake counted", gtls["proc"])
+            check(refused, "an mTLS server took a client without a "
+                           "certificate")
+            for n in ("global_tls", "global_plain"):
+                ch = children[n]
+                wait_for(lambda ch=ch: sealed(ch), EDGE_GLOBAL_S + 60,
+                         f"{n}'s first flush", ch["proc"])
+                ch["vars"] = child_stats(ch["ports"]["http"])
+                check(ch["vars"]["stats"].get("imports_received", 0) >= 1,
+                      f"{n} imported nothing")
+            for n in ("local_tls", "local_plain"):
+                st = child_stats(children[n]["ports"]["http"])["stats"]
+                check(st.get("forward_errors", 0) == 0 and
+                      st.get("forwarded_rows", 0) > 0,
+                      f"{n}'s forward: {st}")
+            chain = {"tls_vs_plain": hold_to(
+                first_flush(gtls["flush"]),
+                first_flush(children["global_plain"]["flush"]),
+                "the TLS chain vs the plaintext chain", exact_all=True),
+                "tls_vs_cpu": hold_to(
+                first_flush(gtls["flush"]), as_flush(want_glob),
+                "the TLS chain vs the CPU chain", exact_all=False,
+                gate_pct=False)}
+            out.update({"tls_handshakes": tls,
+                        "mtls_refused": {"client_refused": refused,
+                                         "tls_handshake_errors": 1},
+                        "chain": chain})
+
+            # the launches of the phase: every child's, from a zero start
+            launches = {}
+            for n, ch in children.items():
+                v = child_stats(ch["ports"]["http"])
+                ch["vars"] = v
+                lc = v["devicecost"]["launches"]
+                check(lc.get("cluster_merge.wide", 0) == 0,
+                      f"{n} merged wide: {lc}")
+                launches[n] = lc.get("cluster_merge", 0)
+            if dev == "cuda":
+                for n in ("uring1", "recvmmsg1", "uring4", "local_tls",
+                          "local_plain", "global_tls", "global_plain"):
+                    check(launches[n] > 0, f"{n} launched no merge")
+            out.update({
+                "cluster_merge_launches": sum(launches.values()),
+                "launches_by_child": launches,
+                "child_device_steps": {
+                    n: _device_steps(ch["vars"]["devicecost"])
+                    for n, ch in children.items()},
+                "rings": {n: children[n]["vars"]["sockets"]["uring"]
+                          for n in ("uring1", "uring4")}})
+            for ch in children.values():
+                check(http_get(ch["ports"]["http"], "/quitquitquit")
+                      == b"terminating", f"{ch['name']} /quitquitquit")
+            for ch in children.values():
+                try:
+                    ch["proc"].wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    pass
+        finally:
+            for ch in children.values():
+                if ch["proc"].poll() is None:
+                    ch["proc"].kill()
+                    ch["proc"].wait()
+                ch["log"].close()
+            ein.close()
+            ctrl.close()
+        logs = {}
+        for n in children:
+            with open(os.path.join(tmp, f"{n}.log")) as f:
+                logs[n] = f.read()
+    for n, ch in children.items():
+        check(ch["proc"].returncode == 0,
+              f"child {n} exit {ch['proc'].returncode}: {logs[n][-2000:]}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
 def _device_steps(dc: dict) -> dict:
     """A child's launch registry in brief: device steps run, the host
     seconds spent enqueueing them and their CUDA-event seconds."""
@@ -4353,9 +5130,10 @@ def main() -> int:
     table = phase_table()
     readers = phase_readers(table)
     del table["bufs"], table["exact_p99"], table["metrics"]
-    # one timed flat interval (and the profiled one) keeps the whole
-    # script, phase 13 included, well inside 1,200 s
-    glob = phase_global(intervals=1)
+    # one timed flat interval (and the profiled one) and a quarter of
+    # the stacked shape's wires keep the whole script, phases 13-15
+    # included, well inside 1,200 s
+    glob = phase_global(intervals=1, stack_wires=N_WIRES // 4)
     grpc_in = glob.pop("grpc_input")
     grpc_glob = phase_global_grpc(grpc_in)
     routing = phase_routing(grpc_in, grpc_glob.pop("metrics"))
@@ -4363,6 +5141,7 @@ def main() -> int:
     tiers = phase_tiers()
     crash = phase_crash_riding()
     span = phase_span_plane()
+    edge = phase_ingest_edge()
     # phase 2 again, at every other shape phases 4, 6, 8, 9, 10, 12 and
     # 13 merged at: the locals' sample batches unit-weight, the globals'
     # wires weighted (phase 12's local and globals merge together: their
@@ -4384,6 +5163,10 @@ def main() -> int:
     cases += recorded_cases(crash["weighted_shapes"], weighted=True,
                             timed=cases)
     cases += recorded_cases(span["merge_shapes"], timed=cases)
+    cases += recorded_cases(WARMUP_SHAPES, timed=cases)
+    cases += recorded_cases(edge["merge_shapes"], timed=cases)
+    cases += recorded_cases(edge["weighted_shapes"], weighted=True,
+                            timed=cases)
     kern.update(phase_kernel(cases=cases))
     phase_server()
     phase_chain()
@@ -4401,7 +5184,8 @@ def main() -> int:
                "tiers": tiers["cluster_merge_launches"],
                "routing_tiers": routing["cluster_merge_launches"],
                "crash_riding": crash["cluster_merge_launches"],
-               "span_plane": span["cluster_merge_launches"]}
+               "span_plane": span["cluster_merge_launches"],
+               "ingest_edge": edge["cluster_merge_launches"]}
     shapes_by_path = {"multi_reader": {n: r["merge_shapes"] for n, r in
                                        readers["runs"].items()},
                       "tiers": tiers["merge_shapes"],
@@ -4409,7 +5193,10 @@ def main() -> int:
                       "crash_riding": {"unit": crash["unit_shapes"],
                                        "weighted":
                                            crash["weighted_shapes"]},
-                      "span_plane": span["merge_shapes"]}
+                      "span_plane": span["merge_shapes"],
+                      "ingest_edge": {"unit": edge["merge_shapes"],
+                                      "weighted":
+                                          edge["weighted_shapes"]}}
     emit({"kernels": [{
         "name": "cluster_merge", "route": "cuda",
         "source": "veneur_tpu_torch/csrc/cluster_merge.cu",

@@ -46,6 +46,14 @@ NEW_KEYS = {
     "tpu_warmup": ("true", None),
     "compile_cache_dir": ("/tmp/cache", None),
     "accelerator_probe_timeout": ("5s", None),
+    "tpu_ingest_backend": ("recvmmsg", "io_uring"),
+    "tpu_uring_buffers": ("4096", 1000),
+    "http_address": ("einhorn@3", None),
+    "tls_key": ("/etc/veneur/key.pem", None),
+    "tls_certificate": ("/etc/veneur/cert.pem", None),
+    "tls_authority_certificate": ("/etc/veneur/ca.pem", None),
+    "forward_grpc_tls": ("true", None),
+    "forward_grpc_tls_ca": ("/etc/veneur/ca.pem", None),
 }
 
 
@@ -89,17 +97,45 @@ def test_stream_and_unix_statsd_addresses_accepted(addr):
 @pytest.mark.parametrize("key,value", [
     ("statsd_listen_addresses", ["quic://127.0.0.1:8126"]),
     ("ssf_listen_addresses", ["tcp://127.0.0.1:8128"]),
-    ("http_address", "einhorn@0"),
 ])
 def test_unsupported_listeners_refused(key, value):
     with pytest.raises(ValueError, match=key):
         read_config(data={key: value}, env={})
 
 
+# the ingest edge's keys, once refused by name: each value reads as the
+# reference reads it, and a bad value is refused by both with the same
+# message (the TLS keys are not validated at read time by either: a key
+# pair that cannot load fails the server's start, tests/test_torch_tls.py)
+@pytest.mark.parametrize("key,value,bad", [
+    ("http_address", "einhorn@0", None),
+    ("tpu_ingest_backend", "uring", "epoll"),
+    ("tpu_uring_buffers", 1024, 3),
+    ("tls_key", "k.pem", None), ("tls_certificate", "c.pem", None),
+    ("forward_grpc_tls", True, None),
+])
+def test_edge_keys_read_as_jax(key, value, bad):
+    got = getattr(read_config(data={key: value}, env={}), key)
+    assert got == getattr(jread_config(data={key: value}, env={}), key)
+    assert got == value
+    if bad is None:
+        return
+    with pytest.raises(ValueError) as want:
+        jread_config(data={key: bad}, env={})
+    with pytest.raises(ValueError) as got_err:
+        read_config(data={key: bad}, env={})
+    assert str(got_err.value) == str(want.value)
+
+
+def test_einhorn_address_needs_a_listener_number():
+    """``einhorn@`` with no number: the reference fails at start-up
+    (``int('')``), the port at read time, by the key's name."""
+    with pytest.raises(ValueError, match="http_address"):
+        read_config(data={"http_address": "einhorn@"}, env={})
+
+
 @pytest.mark.parametrize("key,value", [
-    ("tpu_ingest_backend", "uring"), ("tpu_uring_buffers", 1024),
-    ("tls_key", "k.pem"), ("tls_certificate", "c.pem"),
-    ("forward_grpc_tls", True), ("datadog_api_key", "x"),
+    ("datadog_api_key", "x"),
     ("sentry_dsn", "http://k@127.0.0.1:1/2"), ("tags_exclude", ["a"]),
     ("tpu_mesh_shards", 4), ("tpu_collective_forward", "on"),
 ])

@@ -715,9 +715,26 @@ def test_config_grpc_keys():
         read_config(data={"grpc_listen_addresses": ["udp://127.0.0.1:1"]})
 
 
-@pytest.mark.parametrize("key", ["forward_grpc_tls", "forward_grpc_tls_ca",
-                                 "tls_key", "tls_certificate",
-                                 "tls_authority_certificate"])
-def test_config_refuses_tls_keys(key):
-    with pytest.raises(ValueError, match=key):
-        read_config(data={key: "x"})
+@pytest.mark.parametrize("key,value", [
+    ("forward_grpc_tls", True), ("forward_grpc_tls_ca", "ca.pem"),
+    ("tls_key", "k.pem"), ("tls_certificate", "c.pem"),
+    ("tls_authority_certificate", "ca.pem")])
+def test_config_tls_keys_as_jax(key, value):
+    """The TLS keys read as the reference reads them, in ``Config`` and
+    from ``VENEUR_<KEY>``; the two forward keys on ``ProxyConfig`` too.
+    Neither package validates them at read time (a pair that cannot
+    load fails the server's start: tests/test_torch_tls.py)."""
+    from veneur_tpu.core.config import ProxyConfig as JProxyConfig
+    from veneur_tpu.core.config import read_config as jread_config
+    from veneur_tpu_torch.core.config import ProxyConfig
+    got = getattr(read_config(data={key: value}, env={}), key)
+    assert got == value == getattr(
+        jread_config(data={key: value}, env={}), key)
+    env = {"VENEUR_" + key.upper(): str(value)}
+    assert getattr(read_config(data={}, env=env), key) == getattr(
+        jread_config(data={}, env=env), key)
+    if key.startswith("forward_"):
+        data = {key: value, "forward_address": "127.0.0.1:1"}
+        assert getattr(read_config(data=data, env={}, cls=ProxyConfig),
+                       key) == getattr(jread_config(
+                           data=data, env={}, cls=JProxyConfig), key)

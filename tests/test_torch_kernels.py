@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions.
 
-This file imports JAX in one test only, which skips where JAX is not
+This file imports JAX in two tests only, which skip where JAX is not
 installed, so the file also runs where only PyTorch is installed.  The
 ``cuda``-marked cases need an NVIDIA GPU (a CUDA kernel has no CPU
 mode) and skip without one; run them on the card from the repo root
@@ -300,6 +300,88 @@ def test_plain_merge_flushes_subnormals_as_jax_pallas():
     qj = tdigest.quantile(torch.from_numpy(jm), torch.from_numpy(jw), qs)
     torch.testing.assert_close(qp, qj, rtol=2e-3, atol=1e-3,
                                equal_nan=True)
+
+
+def test_weighted_k48_gap_is_a_cluster_boundary_flip():
+    """The (6144, 48) weighted merge of phase 2 (a forwarded wire's
+    centroids, ``chip_smoke.random_case``) against the reference's
+    merges on the CPU: its ``arcsin`` (XLA's, which the Pallas kernel
+    in interpret mode replaces with a polynomial) and ``torch.asin``
+    differ by an ulp, and where that puts a centroid's k exactly on an
+    integer the floor puts it in the next cluster.  Every cluster id
+    of the whole input agrees with the XLA merge's but where k lies
+    within 1e-4 of an integer (4 of 1.9M live slots for
+    ``default_rng(2)``); one of those moves a quantile: row 2024's
+    element 33 has k = 62 here, 61.999992 in XLA, and the row's p10
+    moves by 0.72 against the Pallas kernel in interpret mode, outside
+    rtol 2e-3 / atol 1e-3.  The
+    Pallas kernel's own polynomial flips another row (``default_rng
+    (0)``, row 703: 46 clusters against XLA's and the port's 47)."""
+    import chip_smoke
+    jax = pytest.importorskip("jax")
+    jnp = pytest.importorskip("jax.numpy")
+    jtd = pytest.importorskip("veneur_tpu.ops.tdigest")
+    pallas_merge = pytest.importorskip("veneur_tpu.ops.pallas_merge")
+    comp = 100.0
+    cap, kw = tdigest.capacity_for(comp), _scale(comp)
+    delta = tdigest._SCALE_MULT * comp
+    cpu = jax.devices("cpu")[0]
+
+    def k_both(m, w, bm, bw):
+        mm, ww = np.concatenate([m, bm], 1), np.concatenate([w, bw], 1)
+        order = np.argsort(np.where(ww > 0, mm, np.inf), 1, kind="stable")
+        ww = np.take_along_axis(ww, order, 1)
+        q = ((np.cumsum(ww, 1, dtype=np.float32) - ww) /
+             ww.sum(1, keepdims=True)).astype(np.float32)
+        args = (kw["tail_coeff"], kw["tail_q0"], kw["tail_qmin"])
+        k0 = cluster_merge._k_scale(torch.zeros(()), delta, *args)
+        # 32 rows a call: under torch's parallel grain, so one thread
+        # computes every element (torch's CPU threads have been seen to
+        # disagree by up to 3e-5 relative on one 768-row chunk)
+        kt = torch.cat([cluster_merge._k_scale(
+            torch.from_numpy(q[r:r + 32]), delta, *args) - k0
+            for r in range(0, len(q), 32)])
+        with jax.default_device(cpu):
+            # a copy: a view of a temporary jax array's buffer may be
+            # reused once the temporary is gone
+            kj = np.array(jtd._k_scale(jnp.asarray(q), delta, comp) -
+                          jtd._k_scale(jnp.float32(0.0), delta, comp))
+        return kt.numpy(), kj, ww > 0
+
+    def merges(block):
+        t = [torch.from_numpy(a) for a in block]
+        pm, pw = cluster_merge.cluster_merge_plain(*t, **kw)
+        with jax.default_device(cpu):
+            j = [jnp.asarray(a) for a in block]
+            pal = pallas_merge.merge_planes(*j, **kw, interpret=True)
+        qs = torch.tensor([0.1], dtype=torch.float32)
+        out = {"port": tdigest.quantile(pm, pw, qs)[0, 0].item(),
+               "pallas": tdigest.quantile(
+                   *(torch.from_numpy(np.array(x)) for x in pal),
+                   qs)[0, 0].item(),
+               "clusters": (int((pw[0] > 0).sum()),
+                            int((np.array(pal[1])[0] > 0).sum()))}
+        return out
+
+    case = chip_smoke.random_case(np.random.default_rng(2), 6144, cap, 48,
+                                  weighted=True)
+    kt, kj, live = k_both(*case)
+    flip = (np.floor(kt) != np.floor(kj)) & live
+    near = np.abs(kt - np.round(kt)) < 1e-4
+    assert not (flip & ~near).any(), np.argwhere(flip & ~near)[:5]
+    assert [2024, 33] in np.argwhere(flip).tolist() and flip.sum() <= 8
+    assert (kt[2024, 33], float(kj[2024, 33]) < 62.0) == (62.0, True)
+    got = merges([a[2024:2032] for a in case])
+    assert got["port"] == pytest.approx(142.3095, abs=1e-3)
+    assert got["pallas"] == pytest.approx(143.0258, abs=1e-3)
+    assert abs(got["port"] - got["pallas"]) > 1e-3 + 2e-3 * 143.03
+    case0 = chip_smoke.random_case(np.random.default_rng(0), 6144, cap,
+                                   48, weighted=True)
+    kt0, kj0, live0 = k_both(*case0)
+    flip0 = (np.floor(kt0) != np.floor(kj0)) & live0
+    assert not (flip0 & ~(np.abs(kt0 - np.round(kt0)) < 1e-4)).any()
+    assert not flip0[703].any()
+    assert merges([a[703:711] for a in case0])["clusters"] == (47, 46)
 
 
 def test_ab_tool_variants_derive_from_the_kernel_source():

@@ -15,7 +15,10 @@
 - ``blackhole_sink`` and ``debug_flushed_metrics`` add the reference's
   sinks, in its order;
 - ``count_unique_timeseries`` reports the unique timeseries as the JAX
-  telemetry does.
+  telemetry does;
+- ``http_address: einhorn@0`` adopts einhorn's inherited listening
+  socket (``EINHORN_FD_0``) and acks the master over
+  ``EINHORN_SOCK_PATH``, as the JAX server does.
 """
 
 from __future__ import annotations
@@ -173,6 +176,48 @@ def test_http_lifecycle_endpoints(http_quit):
     assert got[0] == got[1]
     assert got[0][0] == 200 and got[0][1] == (200, b"dev")
     assert got[0][2] == (200 if http_quit else 404)
+
+
+def test_einhorn_socket_adoption(monkeypatch, tmp_path):
+    """The port of ``tests/test_server.py::test_einhorn_socket_adoption``,
+    for each package in turn: the server serves ``/healthcheck`` and
+    ``/version`` on the socket the master bound, and its ack names its
+    process."""
+    import json
+    import socket
+
+    got = []
+    for i, make in enumerate((
+            lambda d: Server(read_config(data=d), device="cpu"),
+            lambda d: JServer(jread_config(data=d)))):
+        lsock = socket.socket()
+        lsock.bind(("127.0.0.1", 0))
+        lsock.listen(8)
+        port = lsock.getsockname()[1]
+        ctrl = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        ctrl_path = str(tmp_path / f"einhorn{i}.sock")
+        ctrl.bind(ctrl_path)
+        ctrl.listen(1)
+        ctrl.settimeout(10)  # a missing ack fails, never hangs
+        monkeypatch.setenv("EINHORN_FD_0", str(lsock.fileno()))
+        monkeypatch.setenv("EINHORN_SOCK_PATH", ctrl_path)
+        srv = make({"interval": "10s", **_ROWS,
+                    "http_address": "einhorn@0"})
+        srv.start()
+        try:
+            conn, _ = ctrl.accept()
+            with conn:
+                ack = json.loads(conn.recv(4096).decode())
+            assert srv.http_port == port
+            got.append((ack, _get(port, "/healthcheck"),
+                        _get(port, "/version")[0]))
+        finally:
+            srv.shutdown()
+            ctrl.close()
+            lsock.close()
+    assert got[0] == got[1]
+    assert got[0] == ({"command": "worker:ack", "pid": os.getpid()},
+                      (200, b"ok"), 200)
 
 
 _WARM = (dsd.Sample("veneur.warmup", dsd.COUNTER, 1.0),

@@ -702,3 +702,161 @@ def test_failed_build_raises(tmp_path, monkeypatch):
         MetricTable(TableConfig(**_SIZES), device="cpu")
     with pytest.raises(RuntimeError):
         columnar.ColumnarParser()
+
+
+# ---- the io_uring ring ----------------------------------------------------
+
+def _uring_blocks(path) -> list[str]:
+    """The ``#ifdef VTPU_HAVE_URING`` blocks of a dsd_parse.cpp, with
+    comments and blank lines stripped."""
+    import re
+    text = open(path).read()
+    text = re.sub(r"/\*.*?\*/", "", text, flags=re.S)
+    text = re.sub(r"//[^\n]*", "", text)
+    lines = [ln.rstrip() for ln in text.split("\n") if ln.strip()]
+    blocks, cur = [], None
+    for ln in lines:
+        if ln == "#ifdef VTPU_HAVE_URING":
+            cur = []
+        if cur is not None:
+            cur.append(ln)
+            if ln == "#endif":
+                blocks.append("\n".join(cur))
+                cur = None
+    return blocks
+
+
+def test_uring_source_is_the_reference_text():
+    """The ring and its exports are the reference's code, comments
+    aside (two blocks: the ring, and the exports with their stubs)."""
+    import pathlib
+    ref = pathlib.Path(jnative.__file__).parent / "dsd_parse.cpp"
+    got, want = _uring_blocks(native.SOURCE), _uring_blocks(ref)
+    assert len(want) == 2 and got == want
+
+
+def _uring_refused(lib) -> bool:
+    return int(lib.vtpu_uring_probe()) != 0
+
+
+def test_uring_probe_and_bad_arguments_as_reference(libs):
+    """The probe answers alike, and both refuse the same bad pools
+    (not a power of two, buffers under 64 bytes) with EINVAL."""
+    import errno
+    from veneur_tpu.native import uring as juring
+    from veneur_tpu_torch.native import uring
+    tlib, jlib = libs
+    assert int(tlib.vtpu_uring_probe()) == int(jlib.vtpu_uring_probe())
+    sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    try:
+        for mod, lib in ((uring, tlib), (juring, jlib)):
+            for count, length in ((3, 128), (8, 16)):
+                err = ctypes.c_int64(0)
+                arena = np.zeros(max(count * length, 1), np.uint8)
+                h = lib.vtpu_uring_new(sock.fileno(), count, length,
+                                       _p(arena, ctypes.c_uint8),
+                                       ctypes.byref(err))
+                assert not h and err.value == errno.EINVAL
+            with pytest.raises(ValueError):
+                mod.UringReader(lib, sock.fileno(), 6, 128)
+    finally:
+        sock.close()
+
+
+def _ring_round(mod, lib, dgrams, fn, buf_len=257):
+    """A ring of the given module (16 buffers of ``buf_len``) over a
+    fresh socket, ``dgrams`` sent to it, then ``fn(ring)``; the ring and
+    socket closed."""
+    rx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    rx.bind(("127.0.0.1", 0))
+    tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    ring = mod.UringReader(lib, rx.fileno(), 16, buf_len)
+    try:
+        for d in dgrams:
+            tx.sendto(d, rx.getsockname())
+        return fn(ring)
+    finally:
+        ring.close()
+        rx.close()
+        tx.close()
+
+
+def test_uring_drain_bit_equal(libs):
+    """The copy-out drain: the same datagrams through each library's
+    ring give the same newline-joined bytes and counts, the oversize
+    datagram rejected whole, the empty one recycled uncounted, and the
+    same pool counters after."""
+    from veneur_tpu.native import uring as juring
+    from veneur_tpu_torch.native import uring
+    tlib, jlib = libs
+    if _uring_refused(tlib):
+        pytest.skip("io_uring refused by this kernel")
+    dgrams = [b"a:1|c", b"b:2|g\nc:3|ms", b"x" * 300, b"", b"d:4|s"]
+
+    def drain(ring):
+        out = np.zeros(16 * 258, np.uint8)
+        got, n, nov, neb = b"", 0, 0, 0
+        for _ in range(50):  # until every datagram completed
+            w, m, o, e = ring.drain(out, 16, 256, 100, 1)
+            got += out[:w].tobytes()
+            n, nov, neb = n + m, nov + o, neb + e
+            if n + nov >= len(dgrams) - 1:
+                break
+        st = ring.stats()
+        return got, n, nov, neb, {k: st[k] for k in (
+            "buf_count", "buf_len", "completions", "oversize", "enobufs",
+            "held_bufs", "armed", "dead_errno")}
+
+    got = _ring_round(uring, tlib, dgrams, drain)
+    want = _ring_round(juring, jlib, dgrams, drain)
+    assert got == want
+    assert got[2] == 1 and got[1] == 3
+    assert got[0] == b"a:1|c\nb:2|g\nc:3|ms\nd:4|s\n"
+
+
+def test_uring_parse_ingest_matches_jax_table():
+    """The in-place fused pass: the same datagrams (every line kind,
+    malformed ones included) through a port reader shard's
+    ``parse_ring`` and a JAX shard's give the same (processed, dropped,
+    others), the same staging and the same held datagrams; the buffers
+    stay held through the commit and return to the pool on release."""
+    from veneur_tpu.native import uring as juring
+    from veneur_tpu_torch.native import uring
+    if _uring_refused(native.load()):
+        pytest.skip("io_uring refused by this kernel")
+    rng = np.random.default_rng(12)
+    lines = _text(rng, 240)
+    dgrams = [b"\n".join(lines[i:i + 12]) for i in range(0, 240, 12)]
+    dgrams.append(b"y" * 1100)  # oversize: rejected whole
+
+    def run(mod, table):
+        shard = table.make_reader_shard()
+
+        def fn(ring):
+            n = nov = 0
+            outs = []
+            while n + nov < len(dgrams):
+                _w, m, o, _e = shard.parse_ring(ring, 8, 1024, 200, 1)
+                n, nov = n + m, nov + o
+                if not m:
+                    continue
+                held = ring.stats()["held_bufs"]
+                pending = ring.pending_copy()
+                outs.append((m, shard.commit(), held, pending,
+                             ring.stats()["held_bufs"]))
+                shard.reset()
+                ring.release()
+            return outs, n, nov, ring.stats()["held_bufs"]
+        return _ring_round(mod, table._lib, dgrams, fn, buf_len=1025)
+
+    jt, tt = _tables()
+    got, want = run(uring, tt), run(juring, jt)
+    assert got == want
+    outs, n, nov, held_after = got
+    assert (n, nov, held_after) == (len(dgrams) - 1, 1, 0)
+    assert all(m == held == held_commit for m, _c, held, _p, held_commit
+               in outs), "every parsed buffer held through the commit"
+    assert b"".join(p for _m, _c, _h, p, _hc in outs) == b"".join(
+        d + b"\n" for d in dgrams[:-1])
+    assert any(c[2] for _m, c, _h, _p, _hc in outs), "slow-path lines"
+    _assert_same_staging(tt, jt)

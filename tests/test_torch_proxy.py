@@ -393,13 +393,29 @@ def test_cli_proxy_loads_example_config(capsys):
         assert getattr(cfg, f) == getattr(jcfg, f)
 
 
-@pytest.mark.parametrize("key", ["forward_grpc_tls", "forward_grpc_tls_ca",
-                                 "sentry_dsn"])
+@pytest.mark.parametrize("key", ["sentry_dsn"])
 def test_proxy_config_refuses_unported_keys(key):
     with pytest.raises(ValueError, match=key):
         read_config(data={"forward_address": "a:1", key: "x"},
                     cls=ProxyConfig)
     jread_config(data={"forward_address": "a:1"}, cls=JProxyConfig)
+
+
+@pytest.mark.parametrize("key,value,env", [
+    ("forward_grpc_tls", True, "yes"),
+    ("forward_grpc_tls_ca", "ca.pem", "/etc/veneur/ca.pem")])
+def test_proxy_config_tls_keys_read_as_jax(key, value, env):
+    """The proxy's two forward TLS keys read as the reference reads
+    them, from the file and from ``VENEUR_<KEY>``."""
+    data = {"forward_address": "a:1", key: value}
+    got = getattr(read_config(data=data, cls=ProxyConfig), key)
+    assert got == value == getattr(
+        jread_config(data=data, cls=JProxyConfig), key)
+    e = {"VENEUR_" + key.upper(): env}
+    assert getattr(read_config(data={"forward_address": "a:1"}, env=e,
+                               cls=ProxyConfig), key) == getattr(
+        jread_config(data={"forward_address": "a:1"}, env=e,
+                     cls=JProxyConfig), key)
 
 
 def test_proxy_config_defaults_and_validation_match_jax():

@@ -534,10 +534,10 @@ def test_server_udp_flush_file(tmp_path):
 
 
 def test_config_refuses_unknown_keys(tmp_path):
-    # TLS for the gRPC forward is not in the port yet: its key is refused
-    with pytest.raises(ValueError, match="forward_grpc_tls"):
+    # a key neither package knows is refused by name
+    with pytest.raises(ValueError, match="forward_grpc_tsl"):
         read_config(data={"interval": "2s",
-                          "forward_grpc_tls": True})
+                          "forward_grpc_tsl": True})
     p = tmp_path / "c.yaml"
     p.write_text(json.dumps({"interval": "2s", "percentiles": [0.5]}))
     assert read_config(str(p)).percentiles == [0.5]
@@ -563,8 +563,8 @@ _READER_KEYS = ("num_readers", "tpu_multi_reader_fused",
 def test_config_reader_pipeline_emit_keys_as_reference():
     """The reader, pipeline and emit keys keep the reference's names
     and defaults, read the reference's example.yaml values, take the
-    reference's environment overrides, and validate alike; the io_uring
-    backend key is still refused by name."""
+    reference's environment overrides, and validate alike, the drain
+    tier key (``tpu_ingest_backend``) with them."""
     import os
 
     import yaml
@@ -592,14 +592,24 @@ def test_config_reader_pipeline_emit_keys_as_reference():
                 {"tpu_reader_pin_cores": "x,y"}):
         with pytest.raises(ValueError, match=next(iter(bad))):
             read_config(data=bad, env={})
-    with pytest.raises(ValueError, match="tpu_ingest_backend"):
-        read_config(data={"tpu_ingest_backend": "recvmmsg"})
+    assert read_config(data={"tpu_ingest_backend": "recvmmsg"},
+                       env={}).tpu_ingest_backend == jconfig.read_config(
+        data={"tpu_ingest_backend": "recvmmsg"},
+        env={}).tpu_ingest_backend == "recvmmsg"
+    with pytest.raises(ValueError, match="tpu_ingest_backend") as got:
+        read_config(data={"tpu_ingest_backend": "rcvmmsg"}, env={})
+    with pytest.raises(ValueError) as want:
+        jconfig.read_config(data={"tpu_ingest_backend": "rcvmmsg"}, env={})
+    assert str(got.value) == str(want.value)
 
 
 def _udp_config(num_readers: int, fused: bool = True):
+    # the recvmmsg tier: its readers hand each sweep to
+    # handle_packet_batch, which the tests below watch (the ring tier's
+    # readers are held against the JAX server in test_torch_uring.py)
     return read_config(data={
         "interval": "60s", "hostname": "h", "num_readers": num_readers,
-        "tpu_multi_reader_fused": fused,
+        "tpu_multi_reader_fused": fused, "tpu_ingest_backend": "recvmmsg",
         "statsd_listen_addresses": ["udp://127.0.0.1:0"],
         "percentiles": [0.5, 0.99], "tpu_counter_rows": 64,
         "tpu_gauge_rows": 64, "tpu_histo_rows": 64, "tpu_set_rows": 8},
@@ -783,7 +793,8 @@ assert {"veneur_tpu_torch.core.frame",
         "veneur_tpu_torch.ops.fdpass",
         "veneur_tpu_torch.forward.handoff",
         "veneur_tpu_torch.chaos",
-        "veneur_tpu_torch.chaos.injector"} <= set(names)
+        "veneur_tpu_torch.chaos.injector",
+        "veneur_tpu_torch.native.uring"} <= set(names)
 from veneur_tpu_torch.core.table import MetricTable, TableConfig
 from veneur_tpu_torch.forward import gob_codec
 MetricTable(TableConfig(histo_rows=8), device="cpu")

@@ -307,6 +307,6 @@ def test_stats_address_without_port_is_config_error(addr):
 def test_unknown_scope_refused_and_later_keys_still_refused():
     with pytest.raises(ValueError, match="veneur_metrics_scopes"):
         read_config(data={"veneur_metrics_scopes": {"counter": "nope"}})
-    for key in ("tls_key", "tpu_ingest_backend", "sentry_dsn"):
+    for key in ("datadog_api_key", "tpu_mesh_shards", "sentry_dsn"):
         with pytest.raises(ValueError, match="not supported"):
             read_config(data={key: 1})

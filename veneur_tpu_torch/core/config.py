@@ -121,6 +121,16 @@ class Config:
     # reader i pinned to one core: "auto" (core i when there are at
     # least as many cores as readers), "off", or a comma list of cores
     tpu_reader_pin_cores: str = "auto"
+    # the UDP readers' drain tier: "uring" (an io_uring multishot
+    # receive into a registered buffer pool, parsed in place),
+    # "recvmmsg" (one bulk-drain syscall a batch), "python" (one recv a
+    # packet); "auto" picks uring where the start-up probe grants it,
+    # else recvmmsg.  A ring refused or dead at runtime drops that
+    # reader one tier, counted by reason.
+    tpu_ingest_backend: str = "auto"
+    # provided buffers per reader ring (a power of two in [2, 32768]),
+    # each one datagram of up to metric_max_length bytes
+    tpu_uring_buffers: int = 2048
     # staged samples that trigger a mid-interval device step
     tpu_stage_flush_samples: int = 65536
     # detach staged work under the ingest lock and apply it outside it
@@ -130,9 +140,16 @@ class Config:
     # emit the flush as a columnar MetricFrame (false: the per-row
     # emit)
     tpu_columnar_emit: bool = True
-    # HTTP listener ("host:port"): /healthcheck, /debug/vars and
-    # POST /import
+    # HTTP listener ("host:port", or "einhorn@N": adopt einhorn's
+    # inherited listening fd N and ack its master): /healthcheck,
+    # /debug/vars and POST /import
     http_address: str = ""
+    # TLS on the TCP statsd and gRPC listeners (file path or inline
+    # PEM); with an authority certificate, clients must present a
+    # certificate it signed (mutual TLS)
+    tls_key: str = ""
+    tls_certificate: str = ""
+    tls_authority_certificate: str = ""
     # gRPC listeners ("tcp://host:port"): forward import, DogStatsD
     # packets and grpc health on one port each
     grpc_listen_addresses: list[str] = field(default_factory=list)
@@ -145,6 +162,12 @@ class Config:
     # send it as a gRPC MetricList (forward_address is host:port) instead
     # of an HTTP /import POST
     forward_use_grpc: bool = False
+    # dial the gRPC global (and the recovery and handoff peers) over
+    # TLS: system roots, or the CA pinned by forward_grpc_tls_ca (file
+    # path or inline PEM, which implies TLS); tls_key/tls_certificate
+    # double as the client pair for mutual TLS
+    forward_grpc_tls: bool = False
+    forward_grpc_tls_ca: str = ""
     # the /import body a local sends: "native" (carries scope) or
     # "reference" (the Go JSONMetric wire: gob digests)
     forward_json_schema: str = "native"
@@ -310,6 +333,17 @@ class Config:
                   "tpu_stage_flush_samples"):
             if getattr(self, n) <= 0:
                 problems.append(f"{n} must be positive")
+        if self.tpu_ingest_backend not in ("auto", "uring",
+                                           "recvmmsg", "python"):
+            problems.append(
+                "tpu_ingest_backend must be auto, uring, recvmmsg "
+                "or python")
+        if self.tpu_uring_buffers < 2 or \
+                self.tpu_uring_buffers > 32768 or \
+                self.tpu_uring_buffers & (self.tpu_uring_buffers - 1):
+            problems.append(
+                "tpu_uring_buffers must be a power of two in "
+                "[2, 32768]")
         if self.num_span_workers <= 0:
             problems.append("num_span_workers must be positive")
         pin = self.tpu_reader_pin_cores
@@ -392,10 +426,16 @@ class Config:
         if not (0.0 < self.tpu_overload_exit_ratio <= 1.0):
             problems.append(
                 "tpu_overload_exit_ratio must be in (0, 1]")
-        if self.http_address and not self.http_address.rpartition(
+        if self.http_address.startswith("einhorn@"):
+            if not self.http_address[len("einhorn@"):].isdigit():
+                problems.append(
+                    f"http_address einhorn@N needs a listener number: "
+                    f"{self.http_address}")
+        elif self.http_address and not self.http_address.rpartition(
                 ":")[2].isdigit():
             problems.append(
-                f"http_address needs host:port: {self.http_address}")
+                f"http_address needs host:port or einhorn@N: "
+                f"{self.http_address}")
         if self.tpu_compression <= 0:
             problems.append("tpu_compression must be positive")
         for scope_type, scope in self.veneur_metrics_scopes.items():
@@ -431,6 +471,9 @@ _ENV_KEYS = ("tags", "debug", "flush_watchdog_missed_flushes",
              "accelerator_probe_timeout",
              "tpu_pipeline", "tpu_multi_reader_fused",
              "tpu_reader_pin_cores", "tpu_columnar_emit",
+             "tpu_ingest_backend", "tpu_uring_buffers", "http_address",
+             "tls_key", "tls_certificate", "tls_authority_certificate",
+             "forward_grpc_tls", "forward_grpc_tls_ca",
              "stats_address", "veneur_metrics_scopes",
              "veneur_metrics_additional_tags", "enable_profiling", "tpu_ledger_strict",
              "tpu_trace_propagation", "tpu_signal_history",
@@ -477,9 +520,8 @@ def _coerce(cls, name: str, raw: str):
 @dataclass
 class ProxyConfig:
     """veneur-proxy configuration (reference config_proxy.go), with the
-    reference's defaults and validation.  The TLS keys
-    (``forward_grpc_tls``, ``forward_grpc_tls_ca``) and ``sentry_dsn``
-    are not ported and are refused by name."""
+    reference's defaults and validation.  ``sentry_dsn`` alone is not
+    ported and is refused by name."""
     debug: bool = False
     http_address: str = ""
     grpc_address: str = ""
@@ -516,6 +558,11 @@ class ProxyConfig:
     max_idle_conns_per_host: int = 0
     # Go pprof flag: a no-op (the proxy does no device work)
     enable_profiling: bool = False
+    # dial TLS gRPC globals (the server's forward_grpc_tls and
+    # forward_grpc_tls_ca: system roots, or a pinned CA as a file path
+    # or inline PEM)
+    forward_grpc_tls: bool = False
+    forward_grpc_tls_ca: str = ""
     # the columnar route (native decode, vectorized ring assignment,
     # per-destination workers); false: the per-item loop, the oracle
     tpu_columnar_proxy: bool = True

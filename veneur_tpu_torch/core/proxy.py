@@ -557,10 +557,23 @@ class ProxyServer:
             client = self._clients.get(dest)
             if client is None:
                 client = ForwardClient(
-                    dest, timeout=self.config.forward_timeout)
+                    dest, timeout=self.config.forward_timeout,
+                    credentials=self._grpc_channel_credentials())
                 self._clients[dest] = client
         client.send_wire(body, timeout=self.config.forward_timeout,
                          metadata=metadata)
+
+    def _grpc_channel_credentials(self):
+        """TLS channel credentials for the gRPC globals
+        (``forward_grpc_tls``: system roots; ``forward_grpc_tls_ca``: a
+        pinned CA, file path or inline PEM), None for insecure."""
+        c = self.config
+        if not (c.forward_grpc_tls or c.forward_grpc_tls_ca):
+            return None
+        from veneur_tpu_torch.core.server import _pem_bytes
+        root = (_pem_bytes(c.forward_grpc_tls_ca)
+                if c.forward_grpc_tls_ca else None)
+        return grpc.ssl_channel_credentials(root_certificates=root)
 
     def _send_grpc(self, dest: str, batch: list,
                    trace_ctx=None) -> None:
@@ -573,7 +586,8 @@ class ProxyServer:
                 client = self._clients.get(dest)
                 if client is None:
                     client = ForwardClient(
-                        dest, timeout=self.config.forward_timeout)
+                        dest, timeout=self.config.forward_timeout,
+                        credentials=self._grpc_channel_credentials())
                     self._clients[dest] = client
             client._call(forward_pb2.MetricList(metrics=batch),
                          timeout=self.config.forward_timeout,

@@ -4,18 +4,29 @@ flushes out.
 Port of ``veneur_tpu/core/server.py``.  Each ``udp://`` statsd address
 gets ``num_readers`` reader threads, each on its own socket (bound with
 SO_REUSEPORT when there is more than one, so the kernel spreads the
-senders over them).  A reader blocks on its first datagram, then drains
-whatever else is queued with one native recvmmsg sweep
+senders over them), on the drain tier ``tpu_ingest_backend`` resolves
+to once, before the first reader starts.  On ``uring`` (where the
+start-up probe grants it) a reader's io_uring multishot receive lands
+datagrams in a registered buffer pool and ``ReaderShard.parse_ring``
+parses them in place (no syscall or copy a packet); a ring refused or
+dead at runtime puts that reader on recvmmsg, counted by reason, and
+its ENOBUFS drops join the kernel drops the ledger and the pressure
+tick read.  On ``recvmmsg`` a reader blocks on its first datagram, then
+drains whatever else is queued with one native recvmmsg sweep
 (``vtpu_recv_drain``; datagrams over ``metric_max_length`` are rejected
 whole and counted as packet errors) and hands the batch to
-``handle_packet_batch``.  One reader runs the fused native parse +
+``handle_packet_batch``; on ``python``, one ``recv`` a datagram.  One
+reader runs the fused native parse +
 probe + combine (``MetricTable.ingest_buffer``) under the table lock;
 several each parse into a ``ReaderShard`` of their own without the
 lock and merge under it (or, with ``tpu_multi_reader_fused: false``,
 parse into columns outside the lock and ``ingest_columns`` under it).
 Events, service checks and malformed lines take the per-line parser.
 A ``tcp://`` statsd address gets an acceptor and a thread a connection
-(each read's complete lines go through ``handle_packet_batch``); a
+(each read's complete lines go through ``handle_packet_batch``), under
+TLS with ``tls_key`` and ``tls_certificate`` (mutual with
+``tls_authority_certificate``; a failed handshake is counted in
+``tls_handshake_errors``); a
 ``unix://`` one (``unixgram://``) a datagram reader on a path held by a
 ``<path>.lock`` flock.
 
@@ -40,19 +51,25 @@ the table every interval, reads it out as a columnar ``MetricFrame``
 (``tpu_columnar_emit``), routes the frame to each sink and hands the
 flush-file plugin the materialized list (``flush_once``).
 
-With ``http_address`` set, a ``ThreadingHTTPServer`` answers
-``/healthcheck``, ``/debug/vars`` (the server's counters) and ``POST
-/import``: each body is decoded and merged into the table under the
-table lock (``http_import.apply_import``); a malformed body is answered
-400 and counted.  Each ``grpc_listen_addresses`` entry starts an
-``ImportServer`` (``forward/grpc_forward.py``): ``forwardrpc.Forward/
-SendMetrics`` decodes each wire natively outside the table lock and
+With ``http_address`` set (``host:port``, or ``einhorn@N``: einhorn's
+inherited listening fd N, acked to its master), a
+``ThreadingHTTPServer`` answers ``/healthcheck``, ``/debug/vars`` (the
+server's counters) and ``POST /import``: each body is decoded and
+merged into the table under the table lock
+(``http_import.apply_import``); a malformed body is answered 400 and
+counted.  Each ``grpc_listen_addresses`` entry starts an
+``ImportServer`` (``forward/grpc_forward.py``; over TLS with the same
+key material): ``forwardrpc.Forward/SendMetrics`` decodes each wire
+natively outside the table lock and
 merges it under the lock, ``dogstatsd.DogstatsdGRPC/SendPacket`` feeds
 ``handle_packet``, and ``grpc.health.v1.Health/Check`` answers.  With
 ``forward_address`` set the node is a local: its flusher forwards
 mergeable state after every flush, POSTed to the global's ``/import``
 or, with ``forward_use_grpc``, sent as one MetricList through a client
-dialled once (a failed send is counted and logged, never retried).
+dialled once (a failed send is counted and logged, never retried); with
+``forward_grpc_tls`` or ``forward_grpc_tls_ca`` every gRPC dialer (the
+forward, the sharded forward's workers, the recovery client, the
+handoff shipper) dials over TLS.
 With ``tpu_sharded_global`` (gRPC only) the MetricList is split by
 route-key consistent hash across the ``forward_address`` members, or
 the members Consul names, through a ``ShardedForwarder``: one bounded
@@ -90,6 +107,7 @@ import json
 import logging
 import os
 import socket
+import ssl
 import threading
 import time
 import urllib.request
@@ -116,6 +134,7 @@ from veneur_tpu_torch.forward.discovery import ConsulDiscoverer
 from veneur_tpu_torch.forward.shard import (DeadlineExceeded,
                                             ShardedForwarder)
 from veneur_tpu_torch.forward.spool import Spooled, WireSpool
+from veneur_tpu_torch.native import uring
 from veneur_tpu_torch.ops import checkpoint as ckpt
 from veneur_tpu_torch.ops import cluster_merge, fdpass
 from veneur_tpu_torch.protocol import addr as addrmod
@@ -152,6 +171,34 @@ def use_build_dir(path: str) -> None:
     d = Path(path).resolve()
     native.BUILD_DIR = d
     cluster_merge.BUILD_DIR = d
+
+
+def _is_inline_pem(value: str) -> bool:
+    """TLS config values are PEM material inline (the reference's
+    example.yaml style) or file paths."""
+    return value.lstrip().startswith("-----BEGIN")
+
+
+def _pem_bytes(value: str) -> bytes:
+    if _is_inline_pem(value):
+        return value.encode()
+    with open(value, "rb") as f:
+        return f.read()
+
+
+def _matfile(value: str) -> str:
+    """A TLS value as a file path: inline PEM is written to a 0600
+    temporary file that is unlinked at exit, so a private key never
+    outlives the process on disk."""
+    if not _is_inline_pem(value):
+        return value
+    import atexit
+    import tempfile
+    fd, path = tempfile.mkstemp(suffix=".pem")
+    with os.fdopen(fd, "w") as f:  # mkstemp creates it 0600
+        f.write(value)
+    atexit.register(lambda: os.path.exists(path) and os.unlink(path))
+    return path
 
 
 def _is_deadline_error(err) -> bool:
@@ -313,8 +360,20 @@ class Server:
                 exit_ratio=float(config.tpu_overload_exit_ratio),
                 coalesce=bool(config.tpu_overload_coalesce))
         # kernel UDP receive drops: socket inode -> the cumulative count
-        # at the last flush, so each interval records its delta
+        # at the last flush, so each interval records its delta; the
+        # ring's ENOBUFS drops likewise
         self._kernel_drops_last: dict[int, int] = {}
+        self._uring_enobufs_last = 0
+        # the UDP readers' drain tier, resolved once before the first
+        # reader starts ("uring", "recvmmsg" or "python"), the start-up
+        # probe's -errno, and the live rings by reader thread name
+        self.ingest_backend: str | None = None
+        self._uring_probe_err = 0
+        self._backend_fallback_logged = False
+        self._urings: dict[str, object] = {}
+        # TLS on the TCP statsd listener (None: plaintext); a bad
+        # combination of keys fails here, before any listener binds
+        self._tls_context = self._build_tls()
         # crash riding: listener fds a predecessor handed down
         # (VENEUR_TPU_SOCK_CLOAKED), the live listeners by slot name for
         # a successor, the incarnation id stamping checkpoint segments
@@ -430,7 +489,9 @@ class Server:
             self._start_http(self.config.http_address)
         for a in self.config.grpc_listen_addresses:
             _, host, port, _ = addrmod.parse_addr(a)
-            srv = grpc_forward.ImportServer(self, f"{host}:{port}")
+            srv = grpc_forward.ImportServer(
+                self, f"{host}:{port}",
+                credentials=self._grpc_credentials())
             srv.start()
             self.grpc_servers.append(srv)
             self.grpc_ports.append(srv.port)
@@ -455,6 +516,62 @@ class Server:
                 self.bump("recovery_errors")
                 log.exception("checkpoint recovery failed")
 
+    # ------------------------------------------------------------------
+    # TLS
+
+    def _build_tls(self) -> ssl.SSLContext | None:
+        """TLS, mutual with an authority certificate, for the TCP statsd
+        listener (reference server.go:484-518): ``tls_key`` and
+        ``tls_certificate`` turn it on; ``tls_authority_certificate``
+        alone is a configuration error."""
+        c = self.config
+        if not (c.tls_key and c.tls_certificate):
+            if c.tls_authority_certificate:
+                raise ValueError(
+                    "tls_authority_certificate requires tls_key and "
+                    "tls_certificate")
+            return None
+        ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+        ctx.load_cert_chain(certfile=_matfile(c.tls_certificate),
+                            keyfile=_matfile(c.tls_key))
+        if c.tls_authority_certificate:
+            ctx.load_verify_locations(
+                cafile=_matfile(c.tls_authority_certificate))
+            ctx.verify_mode = ssl.CERT_REQUIRED
+        return ctx
+
+    def _grpc_credentials(self):
+        """Server credentials for the gRPC listeners from the same TLS
+        material (reference networking.go:333-340); an authority
+        certificate makes client certificates mandatory."""
+        c = self.config
+        if not (c.tls_key and c.tls_certificate):
+            return None
+        root = (_pem_bytes(c.tls_authority_certificate)
+                if c.tls_authority_certificate else None)
+        return grpc.ssl_server_credentials(
+            [(_pem_bytes(c.tls_key), _pem_bytes(c.tls_certificate))],
+            root_certificates=root,
+            require_client_auth=root is not None)
+
+    def _forward_grpc_credentials(self):
+        """Channel credentials for dialing a TLS gRPC global, its
+        recovery peer or a handoff peer (``forward_grpc_tls`` /
+        ``forward_grpc_tls_ca``); the node's key and certificate, when
+        set, are the client pair for mutual TLS.  None: insecure."""
+        c = self.config
+        if not (c.forward_grpc_tls or c.forward_grpc_tls_ca):
+            return None
+        root = (_pem_bytes(c.forward_grpc_tls_ca)
+                if c.forward_grpc_tls_ca else None)
+        key = cert = None
+        if c.tls_key and c.tls_certificate:
+            key = _pem_bytes(c.tls_key)
+            cert = _pem_bytes(c.tls_certificate)
+        return grpc.ssl_channel_credentials(
+            root_certificates=root, private_key=key,
+            certificate_chain=cert)
+
     def _start_statsd(self, addr: str, index: int) -> None:
         """One statsd address: ``udp://`` gets ``num_readers`` readers,
         each on its own socket (SO_REUSEPORT when there are several, a
@@ -464,6 +581,9 @@ class Server:
         scheme, host, port, path = addrmod.parse_addr(addr)
         rcvbuf = self.config.read_buffer_size_bytes
         if scheme == "udp":
+            # the drain tier (and, under "auto" or "uring", the probe)
+            # before the readers spawn, so a refused probe counts once
+            self._resolve_ingest_backend()
             n = max(1, self.config.num_readers)
             for i in range(n):
                 slot = f"statsd.udp.{index}.{i}"
@@ -498,6 +618,13 @@ class Server:
             sock.bind((host, port))
             sock.listen(128)
             sock.settimeout(0.2)
+            if self._tls_context is not None:
+                # TLS on the listener (reference server.go:484-518);
+                # each handshake runs in its connection's thread, so a
+                # slow client cannot hold the acceptor
+                sock = self._tls_context.wrap_socket(
+                    sock, server_side=True,
+                    do_handshake_on_connect=False)
             self._listeners.append(sock)
             self.statsd_ports.append(sock.getsockname()[1])
             self._spawn("tcp-acceptor", self._acceptor, sock,
@@ -566,6 +693,11 @@ class Server:
                 conn, _ = sock.accept()
             except socket.timeout:
                 continue
+            except ssl.SSLError:
+                # a failed handshake: count it and keep accepting
+                if not self._shutdown.is_set():
+                    self.bump("tls_handshake_errors")
+                continue
             except OSError:
                 return
             conn.settimeout(None)
@@ -589,6 +721,16 @@ class Server:
         longer than ``metric_max_length`` is a packet error; the
         connection closes after ``_TCP_IDLE_S`` idle."""
         conn.settimeout(_TCP_IDLE_S)
+        if isinstance(conn, ssl.SSLSocket):
+            # the handshake, in this connection's thread; a client
+            # without a certificate the authority signed fails here
+            try:
+                conn.do_handshake()
+            except (OSError, ssl.SSLError):
+                if not self._shutdown.is_set():
+                    self.bump("tls_handshake_errors")
+                self._close_conn(conn)
+                return
         max_len = self.config.metric_max_length
         buf = b""
         try:
@@ -815,6 +957,20 @@ class Server:
              self._httpd.server_port) = adopted.getsockname()[:2]
             self.restarts_adopted += 1
             self.bump("listener_fds_adopted")
+        elif address.startswith("einhorn@"):
+            # einhorn's inherited listening socket (reference README
+            # "Einhorn Usage": http_address einhorn@0), then the worker
+            # ack, so the master stops routing to the old worker
+            _, _, fd_idx, _ = addrmod.parse_addr(address)
+            sock = socket.fromfd(int(os.environ[f"EINHORN_FD_{fd_idx}"]),
+                                 socket.AF_INET, socket.SOCK_STREAM)
+            self._httpd = http.server.ThreadingHTTPServer(
+                sock.getsockname()[:2], Handler, bind_and_activate=False)
+            self._httpd.socket.close()
+            self._httpd.socket = sock
+            (self._httpd.server_name,
+             self._httpd.server_port) = sock.getsockname()[:2]
+            self._einhorn_ack()
         else:
             self._httpd = http.server.ThreadingHTTPServer(
                 (host or "127.0.0.1", int(port)), Handler)
@@ -822,6 +978,22 @@ class Server:
         self.http_port = self._httpd.server_port
         self._cloak_slots["http"] = self._httpd.socket
         self._spawn("http", self._httpd.serve_forever)
+
+    def _einhorn_ack(self) -> None:
+        """The einhorn worker ack over ``EINHORN_SOCK_PATH`` (a wedged
+        master gets 5 s, then a warning: start-up goes on)."""
+        path = os.environ.get("EINHORN_SOCK_PATH")
+        if not path:
+            return
+        try:
+            with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as c:
+                c.settimeout(5.0)
+                c.connect(path)
+                c.sendall((json.dumps({"command": "worker:ack",
+                                       "pid": os.getpid()})
+                           + "\n").encode())
+        except OSError as e:
+            log.warning("einhorn ack failed: %s", e)
 
     def handle_import(self, body: bytes, content_encoding: str = "",
                       headers=None) -> int:
@@ -964,15 +1136,72 @@ class Server:
             return self.table.make_reader_shard()
         return None
 
+    def _resolve_ingest_backend(self) -> str:
+        """``tpu_ingest_backend`` as the tier the UDP readers run:
+        "uring", "recvmmsg" or "python"; "auto" and "uring" probe the
+        kernel, and a refusal lands on recvmmsg, counted by reason.
+        Resolved once: the answer cannot change within a process."""
+        if self.ingest_backend is not None:
+            return self.ingest_backend
+        mode = self.config.tpu_ingest_backend
+        if mode in ("python", "recvmmsg"):
+            self.ingest_backend = mode
+            return mode
+        err = uring.probe(native.load())
+        self._uring_probe_err = err
+        if err == 0:
+            self.ingest_backend = "uring"
+        else:
+            self.ingest_backend = "recvmmsg"
+            self._note_backend_fallback(
+                uring.probe_reason(err),
+                "start-up probe refused (%s)" % os.strerror(-err))
+        return self.ingest_backend
+
+    def _note_backend_fallback(self, reason: str, detail: str) -> None:
+        """Count (by reason) and log once a drop from the ring to the
+        recvmmsg tier."""
+        self.bump("socket_backend_fallback")
+        self.bump(f"socket_backend_fallback_{reason}")
+        if not self._backend_fallback_logged:
+            self._backend_fallback_logged = True
+            log.warning("io_uring ingest unavailable: %s; readers run "
+                        "the recvmmsg drain tier", detail)
+
     def _udp_reader(self, sock: socket.socket, index: int = 0,
                     proto: str = "dogstatsd-udp") -> None:
+        """One datagram reader on the resolved tier.  "uring": the
+        multishot ring, parsed in place (``_uring_reader``); a ring
+        refused or dead at runtime continues this reader on recvmmsg,
+        never ends it.  "recvmmsg": block on the first datagram, then
+        drain the queue with one ``vtpu_recv_drain`` sweep.  "python":
+        one ``recv`` and one batch a datagram."""
         self._pin_reader_core(index)
         shard = self._reader_shard()
-        lib = native.load()
+        backend = self._resolve_ingest_backend()
+        if (backend == "uring" and proto == "dogstatsd-udp"
+                and sock.family == socket.AF_INET):
+            # the ring's in-place parse is a shard pass, one reader too
+            if self._uring_reader(sock, proto,
+                                  shard or self.table.make_reader_shard()):
+                return  # clean shutdown on the ring
         max_len = self.config.metric_max_length
         # one byte past the limit: a longer datagram arrives truncated
         # to max_len + 1 and is rejected
         bufsize = max_len + 1
+        if backend == "python":
+            while not self._shutdown.is_set():
+                try:
+                    data = sock.recv(bufsize)
+                except socket.timeout:
+                    continue
+                except OSError:
+                    return
+                if data:
+                    self.handle_packet_batch([data], shard=shard)
+                    self.bump(f"received_{proto}")
+            return
+        lib = native.load()
         sweep = min(self.config.reader_batch_packets - 1, _DRAIN_MAX)
         drain_buf = np.empty(max(1, sweep) * (bufsize + 1), np.uint8)
         drain_ptr = native.ptr(drain_buf, ctypes.c_uint8)
@@ -1004,6 +1233,116 @@ class Server:
                 threading.current_thread().name, n_pkts, processed,
                 time.monotonic_ns() - t0, fused=shard is not None)
             self.bump(f"received_{proto}", n_pkts)
+
+    def _uring_reader(self, sock: socket.socket, proto: str,
+                      shard) -> bool:
+        """The io_uring tier: True on a clean shutdown, False when the
+        ring could not be built or died (the caller goes on with the
+        recvmmsg tier).  The kernel lands datagrams in the ring's
+        buffer pool while the previous batch parses, and
+        ``ReaderShard.parse_ring`` reads them in place; the buffers
+        behind slow-path lines are released after the commit.  While
+        overload admission is active the ring drains by copy into
+        ``handle_packet_batch``, whose columnar branch admits."""
+        max_len = self.config.metric_max_length
+        try:
+            ring = uring.UringReader(native.load(), sock.fileno(),
+                                     self.config.tpu_uring_buffers,
+                                     max_len + 1)
+        except (uring.UringError, ValueError) as e:
+            self._note_backend_fallback(getattr(e, "reason", "error"),
+                                        "ring setup failed (%s)" % e)
+            return False
+        name = threading.current_thread().name
+        self._urings[name] = ring
+        drain_buf = np.empty(min(ring.buf_count, _DRAIN_MAX)
+                             * (max_len + 2), np.uint8)
+        # a walk takes at most half the pool: the in-place pass holds
+        # its buffers through the commit, and a walk that held them all
+        # would end the multishot receive with ENOBUFS every cycle
+        max_msgs = max(1, ring.buf_count // 2)
+        # the last walk's size asks the kernel to pool completions
+        # under load; at a trickle, a wake a datagram
+        wait_batch = 1
+        max_batch = min(max_msgs, _DRAIN_MAX)
+        try:
+            while not self._shutdown.is_set():
+                # idle, a walk waits 200 ms: the readers' shutdown check
+                # (the sockets' timeout), where the reference waits 1 s
+                wait_ms = 50 if wait_batch > 1 else 200
+                try:
+                    t0 = time.monotonic_ns()
+                    if (self.overload is not None
+                            and self.overload.admission_active):
+                        nbytes, n_msgs, n_over, n_eb = ring.drain(
+                            drain_buf, max_batch, max_len, wait_ms,
+                            wait_batch)
+                        self._uring_batch_stats(proto, n_over, n_eb)
+                        wait_batch = min(max_batch, max(1, n_msgs // 2))
+                        if n_msgs == 0:
+                            continue
+                        processed = self.handle_packet_batch(
+                            [], drained=drain_buf[:nbytes].tobytes(),
+                            drained_pkts=n_msgs)
+                        fused = False
+                    else:
+                        nbytes, n_msgs, n_over, n_eb = shard.parse_ring(
+                            ring, max_msgs, max_len, wait_ms, wait_batch)
+                        self._uring_batch_stats(proto, n_over, n_eb)
+                        wait_batch = min(max_batch, max(1, n_msgs // 2))
+                        if n_msgs == 0:
+                            continue
+                        processed = self._commit_ring(shard, ring, n_msgs)
+                        fused = True
+                    self.device_costs.add_reader_batch(
+                        name, n_msgs, processed,
+                        time.monotonic_ns() - t0, fused=fused)
+                    self.bump(f"received_{proto}", n_msgs)
+                except uring.UringError as e:
+                    self._note_backend_fallback(
+                        e.reason, "ring died at runtime (%s)" % e)
+                    return False
+        finally:
+            self._urings.pop(name, None)
+            ring.close()
+        return True
+
+    def _commit_ring(self, shard, ring, n_msgs: int) -> int:
+        """Merge a ring walk under the lock, copy its slow-path lines out
+        of the arena, hand the held buffers back, then parse those lines
+        (``handle_packet_batch``'s shard branch, fed from the ring).
+        Returns the processed sample count."""
+        with self.lock:
+            processed, dropped, others = shard.commit()
+            self.ledger.ingest("dogstatsd", processed=processed,
+                               staged=processed - dropped,
+                               overflow=dropped)
+            work = self._maybe_device_step_locked()
+        self._apply_staged(work)
+        shard.reset()
+        # the offsets index the arena (or the epoch fall-back's copy):
+        # slice before release returns the buffers to the kernel
+        src = shard.last_slow_src
+        if isinstance(src, bytes):
+            lines = [src[off:off + ln] for off, ln, _kind in others]
+        else:
+            lines = [src[off:off + ln].tobytes()
+                     for off, ln, _kind in others]
+        ring.release()
+        return self._finish_batch(lines, n_msgs, 0, processed, dropped, 0)
+
+    def _uring_batch_stats(self, proto: str, n_over: int,
+                           n_eb: int) -> None:
+        """Oversize datagrams were received and rejected whole (a parse
+        error in the ledger, as a truncated recvmmsg datagram is);
+        ENOBUFS completions are drops at the buffer pool, a kernel-side
+        loss like ``/proc/net/udp``'s."""
+        if n_over:
+            self.bump(f"received_{proto}", n_over)
+            self.bump("packet_errors", n_over)
+            self.ledger.ingest("dogstatsd", parse_errors=n_over)
+        if n_eb:
+            self.bump("socket_uring_enobufs", n_eb)
 
     def handle_packet(self, data: bytes) -> None:
         """Ingest one datagram (possibly multi-line)."""
@@ -1088,7 +1427,14 @@ class Server:
             tc = pb.type_code[:pb.n]
             lines = [pb.line(int(i)) for i in np.nonzero(
                 (tc > columnar.CODE_SET) & (tc != columnar.CODE_SHED))[0]]
-        # events, service checks and malformed lines: per-line parse
+        return self._finish_batch(lines, n_pkts, errors, processed,
+                                  dropped, shed)
+
+    def _finish_batch(self, lines: list[bytes], n_pkts: int, errors: int,
+                      processed: int, dropped: int, shed: int) -> int:
+        """A batch's events, service checks and malformed lines through
+        the per-line parse, then its counts into the stats and its parse
+        errors into the ledger.  Returns the processed sample count."""
         slow = []
         for line in lines:
             try:
@@ -1326,14 +1672,22 @@ class Server:
     def _sample_kernel_drops(self) -> int:
         """The interval's kernel receive drops over the UDP listeners,
         statsd and SSF (``/proc/net/udp{,6}``' drops column), cumulative
-        in ``stats[socket_kernel_drops]``."""
+        in ``stats[socket_kernel_drops]``, plus the rings' ENOBUFS drops
+        (a datagram that found no pool buffer; cumulative in
+        ``stats[socket_uring_enobufs]``).  Both are loss before the
+        process saw a packet: the interval's ledger record names them
+        and the pressure tick reads them."""
         cur = ovl.read_kernel_drops(self.sockets + self._listeners)
         delta = sum(max(0, drops - self._kernel_drops_last.get(inode, 0))
                     for inode, drops in cur.items())
         self._kernel_drops_last = cur
         if delta:
             self.bump("socket_kernel_drops", delta)
-        return delta
+        with self._stats_lock:
+            eb = self.stats.get("socket_uring_enobufs", 0)
+        eb_delta = max(0, eb - self._uring_enobufs_last)
+        self._uring_enobufs_last = eb
+        return delta + eb_delta
 
     def _flush_sink(self, sink, res: FlushResult, cyc, led) -> None:
         """Route the flush to one sink (the frame, or the materialized
@@ -1424,6 +1778,7 @@ class Server:
                     incarnation=self.incarnation)
             self._sharded_fwd = ShardedForwarder(
                 addrs, compression=float(cfg.tpu_compression),
+                credentials=self._forward_grpc_credentials(),
                 discoverer=discoverer, service=service,
                 retry_budget=max(self.interval * 0.9, 1.0),
                 breaker_threshold=cfg.tpu_breaker_threshold,
@@ -1660,6 +2015,7 @@ class Server:
         if self._grpc_client is None:
             self._grpc_client = grpc_forward.ForwardClient(
                 self.config.forward_address,
+                credentials=self._forward_grpc_credentials(),
                 compression=float(self.config.tpu_compression))
         try:
             self._grpc_client.send(rows, trace_context=trace_ctx,
@@ -1931,7 +2287,19 @@ class Server:
                          if self.overload is not None else None),
             "sockets": {
                 "kernel_drops_total": stats.get("socket_kernel_drops", 0),
-                "by_inode": dict(self._kernel_drops_last)},
+                "by_inode": dict(self._kernel_drops_last),
+                # the readers' drain tier (None before the first UDP
+                # listener) and the start-up probe's errno when refused
+                "backend": self.ingest_backend,
+                "uring_probe_errno": -self._uring_probe_err,
+                "backend_fallback_total": stats.get(
+                    "socket_backend_fallback", 0),
+                # datagrams dropped at a ring's buffer pool
+                "uring_enobufs_total": stats.get("socket_uring_enobufs",
+                                                 0),
+                # each live ring's pool, completion and batch counters
+                "uring": {name: ring.stats() for name, ring in
+                          sorted(self._urings.items())} or None},
             "start_epoch": self.start_epoch,
             "incarnation": self.incarnation,
             "restarts_adopted": self.restarts_adopted,
@@ -1967,6 +2335,7 @@ class Server:
                 and self.config.forward_address):
             client = grpc_forward.ForwardClient(
                 self.config.forward_address.split(",")[0].strip(),
+                credentials=self._forward_grpc_credentials(),
                 compression=float(self.config.tpu_compression))
         try:
             for seg in segs:
@@ -2047,7 +2416,8 @@ class Server:
         and credited to the ledger)."""
         if self._handoff_shipper is None:
             self._handoff_shipper = handoff.HandoffShipper(
-                compression=float(self.config.tpu_compression))
+                compression=float(self.config.tpu_compression),
+                credentials=self._forward_grpc_credentials())
         by_member, kept = handoff.partition(rows, ring, self_member)
         moved = sum(len(v) for v in by_member.values())
         stats = self._handoff_shipper.ship(by_member, trace_ctx)

@@ -2463,9 +2463,16 @@ class ReaderShard:
       O(touched rows + appended samples).
     - ``reset()``, no lock: zero the rows ``commit`` merged.
 
+    ``parse_ring(ring, ...)`` is ``parse`` fed by an io_uring reader
+    (``native.uring.UringReader``): the datagrams are parsed in place
+    in the ring's arena, miss and slow-path offsets index that arena,
+    and the buffers behind them stay held out of the pool until the
+    caller's ``ring.release()`` after ``commit``.
+
     A compaction between ``parse`` and ``commit`` renumbers rows; the
     table's ``_reindex_epoch`` shows it, and ``commit`` then discards
-    the scratch and re-ingests the raw buffer through ``ingest_buffer``.
+    the scratch and re-ingests the raw buffer (on the ring path, a copy
+    of the held datagrams) through ``ingest_buffer``.
 
     Gauge last-write-wins resolves in commit order across shards, as
     in any concurrent UDP arrival order; counter, histogram and set
@@ -2494,6 +2501,10 @@ class ReaderShard:
         self._cols: dict | None = None  # per-line columns, grow-only
         self._meta = np.zeros(12, np.int64)
         self._buf: bytes | None = None
+        self._ring = None  # the UringReader parse_ring read from
+        # what commit's slow-path offsets index: the parsed buffer, the
+        # ring's arena, or the replay copy of the epoch fall-back
+        self.last_slow_src = None
         self._epoch = -1
         # rows commit() merged, for the off-lock zeroing in reset()
         self._zc = self._zg = self._zh = self._zs = None
@@ -2505,6 +2516,7 @@ class ReaderShard:
         t = self.table
         buf_b = buf if isinstance(buf, bytes) else bytes(buf)
         self._buf = buf_b
+        self._ring = None
         # the epoch BEFORE the probes: a compaction landing during the
         # pass bumps it, and commit discards
         self._epoch = t._reindex_epoch
@@ -2513,21 +2525,72 @@ class ReaderShard:
         t._parse_ingest(np.frombuffer(buf_b, np.uint8), self._ptrs,
                         self._cols, self._meta)
 
+    def parse_ring(self, ring, max_msgs: int, max_len: int,
+                   wait_ms: int, wait_batch: int = 1
+                   ) -> tuple[int, int, int, int]:
+        """``parse`` straight from an io_uring buffer pool, without the
+        lock: wait up to ``wait_ms`` for completions (``wait_batch`` > 1
+        asks the kernel to pool that many before waking), then parse
+        each datagram in place in the ring's arena.  Returns
+        (payload bytes, datagrams, oversize, ENOBUFS); raises
+        ``UringError`` when the ring is dead, and the caller drops to
+        the recvmmsg tier."""
+        from veneur_tpu_torch.native.uring import UringError
+        t = self.table
+        self._buf = None
+        self._ring = ring
+        # the epoch BEFORE the probes, as in parse()
+        self._epoch = t._reindex_epoch
+        # the C side stops taking completions before the lines it has
+        # seen could overrun the scratch
+        sc = self._cols = _grow_scratch(self._cols, 8192)
+        self._meta[:] = 0
+        io_out = ring.io_out
+        io_out[:] = 0
+        tp = self._ptrs
+
+        def p(name, ctype):
+            return native.ptr(sc[name], ctype)
+
+        i32, i64, u8 = ctypes.c_int32, ctypes.c_int64, ctypes.c_uint8
+        f32, f64, u64 = ctypes.c_float, ctypes.c_double, ctypes.c_uint64
+        nbytes = t._lib.vtpu_uring_parse_ingest(
+            ring.handle, max_msgs, max_len, wait_ms, wait_batch,
+            len(sc["hr"]), t.key_index.handle, hashing.HLL_P,
+            tp["counter_dense"], tp["counter_touch"], tp["gauge_dense"],
+            tp["gauge_mask"], tp["gauge_touch"],
+            p("hr", i32), p("hv", f32), p("hw", f32), tp["histo_touch"],
+            p("sr", i32), p("sp", i32), tp["set_touch"],
+            p("mk", u64), p("mt", u8), p("mv", f64), p("mm", u64),
+            p("mw", f32), p("mo", i64), p("ml", i32),
+            p("oo", i64), p("ol", i32), p("ok", u8),
+            native.ptr(self._meta, i64), native.ptr(io_out, i32))
+        if nbytes < 0:
+            self._ring = None
+            raise UringError(int(nbytes), "io_uring parse")
+        return (int(nbytes), int(io_out[0]), int(io_out[1]),
+                int(io_out[2]))
+
     def commit(self) -> tuple[int, int, list[tuple[int, int, int]]]:
         """The locked merge: the caller holds the lock that serializes
         every other table mutation.  Returns (processed, dropped,
-        others) as ``ingest_buffer`` does, offsets into the buffer
-        given to ``parse``."""
+        others) as ``ingest_buffer`` does, offsets into
+        ``last_slow_src``."""
         t = self.table
         if self._epoch != t._reindex_epoch:
             # rows renumbered since the probes: drop the scratch and run
-            # the raw buffer through the locked single-reader pass
-            buf = self._buf
+            # the raw buffer through the locked single-reader pass (on
+            # the ring path the raw bytes are the held buffers: one
+            # copy a compaction)
+            buf = (self._ring.pending_copy() if self._ring is not None
+                   else self._buf)
             self._discard()
+            self.last_slow_src = buf
             return t.ingest_buffer(buf)
         sc, meta = self._cols, self._meta
-        t._replay_misses(np.frombuffer(self._buf, np.uint8), self._ptrs,
-                         sc, meta)
+        src = (self._ring.arena if self._ring is not None
+               else np.frombuffer(self._buf, np.uint8))
+        t._replay_misses(src, self._ptrs, sc, meta)
         processed = int(meta[3])
         dropped = int(meta[6:11].sum())
         if dropped:
@@ -2563,7 +2626,10 @@ class ReaderShard:
             t.set_idx.touched[sr] = True
         t._note_staged(processed - dropped)
         self._zc, self._zg, self._zh, self._zs = cr, gr, hr, sr
+        self.last_slow_src = (self._ring.arena if self._ring is not None
+                              else self._buf)
         self._buf = None
+        self._ring = None
         return processed, dropped, _others(sc, meta)
 
     def reset(self) -> None:
@@ -2589,4 +2655,5 @@ class ReaderShard:
                   self._s_touch):
             a.fill(0)
         self._buf = None
+        self._ring = None
         self._zc = self._zg = self._zh = self._zs = None

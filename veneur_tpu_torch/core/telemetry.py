@@ -456,6 +456,16 @@ class Telemetry:
               self._delta("flush_coalesced"))
         count("veneur.socket.kernel_drops_total",
               self._delta("socket_kernel_drops"))
+        # the io_uring tier: drops to recvmmsg by reason (the probe
+        # refused, or a ring died at runtime) and datagrams dropped at a
+        # ring's buffer pool
+        for reason in ("enosys", "eperm", "enomem", "einval", "error"):
+            d = self._delta(f"socket_backend_fallback_{reason}")
+            if d:
+                count("veneur.socket.backend_fallback_total", d,
+                      (f"reason:{reason}",))
+        count("veneur.socket.uring_enobufs_total",
+              self._delta("socket_uring_enobufs"))
         # signal-history plane + flight recorder: rows sampled into
         # the columnar ring, bundles dumped by trigger, dumps the
         # cooldown suppressed and writer errors

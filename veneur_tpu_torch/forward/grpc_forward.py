@@ -678,10 +678,12 @@ class ImportServer:
     startGRPCTCP), merging into the port server's table under its
     lock."""
 
-    def __init__(self, server, address: str = "127.0.0.1:0"):
+    def __init__(self, server, address: str = "127.0.0.1:0",
+                 credentials=None):
         """``server`` is the port's core Server (its ``table``,
         ``lock``, ``stats``, ``handle_packet`` and device step);
-        ``address`` is host:port, port 0 for an ephemeral one."""
+        ``address`` is host:port, port 0 for an ephemeral one;
+        ``credentials``, gRPC server credentials, serve it over TLS."""
         self._core = server
         self._grpc = grpc.server(
             futures.ThreadPoolExecutor(max_workers=8),
@@ -721,7 +723,10 @@ class ImportServer:
                         .SerializeToString))}),
         )
         self._grpc.add_generic_rpc_handlers(handlers)
-        self.port = self._grpc.add_insecure_port(address)
+        if credentials is not None:
+            self.port = self._grpc.add_secure_port(address, credentials)
+        else:
+            self.port = self._grpc.add_insecure_port(address)
 
     def _send_metrics(self, request: bytes, context):
         """Decode outside the server's lock (another handler's apply
@@ -802,14 +807,18 @@ class ImportServer:
 # client (forwardGRPC)
 
 class ForwardClient:
-    """Dial-once insecure client of the Forward service (flusher.go:499
+    """Dial-once client of the Forward service (flusher.go:499
     forwardGRPC: a failed send is dropped and counted by the caller,
-    never retried)."""
+    never retried); insecure, or over TLS with ``credentials`` (gRPC
+    channel credentials)."""
 
     def __init__(self, target: str, timeout: float = 10.0,
-                 compression: float = 100.0):
-        self._channel = grpc.insecure_channel(
-            target.removeprefix("http://"))
+                 credentials=None, compression: float = 100.0):
+        target = target.removeprefix("http://")
+        if credentials is not None:
+            self._channel = grpc.secure_channel(target, credentials)
+        else:
+            self._channel = grpc.insecure_channel(target)
         self._timeout = timeout
         self._compression = compression
         self._call = self._channel.unary_unary(

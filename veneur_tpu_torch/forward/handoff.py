@@ -97,8 +97,9 @@ class HandoffShipper:
     path — clarity over pipelining."""
 
     def __init__(self, compression: float = 100.0,
-                 timeout: float = 10.0):
+                 credentials=None, timeout: float = 10.0):
         self.compression = compression
+        self.credentials = credentials
         self.timeout = timeout
         self._clients: dict[str, object] = {}
 
@@ -107,6 +108,7 @@ class HandoffShipper:
         if cli is None:
             from veneur_tpu_torch.forward.grpc_forward import ForwardClient
             cli = ForwardClient(member, timeout=self.timeout,
+                                credentials=self.credentials,
                                 compression=self.compression)
             self._clients[member] = cli
         return cli

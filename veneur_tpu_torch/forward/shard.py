@@ -89,7 +89,7 @@ class ShardedForwarder:
     """
 
     def __init__(self, addresses=(), compression: float = 100.0,
-                 timeout: float = 10.0,
+                 credentials=None, timeout: float = 10.0,
                  queue_size: int = 8, retries: int = 2,
                  backoff: float = 0.25, discoverer=None,
                  service: str = "forward",
@@ -115,6 +115,7 @@ class ShardedForwarder:
         if not self.addresses:
             raise ValueError("sharded forward needs >= 1 destination")
         self.compression = float(compression)
+        self._credentials = credentials
         self._timeout = timeout
         self.spool = spool
         self.on_replay = on_replay
@@ -254,6 +255,7 @@ class ShardedForwarder:
             cl = self._clients.get(dest)
             if cl is None:
                 cl = ForwardClient(dest, timeout=self._timeout,
+                                   credentials=self._credentials,
                                    compression=self.compression)
                 self._clients[dest] = cl
         return cl

@@ -1,4 +1,5 @@
-"""The port's native (C++) host library: parse, ingest, rank, planes, the
+"""The port's native (C++) host library: parse, ingest, the recvmmsg
+drain and the io_uring ring (``uring.py``), rank, planes, the
 reference-schema /import value decode and the gRPC MetricList decode.
 
 ``dsd_parse.cpp`` beside this file is the port's own copy of the entries
@@ -117,6 +118,32 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         u64p, u8p, f64p, u64p, f32p, i64p, i32p,
         i64p, i32p, u8p,
         i64p]
+    # io_uring multishot ring ingest (stubs where the headers lack
+    # io_uring: probe returns -ENOSYS, new fails; same symbols)
+    lib.vtpu_uring_probe.restype = i64
+    lib.vtpu_uring_probe.argtypes = []
+    lib.vtpu_uring_new.restype = vp
+    lib.vtpu_uring_new.argtypes = [i32, i32, i32, u8p, i64p]
+    lib.vtpu_uring_free.restype = None
+    lib.vtpu_uring_free.argtypes = [vp]
+    lib.vtpu_uring_stats.restype = None
+    lib.vtpu_uring_stats.argtypes = [vp, i64p]
+    lib.vtpu_uring_drain.restype = i64
+    lib.vtpu_uring_drain.argtypes = [
+        vp, u8p, i64, i32, i32, i32, i32, i32p, i32p, i32p]
+    lib.vtpu_uring_parse_ingest.restype = i64
+    lib.vtpu_uring_parse_ingest.argtypes = [
+        vp, i32, i32, i32, i32, i32, vp, i64,
+        f64p, u8p, f32p, u8p, u8p,
+        i32p, f32p, f32p, u8p,
+        i32p, i32p, u8p,
+        u64p, u8p, f64p, u64p, f32p, i64p, i32p,
+        i64p, i32p, u8p,
+        i64p, i32p]
+    lib.vtpu_uring_pending_copy.restype = i64
+    lib.vtpu_uring_pending_copy.argtypes = [vp, u8p, i64]
+    lib.vtpu_uring_release.restype = i64
+    lib.vtpu_uring_release.argtypes = [vp]
     lib.vtpu_rank.restype = None
     lib.vtpu_rank.argtypes = [i32p, i64, i32, i32p, i32p]
     lib.vtpu_dense_plane.restype = i64

@@ -4,7 +4,9 @@
 //
 // A copy of the reference package's veneur_tpu/native/dsd_parse.cpp,
 // cut to the entries the port runs: the batch parser
-// (vtpu_parse_batch), the recvmmsg drain (vtpu_recv_drain), the member
+// (vtpu_parse_batch), the recvmmsg drain (vtpu_recv_drain), the
+// io_uring multishot ring with its in-place fused parse (vtpu_uring_*,
+// -ENOSYS stubs where the headers lack io_uring), the member
 // hasher, the identity index (vtpu_index_*), the column combiner
 // (vtpu_ingest), the fused parse + probe + combine pass
 // (vtpu_parse_ingest), the within-row rank, the host-densified value
@@ -44,9 +46,15 @@
 
 #ifdef __linux__
 #include <sys/socket.h>
+#include <sys/syscall.h>
+#include <sys/mman.h>
 #include <netinet/in.h>
 #include <unistd.h>
 #include <errno.h>
+#if defined(__NR_io_uring_setup)
+#include <linux/io_uring.h>
+#define VTPU_HAVE_URING 1
+#endif
 #endif
 
 #if defined(__x86_64__)
@@ -315,6 +323,247 @@ slow: {
   }
 }
 
+// ---- io_uring multishot ring ingest --------------------------------
+// The kernel-efficient rung above recvmmsg (ROADMAP item 1): one
+// registered ring per reader socket, a kernel-provided buffer pool the
+// NIC path fills on its own, and a multishot IORING_OP_RECV that keeps
+// completing into pool buffers with ZERO per-packet (and, steady
+// state, zero per-batch) syscalls.  Userspace walks the completion
+// queue and hands each datagram to the fused parse pass IN PLACE —
+// the buffer the kernel wrote is the buffer the parser reads; the
+// recvmmsg tier's join/copy round disappears.
+//
+// The system uapi header in the build image predates buffer rings and
+// multishot receive (both runtime features of this kernel), so the
+// few constants and the two structs involved are defined locally, the
+// way liburing itself carries them.  Everything degrades at runtime:
+// io_uring_setup ENOSYS/EPERM, PBUF_RING EINVAL on an old kernel, or
+// a multishot arm rejected with EINVAL all surface as a dead handle
+// and the caller falls back to the recvmmsg tier.
+#ifdef VTPU_HAVE_URING
+
+#ifndef IORING_RECV_MULTISHOT
+#define IORING_RECV_MULTISHOT (1U << 1)
+#endif
+#ifndef IORING_REGISTER_PBUF_RING
+#define IORING_REGISTER_PBUF_RING 22
+#define IORING_UNREGISTER_PBUF_RING 23
+#endif
+#ifndef IORING_CQE_BUFFER_SHIFT
+#define IORING_CQE_BUFFER_SHIFT 16
+#endif
+#ifndef IORING_OFF_SQ_RING
+#define IORING_OFF_SQ_RING 0ULL
+#define IORING_OFF_CQ_RING 0x8000000ULL
+#define IORING_OFF_SQES 0x10000000ULL
+#endif
+
+// local twins of io_uring_buf / io_uring_buf_reg (absent from the old
+// header); the ring's shared tail overlays byte 14 of entry 0
+struct VtpuIoBuf {
+  __u64 addr;
+  __u32 len;
+  __u16 bid;
+  __u16 resv;
+};
+struct VtpuBufReg {
+  __u64 ring_addr;
+  __u32 ring_entries;
+  __u16 bgid;
+  __u16 pad;
+  __u64 resv[3];
+};
+struct VtpuGeteventsArg {
+  __u64 sigmask;
+  __u32 sigmask_sz;
+  __u32 pad;
+  __u64 ts;
+};
+struct VtpuKtimespec {
+  int64_t tv_sec;
+  long long tv_nsec;
+};
+
+inline int sys_uring_setup(unsigned entries, struct io_uring_params* p) {
+  return (int)syscall(__NR_io_uring_setup, entries, p);
+}
+inline int sys_uring_enter(int fd, unsigned to_submit,
+                           unsigned min_complete, unsigned flags,
+                           const void* arg, size_t argsz) {
+  return (int)syscall(__NR_io_uring_enter, fd, to_submit,
+                      min_complete, flags, arg, argsz);
+}
+inline int sys_uring_register(int fd, unsigned op, void* arg,
+                              unsigned nr) {
+  return (int)syscall(__NR_io_uring_register, fd, op, arg, nr);
+}
+
+// completion-batch histogram: power-of-two buckets 1,2,4,...,>=512
+constexpr int kUringHistBuckets = 10;
+
+struct VtpuUring {
+  int ring_fd = -1;
+  int sock_fd = -1;
+  // SQ/CQ mappings
+  void* sq_mem = nullptr;
+  size_t sq_sz = 0;
+  void* cq_mem = nullptr;   // == sq_mem under FEAT_SINGLE_MMAP
+  size_t cq_sz = 0;
+  struct io_uring_sqe* sqes = nullptr;
+  size_t sqes_sz = 0;
+  unsigned* sq_head = nullptr;
+  unsigned* sq_tail = nullptr;
+  unsigned sq_mask = 0;
+  unsigned* sq_array = nullptr;
+  unsigned* cq_head = nullptr;
+  unsigned* cq_tail = nullptr;
+  unsigned cq_mask = 0;
+  struct io_uring_cqe* cqes = nullptr;
+  // provided-buffer ring (kernel 5.19+), page-aligned mmap
+  void* buf_ring = nullptr;
+  size_t buf_ring_sz = 0;
+  uint16_t buf_tail = 0;       // local shadow of the shared tail
+  uint8_t* arena = nullptr;    // caller-owned: buf_count * buf_len
+  int32_t buf_count = 0;       // power of two
+  int32_t buf_len = 0;
+  uint16_t bgid = 0;
+  bool armed = false;
+  int dead_errno = 0;          // nonzero: backend unusable at runtime
+  // buffers consumed by the zero-copy parse pass, HELD out of the
+  // pool until vtpu_uring_release (miss/slow lines point into them)
+  std::vector<int32_t> held_bid;
+  std::vector<int32_t> held_len;
+  // counters for /debug/vars
+  int64_t completions = 0;
+  int64_t oversize = 0;
+  int64_t enobufs = 0;
+  int64_t rearms = 0;
+  int64_t batches = 0;
+  int64_t returned = 0;        // buffers handed to the kernel (cumul)
+  int64_t consumed = 0;        // buffers taken back via CQEs (cumul)
+  int64_t hist[kUringHistBuckets] = {0};
+};
+
+inline void uring_buf_store_tail(VtpuUring* u) {
+  __atomic_store_n((uint16_t*)((char*)u->buf_ring + 14),
+                   u->buf_tail, __ATOMIC_RELEASE);
+}
+
+// return one buffer to the provided-buffer ring (tail publish is the
+// caller's, so a recycle sweep pays one release store)
+inline void uring_buf_recycle(VtpuUring* u, int32_t bid) {
+  VtpuIoBuf* e = (VtpuIoBuf*)u->buf_ring
+      + (u->buf_tail & (uint16_t)(u->buf_count - 1));
+  e->addr = (uint64_t)(uintptr_t)(u->arena
+                                  + (int64_t)bid * u->buf_len);
+  e->len = (uint32_t)u->buf_len;
+  e->bid = (uint16_t)bid;
+  u->buf_tail++;
+  u->returned++;
+}
+
+// arm (or re-arm) the multishot receive; returns 0 or -errno.  One
+// SQE outlives many completions — this runs only at startup and
+// after a terminal CQE (ENOBUFS, error, or kernel-side cancel).
+inline int uring_arm(VtpuUring* u) {
+  if (u->dead_errno) return -u->dead_errno;
+  unsigned tail = *u->sq_tail;
+  unsigned idx = tail & u->sq_mask;
+  struct io_uring_sqe* sqe = &u->sqes[idx];
+  memset(sqe, 0, sizeof(*sqe));
+  sqe->opcode = IORING_OP_RECV;
+  sqe->fd = u->sock_fd;
+  sqe->flags = IOSQE_BUFFER_SELECT;
+  sqe->ioprio = IORING_RECV_MULTISHOT;
+  sqe->buf_group = u->bgid;
+  sqe->user_data = 1;
+  u->sq_array[idx] = idx;
+  __atomic_store_n(u->sq_tail, tail + 1, __ATOMIC_RELEASE);
+  int r = sys_uring_enter(u->ring_fd, 1, 0, 0, nullptr, 0);
+  if (r < 0) return -errno;
+  u->armed = true;
+  u->rearms++;
+  return 0;
+}
+
+// block until >= min_batch CQEs are pending or wait_ms elapses; 0 =
+// something pending, -ETIME = nothing pending, other negative =
+// enter error.  min_batch > 1 is the multishot payoff on a loaded
+// host: completions accumulate KERNEL-SIDE (no syscall, no wakeup)
+// while the sender keeps the CPU, then one walk drains the batch —
+// recvmmsg can only approximate that by burning a syscall per poll.
+// A partial batch at timeout is returned, never discarded.
+inline int uring_wait(VtpuUring* u, int32_t wait_ms,
+                      int32_t min_batch) {
+  if (min_batch < 1) min_batch = 1;
+  unsigned head = *u->cq_head;
+  unsigned avail =
+      __atomic_load_n(u->cq_tail, __ATOMIC_ACQUIRE) - head;
+  // anything already pending is processed NOW, even below
+  // min_batch: under load the CQ accumulates naturally while the
+  // previous batch parses (that IS the batching), and a pending CQE
+  // may be a multishot termination our armed flag hasn't seen yet —
+  // batch-waiting on a dead multishot would sleep the full timeout
+  // while the socket queue overflows.  Only an EMPTY CQ (where the
+  // armed flag is provably current) may wait for a batch.
+  if (avail != 0) return 0;
+  // an unarmed ring posts no new completions: re-arm if buffers are
+  // free, otherwise report empty so the caller releases held ones.
+  if (!u->armed) {
+    if (u->dead_errno == 0 && u->returned - u->consumed > 0) {
+      int r = uring_arm(u);
+      if (r < 0) u->dead_errno = -r;
+    }
+    if (!u->armed) return -ETIME;
+  }
+  if (wait_ms <= 0) return -ETIME;
+  VtpuKtimespec ts;
+  ts.tv_sec = wait_ms / 1000;
+  ts.tv_nsec = (long long)(wait_ms % 1000) * 1000000LL;
+  VtpuGeteventsArg arg;
+  memset(&arg, 0, sizeof(arg));
+  arg.ts = (uint64_t)(uintptr_t)&ts;
+  int r = sys_uring_enter(u->ring_fd, 0, (unsigned)min_batch,
+                          IORING_ENTER_GETEVENTS | IORING_ENTER_EXT_ARG,
+                          &arg, sizeof(arg));
+  if (r < 0) {
+    int e = errno;
+    if (e != ETIME && e != EINTR) return -e;
+  }
+  // timeout with a partial batch still returns it
+  if (__atomic_load_n(u->cq_tail, __ATOMIC_ACQUIRE) != head) return 0;
+  return -ETIME;
+}
+
+inline void uring_note_batch(VtpuUring* u, int64_t n) {
+  if (n <= 0) return;
+  u->batches++;
+  int b = 0;
+  while ((1LL << b) < n && b < kUringHistBuckets - 1) b++;
+  u->hist[b]++;
+}
+
+void uring_destroy(VtpuUring* u) {
+  if (u == nullptr) return;
+  if (u->ring_fd >= 0) {
+    if (u->buf_ring != nullptr) {
+      VtpuBufReg reg;
+      memset(&reg, 0, sizeof(reg));
+      reg.bgid = u->bgid;
+      sys_uring_register(u->ring_fd, IORING_UNREGISTER_PBUF_RING,
+                         &reg, 1);
+    }
+    close(u->ring_fd);
+  }
+  if (u->buf_ring != nullptr) munmap(u->buf_ring, u->buf_ring_sz);
+  if (u->sqes != nullptr) munmap(u->sqes, u->sqes_sz);
+  if (u->cq_mem != nullptr && u->cq_mem != u->sq_mem)
+    munmap(u->cq_mem, u->cq_sz);
+  if (u->sq_mem != nullptr) munmap(u->sq_mem, u->sq_sz);
+  delete u;
+}
+
+#endif  // VTPU_HAVE_URING
 
 }  // namespace
 
@@ -1917,5 +2166,535 @@ void vtpu_proxy_keyhash(const uint8_t* buf, int64_t nm,
     out_hash[i] = fmix64(h);
   }
 }
+
+// ---- io_uring ingest exports ---------------------------------------
+// The rung above vtpu_recv_drain (ROADMAP item 1): a per-reader ring
+// with a kernel-registered provided-buffer pool and one multishot
+// IORING_OP_RECV that keeps completing with no per-packet syscall.
+// Two consumption modes share the ring:
+//   vtpu_uring_drain        copy-out, same contract as vtpu_recv_drain
+//                           (admission-control paths that need a
+//                           contiguous Python buffer)
+//   vtpu_uring_parse_ingest zero-copy: datagrams are parsed IN PLACE
+//                           in the caller-owned arena; consumed
+//                           buffers are HELD out of the pool until
+//                           vtpu_uring_release so miss/slow offsets
+//                           into the arena stay valid through commit.
+// All symbols export on every platform; without kernel support probe
+// returns -ENOSYS and new fails, so the Python side needs no dlsym
+// guards — only a return-code check.
+
+#ifdef VTPU_HAVE_URING
+
+static VtpuUring* vtpu_uring_create(int sock_fd, int32_t buf_count,
+                                    int32_t buf_len, uint8_t* arena,
+                                    int* err) {
+  *err = 0;
+  if (buf_count < 2 || buf_count > 32768 ||
+      (buf_count & (buf_count - 1)) != 0 || buf_len < 64 ||
+      arena == nullptr) {
+    *err = EINVAL;
+    return nullptr;
+  }
+  VtpuUring* u = new VtpuUring();
+  u->sock_fd = sock_fd;
+  u->arena = arena;
+  u->buf_count = buf_count;
+  u->buf_len = buf_len;
+  u->bgid = 7;  // arbitrary nonzero group id, one ring per socket
+  struct io_uring_params p;
+  memset(&p, 0, sizeof(p));
+  p.flags = IORING_SETUP_CQSIZE | IORING_SETUP_CLAMP;
+  // CQ must absorb a full pool of completions between walks
+  p.cq_entries = (unsigned)buf_count * 2;
+  u->ring_fd = sys_uring_setup(8, &p);
+  if (u->ring_fd < 0) {
+    *err = errno;
+    uring_destroy(u);
+    return nullptr;
+  }
+  // uring_wait needs EXT_ARG timed getevents (5.11+); a kernel new
+  // enough for multishot+PBUF_RING always has it, but check anyway
+  if (!(p.features & IORING_FEAT_EXT_ARG)) {
+    *err = EOPNOTSUPP;
+    uring_destroy(u);
+    return nullptr;
+  }
+  size_t sq_sz = p.sq_off.array + p.sq_entries * sizeof(unsigned);
+  size_t cq_sz = p.cq_off.cqes
+      + p.cq_entries * sizeof(struct io_uring_cqe);
+  const bool single = (p.features & IORING_FEAT_SINGLE_MMAP) != 0;
+  if (single) sq_sz = cq_sz = sq_sz > cq_sz ? sq_sz : cq_sz;
+  u->sq_sz = sq_sz;
+  u->sq_mem = mmap(nullptr, sq_sz, PROT_READ | PROT_WRITE,
+                   MAP_SHARED | MAP_POPULATE, u->ring_fd,
+                   IORING_OFF_SQ_RING);
+  if (u->sq_mem == MAP_FAILED) {
+    *err = errno;
+    u->sq_mem = nullptr;
+    uring_destroy(u);
+    return nullptr;
+  }
+  u->cq_sz = cq_sz;
+  if (single) {
+    u->cq_mem = u->sq_mem;
+  } else {
+    u->cq_mem = mmap(nullptr, cq_sz, PROT_READ | PROT_WRITE,
+                     MAP_SHARED | MAP_POPULATE, u->ring_fd,
+                     IORING_OFF_CQ_RING);
+    if (u->cq_mem == MAP_FAILED) {
+      *err = errno;
+      u->cq_mem = nullptr;
+      uring_destroy(u);
+      return nullptr;
+    }
+  }
+  u->sqes_sz = p.sq_entries * sizeof(struct io_uring_sqe);
+  u->sqes = (struct io_uring_sqe*)mmap(
+      nullptr, u->sqes_sz, PROT_READ | PROT_WRITE,
+      MAP_SHARED | MAP_POPULATE, u->ring_fd, IORING_OFF_SQES);
+  if (u->sqes == MAP_FAILED) {
+    *err = errno;
+    u->sqes = nullptr;
+    uring_destroy(u);
+    return nullptr;
+  }
+  char* sqm = (char*)u->sq_mem;
+  u->sq_head = (unsigned*)(sqm + p.sq_off.head);
+  u->sq_tail = (unsigned*)(sqm + p.sq_off.tail);
+  u->sq_mask = *(unsigned*)(sqm + p.sq_off.ring_mask);
+  u->sq_array = (unsigned*)(sqm + p.sq_off.array);
+  char* cqm = (char*)u->cq_mem;
+  u->cq_head = (unsigned*)(cqm + p.cq_off.head);
+  u->cq_tail = (unsigned*)(cqm + p.cq_off.tail);
+  u->cq_mask = *(unsigned*)(cqm + p.cq_off.ring_mask);
+  u->cqes = (struct io_uring_cqe*)(cqm + p.cq_off.cqes);
+  // provided-buffer ring: page-aligned shared entries the kernel
+  // reads on its own; registration is where RLIMIT_MEMLOCK or an
+  // old kernel (EINVAL) says no
+  u->buf_ring_sz = (size_t)buf_count * sizeof(VtpuIoBuf);
+  const size_t page = 4096;
+  u->buf_ring_sz = (u->buf_ring_sz + page - 1) & ~(page - 1);
+  u->buf_ring = mmap(nullptr, u->buf_ring_sz, PROT_READ | PROT_WRITE,
+                     MAP_ANONYMOUS | MAP_PRIVATE, -1, 0);
+  if (u->buf_ring == MAP_FAILED) {
+    *err = errno;
+    u->buf_ring = nullptr;
+    uring_destroy(u);
+    return nullptr;
+  }
+  VtpuBufReg reg;
+  memset(&reg, 0, sizeof(reg));
+  reg.ring_addr = (uint64_t)(uintptr_t)u->buf_ring;
+  reg.ring_entries = (uint32_t)buf_count;
+  reg.bgid = u->bgid;
+  if (sys_uring_register(u->ring_fd, IORING_REGISTER_PBUF_RING,
+                         &reg, 1) < 0) {
+    *err = errno;
+    munmap(u->buf_ring, u->buf_ring_sz);
+    u->buf_ring = nullptr;  // destroy must not UNREGISTER
+    uring_destroy(u);
+    return nullptr;
+  }
+  for (int32_t bid = 0; bid < buf_count; bid++) {
+    uring_buf_recycle(u, bid);
+  }
+  uring_buf_store_tail(u);
+  int r = uring_arm(u);
+  if (r < 0) {
+    *err = -r;
+    uring_destroy(u);
+    return nullptr;
+  }
+  // an unsupported multishot arm (pre-6.0 kernel) fails synchronously:
+  // the error CQE is posted during submit, so peek right here.  A
+  // positive-res CQE (data already queued on an adopted socket) is
+  // left in place for the first walk.
+  unsigned head = *u->cq_head;
+  if (__atomic_load_n(u->cq_tail, __ATOMIC_ACQUIRE) != head) {
+    struct io_uring_cqe* cqe = &u->cqes[head & u->cq_mask];
+    if (cqe->res < 0 && cqe->res != -ENOBUFS) {
+      *err = -cqe->res;
+      uring_destroy(u);
+      return nullptr;
+    }
+  }
+  return u;
+}
+
+// Walk pending CQEs.  Per datagram the ``keep`` callback gets
+// (bid, res) and returns true to HOLD the buffer (zero-copy path) or
+// false to have it recycled immediately.  Stops after max_msgs kept
+// datagrams or when ``room`` (callback-managed) says stop — room is
+// checked BEFORE consuming a CQE so unconsumed completions survive to
+// the next call.  Updates counters, recycles, republishes the buffer
+// tail once, and re-arms when safe.  Returns kept count.
+// (extern "C++" block: templates cannot carry C linkage; this helper
+// is internal and never exported.)
+extern "C++" {
+template <typename KeepFn, typename RoomFn>
+int64_t uring_walk(VtpuUring* u, int32_t max_msgs,
+                          int32_t max_len, int32_t* n_oversize,
+                          int32_t* n_enobufs, KeepFn keep,
+                          RoomFn room) {
+  unsigned head = *u->cq_head;
+  int64_t kept = 0;
+  int32_t recycled = 0;
+  while (kept < max_msgs) {
+    if (__atomic_load_n(u->cq_tail, __ATOMIC_ACQUIRE) == head) break;
+    struct io_uring_cqe* cqe = &u->cqes[head & u->cq_mask];
+    const bool has_buf = (cqe->flags & IORING_CQE_F_BUFFER) != 0;
+    const int32_t res = cqe->res;
+    // hide the arena's page-per-datagram stride: pull the NEXT
+    // completion's buffer toward the cache while this one parses
+    if (__atomic_load_n(u->cq_tail, __ATOMIC_RELAXED) != head + 1) {
+      struct io_uring_cqe* nc = &u->cqes[(head + 1) & u->cq_mask];
+      if (nc->flags & IORING_CQE_F_BUFFER)
+        __builtin_prefetch(
+            u->arena +
+            (int64_t)(nc->flags >> IORING_CQE_BUFFER_SHIFT) *
+                u->buf_len);
+    }
+    if (has_buf && res > 0 && res <= max_len && !room(res)) {
+      break;  // leave this CQE for the next call
+    }
+    head++;
+    u->completions++;
+    if (!(cqe->flags & IORING_CQE_F_MORE)) u->armed = false;
+    if (res < 0) {
+      if (res == -ENOBUFS) {
+        u->enobufs++;
+        (*n_enobufs)++;
+      } else {
+        // terminal receive error: mark the backend dead so the
+        // caller drops to the recvmmsg tier instead of spinning
+        u->dead_errno = -res;
+      }
+      continue;
+    }
+    if (!has_buf) continue;  // zero-res completion without a buffer
+    const int32_t bid = (int32_t)(cqe->flags >> IORING_CQE_BUFFER_SHIFT);
+    u->consumed++;
+    if (res > max_len) {
+      // datagram filled past the caller's max length: the kernel
+      // clipped it to buf_len, so parsing it would yield a silently
+      // truncated final line — reject the whole packet, like the
+      // recvmmsg tier does with MSG_TRUNC
+      u->oversize++;
+      (*n_oversize)++;
+      uring_buf_recycle(u, bid);
+      recycled++;
+      continue;
+    }
+    if (res == 0) {
+      uring_buf_recycle(u, bid);
+      recycled++;
+      continue;
+    }
+    kept++;
+    if (!keep(bid, res)) {
+      uring_buf_recycle(u, bid);
+      recycled++;
+    }
+  }
+  __atomic_store_n(u->cq_head, head, __ATOMIC_RELEASE);
+  if (recycled > 0) uring_buf_store_tail(u);
+  // re-arm only when the kernel has buffers to land the next packet
+  // in; with the whole pool held, vtpu_uring_release re-arms instead
+  // (re-arming into an empty pool would just manufacture ENOBUFS)
+  if (!u->armed && u->dead_errno == 0 &&
+      u->returned - u->consumed > 0) {
+    int r = uring_arm(u);
+    if (r < 0) u->dead_errno = -r;
+  }
+  uring_note_batch(u, kept);
+  return kept;
+}
+}  // extern "C++"
+
+// Startup probe: can this kernel/process actually run the multishot
+// provided-buffer receive?  Builds a real (tiny) ring on a throwaway
+// socket and tears it down.  0 = yes; -errno says which rung refused
+// (ENOSYS io_uring, EPERM seccomp, EINVAL pre-PBUF_RING/multishot,
+// ENOMEM/EPERM RLIMIT_MEMLOCK on registration).
+int64_t vtpu_uring_probe(void) {
+  int sfd = socket(AF_INET, SOCK_DGRAM, 0);
+  if (sfd < 0) return -(int64_t)errno;
+  struct sockaddr_in addr;
+  memset(&addr, 0, sizeof(addr));
+  addr.sin_family = AF_INET;
+  addr.sin_addr.s_addr = htonl(INADDR_LOOPBACK);
+  if (bind(sfd, (struct sockaddr*)&addr, sizeof(addr)) < 0) {
+    int e = errno;
+    close(sfd);
+    return -(int64_t)e;
+  }
+  const int32_t kBufs = 8, kLen = 2048;
+  uint8_t* arena = (uint8_t*)malloc((size_t)kBufs * kLen);
+  if (arena == nullptr) {
+    close(sfd);
+    return -(int64_t)ENOMEM;
+  }
+  int err = 0;
+  VtpuUring* u = vtpu_uring_create(sfd, kBufs, kLen, arena, &err);
+  if (u != nullptr) uring_destroy(u);
+  free(arena);
+  close(sfd);
+  return u != nullptr ? 0 : -(int64_t)err;
+}
+
+// Build a ring over an existing bound socket.  ``arena`` is CALLER
+// OWNED (a numpy array on the Python side, so held datagram regions
+// are sliceable with zero copies) and must stay alive until
+// vtpu_uring_free.  Returns a handle, or NULL with *err_out = errno.
+void* vtpu_uring_new(int32_t sock_fd, int32_t buf_count,
+                     int32_t buf_len, uint8_t* arena,
+                     int64_t* err_out) {
+  int err = 0;
+  VtpuUring* u = vtpu_uring_create(sock_fd, buf_count, buf_len,
+                                   arena, &err);
+  *err_out = (int64_t)err;
+  return (void*)u;
+}
+
+void vtpu_uring_free(void* h) {
+  uring_destroy((VtpuUring*)h);
+}
+
+// Snapshot for /debug/vars.  out must hold >= 32 int64s:
+//  [0] buf_count  [1] buf_len  [2] pool buffers the kernel holds
+//  [3] buffers held by the zero-copy parse  [4] completions
+//  [5] oversize   [6] enobufs  [7] rearms   [8] batches
+//  [9] armed      [10] dead_errno  [11] cq backlog
+//  [12..21] completion-batch histogram (1,2,4,...,>=512)
+void vtpu_uring_stats(void* h, int64_t* out) {
+  VtpuUring* u = (VtpuUring*)h;
+  memset(out, 0, 32 * sizeof(int64_t));
+  if (u == nullptr) return;
+  out[0] = u->buf_count;
+  out[1] = u->buf_len;
+  out[2] = u->returned - u->consumed;
+  out[3] = (int64_t)u->held_bid.size();
+  out[4] = u->completions;
+  out[5] = u->oversize;
+  out[6] = u->enobufs;
+  out[7] = u->rearms;
+  out[8] = u->batches;
+  out[9] = u->armed ? 1 : 0;
+  out[10] = u->dead_errno;
+  out[11] = (int64_t)(__atomic_load_n(u->cq_tail, __ATOMIC_ACQUIRE)
+                      - *u->cq_head);
+  for (int i = 0; i < kUringHistBuckets; i++) out[12 + i] = u->hist[i];
+}
+
+// Copy-out drain: same output contract as vtpu_recv_drain (newline
+// join, MSG_TRUNC-equivalent whole-packet rejection), but fed from
+// the ring.  Blocks up to wait_ms for the first completion.  Used by
+// paths that need a contiguous Python-owned buffer (admission
+// control's columnar pre-pass).  Returns bytes written, 0 on
+// timeout/empty, or -errno when the ring is dead.
+int64_t vtpu_uring_drain(void* h, uint8_t* out, int64_t out_cap,
+                         int32_t max_msgs, int32_t max_len,
+                         int32_t wait_ms, int32_t wait_batch,
+                         int32_t* n_msgs,
+                         int32_t* n_oversize, int32_t* n_enobufs) {
+  VtpuUring* u = (VtpuUring*)h;
+  *n_msgs = 0;
+  *n_oversize = 0;
+  *n_enobufs = 0;
+  if (u == nullptr) return -(int64_t)EINVAL;
+  if (u->dead_errno) return -(int64_t)u->dead_errno;
+  int wr = uring_wait(u, wait_ms, wait_batch);
+  if (wr == -ETIME) return 0;
+  if (wr < 0) {
+    u->dead_errno = -wr;
+    return (int64_t)wr;
+  }
+  int64_t w = 0;
+  int64_t kept = uring_walk(
+      u, max_msgs, max_len, n_oversize, n_enobufs,
+      [&](int32_t bid, int32_t res) {
+        memcpy(out + w, u->arena + (int64_t)bid * u->buf_len,
+               (size_t)res);
+        w += res;
+        out[w++] = '\n';
+        return false;  // copied out: recycle immediately
+      },
+      [&](int32_t res) { return w + res + 1 <= out_cap; });
+  *n_msgs = (int32_t)kept;
+  if (u->dead_errno && kept == 0) return -(int64_t)u->dead_errno;
+  return w;
+}
+
+// Zero-copy fused drain+parse: waits up to wait_ms, walks completed
+// datagrams, and runs the same fused parse pass as vtpu_parse_ingest
+// on each datagram IN PLACE in the arena.  Miss/slow offsets
+// (m_off/o_off) are ARENA offsets; the buffers backing them are held
+// out of the pool until vtpu_uring_release, so the Python commit can
+// slice the arena at leisure.  meta layout matches vtpu_parse_ingest.
+// io_out: [0] datagrams parsed, [1] oversize rejected, [2] ENOBUFS
+// completions, [3] held-buffer count after the call.  ``max_lines``
+// bounds scratch usage: consumption stops (CQEs left for the next
+// call) once the worst-case line count — every appended cursor is <=
+// total nonempty lines, and a datagram of res bytes holds at most
+// res/2+1 of them — could overrun the caller's column capacity.
+// Returns payload bytes parsed, 0 on timeout/empty, -errno when the
+// ring is dead.
+int64_t vtpu_uring_parse_ingest(
+    void* h, int32_t max_msgs, int32_t max_len, int32_t wait_ms,
+    int32_t wait_batch, int32_t max_lines, void* tblp, int64_t hll_p,
+    double* counter_dense, uint8_t* counter_touch,
+    float* gauge_dense, uint8_t* gauge_mask, uint8_t* gauge_touch,
+    int32_t* histo_rows, float* histo_vals, float* histo_wts,
+    uint8_t* histo_touch,
+    int32_t* set_rows, int32_t* set_pos, uint8_t* set_touch,
+    uint64_t* m_keys, uint8_t* m_types, double* m_vals,
+    uint64_t* m_members, float* m_wts,
+    int64_t* m_off, int32_t* m_len,
+    int64_t* o_off, int32_t* o_len, uint8_t* o_kind,
+    int64_t* meta, int32_t* io_out) {
+  VtpuUring* u = (VtpuUring*)h;
+  io_out[0] = 0;
+  io_out[1] = 0;
+  io_out[2] = 0;
+  io_out[3] = (int32_t)(u ? u->held_bid.size() : 0);
+  if (u == nullptr) return -(int64_t)EINVAL;
+  if (u->dead_errno) return -(int64_t)u->dead_errno;
+  int wr = uring_wait(u, wait_ms, wait_batch);
+  if (wr == -ETIME) return 0;
+  if (wr < 0) {
+    u->dead_errno = -wr;
+    return (int64_t)wr;
+  }
+  VtpuIndex* t = (VtpuIndex*)tblp;
+  const VtpuTab* tb = index_enter(t);  // see vtpu_ingest's pin note
+  FusedCursors cur{meta[0], meta[1], 0, 0, 0, 0, 0, 0};
+  int64_t bytes = 0;
+  int64_t lines_budget = max_lines;
+  int64_t kept = uring_walk(
+      u, max_msgs, max_len, &io_out[1], &io_out[2],
+      [&](int32_t bid, int32_t res) {
+        // budget the EXACT lines this datagram appends (cur.lines
+        // delta); the room() check below keeps the res/2+1 worst
+        // case as headroom so a pathological datagram still fits
+        const int64_t lines_before = cur.lines;
+        const int64_t base = (int64_t)bid * u->buf_len;
+        parse_ingest_chunk(
+            u->arena + base, res, base, tb, hll_p,
+            counter_dense, counter_touch, gauge_dense, gauge_mask,
+            gauge_touch, histo_rows, histo_vals, histo_wts,
+            histo_touch, set_rows, set_pos, set_touch, m_keys,
+            m_types, m_vals, m_members, m_wts, m_off, m_len, o_off,
+            o_len, o_kind, meta, &cur);
+        lines_budget -= cur.lines - lines_before;
+        bytes += res;
+        u->held_bid.push_back(bid);
+        u->held_len.push_back(res);
+        return true;  // parsed in place: hold until release
+      },
+      [&](int32_t res) { return lines_budget >= res / 2 + 1; });
+  meta[0] = cur.hn;
+  meta[1] = cur.sn;
+  meta[2] = cur.mn;
+  meta[3] += cur.processed;
+  meta[4] += cur.cn;
+  meta[5] += cur.gn;
+  meta[11] = cur.on;
+  index_exit(t);
+  io_out[0] = (int32_t)kept;
+  io_out[3] = (int32_t)u->held_bid.size();
+  if (u->dead_errno && kept == 0) return -(int64_t)u->dead_errno;
+  return bytes;
+}
+
+// Materialize the held datagrams as one newline-joined buffer — the
+// rare paths that need a real bytes object (reindex-epoch replay
+// through Table.ingest_buffer).  Returns bytes written, or the
+// negated required capacity when out_cap is too small.
+int64_t vtpu_uring_pending_copy(void* h, uint8_t* out,
+                                int64_t out_cap) {
+  VtpuUring* u = (VtpuUring*)h;
+  if (u == nullptr) return 0;
+  int64_t need = 0;
+  for (size_t i = 0; i < u->held_len.size(); i++) {
+    need += (int64_t)u->held_len[i] + 1;
+  }
+  if (need > out_cap) return -need;
+  int64_t w = 0;
+  for (size_t i = 0; i < u->held_bid.size(); i++) {
+    memcpy(out + w,
+           u->arena + (int64_t)u->held_bid[i] * u->buf_len,
+           (size_t)u->held_len[i]);
+    w += u->held_len[i];
+    out[w++] = '\n';
+  }
+  return w;
+}
+
+// Return every held buffer to the pool (the commit that referenced
+// them is done) and re-arm if the terminal-CQE path left the
+// multishot down.  Returns 0, or -errno if the re-arm failed.
+int64_t vtpu_uring_release(void* h) {
+  VtpuUring* u = (VtpuUring*)h;
+  if (u == nullptr) return 0;
+  if (!u->held_bid.empty()) {
+    for (size_t i = 0; i < u->held_bid.size(); i++) {
+      uring_buf_recycle(u, u->held_bid[i]);
+    }
+    u->held_bid.clear();
+    u->held_len.clear();
+    uring_buf_store_tail(u);
+  }
+  if (!u->armed && u->dead_errno == 0) {
+    int r = uring_arm(u);
+    if (r < 0) {
+      u->dead_errno = -r;
+      return (int64_t)r;
+    }
+  }
+  return u->dead_errno ? -(int64_t)u->dead_errno : 0;
+}
+
+#else  // !VTPU_HAVE_URING
+
+// Stubs so the symbols always export: probe says ENOSYS, new fails,
+// the rest are inert.  The Python side never needs dlsym guards.
+int64_t vtpu_uring_probe(void) { return -38; }  // -ENOSYS
+void* vtpu_uring_new(int32_t, int32_t, int32_t, uint8_t*,
+                     int64_t* err_out) {
+  *err_out = 38;
+  return nullptr;
+}
+void vtpu_uring_free(void*) {}
+void vtpu_uring_stats(void*, int64_t* out) {
+  memset(out, 0, 32 * sizeof(int64_t));
+}
+int64_t vtpu_uring_drain(void*, uint8_t*, int64_t, int32_t, int32_t,
+                         int32_t, int32_t, int32_t* n_msgs,
+                         int32_t* n_oversize, int32_t* n_enobufs) {
+  *n_msgs = 0;
+  *n_oversize = 0;
+  *n_enobufs = 0;
+  return -38;
+}
+int64_t vtpu_uring_parse_ingest(
+    void*, int32_t, int32_t, int32_t, int32_t, int32_t, void*,
+    int64_t,
+    double*, uint8_t*, float*, uint8_t*, uint8_t*, int32_t*, float*,
+    float*, uint8_t*, int32_t*, int32_t*, uint8_t*, uint64_t*,
+    uint8_t*, double*, uint64_t*, float*, int64_t*, int32_t*,
+    int64_t*, int32_t*, uint8_t*, int64_t*, int32_t* io_out) {
+  io_out[0] = 0;
+  io_out[1] = 0;
+  io_out[2] = 0;
+  io_out[3] = 0;
+  return -38;
+}
+int64_t vtpu_uring_pending_copy(void*, uint8_t*, int64_t) {
+  return 0;
+}
+int64_t vtpu_uring_release(void*) { return -38; }
+
+#endif  // VTPU_HAVE_URING
 
 }  // extern "C"
