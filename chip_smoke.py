@@ -20,7 +20,7 @@ Run from the root of a checkout.  Phases, one JSON line each:
    compression 500: C = 3032 with unsorted state rows) take the
    kernel's wide route, counted as ``cluster_merge.wide``, with the
    same checks and times.  After
-   phases 4, 6, 8, 9, 10, 12, 13, 14 and 15 the same check runs at
+   phases 4, 6, 8, 9, 10, 12, 13, 14, 15 and 16 the same check runs at
    every other (R, K) they merged at (the global folds with weighted
    centroids) and at the warm-up's (256, 256); every case reports the
    row and quantile of its largest kernel-vs-plain gap with both
@@ -73,8 +73,8 @@ Run from the root of a checkout.  Phases, one JSON line each:
    once, then decoded and merged into a global table per interval
    (``decode_body`` + ``apply_import``, ``device_step`` at the staging
    bound, ``swap`` + flush): 10,000 timer series (the flat fold) over
-   one interval plus one profiled, and 4,096 series (the stacked fold,
-   one kernel launch per wire); each held against a CPU global on the
+   one interval, and 4,096 series from the first 8 wires (the stacked
+   fold, one kernel launch per wire); each held against a CPU global on the
    same bodies and against the exact p99 of every local's samples;
 8. the global tier over gRPC (run right after phase 6): the flat
    shape's 64 locals' rows also serialized as MetricLists, each wire
@@ -156,8 +156,10 @@ Run from the root of a checkout.  Phases, one JSON line each:
    atol 1e-3, the rest bit for bit, the delivery-sampled
    ``ssf.names_unique`` aside), A's p99 median error against exact under
    1%, every receive counter, the sealed ledger record, ``/version``,
-   ``/builddate`` and ``/quitquitquit`` (exit 0); child C, whose flush
-   file is a FIFO nobody reads, exits 2 by its flush watchdog.  READY
+   ``/builddate`` and ``/quitquitquit`` (exit 0); child C, whose
+   checkpoint directory gains a segment-named FIFO nobody writes (the
+   flush's checkpoint prune opens it and waits), exits 2 by its flush
+   watchdog.  READY
    times with and without warm-up;
 15. the ingest edge (run right after phase 14): its provenance first
    (the kernel release, the ring probe's errno, the io_uring sysctl,
@@ -183,6 +185,31 @@ Run from the root of a checkout.  Phases, one JSON line each:
    chain's bit for bit; (d) a child on ``http_address: einhorn@0`` (a
    listening socket this script bound, its ack read here, /healthcheck
    and /version through it);
+16. the sinks (run right after phase 15): a port server on the card
+   with every sink configured against local fakes in this process
+   (``veneur_tpu_torch/tools/sink_fakes.py``: HTTP captures, UDP and
+   TCP sockets, a Kafka broker, a grpsink server): datadog, signalfx
+   keyed by ``team`` with two per-tag keys, newrelic, the prometheus
+   repeater over UDP and (an extra sink) over TCP, kafka, the s3 and
+   flush-file plugins, and the datadog trace agent, splunk, X-Ray,
+   LightStep, New Relic, Kafka and Falconer span sinks, one fan-out
+   worker a sink and two ``tags_exclude`` rules; fed phase 15's series
+   at full width (100 samples a timer series and members a set), 1,000
+   events and 1,000 service checks, and phase 14's spans cut to 500
+   timer spans plus the indicator spans of 1,000 services; one flush.
+   (a) every sink's decoded delivery against a CPU port server's on the
+   same input (order-free values bit for bit, sums to rtol 1e-6,
+   percentiles within rtol 2e-3 / atol 1e-3, the largest gap printed;
+   span, event and check bodies bit for bit); (b) each metric sink's
+   decoded rows equal to the ledger's ``emitted_per_sink``, the record
+   balanced with fan-out deltas of 0; (c) on one frame of the same
+   series, datadog's, signalfx's and prometheus's frame-native encoders
+   against their legacy ``flush`` (the same rows), the frame path and
+   the list path timed; (d) a server on a 2 s interval whose newrelic
+   fake stalls 3 s: the other sinks land within the budget, the stall
+   is counted (``flush_slow_tasks``, ``flush_skipped_busy``, the
+   ledger's busy drop, ``veneur.sink.flush_busy_drops_total`` in a
+   later flush); (e) the card's merges recorded;
 7. the chain: a global (HTTP and gRPC listeners) and three locals (one
    per /import schema, one forwarding over gRPC) as server processes on
    the card: the global flushes the JAX chain's ``lat.99percentile``
@@ -194,7 +221,8 @@ Run from the root of a checkout.  Phases, one JSON line each:
    both schemas, gRPC);
 11. the kernels line (launches by path, phase 12's as
     ``routing_tiers``, phase 13's as ``crash_riding``, phase 14's as
-    ``span_plane``, phase 15's as ``ingest_edge``; F2's wide shapes as
+    ``span_plane``, phase 15's as ``ingest_edge``, phase 16's as
+    ``sinks``; F2's wide shapes as
     ``wide``), then the last line
     ``{"ok": true, "device": {...}}``.
 
@@ -4014,8 +4042,11 @@ def phase_span_plane(dev: str = "cuda", scale: int = 1) -> dict:
     spans in the same order: child A as written (with ``tpu_warmup``),
     child B with ``percentile_naming`` and ``quantile_interpolation``
     at ``reference``; then the ledger, ``/version``, ``/builddate``,
-    ``/quitquitquit`` (exit 0) and, in child C whose flush file is a
-    FIFO nobody reads, the flush watchdog (exit 2).  ``scale`` > 1
+    ``/quitquitquit`` (exit 0) and, in child C, a checkpoint directory
+    that gains a segment-named FIFO nobody writes once C is READY (the
+    flush thread's checkpoint prune opens it and waits; the sinks,
+    plugins and forward run on the pool and cannot hold the flush), the
+    flush watchdog (exit 2).  ``scale`` > 1
     (a CPU rehearsal) divides the series, the services and the table
     rows."""
     import grpc
@@ -4052,22 +4083,18 @@ def phase_span_plane(dev: str = "cuda", scale: int = 1) -> dict:
                 dst.write(src.read())
         common = {"compile_cache_dir": cache,
                   "interval": f"{SPAN_INTERVAL_S}s"}
-        fifo = os.path.join(tmp, "held.tsv")
-        os.mkfifo(fifo)
+        # child C checkpoints each second into its own directory
+        held = os.path.join(tmp, "C-ckpt")
         specs = (("A", dict(common, tpu_warmup=True)),
                  ("B", dict(common, tpu_warmup=False, **ref)),
-                 ("C", dict(common, tpu_warmup=False, interval="1s")))
+                 ("C", dict(common, tpu_warmup=False, interval="1s",
+                            tpu_checkpoint_dir=held,
+                            tpu_checkpoint_interval="1s")))
         children = []
         try:
             for name, over in specs:
                 path, ports, flush = span_child_config(base, tmp, name,
                                                        **over)
-                if name == "C":
-                    with open(path) as f:
-                        cfg = json.load(f)
-                    cfg["flush_file"] = flush = fifo
-                    with open(path, "w") as f:
-                        json.dump(cfg, f)
                 log = open(os.path.join(tmp, f"{name}.log"), "w")
                 proc = subprocess.Popen(
                     [sys.executable, "-m", "veneur_tpu_torch.cli.main",
@@ -4090,6 +4117,10 @@ def phase_span_plane(dev: str = "cuda", scale: int = 1) -> dict:
                 return all("ready_s" in ch for ch in children)
             wait_for(all_ready, 120, "the children READY")
             t_ready = time.perf_counter()
+            # a segment nobody writes: the next prune of C's checkpoint
+            # directory, on its flush thread, waits on it for good
+            os.makedirs(held, exist_ok=True)
+            os.mkfifo(os.path.join(held, "ckpt-held.seg"))
             warm = child_stats(a["ports"]["http"])
             fed = (a, b)
             n_spans = traffic["n_spans"]
@@ -4478,7 +4509,9 @@ def edge_certs(d: str) -> dict:
 
 def first_flush(path: str) -> dict:
     """(name, tags) -> value of a flush file's first flush (the rows of
-    its earliest timestamp), self-telemetry aside."""
+    its earliest timestamp), self-telemetry and the delivery-sampled
+    ``ssf.names_unique`` (a 1% roll a span, the server's own spans
+    included) aside."""
     rows = []
     with open(path) as f:
         for ln in f.read().splitlines():
@@ -4487,7 +4520,8 @@ def first_flush(path: str) -> dict:
     t0 = min(r[0] for r in rows)
     out = {}
     for t, name, tags, v in rows:
-        if t == t0 and not name.startswith("veneur."):
+        if (t == t0 and not name.startswith("veneur.")
+                and name != "ssf.names_unique"):
             check((name, tags) not in out, f"{name} twice in a flush")
             out[(name, tags)] = v
     return out
@@ -5042,6 +5076,406 @@ def phase_ingest_edge(dev: str = "cuda", scale: int = 1) -> dict:
     return out
 
 
+# ---- phase 16: the sinks ------------------------------------------------------
+
+SINK_SPAN_TIMERS = 500    # span-borne timer series (phase 14: 10,000)
+SINK_SERVICES = 1_000     # services sending indicator spans (phase 14's)
+SINK_EVENTS = 1_000       # DogStatsD events an interval
+SINK_CHECKS = 1_000       # DogStatsD service checks an interval
+SINK_CHUNK = 2_600        # 25-line datagrams a handle_packet_batch call
+SINK_STALL_S = 3.0        # the stalled fake's delay before it answers
+# the sinks' encoders on one frame, each path timed on its own fakes-free
+# capture: datadog's and signalfx's bodies, prometheus's lines
+FRAME_SINKS = ("datadog", "signalfx", "prometheus")
+
+
+def sink_traffic(scale: int = 1) -> dict:
+    """Phase 16's interval: phase 15's series at full width (its
+    datagrams in send order), then events and service checks (half of
+    the events and checks carry a ``team`` tag signalfx keys on), and
+    phase 14's spans cut to ``SINK_SPAN_TIMERS`` timer spans plus a
+    successful and a failed indicator span for each of
+    ``SINK_SERVICES`` services."""
+    from veneur_tpu_torch.protocol.gen import ssf_pb2
+    edge = edge_traffic(scale=scale)
+    dgrams = [d for _, d in edge["order"]]
+    n_ev, n_chk = SINK_EVENTS // scale, SINK_CHECKS // scale
+    other = [b"_e{%d,%d}:%s|%s|#env:smoke,team:t%d" % (
+        len(b"deploy%d" % i), len(b"rolled %d" % i), b"deploy%d" % i,
+        b"rolled %d" % i, i % 2 + 1) for i in range(n_ev)]
+    other += [b"_sc|check%d|%d|#env:smoke,team:t%d|m:state %d" % (
+        i, i % 3, i % 2 + 1, i) for i in range(n_chk)]
+    dgrams += [b"\n".join(other[i:i + EDGE_LINES])
+               for i in range(0, len(other), EDGE_LINES)]
+    spans = span_traffic(n_series=SINK_SPAN_TIMERS // scale,
+                         n_services=SINK_SERVICES // scale)
+    ssf = [ssf_pb2.SSFSpan.FromString(raw)
+           for t in ("udp", "unix", "grpc") for raw in spans["ssf"][t]]
+    return {"dgrams": dgrams, "spans": ssf, "lines": edge["lines"] +
+            len(other), "series": edge["series"], "events": n_ev,
+            "checks": n_chk}
+
+
+def sink_server(dev: str, backends, rows: dict, **over):
+    """A port server with every sink on ``backends`` (plus the TCP
+    prometheus repeater), phase 4's flush shape, two ``tags_exclude``
+    rules (``secret`` everywhere, ``env`` on datadog only) and one
+    fan-out worker a sink; started (the span worker and the sinks), its
+    newrelic event endpoint on the fake."""
+    from veneur_tpu_torch.core.config import read_config
+    from veneur_tpu_torch.core.server import Server
+    cfg = {"hostname": "sinks", "interval": "120s",
+           "percentiles": list(FLUSH_KW["percentiles"]),
+           "aggregates": list(FLUSH_KW["aggregates"]),
+           "tpu_stage_flush_samples": EDGE_STAGE, "tpu_sink_workers": 1,
+           "tags_exclude": ["secret", "env|datadog"], **rows,
+           **backends.config(), **over}
+    srv = Server(read_config(data=cfg, env={}), device=dev,
+                 extra_sinks=backends.extra_sinks())
+    backends.patch(srv)
+    srv.start()
+    return srv
+
+
+def feed_sinks(srv, traffic: dict) -> None:
+    """The interval's datagrams through ``handle_packet_batch``, then
+    the spans through ``handle_ssf`` in windows of ``SPAN_WINDOW``,
+    each taken by the span worker and settled at Falconer before the
+    next (its sink drops past 128 RPCs in flight)."""
+    d = traffic["dgrams"]
+    for lo in range(0, len(d), SINK_CHUNK):
+        srv.handle_packet_batch(d[lo:lo + SINK_CHUNK])
+    falconer = next(s for s in srv.span_sinks if s.name == "falconer")
+    spans = traffic["spans"]
+    for lo in range(0, len(spans), SPAN_WINDOW):
+        for sp in spans[lo:lo + SPAN_WINDOW]:
+            srv.handle_ssf(sp)
+        want = min(lo + SPAN_WINDOW, len(spans))
+        wait_for(lambda: (srv.stats.get("spans_processed", 0) >= want
+                          and falconer._inflight == 0), 60,
+                 "the span worker")
+
+
+SINK_NAME_AT = {"datadog": 1, "signalfx": 2, "newrelic": 0,
+                "prometheus": 0, "prometheus_tcp": 0, "kafka": 0, "s3": 0,
+                "flush_file": 0}
+
+
+def hold_sink_rows(got: dict, want: dict, name_at: int) -> dict:
+    """One sink's rows from the card against the CPU's: the same rows,
+    order-free values bit for bit, sums to rtol 1e-6, percentiles
+    within rtol 2e-3 / atol 1e-3; the largest percentile gap."""
+    check(got.keys() == want.keys(),
+          f"rows differ: {sorted(set(got) ^ set(want))[:4]}")
+    worst = {"pct_abs": 0.0, "pct_row": None, "sum_rel": 0.0,
+             "pct_bit_equal": 0, "pct": 0}
+    for key, wv in want.items():
+        gv = got[key]
+        name = key[name_at]
+        if "percentile" in name:
+            worst["pct"] += 1
+            worst["pct_bit_equal"] += gv == wv
+            gap = abs(gv - wv)
+            check(gap <= 1e-3 + 2e-3 * abs(wv), f"{key}: {gv} vs {wv}")
+            if gap > worst["pct_abs"]:
+                worst.update(pct_abs=gap, pct_row=[str(key), gv, wv])
+        elif name.endswith(".sum"):
+            rel = abs(gv - wv) / max(abs(wv), 1e-30)
+            check(rel <= 1e-6, f"{key}: {gv} vs {wv}")
+            worst["sum_rel"] = max(worst["sum_rel"], rel)
+        else:
+            check(gv == wv, f"{key}: {gv} vs {wv} not bit-equal")
+    worst["rows"] = len(want)
+    return worst
+
+
+def _no_ts(doc):
+    """A decoded body without its ``timestamp`` fields (a STATUS row's
+    is the flush's second), lists sorted."""
+    if isinstance(doc, dict):
+        return {k: _no_ts(v) for k, v in doc.items() if k != "timestamp"}
+    if isinstance(doc, (list, tuple)):
+        return sorted((_no_ts(v) for v in doc),
+                      key=lambda v: json.dumps(v, sort_keys=True))
+    return doc
+
+
+# the span sinks' deliveries, held bit for bit between the card and the
+# CPU: spans carry their own timestamps
+SPAN_FAKES = ("datadog_trace", "splunk", "lightstep", "xray", "falconer")
+
+
+def span_records(p: dict) -> dict:
+    out = {k: p[k] for k in SPAN_FAKES}
+    out["newrelic_spans"] = [r for r in p["newrelic"]
+                             if json.loads(r)[1] == "/trace/v1"]
+    out["kafka_spans"] = [r for r in p["kafka"] if r[0] == "spans"]
+    return out
+
+
+def frame_encoders(dev: str, traffic: dict, rows: dict) -> dict:
+    """(c): one interval's frame on the card through the frame-native
+    encoders and, materialized, through the legacy ones: identical
+    bodies, and the times of each path."""
+    from veneur_tpu_torch.core.flusher import Flusher
+    from veneur_tpu_torch.core.table import MetricTable, TableConfig
+    from veneur_tpu_torch.sinks.datadog import DatadogMetricSink
+    from veneur_tpu_torch.sinks.prometheus import PrometheusRepeaterSink
+    from veneur_tpu_torch.sinks.signalfx import SignalFxSink
+    import torch
+    table = MetricTable(TableConfig(
+        counter_rows=rows["tpu_counter_rows"],
+        gauge_rows=rows["tpu_gauge_rows"],
+        histo_rows=rows["tpu_histo_rows"], set_rows=rows["tpu_set_rows"]),
+        device=dev)
+    d = traffic["dgrams"]
+    for lo in range(0, len(d), SINK_CHUNK):
+        table.ingest_buffer(b"\n".join(d[lo:lo + SINK_CHUNK]))
+        table.device_step()
+    snap = table.swap()
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    flusher = Flusher(**FLUSH_KW, hostname="sinks", device=dev)
+    t0 = time.perf_counter()
+    res = flusher.flush(snap, now=1, retain_frame=True)
+    t1 = time.perf_counter()
+    listed = res.frame.materialize()
+    t2 = time.perf_counter()
+    per_row = Flusher(**FLUSH_KW, hostname="sinks", device=dev,
+                      columnar=False).flush(snap, now=1)
+    t3 = time.perf_counter()
+    check(len(per_row.metrics) == len(listed), "per-row and frame counts")
+    out = {"metrics": len(listed), "flush_s": t1 - t0,
+           "materialize_s": t2 - t1, "per_row_flush_s": t3 - t2}
+
+    def sinks():
+        sent = {k: [] for k in FRAME_SINKS}
+        dd = DatadogMetricSink("k", "http://unused", 10.0,
+                               hostname="sinks")
+        dd._post_body = sent["datadog"].append
+        sfx = SignalFxSink("k", "http://unused", hostname="sinks",
+                           vary_key_by="team",
+                           per_tag_api_keys={"t1": "k1"})
+        sfx._post_body = lambda token, raw, n: sent["signalfx"].append(
+            (token, raw, n))
+        prom = PrometheusRepeaterSink("127.0.0.1:9", "udp")
+        prom._send = lambda lines: sent["prometheus"].extend(lines)
+        return {"datadog": dd, "signalfx": sfx, "prometheus": prom}, sent
+
+    def decoded(name, sent):
+        # the hand-built JSON orders an entry's keys its own way
+        if name == "datadog":
+            return [json.loads(raw) for raw in sent]
+        if name == "signalfx":
+            # the legacy encoder chunks a token's gauges before its
+            # counters, the frame path in the frame's order: the points
+            # (the reference's own test compares them so)
+            return sorted((token, kind, json.dumps(p, sort_keys=True))
+                          for token, raw, _n in sent
+                          for kind, pts in json.loads(raw).items()
+                          for p in pts)
+        return sent
+
+    frame_sinks, frame_sent = sinks()
+    list_sinks, list_sent = sinks()
+    for name in FRAME_SINKS:
+        t0 = time.perf_counter()
+        frame_sinks[name].flush_frame(res.frame)
+        t1 = time.perf_counter()
+        list_sinks[name].flush(listed)
+        t2 = time.perf_counter()
+        check(decoded(name, frame_sent[name]) ==
+              decoded(name, list_sent[name]),
+              f"{name}: the frame-native bodies differ from the legacy "
+              "encoder's")
+        out[name] = {"frame_encode_s": t1 - t0, "list_encode_s": t2 - t1,
+                     "bodies": len(frame_sent[name])}
+    out["frame_path_s"] = out["flush_s"] + sum(
+        out[n]["frame_encode_s"] for n in FRAME_SINKS)
+    out["list_path_s"] = out["flush_s"] + out["materialize_s"] + sum(
+        out[n]["list_encode_s"] for n in FRAME_SINKS)
+    out["per_row_path_s"] = out["per_row_flush_s"] + sum(
+        out[n]["list_encode_s"] for n in FRAME_SINKS)
+    out["datadog"]["bodies_expected"] = -(-out["metrics"] // 25000)
+    check(out["datadog"]["bodies"] == out["datadog"]["bodies_expected"],
+          "datadog bodies at 25,000 a body")
+    return out
+
+
+def stalled_sink(dev: str, tmp: str, rows: dict) -> dict:
+    """(d): a card server on a 2 s interval whose newrelic fake sleeps
+    ``SINK_STALL_S`` before answering: the other sinks land within the
+    budget, the stalled one times out (``flush_slow_tasks``), is
+    skipped busy next time round (``flush_skipped_busy``), the ledger
+    leaves it out of the interval's emitted sinks and counts the busy
+    drop, and the next flush reports
+    ``veneur.sink.flush_busy_drops_total`` for it."""
+    from veneur_tpu_torch.tools import sink_fakes
+    d = os.path.join(tmp, "stall")
+    os.makedirs(d)
+    fakes = sink_fakes.Backends(d, stall=("newrelic",),
+                                stall_s=SINK_STALL_S)
+    srv = sink_server(dev, fakes, rows, interval="2s",
+                      tags_exclude=[])
+    budget = max(srv.interval * 0.9, 1.0)
+    out = {"interval_s": srv.interval, "budget_s": budget,
+           "stall_s": SINK_STALL_S, "flushes": []}
+    try:
+        for i in range(4):
+            srv.handle_packet_batch([b"\n".join(
+                b"stall.c%d:%d|c" % (j, i + 1) for j in range(25))
+                for _ in range(40)])
+            t0 = time.perf_counter()
+            srv.flush_once()
+            dt = time.perf_counter() - t0
+            p = fakes.payloads()
+            led = srv.ledger.last()
+            vals = sink_fakes.metric_values(p)
+            landed = {k: len(vals[k]) > 0 for k in
+                      ("datadog", "signalfx", "prometheus",
+                       "prometheus_tcp", "kafka")}
+            busy = [m for m in vals["datadog"]
+                    if m[1] == "veneur.sink.flush_busy_drops_total"
+                    and "sink:newrelic" in m[5]]
+            out["flushes"].append({
+                "flush_s": dt, "landed": landed,
+                "emitted_sinks": sorted(led.emitted_per_sink),
+                "fanout_busy_drops": led.fanout_busy_drops,
+                "fanout_timeouts": led.fanout_timeouts,
+                "busy_drops_metric": [vals["datadog"][m] for m in busy]})
+            check(all(landed.values()), f"flush {i}: a sink missed: {landed}")
+            check(dt <= budget + 2.0, f"flush {i} took {dt:.2f} s")
+        st = srv.stats
+        out.update(flush_slow_tasks=st.get("flush_slow_tasks", 0),
+                   flush_skipped_busy=st.get("flush_skipped_busy", 0),
+                   fanout=srv._fanout.stats()["newrelic"])
+        f = out["flushes"]
+        check(out["flush_slow_tasks"] >= 1, "no slow task counted")
+        check(out["flush_skipped_busy"] >= 1, "no busy skip counted")
+        check("newrelic" not in f[0]["emitted_sinks"],
+              "the stalled sink was credited in its own interval")
+        check(any(x["fanout_busy_drops"] >= 1 for x in f),
+              "the ledger counted no busy drop")
+        check(any(x["busy_drops_metric"] for x in f[1:]),
+              "no veneur.sink.flush_busy_drops_total for newrelic")
+    finally:
+        srv.shutdown()
+        fakes.close()
+    return out
+
+
+def phase_sinks(dev: str = "cuda", scale: int = 1) -> dict:
+    """Phase 16: the sinks.  A port server on the card with every sink
+    configured against local fakes (``tools/sink_fakes.py``), fed phase
+    15's series at full width with events, service checks and spans,
+    one flush fanned out to every sink; the same through a CPU port
+    server.  (a) every sink's decoded delivery held card against CPU;
+    (b) every metric sink's rows equal to the ledger's
+    ``emitted_per_sink``, the sealed record balanced with fan-out deltas
+    of 0; (c) the frame-native encoders against the legacy ones on one
+    frame, both paths timed; (d) a stalled sink isolated and counted;
+    (e) the phase's merges recorded for the kernels line and phase 2's
+    re-check.  ``scale`` > 1 (a CPU rehearsal) divides the series."""
+    from veneur_tpu_torch.tools import sink_fakes
+    t_phase = time.perf_counter()
+    traffic = sink_traffic(scale)
+    rows = {"tpu_counter_rows": 32768 // scale,
+            "tpu_gauge_rows": 32768 // scale,
+            "tpu_histo_rows": 16384 // scale,
+            "tpu_set_rows": 2048 // scale}
+    out = {"phase": "sinks", "device": dev, "lines": traffic["lines"],
+           "datagrams": len(traffic["dgrams"]),
+           "spans": len(traffic["spans"]), "series": traffic["series"],
+           "events": traffic["events"], "checks": traffic["checks"]}
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke-") as tmp:
+        got = {}
+        for name, where in (("card", dev), ("cpu", "cpu")):
+            d = os.path.join(tmp, name)
+            os.makedirs(d)
+            fakes = sink_fakes.Backends(d)
+            srv = sink_server(where, fakes, rows)
+            try:
+                t0 = time.perf_counter()
+                if name == "card":
+                    with MergeRecorder() as rec:
+                        feed_sinks(srv, traffic)
+                        t1 = time.perf_counter()
+                        srv.flush_once()
+                else:
+                    feed_sinks(srv, traffic)
+                    t1 = time.perf_counter()
+                    srv.flush_once()
+                t2 = time.perf_counter()
+                led = srv.ledger.last()
+                p = fakes.payloads()
+                got[name] = {"payloads": p, "rows": dict(fakes.rows),
+                             "bodies": dict(fakes.bodies),
+                             "emitted": dict(led.emitted_per_sink),
+                             "balanced": led.balanced,
+                             "fanout": (led.fanout_busy_drops,
+                                        led.fanout_retries,
+                                        led.fanout_timeouts),
+                             "feed_s": t1 - t0, "flush_s": t2 - t1,
+                             "sink_s": {k: v["last_duration_s"] for k, v
+                                        in srv._fanout.stats().items()},
+                             "stats": {k: srv.stats.get(k, 0) for k in (
+                                 "flush_slow_tasks", "flush_skipped_busy",
+                                 "flush_errors")}}
+                if name == "card":
+                    out["cluster_merge_launches"] = rec.launches
+                    out["merge_shapes"] = rec.table()
+            finally:
+                srv.shutdown()
+                fakes.close()
+        card, cpu = got["card"], got["cpu"]
+        for g in (card, cpu):
+            check(g["balanced"], "the interval's ledger record is "
+                                 "imbalanced")
+            check(g["fanout"] == (0, 0, 0),
+                  f"fan-out deltas {g['fanout']}")
+            check(not any(g["stats"].values()), f"flush {g['stats']}")
+        # (a) parity, sink by sink
+        vc = sink_fakes.metric_values(card["payloads"])
+        vp = sink_fakes.metric_values(cpu["payloads"])
+        parity = {}
+        for sink, at in SINK_NAME_AT.items():
+            check(vc[sink], f"{sink}: nothing delivered")
+            parity[sink] = hold_sink_rows(vc[sink], vp[sink], at)
+        check(_no_ts(vc["other"]) == _no_ts(vp["other"]),
+              "event and check bodies differ")
+        sc, sp = span_records(card["payloads"]), span_records(
+            cpu["payloads"])
+        for k in sc:
+            check(sc[k] and sc[k] == sp[k], f"{k}: span deliveries differ")
+        parity["span_records"] = {k: len(v) for k, v in sc.items()}
+        parity["other_bodies"] = len(vc["other"])
+        out["parity"] = parity
+        out["percentile_max_abs_err"] = max(
+            v["pct_abs"] for k, v in parity.items() if k in SINK_NAME_AT)
+        # (b) delivery: what each metric sink's fake decoded is what the
+        # ledger says the sink took
+        counts = card["rows"]
+        for sink, n in counts.items():
+            check(card["emitted"].get(sink) == n,
+                  f"{sink}: ledger {card['emitted'].get(sink)} vs "
+                  f"decoded {n}")
+        out["delivery"] = {"emitted_per_sink": card["emitted"],
+                           "decoded": counts, "bodies": card["bodies"]}
+        out["events_delivered"] = {
+            k: sum(1 for x in vc["other"] if x[0] == k)
+            for k in ("datadog", "signalfx", "newrelic", "kafka")}
+        for key in ("feed_s", "flush_s", "sink_s"):
+            out[f"card_{key}"] = card[key]
+            out[f"cpu_{key}"] = cpu[key]
+        # (c) the frame-native encoders
+        out["frame_encoders"] = frame_encoders(dev, traffic, rows)
+        # (d) a stalled sink
+        out["stalled_sink"] = stalled_sink(dev, tmp, rows)
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
 def _device_steps(dc: dict) -> dict:
     """A child's launch registry in brief: device steps run, the host
     seconds spent enqueueing them and their CUDA-event seconds."""
@@ -5130,10 +5564,11 @@ def main() -> int:
     table = phase_table()
     readers = phase_readers(table)
     del table["bufs"], table["exact_p99"], table["metrics"]
-    # one timed flat interval (and the profiled one) and a quarter of
-    # the stacked shape's wires keep the whole script, phases 13-15
+    # one timed flat interval (no profiled one) and an eighth of the
+    # stacked shape's wires keep the whole script, phases 13-16
     # included, well inside 1,200 s
-    glob = phase_global(intervals=1, stack_wires=N_WIRES // 4)
+    glob = phase_global(intervals=1, stack_wires=N_WIRES // 8,
+                        profiled=False)
     grpc_in = glob.pop("grpc_input")
     grpc_glob = phase_global_grpc(grpc_in)
     routing = phase_routing(grpc_in, grpc_glob.pop("metrics"))
@@ -5142,6 +5577,7 @@ def main() -> int:
     crash = phase_crash_riding()
     span = phase_span_plane()
     edge = phase_ingest_edge()
+    sinks = phase_sinks()
     # phase 2 again, at every other shape phases 4, 6, 8, 9, 10, 12 and
     # 13 merged at: the locals' sample batches unit-weight, the globals'
     # wires weighted (phase 12's local and globals merge together: their
@@ -5167,6 +5603,7 @@ def main() -> int:
     cases += recorded_cases(edge["merge_shapes"], timed=cases)
     cases += recorded_cases(edge["weighted_shapes"], weighted=True,
                             timed=cases)
+    cases += recorded_cases(sinks["merge_shapes"], timed=cases)
     kern.update(phase_kernel(cases=cases))
     phase_server()
     phase_chain()
@@ -5185,7 +5622,8 @@ def main() -> int:
                "routing_tiers": routing["cluster_merge_launches"],
                "crash_riding": crash["cluster_merge_launches"],
                "span_plane": span["cluster_merge_launches"],
-               "ingest_edge": edge["cluster_merge_launches"]}
+               "ingest_edge": edge["cluster_merge_launches"],
+               "sinks": sinks["cluster_merge_launches"]}
     shapes_by_path = {"multi_reader": {n: r["merge_shapes"] for n, r in
                                        readers["runs"].items()},
                       "tiers": tiers["merge_shapes"],
@@ -5196,7 +5634,8 @@ def main() -> int:
                       "span_plane": span["merge_shapes"],
                       "ingest_edge": {"unit": edge["merge_shapes"],
                                       "weighted":
-                                          edge["weighted_shapes"]}}
+                                          edge["weighted_shapes"]},
+                      "sinks": sinks["merge_shapes"]}
     emit({"kernels": [{
         "name": "cluster_merge", "route": "cuda",
         "source": "veneur_tpu_torch/csrc/cluster_merge.cu",

@@ -384,6 +384,131 @@ def test_weighted_k48_gap_is_a_cluster_boundary_flip():
     assert merges([a[703:711] for a in case0])["clusters"] == (47, 46)
 
 
+def _flip_counts(case, comp: float = 100.0):
+    """Per live slot of the sorted union (one shared order and one q,
+    exact here: integer weights), the cluster id ``floor(k)`` under the
+    port's ``_k_scale``, XLA's (``tdigest._k_scale``, ``jnp.arcsin``)
+    and the Pallas kernel's (its ``_asin`` polynomial, its k(0)).
+    Returns the union's weights and the three id planes."""
+    import jax
+    import jax.numpy as jnp
+    from veneur_tpu.ops import pallas_merge
+    from veneur_tpu.ops import tdigest as jtd
+    cap, kw = tdigest.capacity_for(comp), _scale(comp)
+    delta = kw["delta"]
+    m, w, bm, bw = case
+    w, bw = (segment.ftz(torch.from_numpy(a)).numpy() for a in (w, bw))
+    mm, ww = np.concatenate([m, bm], 1), np.concatenate([w, bw], 1)
+    order = np.argsort(np.where(ww > 0, mm, np.inf), 1, kind="stable")
+    ww = np.take_along_axis(ww, order, 1)
+    q = ((np.cumsum(ww, 1, dtype=np.float32) - ww) /
+         ww.sum(1, keepdims=True).clip(1e-30)).astype(np.float32)
+    args = (kw["tail_coeff"], kw["tail_q0"], kw["tail_qmin"])
+    k0 = cluster_merge._k_scale(torch.zeros(()), delta, *args)
+    # 32 rows a call: one torch thread computes every element
+    kt = torch.cat([cluster_merge._k_scale(
+        torch.from_numpy(q[r:r + 32]), delta, *args) - k0
+        for r in range(0, len(q), 32)]).numpy()
+
+    def k_pallas(qq):
+        body = (delta / (2.0 * jnp.pi)) * pallas_merge._asin(
+            jnp.clip(2.0 * qq - 1.0, -1.0, 1.0))
+        tail = kw["tail_coeff"] * jnp.log(
+            kw["tail_q0"] / jnp.clip(1.0 - qq, kw["tail_qmin"], None))
+        return body + jnp.maximum(tail, 0.0) + delta / 4.0
+
+    with jax.default_device(jax.devices("cpu")[0]):
+        kx = np.array(jax.jit(
+            lambda qq: jtd._k_scale(qq, delta, comp)
+            - jtd._k_scale(jnp.float32(0.0), delta, comp))(
+                jnp.asarray(q)))
+        kp = np.array(jax.jit(k_pallas)(jnp.asarray(q)))
+    ids = [np.clip(np.floor(k), 0, cap - 1).astype(np.int64)
+           for k in (kt, kx, kp)]
+    return ww, ids
+
+
+def _cluster_weights(ww_row, ids_row) -> list:
+    """The non-empty clusters' weights that a partition of the row
+    implies (exact: integer weights), sorted: the kernel's bitonic pack
+    orders clusters of equal mean either way."""
+    sums = np.bincount(ids_row, weights=ww_row.astype(np.float64))
+    return sorted(float(x) for x in sums if x > 0)
+
+
+@pytest.mark.parametrize("label,seed,rows,k,weighted", [
+    ("k256", 7, 4096, 256, False),
+    ("k512_unsorted_state", 8, 2048, 512, False),
+    ("weighted_k48", 2, 6144, 48, True),
+])
+def test_port_flips_no_more_clusters_than_the_pallas_kernel(
+        label, seed, rows, k, weighted):
+    """The ulp boundary flips settled: over phase 2's generators
+    (``chip_smoke.random_case``), the slots whose cluster id differs
+    from the XLA merge's are counted for the port's k and for the
+    Pallas kernel's.  The port's count is no higher than the
+    reference's own (e.g. 5 against 64 of 1.09M live slots at the
+    weighted (6144, 48) case); and on rows where either flips, the
+    partitions these ids imply are the clusters each merge really
+    wrote: the port's plain merge, XLA's ``_merge_impl`` and the Pallas
+    kernel in interpret mode."""
+    import chip_smoke
+    jax = pytest.importorskip("jax")
+    jnp = pytest.importorskip("jax.numpy")
+    pallas_merge = pytest.importorskip("veneur_tpu.ops.pallas_merge")
+    from veneur_tpu.ops import tdigest as jtd
+    comp = 100.0
+    cap, kw = tdigest.capacity_for(comp), _scale(comp)
+    rng = np.random.default_rng(seed)
+    case = list(chip_smoke.random_case(rng, rows, cap, k, weighted))
+    if label.endswith("unsorted_state"):
+        perm = np.argsort(rng.random((rows, cap)), axis=1)
+        case[0] = np.take_along_axis(case[0], perm, 1)
+        case[1] = np.take_along_axis(case[1], perm, 1)
+    ww, (it, ix, ip) = _flip_counts(case, comp)
+    live = ww > 0
+    port = (it != ix) & live
+    pal = (ip != ix) & live
+    assert 0 < pal.sum()
+    assert port.sum() <= pal.sum(), (int(port.sum()), int(pal.sum()))
+    # rows whose union holds two equal means are left out of the check
+    # below: the kernel's bitonic sort orders tied slots either way,
+    # which moves their q (a sort effect, not the arcsin's)
+    mm = np.concatenate([case[0], case[2]], 1)
+    keys = np.sort(np.where(np.concatenate([case[1], case[3]], 1) > 0,
+                            mm, np.inf), 1)
+    untied = ~((keys[:, 1:] == keys[:, :-1]) & np.isfinite(keys[:, 1:])
+               ).any(1)
+    # an 8-row block holding a flipped row of each kind through the
+    # merges: the port's plain merge, XLA's and the Pallas kernel in
+    # interpret mode
+    cpu = jax.devices("cpu")[0]
+    checked = 0
+    for flips in (port, pal):
+        rows_hit = np.argwhere(flips.any(1) & untied)[:, 0]
+        if not len(rows_hit):
+            continue
+        r0 = int(rows_hit[0]) // 8 * 8
+        block = [np.ascontiguousarray(a[r0:r0 + 8]) for a in case]
+        pm, pw = cluster_merge.cluster_merge_plain(
+            *(torch.from_numpy(a) for a in block), **kw)
+        with jax.default_device(cpu):
+            jb = [jnp.asarray(a) for a in block]
+            xw = np.array(jtd._merge_impl(*jb, compression=comp)[1])
+            kw_w = np.array(pallas_merge.merge_planes(
+                *jb, **kw, interpret=True)[1])
+        for r in np.argwhere(untied[r0:r0 + 8])[:, 0]:
+            row = r0 + int(r)
+            got = {name: sorted(float(x) for x in wrow[wrow > 0])
+                   for name, wrow in (("port", pw[r].numpy()),
+                                      ("xla", xw[r]), ("pallas", kw_w[r]))}
+            for name, ids in (("port", it), ("xla", ix), ("pallas", ip)):
+                assert got[name] == _cluster_weights(ww[row], ids[row]), \
+                    (name, row)
+            checked += int(flips[row].any())
+    assert checked >= 1
+
+
 def test_ab_tool_variants_derive_from_the_kernel_source():
     """``tools/cluster_merge_ab.py`` builds its variants by anchored
     edits of the kernel's source; every anchor must still match once."""

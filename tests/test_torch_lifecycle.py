@@ -333,3 +333,72 @@ def test_accelerator_probe_timeout_is_read_not_acted_on():
     cfg.accelerator_probe_timeout = "soon"
     with pytest.raises(ValueError, match="bad duration"):
         Server(cfg, device="cpu")
+
+
+def test_sink_threads_end_with_the_server():
+    """The fan-out workers, signalfx's key-refresh thread, splunk's
+    submission workers, lightstep's client pool, the flush pool and the
+    grpsink channel all end in ``shutdown``: no thread of theirs
+    outlives the server."""
+    import json as _json
+
+    from veneur_tpu_torch.protocol.gen import ssf_pb2
+    from veneur_tpu_torch.sinks.grpsink import GRPCSpanSinkServer
+    from veneur_tpu_torch.tools import sink_fakes
+
+    def sink_threads():
+        prefixes = ("sink-flush-", "signalfx-key-refresh", "splunk-hec",
+                    "flush-pool")
+        return [t.name for t in threading.enumerate()
+                if t.is_alive() and t.name.startswith(prefixes)]
+
+    assert sink_threads() == []
+    http = sink_fakes.HttpCapture()
+    falconer = GRPCSpanSinkServer()
+    falconer.start()
+    srv = Server(read_config(data={
+        "interval": "10s", "hostname": "h", **_ROWS,
+        "tpu_sink_workers": 1,
+        "datadog_api_key": "k", "datadog_api_hostname": http.url,
+        "signalfx_api_key": "s", "signalfx_endpoint_base": http.url,
+        "signalfx_dynamic_per_tag_api_keys_enable": True,
+        "signalfx_vary_key_by": "team",
+        "splunk_hec_address": http.url, "splunk_hec_token": "t",
+        "splunk_hec_submission_workers": 2,
+        "lightstep_access_token": "l",
+        "lightstep_collector_host": http.url, "lightstep_num_clients": 2,
+        "falconer_address": f"127.0.0.1:{falconer.port}"}, env={}),
+        device="cpu")
+    try:
+        srv.start()
+        srv.handle_packet(b"life.hits:1|c|#team:a")
+        # a span for splunk's submission workers to post
+        srv.handle_ssf(ssf_pb2.SSFSpan(trace_id=1, id=1, name="op",
+                                       start_timestamp=1,
+                                       end_timestamp=2))
+        deadline = time.monotonic() + 30
+        while (srv.stats.get("spans_processed", 0) < 1
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        srv.flush_once()
+        live = sink_threads()
+        assert any(n.startswith("sink-flush-datadog") for n in live)
+        assert any(n.startswith("splunk-hec") for n in live)
+        assert "signalfx-key-refresh" in live or any(
+            r[1] == "/v2/token" for r in http.requests)
+        assert any(r[1].startswith("/api/v1/series")
+                   for r in http.requests)
+    finally:
+        srv.shutdown()
+        falconer.stop()
+        http.close()
+    # the flush pool is shut down without waiting: its idle workers
+    # take the wake-up and end a moment later
+    deadline = time.monotonic() + 10
+    while sink_threads() and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert sink_threads() == []
+    falcon = next(s for s in srv.span_sinks if s.name == "falconer")
+    with pytest.raises(ValueError, match="Channel closed"):
+        falcon._call.future(ssf_pb2.SSFSpan())
+    assert _json.dumps(srv.debug_vars()["sinks"])  # still readable

@@ -794,7 +794,21 @@ assert {"veneur_tpu_torch.core.frame",
         "veneur_tpu_torch.forward.handoff",
         "veneur_tpu_torch.chaos",
         "veneur_tpu_torch.chaos.injector",
-        "veneur_tpu_torch.native.uring"} <= set(names)
+        "veneur_tpu_torch.native.uring",
+        "veneur_tpu_torch.sinks.base",
+        "veneur_tpu_torch.sinks.fanout",
+        "veneur_tpu_torch.sinks.datadog",
+        "veneur_tpu_torch.sinks.signalfx",
+        "veneur_tpu_torch.sinks.prometheus",
+        "veneur_tpu_torch.sinks.newrelic",
+        "veneur_tpu_torch.sinks.kafka",
+        "veneur_tpu_torch.sinks.splunk",
+        "veneur_tpu_torch.sinks.xray",
+        "veneur_tpu_torch.sinks.lightstep",
+        "veneur_tpu_torch.sinks.grpsink",
+        "veneur_tpu_torch.sinks.s3",
+        "veneur_tpu_torch.protocol.gen.grpsink_pb2",
+        "veneur_tpu_torch.tools.sink_fakes"} <= set(names)
 from veneur_tpu_torch.core.table import MetricTable, TableConfig
 from veneur_tpu_torch.forward import gob_codec
 MetricTable(TableConfig(histo_rows=8), device="cpu")
@@ -816,6 +830,28 @@ srv.flush_once()
 srv.flush_once()
 assert srv.ledger.last().balanced and srv.signals.rows() == 2
 srv.shutdown()
+from veneur_tpu_torch.sinks.grpsink import GRPCSpanSinkServer
+from veneur_tpu_torch.tools import sink_fakes
+fake_http, fake_kafka = sink_fakes.HttpCapture(), sink_fakes.FakeKafkaBroker()
+falconer = GRPCSpanSinkServer()
+falconer.start()
+sinks = Server(read_config(data={"tpu_histo_rows": 8, "tags_exclude": ["x"],
+    "datadog_api_key": "k", "datadog_api_hostname": fake_http.url,
+    "signalfx_api_key": "s", "signalfx_endpoint_base": fake_http.url,
+    "kafka_broker": fake_kafka.addr, "kafka_span_topic": "spans",
+    "aws_s3_bucket": "b", "aws_s3_endpoint": fake_http.url,
+    "aws_access_key_id": "a", "aws_secret_access_key": "s",
+    "falconer_address": f"127.0.0.1:{falconer.port}"}), device="cpu")
+sinks.start()
+sinks.handle_packet(b"s:1|c\\n_e{1,1}:a|b\\n_sc|c|0")
+sinks.flush_once()
+sinks.shutdown()
+paths = {r[1].split("?")[0] for r in fake_http.take()}
+assert {"/api/v1/series", "/intake", "/v2/datapoint"} <= paths, paths
+assert fake_kafka.take()
+fake_http.close()
+fake_kafka.close()
+falconer.stop()
 capture_device_profile(0.05)
 import threading, time
 from veneur_tpu_torch.core.config import ProxyConfig
@@ -862,7 +898,8 @@ g1.shutdown()
 g2.shutdown()
 left = [t.name for t in threading.enumerate()
         if t.name.startswith(("proxy-dest-", "discovery-refresh",
-                              "checkpointer"))
+                              "checkpointer", "sink-flush-",
+                              "flush-pool"))
         and t.is_alive()]
 assert not left, left
 bad = sorted(m for m in sys.modules

@@ -264,6 +264,138 @@ class Config:
     # a global's scale-out arc handoff (Server.arc_handoff)
     tpu_arc_handoff: bool = True
 
+    # -- the sinks (reference config.go; sinks/*.py) ------------------
+    # per-sink tag exclusion rules: "tagname" strips everywhere,
+    # "tagname|sink1|sink2" strips only on the named sinks
+    # (reference server.go:1642-1668 setSinkExcludedTags)
+    tags_exclude: list[str] = field(default_factory=list)
+    # Go runtime profiling knobs (mutex/block profiling,
+    # server.go:371-384): parsed for compatibility, no-ops here
+    # (enable_profiling drives the torch.profiler trace)
+    mutex_profile_fraction: int = 0
+    block_profile_rate: int = 0
+    # per-sink flush fan-out: > 0 gives every metric sink its own
+    # worker thread with a one-slot queue, per-sink timeout accounting
+    # and retry with full-jitter backoff, so one stalled sink cannot
+    # stretch the interval for the rest; 0: the shared flush pool
+    tpu_sink_workers: int = 1
+    datadog_api_key: str = ""
+    datadog_api_hostname: str = "https://app.datadoghq.com"
+    datadog_flush_max_per_body: int = 25000
+    # deprecated alias of datadog_flush_max_per_body (example.yaml:188)
+    flush_max_per_body: int = 0
+    # drop metrics whose name starts with any of these prefixes before
+    # the datadog sink (config.go DatadogMetricNamePrefixDrops)
+    datadog_metric_name_prefix_drops: list[str] = field(
+        default_factory=list)
+    # strip tag PREFIXES from metrics with matching name prefixes
+    # ([{metric_prefix: "...", tags: [...]}]; example.yaml:301)
+    datadog_exclude_tags_prefix_by_prefix_metric: list = field(
+        default_factory=list)
+    # span capacity of the datadog span sink between flushes; the
+    # deprecated ssf_buffer_size aliases it (example.yaml:190)
+    datadog_span_buffer_size: int = 16384
+    ssf_buffer_size: int = 0
+    # the prometheus statsd repeater ("host:port" or udp:// / tcp://)
+    prometheus_repeater_address: str = ""
+    prometheus_network_type: str = "tcp"
+    # the s3 plugin: one gzipped TSV object a flush
+    aws_s3_bucket: str = ""
+    aws_region: str = ""
+    # SigV4 credentials for the s3 plugin; empty falls back to the
+    # AWS_* env vars, and with neither the plugin spools locally
+    aws_access_key_id: str = ""
+    aws_secret_access_key: str = ""
+    # override for S3-compatible stores (minio, local fakes)
+    aws_s3_endpoint: str = ""
+    # kafka (reference config.go:38-55)
+    kafka_broker: str = ""
+    kafka_metric_topic: str = "veneur_metrics"
+    kafka_check_topic: str = ""
+    kafka_event_topic: str = ""
+    kafka_span_topic: str = ""
+    kafka_span_serialization_format: str = "protobuf"
+    # producer tuning (sarama equivalents): flushes batch per interval
+    # here, and these bound the per-interval produce batches
+    kafka_metric_buffer_bytes: int = 0
+    kafka_metric_buffer_messages: int = 0
+    kafka_metric_buffer_frequency: str = ""
+    kafka_span_buffer_bytes: int = 0
+    kafka_span_buffer_mesages: int = 0  # the reference's own typo, kept
+    kafka_span_buffer_frequency: str = ""
+    # acks required from the broker: none, local or all
+    kafka_metric_require_acks: str = "all"
+    kafka_span_require_acks: str = "all"
+    kafka_partitioner: str = "hash"  # hash | random
+    kafka_retry_max: int = 0
+    # span sampling: percent kept, hashed on a tag (or trace id)
+    kafka_span_sample_rate_percent: float = 100.0
+    kafka_span_sample_tag: str = ""
+    # datadog span half: local trace agent (config.go:20)
+    datadog_trace_api_address: str = ""
+    # signalfx (config.go:80-93)
+    signalfx_api_key: str = ""
+    signalfx_endpoint_base: str = "https://ingest.signalfx.com"
+    # separate API (metadata) endpoint for dynamic key fetch; empty
+    # falls back to endpoint_base (reference SignalfxEndpointAPI)
+    signalfx_endpoint_api: str = ""
+    signalfx_flush_max_per_body: int = 5000
+    signalfx_vary_key_by: str = ""
+    signalfx_per_tag_api_keys: dict = field(default_factory=dict)
+    # periodically refresh the per-tag key map from the API endpoint
+    # (reference server.go:530-541)
+    signalfx_dynamic_per_tag_api_keys_enable: bool = False
+    signalfx_dynamic_per_tag_api_keys_refresh_period: str = "10m"
+    # dimension name carrying the hostname (default "host")
+    signalfx_hostname_tag: str = "host"
+    # drop metrics by name prefix, or by a tag's prefix, before emission
+    signalfx_metric_name_prefix_drops: list[str] = field(
+        default_factory=list)
+    signalfx_metric_tag_prefix_drops: list[str] = field(
+        default_factory=list)
+    # splunk HEC span sink (config.go:95-104, server.go:660-697)
+    splunk_hec_address: str = ""
+    splunk_hec_token: str = ""
+    splunk_span_sample_rate: int = 1
+    splunk_hec_batch_size: int = 100
+    splunk_hec_submission_workers: int = 1
+    splunk_hec_tls_validate_hostname: str = ""
+    splunk_hec_send_timeout: str = ""
+    splunk_hec_ingest_timeout: str = ""
+    # recycle HEC connections after at most this lifetime, jittered
+    # so a fleet's connections don't stampede the indexer together
+    splunk_hec_max_connection_lifetime: str = ""
+    splunk_hec_connection_lifetime_jitter: str = ""
+    # newrelic (config.go:63-69)
+    newrelic_insert_key: str = ""
+    newrelic_account_id: int = 0
+    newrelic_region: str = ""
+    newrelic_event_type: str = "veneur"
+    newrelic_service_check_event_type: str = "veneurCheck"
+    newrelic_trace_observer_url: str = ""
+    newrelic_metric_endpoint: str = "https://metric-api.newrelic.com"
+    newrelic_trace_endpoint: str = "https://trace-api.newrelic.com"
+    newrelic_common_tags: list[str] = field(default_factory=list)
+    # xray (config.go:129-131)
+    xray_address: str = ""
+    xray_sample_percentage: float = 100.0
+    xray_annotation_tags: list[str] = field(default_factory=list)
+    # lightstep (config.go:56-57); trace_lightstep_* are the
+    # reference's deprecated aliases (example.yaml:191-204)
+    lightstep_access_token: str = ""
+    lightstep_collector_host: str = "https://collector.lightstep.com"
+    lightstep_maximum_spans: int = 100000
+    lightstep_num_clients: int = 1
+    lightstep_reconnect_period: str = "5m"
+    trace_lightstep_access_token: str = ""
+    trace_lightstep_collector_host: str = ""
+    trace_lightstep_maximum_spans: int = 0
+    trace_lightstep_num_clients: int = 0
+    trace_lightstep_reconnect_period: str = ""
+    # falconer: the grpsink span sink under its product name
+    # (config.go:25)
+    falconer_address: str = ""
+
     def interval_seconds(self) -> float:
         return parse_duration(self.interval)
 
@@ -294,13 +426,42 @@ class Config:
             self.checkpoint_interval_seconds() > 0
 
     def resolve_aliases(self) -> None:
-        """Fold the deprecated ``grpc_address`` into
-        ``grpc_listen_addresses`` when that is still empty."""
+        """Fold the reference's deprecated alias keys into their
+        replacements (example.yaml:187-204): ``grpc_address`` when
+        ``grpc_listen_addresses`` is empty, the others only while the
+        replacement still holds its default."""
         if self.grpc_address and not self.grpc_listen_addresses:
             addr = self.grpc_address
             if "://" not in addr:
                 addr = "tcp://" + addr
             self.grpc_listen_addresses = [addr]
+        if self.flush_max_per_body and \
+                self.datadog_flush_max_per_body == 25000:
+            self.datadog_flush_max_per_body = self.flush_max_per_body
+        if self.ssf_buffer_size and \
+                self.datadog_span_buffer_size == 16384:
+            self.datadog_span_buffer_size = self.ssf_buffer_size
+        if self.trace_lightstep_access_token and \
+                not self.lightstep_access_token:
+            self.lightstep_access_token = \
+                self.trace_lightstep_access_token
+        if self.trace_lightstep_collector_host and \
+                self.lightstep_collector_host == \
+                "https://collector.lightstep.com":
+            self.lightstep_collector_host = \
+                self.trace_lightstep_collector_host
+        if self.trace_lightstep_maximum_spans and \
+                self.lightstep_maximum_spans == 100000:
+            self.lightstep_maximum_spans = \
+                self.trace_lightstep_maximum_spans
+        if self.trace_lightstep_num_clients and \
+                self.lightstep_num_clients == 1:
+            self.lightstep_num_clients = \
+                self.trace_lightstep_num_clients
+        if self.trace_lightstep_reconnect_period and \
+                self.lightstep_reconnect_period == "5m":
+            self.lightstep_reconnect_period = \
+                self.trace_lightstep_reconnect_period
 
     def validate(self) -> list[str]:
         problems = []
@@ -453,6 +614,27 @@ class Config:
             problems.append(f"tpu_flight_cooldown: {e}")
         if self.tpu_signal_history < 0:
             problems.append("tpu_signal_history must be >= 0")
+        if self.kafka_span_serialization_format not in ("protobuf",
+                                                        "json"):
+            problems.append(
+                "kafka_span_serialization_format must be "
+                "'protobuf' or 'json', got "
+                f"{self.kafka_span_serialization_format!r}")
+        for key in ("kafka_metric_require_acks",
+                    "kafka_span_require_acks"):
+            if getattr(self, key) not in ("none", "local", "all"):
+                problems.append(
+                    f"{key} must be none, local or all")
+        if self.kafka_partitioner not in ("hash", "random"):
+            problems.append("kafka_partitioner must be hash or random")
+        if not (0.0 < self.kafka_span_sample_rate_percent <= 100.0):
+            problems.append(
+                "kafka_span_sample_rate_percent must be in (0, 100]")
+        for rule in self.datadog_exclude_tags_prefix_by_prefix_metric:
+            if not (isinstance(rule, dict) and "metric_prefix" in rule):
+                problems.append(
+                    "datadog_exclude_tags_prefix_by_prefix_metric "
+                    "entries need a metric_prefix")
         return problems
 
 
@@ -491,7 +673,49 @@ _ENV_KEYS = ("tags", "debug", "flush_watchdog_missed_flushes",
              "tpu_overload_occupancy_hi", "tpu_overload_lag_hi",
              "tpu_overload_exit_ratio", "tpu_overload_coalesce",
              "tpu_checkpoint_interval", "tpu_checkpoint_dir",
-             "tpu_arc_handoff")
+             "tpu_arc_handoff", "tags_exclude", "mutex_profile_fraction",
+             "block_profile_rate", "tpu_sink_workers", "datadog_api_key",
+             "datadog_api_hostname", "datadog_flush_max_per_body",
+             "flush_max_per_body", "datadog_metric_name_prefix_drops",
+             "datadog_exclude_tags_prefix_by_prefix_metric",
+             "datadog_span_buffer_size", "ssf_buffer_size",
+             "prometheus_repeater_address", "prometheus_network_type",
+             "aws_s3_bucket", "aws_region", "aws_access_key_id",
+             "aws_secret_access_key", "aws_s3_endpoint", "kafka_broker",
+             "kafka_metric_topic", "kafka_check_topic", "kafka_event_topic",
+             "kafka_span_topic", "kafka_span_serialization_format",
+             "kafka_metric_buffer_bytes", "kafka_metric_buffer_messages",
+             "kafka_metric_buffer_frequency", "kafka_span_buffer_bytes",
+             "kafka_span_buffer_mesages", "kafka_span_buffer_frequency",
+             "kafka_metric_require_acks", "kafka_span_require_acks",
+             "kafka_partitioner", "kafka_retry_max",
+             "kafka_span_sample_rate_percent", "kafka_span_sample_tag",
+             "datadog_trace_api_address", "signalfx_api_key",
+             "signalfx_endpoint_base", "signalfx_endpoint_api",
+             "signalfx_flush_max_per_body", "signalfx_vary_key_by",
+             "signalfx_per_tag_api_keys",
+             "signalfx_dynamic_per_tag_api_keys_enable",
+             "signalfx_dynamic_per_tag_api_keys_refresh_period",
+             "signalfx_hostname_tag", "signalfx_metric_name_prefix_drops",
+             "signalfx_metric_tag_prefix_drops", "splunk_hec_address",
+             "splunk_hec_token", "splunk_span_sample_rate",
+             "splunk_hec_batch_size", "splunk_hec_submission_workers",
+             "splunk_hec_tls_validate_hostname", "splunk_hec_send_timeout",
+             "splunk_hec_ingest_timeout",
+             "splunk_hec_max_connection_lifetime",
+             "splunk_hec_connection_lifetime_jitter", "newrelic_insert_key",
+             "newrelic_account_id", "newrelic_region", "newrelic_event_type",
+             "newrelic_service_check_event_type",
+             "newrelic_trace_observer_url", "newrelic_metric_endpoint",
+             "newrelic_trace_endpoint", "newrelic_common_tags",
+             "xray_address", "xray_sample_percentage",
+             "xray_annotation_tags", "lightstep_access_token",
+             "lightstep_collector_host", "lightstep_maximum_spans",
+             "lightstep_num_clients", "lightstep_reconnect_period",
+             "trace_lightstep_access_token",
+             "trace_lightstep_collector_host",
+             "trace_lightstep_maximum_spans", "trace_lightstep_num_clients",
+             "trace_lightstep_reconnect_period", "falconer_address")
 
 
 def _coerce(cls, name: str, raw: str):

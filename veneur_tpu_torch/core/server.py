@@ -46,10 +46,20 @@ Every ingest and import site checks the staging against
 ``tpu_stage_flush_samples``: past it the staged work is detached under
 the lock and applied to the device after the lock is released
 (``tpu_pipeline``; the flush's ``complete_swap`` waits for every pending
-apply), or, with the pipeline off, applied inline.  A flush thread swaps
-the table every interval, reads it out as a columnar ``MetricFrame``
-(``tpu_columnar_emit``), routes the frame to each sink and hands the
-flush-file plugin the materialized list (``flush_once``).
+apply), or, with the pipeline off, applied inline.  DogStatsD events
+and service checks join the interval's buffers (a check also enters the
+table as a STATUS sample), taken in the swap's lock round.  A flush
+thread swaps the table every interval, reads it out as a columnar
+``MetricFrame`` (``tpu_columnar_emit``) and routes it (whitelists and
+``tags_exclude``) to each metric sink built from the config
+(``_build_sinks``: datadog, prometheus, signalfx, newrelic, kafka and
+the span sinks, in the reference's order): each sink's flush, then its
+``flush_other_samples`` with the interval's events and checks, runs on
+its own fan-out worker (``tpu_sink_workers``; retries with full-jitter
+backoff, a breaker, a busy drop when the previous flush still runs),
+the plugins (flush file, s3) and the span sinks' flush on a shared
+pool; the flush waits for them only within ``max(0.9 interval, 1 s)``
+and counts what overran (``flush_once``).
 
 With ``http_address`` set (``host:port``, or ``einhorn@N``: einhorn's
 inherited listening fd N, acked to its master), a
@@ -112,6 +122,8 @@ import threading
 import time
 import urllib.request
 import zlib
+from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import TimeoutError as _FuturesTimeout
 from pathlib import Path
 
 import grpc
@@ -140,7 +152,10 @@ from veneur_tpu_torch.ops import cluster_merge, fdpass
 from veneur_tpu_torch.protocol import addr as addrmod
 from veneur_tpu_torch.protocol import columnar, wire
 from veneur_tpu_torch.protocol import dogstatsd as dsd
-from veneur_tpu_torch.sinks.base import route
+from veneur_tpu_torch.sinks import base as sinks_base
+from veneur_tpu_torch.sinks.datadog import DatadogMetricSink
+from veneur_tpu_torch.sinks.fanout import SinkFanout
+from veneur_tpu_torch.sinks.prometheus import PrometheusRepeaterSink
 from veneur_tpu_torch.sinks.simple import (BlackholeSink, DebugSink,
                                            LocalFilePlugin)
 from veneur_tpu_torch.sinks.ssfmetrics import MetricExtractionSink
@@ -163,6 +178,26 @@ def tags_to_dict(tags) -> dict[str, str]:
     """``["k:v", ...]`` config tags -> dict, skipping bare tags: the
     shape the span worker takes its common tags in."""
     return dict(t.split(":", 1) for t in tags if ":" in t)
+
+
+def _check_sample(check) -> "dsd.Sample":
+    """A service check's STATUS sample for the table."""
+    return dsd.Sample(name=check.name, type=dsd.STATUS,
+                      value=float(check.status), tags=check.tags,
+                      message=check.message)
+
+
+def generate_excluded_tags(rules: list[str],
+                           sink_name: str) -> list[str]:
+    """tags_exclude rules -> tag names excluded for one sink:
+    "tagname" applies everywhere, "tagname|sink1|sink2" only on the
+    named sinks (reference server.go generateExcludedTags)."""
+    out = []
+    for rule in rules:
+        parts = rule.split("|")
+        if len(parts) == 1 or sink_name in parts[1:]:
+            out.append(parts[0])
+    return out
 
 
 def use_build_dir(path: str) -> None:
@@ -219,7 +254,8 @@ class Server:
     def __init__(self, config: Config,
                  device: "str | torch.device" = "cuda",
                  extra_sinks: list | None = None,
-                 extra_span_sinks: list | None = None):
+                 extra_span_sinks: list | None = None,
+                 extra_plugins: list | None = None):
         self.config = config
         self.device = resolve_device(device)
         # the reference's accelerator probe falls back to the CPU; the
@@ -250,15 +286,9 @@ class Server:
             percentile_naming=config.percentile_naming,
             quantile_interpolation=config.quantile_interpolation)
         self.metric_sinks = list(extra_sinks or [])
-        if config.blackhole_sink:
-            self.metric_sinks.append(BlackholeSink())
-        if config.debug_flushed_metrics:
-            self.metric_sinks.append(DebugSink())
-        self.plugins = []
-        if config.flush_file:
-            self.plugins.append(LocalFilePlugin(
-                config.flush_file, self.flusher.hostname,
-                fmt=config.flush_file_format, interval=self.interval))
+        self.span_sinks = list(extra_span_sinks or [])
+        self.plugins = list(extra_plugins or [])
+        self._build_sinks()
         self.lock = threading.Lock()
         # the counters have a lock of their own: a reader never takes
         # the ingest lock only to count
@@ -285,6 +315,12 @@ class Server:
         self.grpc_servers: list[grpc_forward.ImportServer] = []
         self.grpc_ports: list[int] = []
         self._grpc_client: grpc_forward.ForwardClient | None = None
+        # the interval's DogStatsD events and service checks, taken in
+        # the swap's lock round and handed to every metric sink's
+        # flush_other_samples (service checks also enter the table as
+        # STATUS samples)
+        self.events: list[dsd.Event] = []
+        self.checks: list[dsd.ServiceCheck] = []
         self.stats = {"packets_received": 0, "packet_errors": 0,
                       "metrics_processed": 0, "metrics_dropped": 0,
                       "flushes": 0, "imports_received": 0,
@@ -299,7 +335,6 @@ class Server:
         # the metric hot path (reference server.go:444-452); the
         # server's loopback trace client feeds the same worker
         # (server.go:347-354)
-        self.span_sinks = list(extra_span_sinks or [])
         self.span_sinks.insert(0, MetricExtractionSink(
             self, indicator_timer_name=config.indicator_span_timer_name,
             objective_timer_name=config.objective_span_timer_name))
@@ -307,6 +342,13 @@ class Server:
             self.span_sinks, common_tags=tags_to_dict(config.tags),
             capacity=config.span_channel_capacity, stats_cb=self.bump,
             workers=config.num_span_workers)
+        # per-sink tag exclusion (reference server.go:1642
+        # setSinkExcludedTags), once every sink exists
+        if config.tags_exclude:
+            for sink in self.metric_sinks + self.span_sinks:
+                if hasattr(sink, "set_excluded_tags"):
+                    sink.set_excluded_tags(generate_excluded_tags(
+                        config.tags_exclude, sink.name))
         self.trace_client = vtrace.Client(
             vtrace.ChannelBackend(self.span_worker.submit), capacity=256)
         # flush self-observation: every cycle leaves a span tree (also
@@ -405,6 +447,24 @@ class Server:
         self._handoff_last: dict = {}
         self.telemetry = Telemetry(self)
         self._sink_durations: dict[str, int] = {}
+        # the plugins, the forward, the handoff and the span flush run
+        # on a shared pool, each key's previous task awaited before the
+        # next is queued (a wedged one skips, counted)
+        self._pool = ThreadPoolExecutor(max_workers=8,
+                                        thread_name_prefix="flush-pool")
+        self._flush_pending: dict[str, object] = {}
+        # per-sink flush fan-out (tpu_sink_workers > 0): every metric
+        # sink has a worker and a one-slot queue, so a stalled sink
+        # times out alone; 0 runs the sinks on the shared pool
+        self._fanout: SinkFanout | None = None
+        if int(config.tpu_sink_workers) > 0:
+            self._fanout = SinkFanout(
+                [s.name for s in self.metric_sinks],
+                on_error=lambda name, exc: self.bump("flush_errors"),
+                retry_budget=max(self.interval * 0.9, 1.0))
+        # the fan-out's cumulative (busy drops, retries, timeouts) at
+        # the last seal, so each record is credited its delta
+        self._ledger_fanout_last = (0, 0, 0)
         # the signal history (one fixed-schema row per seal) and the
         # flight recorder watching its rows; the schema is derived
         # here, once, before any subsystem has data
@@ -431,6 +491,150 @@ class Server:
         self.warmup: dict | None = None
         if config.tpu_warmup:
             self._warmup()
+
+    def _build_sinks(self) -> None:
+        """The configured sinks and plugins, in the reference's order
+        (server.go ``_build_sinks``): blackhole, debug, datadog,
+        prometheus, signalfx, newrelic (metrics and spans), kafka
+        (metrics and spans), the datadog trace agent, splunk, X-Ray,
+        LightStep, Falconer; then the flush file and s3 plugins."""
+        c = self.config
+        if c.blackhole_sink:
+            self.metric_sinks.append(BlackholeSink())
+        if c.debug_flushed_metrics:
+            self.metric_sinks.append(DebugSink())
+        if c.datadog_api_key:
+            self.metric_sinks.append(DatadogMetricSink(
+                c.datadog_api_key, c.datadog_api_hostname,
+                self.interval, hostname=c.hostname,
+                flush_max_per_body=c.datadog_flush_max_per_body,
+                metric_name_prefix_drops=tuple(
+                    c.datadog_metric_name_prefix_drops),
+                exclude_tags_prefix_by_prefix_metric=(
+                    c.datadog_exclude_tags_prefix_by_prefix_metric)))
+        if c.prometheus_repeater_address:
+            self.metric_sinks.append(PrometheusRepeaterSink(
+                c.prometheus_repeater_address, c.prometheus_network_type))
+        if c.signalfx_api_key:
+            from veneur_tpu_torch.sinks.signalfx import SignalFxSink
+            self.metric_sinks.append(SignalFxSink(
+                c.signalfx_api_key, endpoint=c.signalfx_endpoint_base,
+                vary_key_by=c.signalfx_vary_key_by,
+                per_tag_api_keys=c.signalfx_per_tag_api_keys,
+                max_per_body=c.signalfx_flush_max_per_body,
+                hostname=c.hostname,
+                hostname_tag=c.signalfx_hostname_tag,
+                metric_name_prefix_drops=tuple(
+                    c.signalfx_metric_name_prefix_drops),
+                metric_tag_prefix_drops=tuple(
+                    c.signalfx_metric_tag_prefix_drops),
+                dynamic_per_tag_api_keys_enable=(
+                    c.signalfx_dynamic_per_tag_api_keys_enable),
+                dynamic_per_tag_api_keys_refresh_period=parse_duration(
+                    c.signalfx_dynamic_per_tag_api_keys_refresh_period
+                    or "10m"),
+                endpoint_api=c.signalfx_endpoint_api))
+        if c.newrelic_insert_key:
+            from veneur_tpu_torch.sinks.newrelic import (
+                NewRelicMetricSink, NewRelicSpanSink)
+            common = {k: v for k, _, v in
+                      (t.partition(":") for t in c.newrelic_common_tags)}
+            self.metric_sinks.append(NewRelicMetricSink(
+                c.newrelic_insert_key,
+                endpoint=c.newrelic_metric_endpoint,
+                common_attributes=common, interval=self.interval,
+                account_id=c.newrelic_account_id,
+                region=c.newrelic_region,
+                event_type=c.newrelic_event_type,
+                service_check_event_type=(
+                    c.newrelic_service_check_event_type)))
+            self.span_sinks.append(NewRelicSpanSink(
+                c.newrelic_insert_key,
+                endpoint=c.newrelic_trace_endpoint,
+                trace_observer_url=c.newrelic_trace_observer_url,
+                region=c.newrelic_region))
+        if c.kafka_broker:
+            from veneur_tpu_torch.sinks.kafka import (KafkaMetricSink,
+                                                      KafkaSpanSink)
+            self.metric_sinks.append(KafkaMetricSink(
+                c.kafka_broker, check_topic=c.kafka_check_topic,
+                event_topic=c.kafka_event_topic,
+                metric_topic=c.kafka_metric_topic,
+                require_acks=c.kafka_metric_require_acks,
+                partitioner=c.kafka_partitioner,
+                retry_max=c.kafka_retry_max,
+                buffer_bytes=c.kafka_metric_buffer_bytes,
+                buffer_messages=c.kafka_metric_buffer_messages))
+            if c.kafka_span_topic:
+                self.span_sinks.append(KafkaSpanSink(
+                    c.kafka_broker, span_topic=c.kafka_span_topic,
+                    serialization=c.kafka_span_serialization_format,
+                    require_acks=c.kafka_span_require_acks,
+                    partitioner=c.kafka_partitioner,
+                    retry_max=c.kafka_retry_max,
+                    buffer_bytes=c.kafka_span_buffer_bytes,
+                    buffer_messages=c.kafka_span_buffer_mesages,
+                    sample_rate_percent=(
+                        c.kafka_span_sample_rate_percent),
+                    sample_tag=c.kafka_span_sample_tag))
+        if c.datadog_trace_api_address:
+            from veneur_tpu_torch.sinks.datadog import DatadogSpanSink
+            self.span_sinks.append(DatadogSpanSink(
+                c.datadog_trace_api_address, hostname=c.hostname,
+                buffer_size=c.datadog_span_buffer_size))
+        if c.splunk_hec_address and c.splunk_hec_token:
+            from veneur_tpu_torch.sinks.splunk import SplunkSpanSink
+
+            def _dur(text: str) -> float:
+                return parse_duration(text) if text else 0.0
+
+            self.span_sinks.append(SplunkSpanSink(
+                c.splunk_hec_address, c.splunk_hec_token,
+                sample_rate=c.splunk_span_sample_rate,
+                hostname=c.hostname,
+                batch_size=c.splunk_hec_batch_size,
+                submission_workers=c.splunk_hec_submission_workers,
+                send_timeout=_dur(c.splunk_hec_send_timeout),
+                ingest_timeout=_dur(c.splunk_hec_ingest_timeout),
+                max_connection_lifetime=_dur(
+                    c.splunk_hec_max_connection_lifetime),
+                connection_lifetime_jitter=_dur(
+                    c.splunk_hec_connection_lifetime_jitter),
+                tls_validate_hostname=(
+                    c.splunk_hec_tls_validate_hostname)))
+        if c.xray_address:
+            from veneur_tpu_torch.sinks.xray import XRaySpanSink
+            # the server's common tags ride in segment metadata
+            # (reference server.go passes Config.Tags as commonTags)
+            self.span_sinks.append(XRaySpanSink(
+                c.xray_address,
+                sample_percentage=c.xray_sample_percentage,
+                annotation_tags=tuple(c.xray_annotation_tags),
+                common_tags=tags_to_dict(c.tags)))
+        if c.lightstep_access_token:
+            from veneur_tpu_torch.sinks.lightstep import LightStepSpanSink
+            self.span_sinks.append(LightStepSpanSink(
+                c.lightstep_access_token,
+                collector_host=c.lightstep_collector_host,
+                maximum_spans=c.lightstep_maximum_spans,
+                num_clients=c.lightstep_num_clients,
+                reconnect_period=parse_duration(
+                    c.lightstep_reconnect_period or "5m")))
+        if c.falconer_address:
+            from veneur_tpu_torch.sinks.grpsink import FalconerSpanSink
+            self.span_sinks.append(FalconerSpanSink(c.falconer_address))
+        if c.flush_file:
+            self.plugins.append(LocalFilePlugin(
+                c.flush_file, self.flusher.hostname,
+                fmt=c.flush_file_format, interval=self.interval))
+        if c.aws_s3_bucket:
+            from veneur_tpu_torch.sinks.s3 import S3Plugin
+            self.plugins.append(S3Plugin(
+                c.aws_s3_bucket, hostname=c.hostname,
+                region=c.aws_region, endpoint=c.aws_s3_endpoint,
+                access_key=c.aws_access_key_id,
+                secret_key=c.aws_secret_access_key,
+                fmt=c.flush_file_format, interval=self.interval))
 
     def _warmup(self) -> None:
         """Load the native and kernel libraries and take one sample of
@@ -498,6 +702,9 @@ class Server:
         self._spawn("flush-loop", self._flush_loop)
         if self.config.flush_watchdog_missed_flushes > 0:
             self._spawn("watchdog", self._watchdog)
+        for sink in self.metric_sinks:
+            if hasattr(sink, "start"):
+                sink.start()
         # cloak slots no listener claimed: close them (their queued
         # datagrams are orphaned, so say so)
         for name, sock in self._adopted_socks.items():
@@ -809,26 +1016,36 @@ class Server:
         self.span_worker.submit(span)
 
     def ingest_parsed(self, parsed, bump: bool = True) -> tuple[int, int]:
-        """Ingest one parsed sample or service check through
+        """Ingest one parsed sample, service check or event through
         ``ingest_samples``.  Returns (processed, dropped)."""
+        events, checks = (), ()
         if isinstance(parsed, dsd.ServiceCheck):
-            parsed = dsd.Sample(name=parsed.name, type=dsd.STATUS,
-                                value=float(parsed.status),
-                                tags=parsed.tags, message=parsed.message)
+            checks = (parsed,)
+            parsed = _check_sample(parsed)
+        elif isinstance(parsed, dsd.Event):
+            events = (parsed,)
         elif not isinstance(parsed, dsd.Sample):
             return 0, 0
-        processed, dropped, _shed = self.ingest_samples([parsed], bump)
+        processed, dropped, _shed = self.ingest_samples(
+            [parsed] if not events else [], bump, events=events,
+            checks=checks)
         return processed, dropped
 
-    def ingest_samples(self, samples: list, bump: bool = False
-                       ) -> tuple[int, int, int]:
+    def ingest_samples(self, samples: list, bump: bool = False,
+                       events=(), checks=()) -> tuple[int, int, int]:
         """Ingest parsed samples (service checks as STATUS samples) under
         one hold of the lock: overload admission for all but STATUS, the
         table, the ledger credit in the same critical section, and the
-        mid-interval device step.  The per-line path and the span
-        plane's extracted samples come here.  With ``bump`` the counts
-        go to the server's stats.  Returns (processed, dropped, shed)."""
+        mid-interval device step.  ``events`` and ``checks`` (the parsed
+        service checks whose STATUS samples are among ``samples``) join
+        the interval's buffers for the sinks' ``flush_other_samples`` in
+        the same hold.  The per-line path and the span plane's extracted
+        samples come here.  With ``bump`` the counts go to the server's
+        stats.  Returns (processed, dropped, shed)."""
         if not samples:
+            if events:
+                with self.lock:
+                    self.events.extend(events)
             return 0, 0, 0
         adm = self.overload is not None and self.overload.admission_active
         n_status = sum(1 for s in samples if s.type == dsd.STATUS)
@@ -846,6 +1063,10 @@ class Server:
                         continue
                 if not self.table.ingest(sample):
                     dropped += 1
+            if events:
+                self.events.extend(events)
+            if checks:
+                self.checks.extend(checks)
             self.ledger.ingest(
                 "dogstatsd", processed=len(samples),
                 staged=len(samples) - dropped - n_status - shed,
@@ -1436,6 +1657,8 @@ class Server:
         the per-line parse, then its counts into the stats and its parse
         errors into the ledger.  Returns the processed sample count."""
         slow = []
+        events = []
+        checks = []
         for line in lines:
             try:
                 parsed = dsd.parse_line(line)
@@ -1445,12 +1668,13 @@ class Server:
             if isinstance(parsed, dsd.Sample):
                 slow.append(parsed)
             elif isinstance(parsed, dsd.ServiceCheck):
-                slow.append(dsd.Sample(
-                    name=parsed.name, type=dsd.STATUS,
-                    value=float(parsed.status), tags=parsed.tags,
-                    message=parsed.message))
-        if slow:
-            n, slow_dropped, slow_shed = self.ingest_samples(slow)
+                slow.append(_check_sample(parsed))
+                checks.append(parsed)
+            elif isinstance(parsed, dsd.Event):
+                events.append(parsed)
+        if slow or events:
+            n, slow_dropped, slow_shed = self.ingest_samples(
+                slow, events=events, checks=checks)
             processed += n
             dropped += slow_dropped
             shed += slow_shed
@@ -1561,6 +1785,8 @@ class Server:
                     swapped = pend
                 else:
                     snap = swapped = self.table.swap()
+                events, checks = self.events, self.checks
+                self.events, self.checks = [], []
                 status = self.table.take_status()
                 # the interval closes in the swap's lock round, so the
                 # site credits and the table's own counters describe
@@ -1591,25 +1817,80 @@ class Server:
                 type=im.STATUS, message=msg,
                 hostname=self.flusher.hostname))
         t_sink0 = time.monotonic_ns()
+        futures = []
+
+        def submit(key, fn, *args):
+            # a key whose previous interval's task still runs skips
+            # this interval's, counted, instead of queueing behind it
+            prev = self._flush_pending.get(key)
+            if prev is not None and not prev.done():
+                self.bump("flush_skipped_busy")
+                log.warning("%s still busy from a previous interval; "
+                            "skipping its flush", key)
+                return
+            try:
+                fut = self._pool.submit(fn, *args)
+            except RuntimeError:
+                return  # shutdown closed the pool mid-flush
+            self._flush_pending[key] = fut
+            futures.append(fut)
+
         with cyc.stage("sink_flush"):
+            fanout_tasks = []
+            other = events + checks
             for sink in self.metric_sinks:
-                self._flush_sink(sink, res, cyc, led)
+                fn = self._sink_flush_fn(sink, res, other, cyc, led)
+                if self._fanout is not None:
+                    task = self._fanout.dispatch(sink.name, fn)
+                    if task is not None:
+                        fanout_tasks.append(task)
+                    else:
+                        self.bump("flush_skipped_busy")
+                else:
+                    submit(f"sink:{sink.name}", self._guarded_sink_flush,
+                           fn)
             for plugin in self.plugins:
-                plugin.flush(res.all_metrics(), self.flusher.hostname)
+                submit(f"plugin:{plugin.name}", plugin.flush,
+                       list(res.all_metrics()), self.flusher.hostname)
             handoff_pending = self._handoff_pending
             if handoff_pending is not None and res.forward:
                 # the arcs the new ring gives other members leave over
                 # the import wire flagged handoff, not the forward path
-                with cyc.stage("handoff") as sp:
-                    sp.add_tag("rows", str(len(res.forward)))
-                    self._ship_handoff(res.forward, *handoff_pending, led,
-                                       cyc.wire_context(sp))
+                def traced_handoff(rows):
+                    with cyc.stage("handoff") as sp:
+                        sp.add_tag("rows", str(len(rows)))
+                        self._ship_handoff(rows, *handoff_pending, led,
+                                           cyc.wire_context(sp))
+                submit("handoff", traced_handoff, res.forward)
             elif self.is_local and res.forward:
-                with cyc.stage("forward") as sp:
-                    sp.add_tag("rows", str(len(res.forward)))
-                    self._forward(res.forward, cyc.wire_context(sp), led,
-                                  cyc, sp)
-            self.span_worker.flush()
+                def traced_forward(rows):
+                    with cyc.stage("forward") as sp:
+                        sp.add_tag("rows", str(len(rows)))
+                        self._forward(rows, cyc.wire_context(sp), led,
+                                      cyc, sp)
+                submit("forward", traced_forward, res.forward)
+            submit("spans", self.span_worker.flush)
+            # the sinks, plugins, forward, handoff and span flush are
+            # awaited only within the interval budget (the reference
+            # gives a flush one interval, server.go:1022-1026); an
+            # overrunning task keeps running and is counted, never
+            # cancelled
+            deadline = t_flush0 / 1e9 + max(self.interval * 0.9, 1.0)
+            if fanout_tasks:
+                for name in self._fanout.wait(fanout_tasks, deadline):
+                    self.bump("flush_slow_tasks")
+                    log.warning("sink %s overran the interval budget; its "
+                                "worker keeps running", name)
+            for f in futures:
+                try:
+                    f.result(timeout=max(0.0, deadline - time.monotonic()))
+                except (TimeoutError, _FuturesTimeout):
+                    self.bump("flush_slow_tasks")
+                    log.warning("flush task overran the interval budget; "
+                                "continuing without it")
+                except Exception:
+                    self.bump("flush_errors")
+                    log.exception("flush task failed")
         sink_ns = time.monotonic_ns() - t_sink0
         with self._stats_lock:
             sink_durs = dict(self._sink_durations)
@@ -1617,6 +1898,17 @@ class Server:
         cyc.record.metrics_emitted = res.metric_count()
         cyc.record.forward_rows = len(res.forward)
         cyc.record.tally = dict(res.tally)
+        if self._fanout is not None:
+            # the fan-out's busy drops, retries and timeouts since the
+            # last seal, named on this record
+            fstats = self._fanout.stats()
+            now = tuple(sum(v.get(k, 0) for v in fstats.values())
+                        for k in ("busy_drops", "retries", "timeouts"))
+            last = self._ledger_fanout_last
+            self.ledger.credit_fanout(
+                led, busy_drops=now[0] - last[0], retries=now[1] - last[1],
+                timeouts=now[2] - last[2])
+            self._ledger_fanout_last = now
         if self.overload is not None:
             self._overload_tick(t_flush0, sink_ns, compiles0, kdrops)
         self.ledger.seal(led)
@@ -1689,32 +1981,54 @@ class Server:
         self._uring_enobufs_last = eb
         return delta + eb_delta
 
-    def _flush_sink(self, sink, res: FlushResult, cyc, led) -> None:
-        """Route the flush to one sink (the frame, or the materialized
-        list) under its own stage span; a failed sink is counted and
-        logged, what it took is credited to the ledger."""
-        t0 = time.monotonic_ns()
+    def _sink_flush_fn(self, sink, res: FlushResult, other: list, cyc,
+                       led):
+        """One sink's flush closure.  Routing (whitelists and excluded
+        tags) runs here, on the flush thread: a sink with
+        ``flush_frame`` gets the routed frame, any other the routed
+        list.  The closure flushes, hands the interval's events and
+        service checks to ``flush_other_samples``, credits what the sink
+        took to the ledger (after success; it may land after the seal)
+        and raises on failure, so the fan-out worker can retry."""
+        base = sink if isinstance(sink, sinks_base.SinkBase) else None
+        if res.frame is not None and hasattr(sink, "flush_frame"):
+            payload = res.frame.route(
+                sink.name, sink,
+                extra=sinks_base.route(res.metrics, sink.name, base))
+            n_routed = payload.total_len()
+
+            def call():
+                sink.flush_frame(payload)
+        else:
+            batch = sinks_base.route(res.all_metrics(), sink.name, base)
+            n_routed = len(batch)
+
+            def call():
+                sink.flush(batch)
+
+        def fn():
+            t0 = time.monotonic_ns()
+            try:
+                with cyc.stage(f"sink.{sink.name}"):
+                    call()
+                    if other:
+                        sink.flush_other_samples(other)
+                self.ledger.credit_sink(led, sink.name, n_routed)
+            finally:
+                with self._stats_lock:
+                    self._sink_durations[sink.name] = (
+                        self._sink_durations.get(sink.name, 0)
+                        + time.monotonic_ns() - t0)
+        return fn
+
+    def _guarded_sink_flush(self, fn) -> None:
+        """The shared pool's sink task (``tpu_sink_workers: 0``): a
+        failure is counted and logged."""
         try:
-            with cyc.stage(f"sink.{sink.name}"):
-                if res.frame is not None and hasattr(sink, "flush_frame"):
-                    payload = res.frame.route(
-                        sink.name, sink,
-                        extra=route(res.metrics, sink.name, sink))
-                    n_routed = payload.total_len()
-                    sink.flush_frame(payload)
-                else:
-                    batch = route(res.all_metrics(), sink.name, sink)
-                    n_routed = len(batch)
-                    sink.flush(batch)
-            self.ledger.credit_sink(led, sink.name, n_routed)
+            fn()
         except Exception:
             self.bump("flush_errors")
-            log.exception("sink %s flush failed", sink.name)
-        finally:
-            with self._stats_lock:
-                self._sink_durations[sink.name] = (
-                    self._sink_durations.get(sink.name, 0)
-                    + time.monotonic_ns() - t0)
+            log.exception("sink flush failed")
 
     def _forward(self, rows: list[ForwardRow], trace_ctx, led, cyc=None,
                  span=None) -> None:
@@ -2060,8 +2374,8 @@ class Server:
         """One row of every internal signal, in the reference's fixed
         schema (``veneur_tpu/core/server.py`` ``_signal_row``): called
         with no arguments at construction to derive the schema.  A
-        subsystem the port does not run yet (the collective path, sink
-        workers) samples 0, as do the forward's columns until the
+        subsystem the port does not run yet (the collective path)
+        samples 0, as do the forward's columns until the
         sharded forwarder is built and the pressure columns with
         overload off."""
         with self._stats_lock:
@@ -2154,10 +2468,13 @@ class Server:
                     "forward.collective.rejected_rows",
                     "forward.collective.fallback_cycles",
                     "forward.collective.landed_blocks",
-                    "forward.collective.items_received",
-                    "sink.flushes", "sink.errors", "sink.busy_drops",
-                    "sink.timeouts"):
+                    "forward.collective.items_received"):
             row[key] = 0
+        # the metric sinks' fan-out workers, summed over the sinks
+        fan = (self._fanout.stats()
+               if getattr(self, "_fanout", None) is not None else {})
+        for key in ("flushes", "errors", "busy_drops", "timeouts"):
+            row[f"sink.{key}"] = sum(w.get(key, 0) for w in fan.values())
         pb = self._last_plane_bytes or {}
         row["table.plane_bytes_total"] = pb.get("total", 0)
         row["table.plane_bytes_histo_wide"] = pb.get(
@@ -2275,6 +2592,10 @@ class Server:
                              "errors": self.trace_client.errors},
             "last_flush_age_s": round(
                 time.monotonic() - self.last_flush, 3),
+            # each metric sink's fan-out worker counters ({} with
+            # tpu_sink_workers: 0)
+            "sinks": (self._fanout.stats()
+                      if self._fanout is not None else {}),
             # per-thread native decode scratch kept by the gRPC import
             # handlers
             "forward": {"decode_scratch_bytes":
@@ -2527,4 +2848,15 @@ class Server:
         self.span_worker.stop()
         if self.flight is not None:
             self.flight.stop()
+        # the sinks' own threads and channels: signalfx's key refresh,
+        # splunk's submission workers, the grpsink channel
+        for sink in self.metric_sinks + self.span_sinks:
+            if hasattr(sink, "stop"):
+                try:
+                    sink.stop()
+                except Exception:
+                    log.exception("sink %s stop failed", sink.name)
+        self._pool.shutdown(wait=False, cancel_futures=True)
+        if self._fanout is not None:
+            self._fanout.stop()
         self.telemetry.close()

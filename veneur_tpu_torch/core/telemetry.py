@@ -6,7 +6,9 @@ existing veneur dashboards and alerts keep working.
 The port's copy of ``veneur_tpu/core/telemetry.py``, cut to the
 subsystems the port runs: worker, packet (SSF errors included), import
 and forward counts, the unique timeseries (``count_unique_timeseries``),
-the span sinks' delivery counts, the flush's total and per-stage
+the span sinks' delivery counts, the metric sinks' fan-out workers
+(busy drops, retries, timeouts, errors) and undelivered events and
+service checks, the flush's total and per-stage
 durations, the device-cost registry
 (``veneur.device.*``; ``veneur.xla.*`` counts the builds of the port's
 native and CUDA libraries), the ledger's verdict, the tier accounting,
@@ -16,7 +18,7 @@ spool and discovery health), drain, replay, recovery and handoff
 traffic in both directions, adopted listener fds, the checkpointer,
 overload control (shed by tenant and reason, pressure, overruns,
 coalesced ticks), kernel receive drops, gc and memory.  The metrics of
-the other sinks and the collective path come with those subsystems.
+the collective path come with it.
 
 Two emission paths, as in the reference:
 - ``stats_address`` set: DogStatsD datagrams to an external agent
@@ -408,6 +410,31 @@ class Telemetry:
                 key = f"span_sink_{sname}_{attr}"
                 stats[key] = int(cur)
                 count(metric, self._delta(key), (f"sink:{sname}",))
+        # the metric sinks' fan-out workers (sinks/fanout.py): a busy
+        # drop is an interval skipped because the sink's previous flush
+        # still ran; retries and timeouts price its flakiness
+        fanout = self.server._fanout
+        if fanout is not None:
+            for sname, fs in fanout.stats().items():
+                for attr, metric in (
+                        ("busy_drops", "veneur.sink.flush_busy_drops_total"),
+                        ("retries", "veneur.sink.flush_retries_total"),
+                        ("timeouts", "veneur.sink.flush_timeouts_total"),
+                        ("errors", "veneur.sink.flush_errors_total")):
+                    key = f"fanout_{sname}_{attr}"
+                    stats[key] = int(fs.get(attr, 0))
+                    count(metric, self._delta(key), (f"sink:{sname}",))
+        # events and service checks a metric sink could not deliver
+        # (kafka without a topic for the kind, or a failed produce)
+        for sink in self.server.metric_sinks:
+            cur = getattr(sink, "other_dropped", None)
+            if cur is None:
+                continue
+            sname = getattr(sink, "name", type(sink).__name__)
+            key = f"sink_{sname}_other_dropped"
+            stats[key] = int(cur)
+            count("veneur.sink.kafka.other_dropped_total",
+                  self._delta(key), (f"sink:{sname}",))
         # conservation-ledger verdict for the interval just sealed
         # (the seal runs before this tick)
         rec = self.server.ledger.last()
