@@ -2,6 +2,7 @@
 """Drive the PyTorch port (``veneur_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --mesh-only   # the build and phase 17 alone
 
 Run from the root of a checkout.  Phases, one JSON line each:
 
@@ -20,8 +21,8 @@ Run from the root of a checkout.  Phases, one JSON line each:
    compression 500: C = 3032 with unsorted state rows) take the
    kernel's wide route, counted as ``cluster_merge.wide``, with the
    same checks and times.  After
-   phases 4, 6, 8, 9, 10, 12, 13, 14, 15 and 16 the same check runs at
-   every other (R, K) they merged at (the global folds with weighted
+   phases 4, 6, 8, 9, 10, 12, 13, 14, 15, 16 and 17 the same check runs
+   at every other (R, K) they merged at (the global folds with weighted
    centroids) and at the warm-up's (256, 256); every case reports the
    row and quantile of its largest kernel-vs-plain gap with both
    values;
@@ -66,10 +67,11 @@ Run from the root of a checkout.  Phases, one JSON line each:
    ``veneur.worker.metrics_processed_total`` equal to the samples sent,
    and a ``/debug/pprof/device`` capture during a timer burst whose CUDA
    kernels include ``cluster_merge_kernel``;
-6. the global tier at BASELINE config 5's size: 64 locals' wires (each
+6. the global tier at BASELINE config 5's shape (64 locals; the flat
+   shape's fleet cut to its first 32): the locals' wires (each
    the local-role flush of a table on the card that took a 1/64 share
    of phase 4's timer and set traffic, plus global-only counters,
-   gauges and timers; 16 of them in the reference's gob schema) built
+   gauges and timers; every fourth in the reference's gob schema) built
    once, then decoded and merged into a global table per interval
    (``decode_body`` + ``apply_import``, ``device_step`` at the staging
    bound, ``swap`` + flush): 10,000 timer series (the flat fold) over
@@ -77,7 +79,7 @@ Run from the root of a checkout.  Phases, one JSON line each:
    fold, one kernel launch per wire); each held against a CPU global on the
    same bodies and against the exact p99 of every local's samples;
 8. the global tier over gRPC (run right after phase 6): the flat
-   shape's 64 locals' rows also serialized as MetricLists, each wire
+   shape's 32 locals' rows also serialized as MetricLists, each wire
    through ``decode_metric_list`` (the lock-free native decode) and
    ``apply_decoded`` (row and wire-plan caches, vectorized staging),
    ``device_step`` at the staging bound, ``swap`` + flush; two
@@ -104,7 +106,7 @@ Run from the root of a checkout.  Phases, one JSON line each:
    items/s on the columnar route and on the per-item oracle, the
    columnar phase split, every item's destination held to the
    oracle's, 0 fallbacks and a balanced ProxyLedger each pass; (b) phase
-   8's 64 wires over gRPC into a port ``ProxyServer`` in front of two
+   8's 32 wires over gRPC into a port ``ProxyServer`` in front of two
    port globals on the card, a warm interval with the globals' own
    fold and a timed one with phase 8's (flat): every series on one
    global, the union's order-free values bit-equal to phase 8's flush,
@@ -210,6 +212,30 @@ Run from the root of a checkout.  Phases, one JSON line each:
    is counted (``flush_slow_tasks``, ``flush_skipped_busy``, the
    ledger's busy drop, ``veneur.sink.flush_busy_drops_total`` in a
    later flush); (e) the card's merges recorded;
+17. the mesh (run right after phase 12, on phase 8's wires and phase
+   6's stacked ones): (a) a mesh global (``tpu_mesh_shards: 4`` on 8
+   places of the card: 4 shards x 2 series) at the server's default
+   widths fed the first 16 of phase 8's 32 wires over gRPC and a
+   DogStatsD cut (2,048 timer series of 16 samples, as many counters
+   and gauges, 4,096 set members into phase 8's set series) through the
+   columnar parse, one flush: its one update launch at (65,536, 512)
+   and one flush merge at (16,384, 4 x 616) on the wide route, held to
+   a CPU mesh global on the same input (order-free values bit for bit,
+   sums to rtol 1e-6, percentiles within rtol 2e-3 / atol 1e-3), the
+   p99 median error against exact <= 1%, the largest shard count whose
+   flush merge one CTA holds, and the update's one stacked launch timed
+   against one launch a place; (d) on the same server, ``emit`` over
+   UDP, ``top --json`` off ``/debug/signals`` and an error-level record
+   at a local fake Sentry; (b) the collective import fold on 8 places
+   against the serial scan on phase 6's 8 stacked wires (mass equal,
+   both held to the exact p99, the gap between them measured) and a
+   spread-regime cycle, bit-equal; (c) a one-rank process group (NCCL):
+   ``all_reduce`` SUM/MAX/MIN, ``all_gather_into_tensor`` and
+   ``all_to_all_single`` on tensors of the planes' shapes against the
+   in-process reduction, and a sharded local whose only ring
+   destination is its own process as a collective peer, its interval
+   through the plane exchange's loopback, the table that folds it
+   bit-equal to the same rows over the gRPC wire;
 7. the chain: a global (HTTP and gRPC listeners) and three locals (one
    per /import schema, one forwarding over gRPC) as server processes on
    the card: the global flushes the JAX chain's ``lat.99percentile``
@@ -222,7 +248,7 @@ Run from the root of a checkout.  Phases, one JSON line each:
 11. the kernels line (launches by path, phase 12's as
     ``routing_tiers``, phase 13's as ``crash_riding``, phase 14's as
     ``span_plane``, phase 15's as ``ingest_edge``, phase 16's as
-    ``sinks``; F2's wide shapes as
+    ``sinks``, phase 17's as ``mesh``; F2's wide shapes as
     ``wide``), then the last line
     ``{"ok": true, "device": {...}}``.
 
@@ -1761,7 +1787,8 @@ def run_global_interval(table, flusher, wires, sync):
 def phase_global(dev: str = "cuda", scale: int = 1, n_wires: int = N_WIRES,
                  intervals: int = 2, profiled: bool = True,
                  cpu_reference: bool = True, with_grpc: bool = True,
-                 stack_wires: int | None = None) -> dict:
+                 stack_wires: int | None = None,
+                 keep_stack: bool = False) -> dict:
     """The global tier at BASELINE config 5's size: ``n_wires`` wires of
     10,000 timer series (the union-row bucket is past half the plane,
     so the fold takes the flat path) timed over ``intervals`` intervals
@@ -1771,7 +1798,9 @@ def phase_global(dev: str = "cuda", scale: int = 1, n_wires: int = N_WIRES,
     (each wire the same whatever the count), whose fold takes the
     stacked path: one kernel launch per wire at (4096, K).  With ``with_grpc`` the flat shape's locals are
     also encoded as MetricLists, kept with their texts and the HTTP
-    global's flush under ``"grpc_input"`` for phase 8."""
+    global's flush under ``"grpc_input"`` for phase 8; with
+    ``keep_stack`` the stacked shape's wires and texts are kept under
+    ``"stack_input"`` for phase 17."""
     import torch
     from veneur_tpu_torch.core.flusher import Flusher
     from veneur_tpu_torch.core.table import MetricTable, TableConfig
@@ -1846,15 +1875,20 @@ def phase_global(dev: str = "cuda", scale: int = 1, n_wires: int = N_WIRES,
                           "texts": texts, "http_metrics": res.metrics,
                           "encode_s": wt["grpc_encode_s"],
                           "bytes": wt["grpc_bytes"]}
+        if keep_stack and label == "stack":
+            stack_input = {"wires": wires, "texts": texts}
         del wires, texts, table, res, runs
-    out["cut"] = (f"the flat shape {intervals} timed interval(s) plus "
-                  f"one profiled, the stacked shape one of {stack_wires} "
-                  "wires; the wires are built once, outside the timed "
-                  "window")
+    out["cut"] = (f"the flat shape's first {n_wires} of {N_WIRES} "
+                  f"locals, {intervals} timed interval(s)"
+                  f"{' plus one profiled' if profiled else ''}, the "
+                  f"stacked shape one of {stack_wires} wires; the wires "
+                  "are built once, outside the timed window")
     emit(out)
     out["shapes"] = shapes
     if with_grpc:
         out["grpc_input"] = grpc_input
+    if keep_stack:
+        out["stack_input"] = stack_input
     return out
 
 
@@ -1946,7 +1980,7 @@ def without_gt(metrics) -> list:
 def phase_global_grpc(grpc_input: dict, dev: str = "cuda", scale: int = 1,
                       intervals: int = 2, profiled: bool = True,
                       cpu_reference: bool = True) -> dict:
-    """Phase 6's flat shape (64 locals, 10,000 timer series) over gRPC:
+    """Phase 6's flat shape (its locals, 10,000 timer series) over gRPC:
     the same locals' rows as serialized MetricLists, decoded and merged
     by a fresh global table for ``intervals`` intervals plus one
     profiled; the second interval resends the same wires and must
@@ -2293,7 +2327,7 @@ def phase_routing(grpc_input: dict, single_metrics: list,
                   dev: str = "cuda", scale: int = 1,
                   proxy_series: int = PROXY_SERIES) -> dict:
     """Phase 12, the routing tiers: (a) the proxy hop at the reference's
-    size; (b) phase 8's 64 wires through a port proxy over gRPC into two
+    size; (b) phase 8's wires through a port proxy over gRPC into two
     port globals on ``dev``: a warm interval with each global's own
     wire fold (on the card a global holding under half the plane takes
     the stacked fold, one merge per wire; phase 8's global took the
@@ -4346,7 +4380,7 @@ EDGE_LINES = 25           # lines a datagram (bench.py --sockets' batch shape)
 EDGE_SENDERS = 8          # source sockets; series i rides socket i % 8
 EDGE_WINDOW = 1024        # datagrams in flight to a child before a wait
 EDGE_INTERVAL_S = 30      # the UDP children's and the locals' interval
-EDGE_GLOBAL_S = 50        # the globals': one forward lands before it ends
+EDGE_GLOBAL_S = 80        # the globals': one forward lands before it ends
 EDGE_STAGE = 4_000_000    # staging bound past the interval's samples
 RATE_WINDOW_S = 4.0       # an unpaced send (bench.py --sockets: 12 s)
 TLS_WINDOW_S = 2.0        # sequential handshakes (bench.py --tls: 8 s)
@@ -4508,23 +4542,35 @@ def edge_certs(d: str) -> dict:
 
 
 def first_flush(path: str) -> dict:
-    """(name, tags) -> value of a flush file's first flush (the rows of
-    its earliest timestamp), self-telemetry and the delivery-sampled
-    ``ssf.names_unique`` (a 1% roll a span, the server's own spans
-    included) aside."""
+    """(name, tags) -> value of a flush file's first flush with data
+    (the rows of the earliest timestamp that carries any), self-telemetry
+    and the delivery-sampled ``ssf.names_unique`` (a 1% roll a span, the
+    server's own spans included) aside.  A global whose first tick came
+    before its locals' forward landed flushed nothing but telemetry."""
     rows = []
     with open(path) as f:
         for ln in f.read().splitlines():
             r = ln.split("\t")
-            rows.append((int(r[4]), r[0], r[1], float(r[5])))
+            if not r[0].startswith("veneur.") and r[0] != "ssf.names_unique":
+                rows.append((int(r[4]), r[0], r[1], float(r[5])))
+    check(bool(rows), f"{path} holds no flush with data")
     t0 = min(r[0] for r in rows)
     out = {}
     for t, name, tags, v in rows:
-        if (t == t0 and not name.startswith("veneur.")
-                and name != "ssf.names_unique"):
+        if t == t0:
             check((name, tags) not in out, f"{name} twice in a flush")
             out[(name, tags)] = v
     return out
+
+
+def flushed_data(path: str, want: int) -> bool:
+    """Whether a flush file's first flush with data holds ``want``
+    series yet (a file not yet made, or a line still being written,
+    reads as not yet)."""
+    try:
+        return len(first_flush(path)) >= want
+    except (AssertionError, IndexError, OSError, ValueError):
+        return False
 
 
 def order_free(key) -> bool:
@@ -5002,10 +5048,12 @@ def phase_ingest_edge(dev: str = "cuda", scale: int = 1) -> dict:
                 "the refused handshake counted", gtls["proc"])
             check(refused, "an mTLS server took a client without a "
                            "certificate")
+            n_glob = len(as_flush(want_glob))
             for n in ("global_tls", "global_plain"):
                 ch = children[n]
-                wait_for(lambda ch=ch: sealed(ch), EDGE_GLOBAL_S + 60,
-                         f"{n}'s first flush", ch["proc"])
+                wait_for(lambda ch=ch: flushed_data(ch["flush"], n_glob)
+                         and sealed(ch), EDGE_GLOBAL_S + 60,
+                         f"{n}'s flush of the forward", ch["proc"])
                 ch["vars"] = child_stats(ch["ports"]["http"])
                 check(ch["vars"]["stats"].get("imports_received", 0) >= 1,
                       f"{n} imported nothing")
@@ -5534,6 +5582,583 @@ def phase_build() -> dict:
     return res
 
 
+# ---- phase 17: the mesh -----------------------------------------------------
+
+# (a): the first 16 of phase 8's wires (a depth cut: every wire keeps
+# its 10,000 timer series and 1/64 share) plus a DogStatsD cut, into a
+# mesh global of 4 shards x 2 series on 8 places of the card, at the
+# server's default widths; the staging bound is raised so the interval's
+# one update call and one flush merge run at the swap
+MESH_WIRES = 16
+MESH_SHARDS, MESH_PLACES = 4, 8
+MESH_STAGE = 1 << 22
+# (c): the loopback forward's series, inside the plane schema's default
+# 512 rows a class
+LOOP_SERIES = 256
+
+
+class FakeDSN:
+    """A local Sentry endpoint: collects every envelope's event."""
+
+    def __init__(self):
+        import http.server
+        import threading
+        events = self.events = []
+
+        class H(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):
+                body = self.rfile.read(
+                    int(self.headers.get("Content-Length", 0)))
+                lines = body.split(b"\n")
+                if len(lines) >= 3:
+                    events.append(json.loads(lines[2]))
+                self.send_response(200)
+                self.end_headers()
+                self.wfile.write(b"{}")
+
+            def log_message(self, *a):
+                pass
+
+        self.httpd = http.server.HTTPServer(("127.0.0.1", 0), H)
+        threading.Thread(target=self.httpd.serve_forever,
+                         daemon=True).start()
+        self.dsn = f"http://smoke@127.0.0.1:{self.httpd.server_port}/17"
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+
+
+def mesh_text(n_series: int, seed: int = 17,
+              global_only: bool = False) -> list[bytes]:
+    """A DogStatsD cut: ``n_series`` timer series of 16 gamma(2, 30)
+    samples, as many counters (rate 0.5) and gauges (some negative),
+    and 16 members into each of an eighth as many of phase 8's set
+    series, as batches of 25-line
+    datagrams (4,000 lines a batch).  ``global_only`` tags the counters
+    and gauges for the global tier."""
+    rng = np.random.default_rng(seed)
+    g = b",veneurglobalonly" if global_only else b""
+    lines = []
+    for s, v in zip(np.repeat(np.arange(n_series), 16).tolist(),
+                    rng.gamma(2.0, 30.0, 16 * n_series).tolist()):
+        lines.append(b"dsd.lat.%d:%.3f|ms|#env:mesh" % (s, v))
+    lines += [b"dsd.hits.%d:%d|c|@0.5|#env:mesh%s" % (s, s % 7 + 1, g)
+              for s in range(n_series)]
+    lines += [b"dsd.temp.%d:%.3f|g|#env:mesh%s" % (s, v, g)
+              for s, v in enumerate(rng.normal(0.0, 20.0,
+                                               n_series).tolist())]
+    # the sets join phase 8's set series (its wires fill the set plane)
+    lines += [b"s%d:u%d|s%s" % (s % max(1, n_series // 8), m, TAGS)
+              for s, m in enumerate(rng.integers(0, 1 << 40,
+                                                 2 * n_series).tolist())]
+    order = rng.permutation(len(lines)).tolist()
+    lines = [lines[i] for i in order]
+    dgrams = [b"\n".join(lines[lo:lo + 25])
+              for lo in range(0, len(lines), 25)]
+    return [dgrams[lo:lo + 160] for lo in range(0, len(dgrams), 160)]
+
+
+def mesh_server(dev: str, sizes: dict, **over):
+    from veneur_tpu_torch.core.config import read_config
+    from veneur_tpu_torch.core.server import Server
+    cfg = {"hostname": "mesh", "interval": "120s",
+           "tpu_mesh_shards": MESH_SHARDS,
+           "tpu_counter_rows": sizes["counter_rows"],
+           "tpu_gauge_rows": sizes["gauge_rows"],
+           "tpu_histo_rows": sizes["histo_rows"],
+           "tpu_set_rows": sizes["set_rows"],
+           "tpu_stage_flush_samples": MESH_STAGE,
+           "percentiles": list(FLUSH_KW["percentiles"]),
+           "aggregates": list(FLUSH_KW["aggregates"]),
+           "grpc_listen_addresses": ["tcp://127.0.0.1:0"], **over}
+    srv = Server(read_config(data=cfg, env={}), device=dev,
+                 places=[dev] * MESH_PLACES)
+    srv.start()
+    return srv
+
+
+def feed_mesh(srv, wires, text) -> dict:
+    """The wires over gRPC ``SendMetrics`` into the server's import
+    listener, one after another, then the DogStatsD cut through
+    ``handle_packet_batch`` (the columnar parse and the table's
+    ``ingest_columns``)."""
+    from veneur_tpu_torch.forward import grpc_forward
+    client = grpc_forward.ForwardClient(
+        f"127.0.0.1:{srv.grpc_ports[0]}", timeout=120.0)
+    t0 = time.perf_counter()
+    try:
+        for w in wires:
+            client.send_wire(w["body"])
+    finally:
+        client.close()
+    t1 = time.perf_counter()
+    for batch in text:
+        srv.handle_packet_batch(batch)
+    t2 = time.perf_counter()
+    items = sum(w["items"] for w in wires)
+    check(srv.stats.get("imports_received", 0) == items,
+          f"the mesh global took {srv.stats.get('imports_received')} of "
+          f"{items} imported items")
+    return {"grpc_s": t1 - t0, "dsd_s": t2 - t1}
+
+
+def mesh_global(grpc_in: dict, dev: str, scale: int,
+                fake: "FakeDSN") -> dict:
+    """(a) and (d): the mesh global on the card against a CPU mesh
+    global on the same input; then the companions on the card server."""
+    import torch
+    from veneur_tpu_torch.cli import emit as emit_cli
+    from veneur_tpu_torch.cli import top as top_cli
+    from veneur_tpu_torch.ops import cluster_merge as cm
+    from veneur_tpu_torch.ops import tdigest
+    sizes = table_sizes(scale)
+    wires = grpc_in["wires"][:MESH_WIRES]
+    texts = grpc_in["texts"][:MESH_WIRES]
+    text = mesh_text(2048 // scale)
+    cap = tdigest.capacity_for(100.0)
+    out = {"wires": len(wires),
+           "items": sum(w["items"] for w in wires),
+           "centroids": sum(w["centroids"] for w in wires),
+           "dsd_lines": sum(d.count(b"\n") + 1 for b in text
+                            for d in b)}
+    card = mesh_server(dev, sizes,
+                       statsd_listen_addresses=["udp://127.0.0.1:0"],
+                       http_address="127.0.0.1:0", sentry_dsn=fake.dsn)
+    cpu = mesh_server("cpu", sizes)
+    try:
+        check(type(card.table).__name__ == "ShardedTable" and
+              card.table.mesh.shape == {"shard": MESH_SHARDS,
+                                        "series": MESH_PLACES //
+                                        MESH_SHARDS},
+              f"the card server's table {card.table!r}")
+        check(not card.pipeline, "the mesh server runs a pipeline")
+        got = {}
+        for name, srv in (("card", card), ("cpu", cpu)):
+            if name == "card":
+                with MergeRecorder() as rec:
+                    fed = feed_mesh(srv, wires, text)
+                    t0 = time.perf_counter()
+                    res = srv.flush_once()
+                    if dev == "cuda":
+                        torch.cuda.synchronize()
+                    fed["flush_s"] = time.perf_counter() - t0
+                out["cluster_merge_launches"] = rec.launches
+                out["merge_shapes"] = rec.table()
+            else:
+                fed = feed_mesh(srv, wires, text)
+                t0 = time.perf_counter()
+                res = srv.flush_once()
+                fed["flush_s"] = time.perf_counter() - t0
+            fed["update_calls"] = srv.table.agg.update_calls
+            led = srv.ledger.last()
+            check(led is not None and led.sealed and led.balanced,
+                  f"{name}: the mesh interval's ledger record")
+            got[name] = res.metrics
+            out[name] = fed
+        out["vs_cpu"] = compare_flush(got["card"], got["cpu"])
+        rel = p99_errors(got["card"], texts)
+        out["p99_rel_err_median"] = float(np.median(rel))
+        out["p99_rel_err_max"] = float(rel.max())
+        check(out["p99_rel_err_median"] <= 0.01, "mesh: median p99 error "
+                                                 "> 1%")
+        dsd = {m.name: m.value for m in got["card"]
+               if m.name.startswith("dsd.")}
+        n = 2048 // scale
+        check(all(dsd.get(f"dsd.lat.{s}.count") == 16 for s in range(n))
+              and all(dsd.get(f"dsd.hits.{s}") == 2 * (s % 7 + 1)
+                      for s in range(n)),
+              "the DogStatsD cut's timer counts or counters")
+        # the update step: one launch for the 8 places at (S x R, slots),
+        # the flush merge one at (R, S x C), on the wide route
+        shapes = {(m["rows"], m["k"]) for m in out["merge_shapes"]}
+        upd = (MESH_SHARDS * sizes["histo_rows"], 512)
+        flush = (sizes["histo_rows"], MESH_SHARDS * cap)
+        check(upd in shapes and flush in shapes,
+              f"mesh merge shapes {sorted(shapes)}")
+        if dev == "cuda":
+            check(out["cluster_merge_launches"] > 0, "the mesh global "
+                                                     "launched no kernel")
+            out["flush_merge_route"] = cm.route(cap, flush[1])
+            check(out["flush_merge_route"] == "wide",
+                  "the flush merge did not take the wide route")
+            # the largest shard count whose flush merge one CTA holds
+            s_max = 1
+            while cm.fits(cap, (s_max + 1) * cap):
+                s_max += 1
+            out["flush_merge_max_shards"] = s_max
+            out["update_launch"] = stacked_vs_per_place(upd[0], cap,
+                                                        upd[1])
+        # (d) the companions on the card server: emit over UDP, top's
+        # --json off /debug/signals, an error-level record to Sentry
+        port = card.statsd_ports[0]
+        before = card.stats["metrics_processed"]
+        for _ in range(5):
+            check(emit_cli.main(["-hostport", f"udp://127.0.0.1:{port}",
+                                 "-name", "mesh.emit", "-count", "2",
+                                 "-tag", "via:emit"]) == 0,
+                  "emit failed")
+        wait_for(lambda: card.stats["metrics_processed"] >= before + 5,
+                 30, "emit's datagrams")
+        res = card.flush_once()
+        emitted = {m.name: m.value for m in res.metrics}
+        check(emitted.get("mesh.emit") == 10.0,
+              f"emit: {emitted.get('mesh.emit')}")
+        buf = io.StringIO()
+        import contextlib
+        with contextlib.redirect_stdout(buf):
+            rc = top_cli.main(["--nodes", f"127.0.0.1:{card.http_port}",
+                               "--json"])
+        doc = json.loads(buf.getvalue())
+        check(rc == 0 and doc["nodes"][0].get("node") == "mesh" and
+              doc["nodes"][0]["signals"], f"top --json: {doc}")
+        import logging
+        logging.getLogger("veneur_tpu_torch.smoke").error(
+            "phase 17 sentry probe")
+        wait_for(lambda: any(e.get("message", {}).get("formatted") ==
+                             "phase 17 sentry probe" for e in fake.events),
+                 30, "the sentry envelope")
+        ev = next(e for e in fake.events if e.get("message", {}).get(
+            "formatted") == "phase 17 sentry probe")
+        check(ev["level"] == "error" and ev["server_name"] == "mesh",
+              f"sentry event {ev}")
+        out["companions"] = {
+            "emit_value": emitted["mesh.emit"],
+            "top_signals": len(doc["nodes"][0]["signals"]),
+            "sentry_events": len(fake.events)}
+    finally:
+        card.shutdown()
+        cpu.shutdown()
+    return out
+
+
+def stacked_vs_per_place(rows: int, cap: int, k: int) -> dict:
+    """The update step's one launch for the 8 places of a card (rows
+    stacked) against one launch a place on the same data: CUDA-event
+    ms each, the results bit-equal."""
+    import torch
+    from veneur_tpu_torch.ops import cluster_merge as cm
+    from veneur_tpu_torch.ops import tdigest
+    kw = dict(delta=tdigest._SCALE_MULT * 100.0,
+              tail_coeff=tdigest._TAIL_MULT * 100.0,
+              tail_q0=tdigest._TAIL_Q0, tail_qmin=tdigest._TAIL_QMIN)
+    a = [torch.from_numpy(x).cuda() for x in random_case(
+        np.random.default_rng(17), rows, cap, k, weighted=True)]
+    per = rows // MESH_PLACES
+    parts = [[x[i * per:(i + 1) * per] for x in a]
+             for i in range(MESH_PLACES)]
+    whole = cm.cluster_merge(*a, **kw)
+    split = [cm.cluster_merge(*p, **kw) for p in parts]
+    check(all(torch.equal(whole[j], torch.cat([s[j] for s in split]))
+              for j in (0, 1)), "stacked and per-place merges differ")
+    return {"rows": rows, "k": k, "places": MESH_PLACES,
+            "stacked_ms": cuda_ms(lambda: cm.cluster_merge(*a, **kw)),
+            "per_place_ms": cuda_ms(lambda: [cm.cluster_merge(*p, **kw)
+                                             for p in parts])}
+
+
+def fold_interval(table, wires, sync) -> tuple:
+    """One import cycle of HTTP wires folded at once (``device_step``
+    with the whole cycle staged), then swap and flush; returns the
+    flush, the digest mass before the swap and the routes."""
+    from veneur_tpu_torch.core.flusher import Flusher
+    from veneur_tpu_torch.forward import http_import
+    for w in wires:
+        a, d = http_import.apply_import(
+            table, http_import.decode_body(w["body"], w["encoding"]))
+        check(d == 0, f"the fold dropped {d} items")
+    t0 = time.perf_counter()
+    table.device_step(final=True)
+    sync()
+    fold_s = time.perf_counter() - t0
+    mass = float(table._state.histo_weights.double().sum())
+    res = Flusher(**FLUSH_KW, device=str(table.device)).flush(
+        table.swap(), now=1)
+    return res, mass, dict(table.routes), fold_s
+
+
+def spread_case(table, n_series: int, n_wires: int = 8) -> None:
+    """Wires whose centroids stay far apart (no cluster forms in any
+    fold topology), imported and folded in one cycle."""
+    names = np.asarray([table.import_histo_row(f"spread.{s}", "timer", ())
+                        for s in range(n_series)], np.int32)
+    rows = np.repeat(np.arange(n_series), 3)
+    for w in range(n_wires):
+        means = (1e4 * (w * 3 + np.tile(np.arange(3), n_series))
+                 + 17.0 + rows % 97).astype(np.float32)
+        stats = np.tile(np.asarray([3, 17, 1e5, 0, 0], np.float32),
+                        (n_series, 1))
+        table.import_histo_batch(names, stats, names[rows], means,
+                                 np.ones(len(rows), np.float32))
+    table.device_step(final=True)
+
+
+def collective_import(stack_in: dict, dev: str, scale: int,
+                      sync) -> dict:
+    """(b) the collective import fold on 8 places against the serial
+    scan: phase 6's stacked wires (dense digests: mass conserved, both
+    held to the exact p99, the gap between them measured), then a
+    spread-regime cycle at the same width, bit-equal."""
+    from veneur_tpu_torch.core.table import MetricTable, TableConfig
+    sizes = table_sizes(scale)
+    out = {"wires": len(stack_in["wires"])}
+    got = {}
+    with MergeRecorder() as rec:
+        for mode in ("on", "off"):
+            t = MetricTable(TableConfig(**sizes), device=dev,
+                            places=[dev] * MESH_PLACES)
+            t.fused_import_mode = "stack"
+            t.collective_import_mode = mode
+            res, mass, routes, fold_s = fold_interval(
+                t, stack_in["wires"], sync)
+            rel = p99_errors(res.metrics, stack_in["texts"])
+            got[mode] = res.metrics
+            out[mode] = {"mass": mass, "routes": routes, "fold_s": fold_s,
+                         "p99_rel_err_median": float(np.median(rel)),
+                         "p99_rel_err_max": float(rel.max())}
+            check(out[mode]["p99_rel_err_median"] <= 0.01,
+                  f"collective import {mode}: median p99 error > 1%")
+    check(out["on"]["routes"].get("wire_collective") == 1 and
+          out["off"]["routes"].get("wire_stack") == 1,
+          f"fold routes {out['on']['routes']} / {out['off']['routes']}")
+    check(out["on"]["mass"] == out["off"]["mass"] > 0,
+          "the collective fold did not conserve the digests' mass")
+    out["on_vs_off"] = compare_flush(got["on"], got["off"],
+                                     hold_percentiles=False)
+    planes = {}
+    for mode in ("on", "off"):
+        t = MetricTable(TableConfig(**sizes), device=dev,
+                        places=[dev] * MESH_PLACES)
+        t.fused_import_mode = "stack"
+        t.collective_import_mode = mode
+        with MergeRecorder() as srec:
+            spread_case(t, 4096 // scale)
+        sync()
+        planes[mode] = (t._state.histo_means.cpu(),
+                        t._state.histo_weights.cpu(), srec.table(),
+                        srec.launches)
+    import torch
+    check(torch.equal(planes["on"][0], planes["off"][0]) and
+          torch.equal(planes["on"][1], planes["off"][1]),
+          "spread regime: the collective fold differs from the scan")
+    out["spread_bit_equal"] = True
+    out["cluster_merge_launches"] = (rec.launches + planes["on"][3] +
+                                     planes["off"][3])
+    shapes: dict = {}
+    for m in rec.table() + planes["on"][2] + planes["off"][2]:
+        key = (m["rows"], m["k"])
+        shapes[key] = shapes.get(key, 0) + m["calls"]
+    out["merge_shapes"] = [{"rows": r, "k": k, "calls": c}
+                           for (r, k), c in sorted(shapes.items())]
+    return out
+
+
+def loopback_forward(dev: str, scale: int) -> dict:
+    """(c) a one-rank process group (NCCL on the card): the reduction
+    helpers on tensors of the planes' shapes against the in-process
+    reduction, ``all_to_all_single`` on a plane block, and a sharded
+    local whose only ring destination is its own process as a collective
+    peer: one interval through the plane exchange's loopback, the table
+    that folds it bit-equal to the same rows over the gRPC wire."""
+    import torch
+    import torch.distributed as dist
+    from veneur_tpu_torch.core.config import read_config
+    from veneur_tpu_torch.core.flusher import Flusher
+    from veneur_tpu_torch.core.server import Server
+    from veneur_tpu_torch.core.table import MetricTable, TableConfig
+    from veneur_tpu_torch.forward import grpc_forward
+    from veneur_tpu_torch.ops import hll, tdigest
+    from veneur_tpu_torch.parallel import collective_forward as cplanes
+    from veneur_tpu_torch.parallel import sharded
+    sizes = table_sizes(scale)
+    os.environ.update({
+        "VENEUR_TPU_DIST_COORDINATOR": f"127.0.0.1:{free_tcp_port()}",
+        "VENEUR_TPU_DIST_NUM_PROCS": "1",
+        "VENEUR_TPU_DIST_PROCESS_ID": "0"})
+    t0 = time.perf_counter()
+    check(sharded.init_process_mesh(device=dev, timeout=60.0),
+          "init_process_mesh did not join")
+    out = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+           "init_s": time.perf_counter() - t0}
+    check(out["backend"] == ("nccl" if dev == "cuda" else "gloo"),
+          f"process group backend {out['backend']}")
+    group = dist.group.WORLD
+    try:
+        s, n = MESH_SHARDS, MESH_PLACES // MESH_SHARDS
+        rl, cap = sizes["histo_rows"] // n, tdigest.capacity_for(100.0)
+        rng = torch.Generator(device=dev).manual_seed(17)
+        planes = {
+            "counters": (torch.rand((s, n, sizes["counter_rows"] // n),
+                                    device=dev, generator=rng) * 100,
+                         ("sum",)),
+            "gauge_ticket": (torch.randint(-1, 1 << 20,
+                                           (s, n, sizes["gauge_rows"] // n),
+                                           device=dev, generator=rng,
+                                           dtype=torch.int32), ("max",)),
+            "histo_stats": (torch.rand((s, n, rl, 5), device=dev,
+                                       generator=rng), ("sum", "min",
+                                                        "max")),
+            "hll": (torch.randint(0, 40, (s, n, sizes["set_rows"] // n,
+                                          hll.M), device=dev,
+                                  generator=rng, dtype=torch.uint8),
+                    ("max",))}
+        checks = {}
+        for name, (t, ops) in planes.items():
+            for op in ops:
+                a = sharded.reduce_shards(t, op, group)
+                b = sharded.reduce_shards(t, op, None)
+                check(torch.equal(a, b), f"all_reduce {op} on {name}")
+                checks[f"{name}.{op}"] = list(t.shape)
+        parts = [torch.rand((sizes["histo_rows"], cap), device=dev,
+                            generator=rng) for _ in range(s)]
+        check(torch.equal(sharded.gather_slots(parts, group),
+                          sharded.gather_slots(parts, None)),
+              "all_gather_into_tensor of the centroid slots")
+        checks["histo_means.all_gather"] = [sizes["histo_rows"], s * cap]
+        schema = cplanes.PlaneSchema()
+        blk = torch.randint(0, 256, (1, schema.block_size), device=dev,
+                            generator=rng, dtype=torch.uint8)
+        recv = torch.empty_like(blk)
+        dist.all_to_all_single(recv, blk, group=group)
+        check(torch.equal(recv, blk), "all_to_all_single of a plane block")
+        checks["plane_block.all_to_all"] = list(blk.shape)
+        out["collectives"] = checks
+        # the loopback forward: telemetry to a discarding socket, so the
+        # local's table holds the folded planes alone
+        sink = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        sink.bind(("127.0.0.1", 0))
+        dest = "127.0.0.1:9"
+        local = Server(read_config(data={
+            "hostname": "loop", "interval": "120s",
+            "forward_address": dest, "forward_use_grpc": True,
+            "tpu_sharded_global": True,
+            "tpu_collective_peers": f"{dest}=0",
+            "tpu_drain_on_shutdown": False,
+            "stats_address": f"127.0.0.1:{sink.getsockname()[1]}",
+            "percentiles": list(FLUSH_KW["percentiles"]),
+            "aggregates": list(FLUSH_KW["aggregates"]),
+            **{f"tpu_{k}": v for k, v in sizes.items()}}, env={}),
+            device=dev)
+        try:
+            with MergeRecorder() as rec:
+                for batch in mesh_text(LOOP_SERIES // scale, seed=23,
+                                       global_only=True):
+                    local.handle_packet_batch(batch)
+                res = local.flush_once()
+                rows = res.forward
+                check(local.stats.get("collective_forward_cycles") == 1
+                      and local.stats.get("collective_forward_rows") ==
+                      len(rows) and not local.stats.get(
+                          "collective_forward_fallbacks"),
+                      f"loopback cycle: {local.stats}")
+                check(local.stats.get("collective_items_received") ==
+                      len(rows), "the loopback planes did not land")
+                check(local._collective_fwd._exchange.n_proc == 1,
+                      "the exchange is not the one-rank group's")
+                snap = local.table.swap()
+                flusher = Flusher(**FLUSH_KW, device=dev)
+                folded = flusher.flush(snap, now=1).metrics
+                wire = MetricTable(TableConfig(**sizes), device=dev)
+                acc, dropped = grpc_forward.apply_metric_list_bytes(
+                    wire, grpc_forward.rows_to_metric_list(
+                        rows).SerializeToString())
+                check((acc, dropped) == (len(rows), 0),
+                      f"the wire oracle took {acc}, dropped {dropped}")
+                oracle = flusher.flush(wire.swap(), now=1).metrics
+            names = {r.meta.name for r in rows}
+            out["vs_wire"] = compare_flush(
+                [m for m in folded if _forwarded(m.name, names)],
+                [m for m in oracle if _forwarded(m.name, names)],
+                sums_exact=True)
+            check(out["vs_wire"]["metrics"] > 0, "nothing compared")
+            out["rows"] = len(rows)
+            out["block_bytes"] = local._collective_fwd.schema.block_size
+            out["cluster_merge_launches"] = rec.launches
+            out["merge_shapes"] = rec.table()
+        finally:
+            local.shutdown()
+            sink.close()
+    finally:
+        sharded.close_process_mesh()
+    return out
+
+
+def _forwarded(metric_name: str, names: set) -> bool:
+    """Whether a flushed metric belongs to a forwarded series: its name,
+    or its name with one aggregate suffix."""
+    return (metric_name in names or
+            metric_name.rsplit(".", 1)[0] in names)
+
+
+def mesh_shapes(mesh: dict) -> dict:
+    """Phase 17's merge shapes by leg, for the kernels line."""
+    return {leg: mesh[leg]["merge_shapes"]
+            for leg in ("global", "collective_import", "loopback")}
+
+
+def mesh_cases(mesh: dict, timed=()) -> tuple:
+    """Phase 2's re-check of phase 17's shapes: the mesh global's and
+    the collective fold's merges take weighted centroids, the loopback
+    local's its unit samples."""
+    cases = recorded_cases(mesh["global"]["merge_shapes"], weighted=True,
+                           timed=timed)
+    cases += recorded_cases(mesh["collective_import"]["merge_shapes"],
+                            weighted=True, timed=tuple(timed) + cases)
+    cases += recorded_cases(mesh["loopback"]["merge_shapes"],
+                            timed=tuple(timed) + cases)
+    return cases
+
+
+def mesh_only() -> int:
+    """``--mesh-only``: the build, phase 17 on 16 wires of phase 6's
+    flat shape and 8 of its stacked one (no CPU reference for those),
+    and phase 2 at phase 17's shapes — the quick way to rehearse the
+    mesh on the card.  Prints no result line."""
+    phase_env()
+    phase_build()
+    glob = phase_global(n_wires=MESH_WIRES, intervals=1, stack_wires=8,
+                        profiled=False, cpu_reference=False,
+                        keep_stack=True)
+    mesh = phase_mesh(glob.pop("grpc_input"), glob.pop("stack_input"))
+    phase_kernel(cases=mesh_cases(mesh))
+    return 0
+
+
+def phase_mesh(grpc_in: dict, stack_in: dict, dev: str = "cuda",
+               scale: int = 1) -> dict:
+    """Phase 17: the mesh.  (a) a mesh global on 8 places of the card
+    against a CPU one; (b) the collective import fold; (c) a one-rank
+    process group and the plane exchange's loopback; (d) the
+    companions."""
+    import torch
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    t_phase = time.perf_counter()
+    fake = FakeDSN()
+    try:
+        out = {"phase": "mesh", "device": dev, "shards": MESH_SHARDS,
+               "places": MESH_PLACES}
+        out["global"] = mesh_global(grpc_in, dev, scale, fake)
+    finally:
+        fake.close()
+    out["collective_import"] = collective_import(stack_in, dev, scale,
+                                                 sync)
+    out["loopback"] = loopback_forward(dev, scale)
+    out["cluster_merge_launches"] = sum(
+        out[k]["cluster_merge_launches"]
+        for k in ("global", "collective_import", "loopback"))
+    out["seconds"] = time.perf_counter() - t_phase
+    out["cut"] = (f"the first {MESH_WIRES} of phase 8's "
+                  f"{len(grpc_in['wires'])} wires "
+                  f"and 2,048 DogStatsD series into one interval; phase "
+                  f"6's stacked wires for the collective fold")
+    emit({k: v for k, v in out.items()})
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "veneur_tpu_torch")):
         print("chip_smoke: veneur_tpu_torch/ not found beside this "
@@ -5554,6 +6179,8 @@ def main() -> int:
     emit({"phase": "card", "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device_count": torch.cuda.device_count()})
+    if "--mesh-only" in sys.argv[1:]:
+        return mesh_only()
 
     phase_env()
     phase_build()
@@ -5564,15 +6191,19 @@ def main() -> int:
     table = phase_table()
     readers = phase_readers(table)
     del table["bufs"], table["exact_p99"], table["metrics"]
-    # one timed flat interval (no profiled one) and an eighth of the
-    # stacked shape's wires keep the whole script, phases 13-16
-    # included, well inside 1,200 s
-    glob = phase_global(intervals=1, stack_wires=N_WIRES // 8,
-                        profiled=False)
+    # one timed flat interval (no profiled one) of half the locals (the
+    # first 32 of 64), and an eighth of the stacked shape's wires, keep
+    # the whole script, phases 13-17 included, inside 1,200 s
+    glob = phase_global(n_wires=N_WIRES // 2, intervals=1,
+                        stack_wires=N_WIRES // 8, profiled=False,
+                        keep_stack=True)
     grpc_in = glob.pop("grpc_input")
+    stack_in = glob.pop("stack_input")
     grpc_glob = phase_global_grpc(grpc_in)
     routing = phase_routing(grpc_in, grpc_glob.pop("metrics"))
-    del grpc_in
+    # phase 17 on phase 8's wires (no new wire build)
+    mesh = phase_mesh(grpc_in, stack_in)
+    del grpc_in, stack_in
     tiers = phase_tiers()
     crash = phase_crash_riding()
     span = phase_span_plane()
@@ -5604,6 +6235,7 @@ def main() -> int:
     cases += recorded_cases(edge["weighted_shapes"], weighted=True,
                             timed=cases)
     cases += recorded_cases(sinks["merge_shapes"], timed=cases)
+    cases += mesh_cases(mesh, cases)
     kern.update(phase_kernel(cases=cases))
     phase_server()
     phase_chain()
@@ -5623,7 +6255,8 @@ def main() -> int:
                "crash_riding": crash["cluster_merge_launches"],
                "span_plane": span["cluster_merge_launches"],
                "ingest_edge": edge["cluster_merge_launches"],
-               "sinks": sinks["cluster_merge_launches"]}
+               "sinks": sinks["cluster_merge_launches"],
+               "mesh": mesh["cluster_merge_launches"]}
     shapes_by_path = {"multi_reader": {n: r["merge_shapes"] for n, r in
                                        readers["runs"].items()},
                       "tiers": tiers["merge_shapes"],
@@ -5635,7 +6268,8 @@ def main() -> int:
                       "ingest_edge": {"unit": edge["merge_shapes"],
                                       "weighted":
                                           edge["weighted_shapes"]},
-                      "sinks": sinks["merge_shapes"]}
+                      "sinks": sinks["merge_shapes"],
+                      "mesh": mesh_shapes(mesh)}
     emit({"kernels": [{
         "name": "cluster_merge", "route": "cuda",
         "source": "veneur_tpu_torch/csrc/cluster_merge.cu",

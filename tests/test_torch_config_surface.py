@@ -7,9 +7,11 @@ environment override and its validation: a value the reference refuses
 the port refuses with the same message, a value it accepts the port
 accepts.  The sinks' keys (``tags_exclude``, ``tpu_sink_workers``,
 every sink's settings and the reference's deprecated aliases) read as
-the reference reads them.  The keys the port still does not run
+the reference reads them.  The last keys to be ported
 (``sentry_dsn``, ``tpu_mesh_shards`` and the ``tpu_collective_*``
-keys) stay refused by name.
+keys) read as the reference reads them too: the port's ``Config``
+holds every field of the reference's, its ``ProxyConfig`` every field
+of the reference's proxy config, and nothing is refused.
 """
 
 from __future__ import annotations
@@ -19,8 +21,9 @@ import os
 import pytest
 
 from veneur_tpu.core.config import Config as JConfig
+from veneur_tpu.core.config import ProxyConfig as JProxyConfig
 from veneur_tpu.core.config import read_config as jread_config
-from veneur_tpu_torch.core.config import Config, read_config
+from veneur_tpu_torch.core.config import Config, ProxyConfig, read_config
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -151,10 +154,8 @@ SINK_KEYS = {
     "falconer_address": ("127.0.0.1:3000", None),
 }
 
-# the keys the port still does not run
-REFUSED = ("sentry_dsn", "tpu_mesh_shards", "tpu_collective_import",
-           "tpu_collective_forward", "tpu_collective_peers",
-           "tpu_collective_max_rows", "tpu_collective_key_bytes")
+# the keys the port still does not run: none
+REFUSED = ()
 
 
 def test_config_holds_every_reference_key_but_the_refused():
@@ -163,7 +164,10 @@ def test_config_holds_every_reference_key_but_the_refused():
     got = {f.name for f in fields(Config)}
     assert got <= want
     assert sorted(want - got) == sorted(REFUSED)
-    assert len(got) == 175 and len(want) == 182
+    assert len(got) == 182 and len(want) == 182
+    pwant = {f.name for f in fields(JProxyConfig)}
+    pgot = {f.name for f in fields(ProxyConfig)}
+    assert pgot == pwant and len(pgot) == 31
 
 
 @pytest.mark.parametrize("name", ["example.yaml", "example_host.yaml"])
@@ -307,6 +311,8 @@ def test_sink_keys_read_as_jax(key, value):
     assert got == value
 
 
+# once refused by name, now read as the reference reads them: the
+# value, the ``VENEUR_<KEY>`` override and the validation
 @pytest.mark.parametrize("key,value", [
     ("sentry_dsn", "http://k@127.0.0.1:1/2"),
     ("tpu_mesh_shards", 4), ("tpu_collective_forward", "on"),
@@ -315,7 +321,83 @@ def test_sink_keys_read_as_jax(key, value):
     ("tpu_collective_key_bytes", 128),
 ])
 def test_unported_keys_refused_by_name(key, value):
-    assert key in REFUSED
-    jread_config(data={key: value}, env={})
-    with pytest.raises(ValueError, match=key):
-        read_config(data={key: value}, env={})
+    assert key not in REFUSED
+    got = getattr(read_config(data={key: value}, env={}), key)
+    assert got == getattr(jread_config(data={key: value}, env={}),
+                          key) == value
+    assert getattr(read_config(data={}, env={}), key) == getattr(
+        jread_config(data={}, env={}), key)
+    env = {"VENEUR_" + key.upper(): str(value) or "x=1"}
+    if key == "tpu_collective_peers":
+        env.update({"VENEUR_TPU_SHARDED_GLOBAL": "1",
+                    "VENEUR_FORWARD_USE_GRPC": "1"})
+    assert getattr(read_config(data={}, env=env), key) == getattr(
+        jread_config(data={}, env=env), key)
+
+
+@pytest.mark.parametrize("data", [
+    {"tpu_collective_import": "maybe"},
+    {"tpu_collective_forward": "sometimes"},
+    {"tpu_collective_peers": "a:1=1"},
+    {"tpu_collective_peers": "a:1=1", "tpu_sharded_global": True},
+    {"tpu_collective_peers": "a:1=x", "tpu_sharded_global": True,
+     "forward_use_grpc": True},
+    {"tpu_collective_peers": "a:1=1,a:1=2", "tpu_sharded_global": True,
+     "forward_use_grpc": True},
+    {"tpu_collective_max_rows": 0}, {"tpu_collective_key_bytes": -1},
+])
+def test_collective_keys_refused_as_jax(data):
+    """A value the reference's validation refuses, the port refuses
+    with the same message."""
+    with pytest.raises(ValueError) as want:
+        jread_config(data=data, env={})
+    with pytest.raises(ValueError) as got:
+        read_config(data=data, env={})
+    assert str(got.value) == str(want.value)
+
+
+# keys whose value must parse as an address, a list of numbers or a
+# duration (both packages refuse another string, each in its own words)
+_ENV_VALUES = {
+    "grpc_listen_addresses": "tcp://127.0.0.1:1",
+    "http_address": "127.0.0.1:1",
+    "percentiles": "0.5,0.9",
+    "ssf_listen_addresses": "udp://127.0.0.1:1",
+    "statsd_listen_addresses": "udp://127.0.0.1:1",
+    "tpu_flight_cooldown": "5s",
+}
+
+
+def _env_value(key: str, default) -> str:
+    """A ``VENEUR_<KEY>`` string of a field's type."""
+    if key in _ENV_VALUES:
+        return _ENV_VALUES[key]
+    if isinstance(default, bool):
+        return "1"
+    if isinstance(default, int):
+        return "7"
+    if isinstance(default, float):
+        return "0.5"
+    if isinstance(default, list):
+        return "a,b"
+    if isinstance(default, dict):
+        return "k:v"
+    return "x"
+
+
+@pytest.mark.parametrize("key", sorted(f.name for f in
+                                       __import__("dataclasses")
+                                       .fields(JConfig)))
+def test_every_key_takes_its_env_override_as_jax(key):
+    """Every key takes its ``VENEUR_<KEY>`` override, as in the
+    reference: the same value, or the same refusal."""
+    env = {"VENEUR_" + key.upper(): _env_value(key,
+                                               getattr(JConfig(), key))}
+    try:
+        want = getattr(jread_config(data={}, env=env), key)
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            read_config(data={}, env=env)
+        assert str(got.value) == str(e)
+        return
+    assert getattr(read_config(data={}, env=env), key) == want

@@ -395,10 +395,16 @@ def test_cli_proxy_loads_example_config(capsys):
 
 @pytest.mark.parametrize("key", ["sentry_dsn"])
 def test_proxy_config_refuses_unported_keys(key):
-    with pytest.raises(ValueError, match=key):
-        read_config(data={"forward_address": "a:1", key: "x"},
-                    cls=ProxyConfig)
-    jread_config(data={"forward_address": "a:1"}, cls=JProxyConfig)
+    """The last key once refused by name reads as the reference reads
+    it, from the file and from ``VENEUR_<KEY>``."""
+    data = {"forward_address": "a:1", key: "http://k@127.0.0.1:1/2"}
+    assert getattr(read_config(data=data, cls=ProxyConfig), key) == \
+        getattr(jread_config(data=data, cls=JProxyConfig), key)
+    e = {"VENEUR_" + key.upper(): "http://k@127.0.0.1:1/3"}
+    assert getattr(read_config(data={"forward_address": "a:1"}, env=e,
+                               cls=ProxyConfig), key) == getattr(
+        jread_config(data={"forward_address": "a:1"}, env=e,
+                     cls=JProxyConfig), key) == "http://k@127.0.0.1:1/3"
 
 
 @pytest.mark.parametrize("key,value,env", [

@@ -808,7 +808,15 @@ assert {"veneur_tpu_torch.core.frame",
         "veneur_tpu_torch.sinks.grpsink",
         "veneur_tpu_torch.sinks.s3",
         "veneur_tpu_torch.protocol.gen.grpsink_pb2",
-        "veneur_tpu_torch.tools.sink_fakes"} <= set(names)
+        "veneur_tpu_torch.tools.sink_fakes",
+        "veneur_tpu_torch.parallel",
+        "veneur_tpu_torch.parallel.sharded",
+        "veneur_tpu_torch.parallel.collective_forward",
+        "veneur_tpu_torch.forward.collective",
+        "veneur_tpu_torch.core.sentry",
+        "veneur_tpu_torch.cli.emit",
+        "veneur_tpu_torch.cli.prometheus",
+        "veneur_tpu_torch.cli.top"} <= set(names)
 from veneur_tpu_torch.core.table import MetricTable, TableConfig
 from veneur_tpu_torch.forward import gob_codec
 MetricTable(TableConfig(histo_rows=8), device="cpu")
@@ -896,10 +904,21 @@ ho = g1.arc_handoff(addrs, addrs[0])
 assert ho["errors"] == 0 and ho["moved_rows"] == ho["items"] > 0
 g1.shutdown()
 g2.shutdown()
+mesh = Server(read_config(data={"tpu_histo_rows": 8, "tpu_set_rows": 4,
+    "tpu_counter_rows": 8, "tpu_gauge_rows": 8, "tpu_mesh_shards": 2,
+    "tpu_collective_forward": "on"}), device="cpu", places=["cpu"] * 4)
+mesh.handle_packet(b"m:1|c\\nt:2|ms\\nu:a|s")
+assert mesh.collective_receive_cycle(timeout=5.0) == (0, 0)
+assert mesh.flush_once().metric_count() > 0
+mesh.shutdown()
+coll = MetricTable(TableConfig(histo_rows=8, collective_import="on"),
+                   device="cpu", places=["cpu"] * 2)
+assert coll._collective_wire_fold().n_shard == 2
 left = [t.name for t in threading.enumerate()
         if t.name.startswith(("proxy-dest-", "discovery-refresh",
                               "checkpointer", "sink-flush-",
-                              "flush-pool"))
+                              "flush-pool", "collective-exchange-",
+                              "sentry"))
         and t.is_alive()]
 assert not left, left
 bad = sorted(m for m in sys.modules

@@ -307,6 +307,7 @@ def test_stats_address_without_port_is_config_error(addr):
 def test_unknown_scope_refused_and_later_keys_still_refused():
     with pytest.raises(ValueError, match="veneur_metrics_scopes"):
         read_config(data={"veneur_metrics_scopes": {"counter": "nope"}})
+    # the keys later slices ported read as the reference reads them
     for key in ("tpu_collective_forward", "tpu_mesh_shards", "sentry_dsn"):
-        with pytest.raises(ValueError, match="not supported"):
-            read_config(data={key: 1})
+        assert getattr(read_config(data={key: 1}), key) == getattr(
+            jread_config(data={key: 1}), key) == 1

@@ -6,6 +6,12 @@ into the port unchanged, since the planes keep the reference's layouts:
 f32[R] counters and gauges, f32[R,5] stats, f32[R,C] means and weights,
 u8[R,16384] registers.  ``snapshot_from_numpy`` rebuilds a port
 ``Snapshot`` so the port's ``Flusher`` can flush a reference interval.
+
+A reference ``ShardedAggregator``'s partial state, as numpy ``[S, R,
+...]`` arrays (shard-major, global rows), loads into a port mesh with
+``sharded_state_from_numpy`` and comes back out with
+``sharded_state_to_numpy``, so both packages can start from the same
+partial state.
 """
 
 from __future__ import annotations
@@ -82,3 +88,61 @@ def snapshot_from_numpy(state: dict,
         hll_device_touched=bool(state.get("hll_device_touched", False)),
         overflow=dict(state.get("overflow", {})),
     )
+
+
+SHARDED_PLANES = {
+    "counters": np.float32,
+    "gauges": np.float32,
+    "gauge_ticket": np.int32,
+    "histo_stats": np.float32,
+    "histo_means": np.float32,
+    "histo_weights": np.float32,
+    "hll": np.uint8,
+}
+
+
+def sharded_state_from_numpy(mesh, cfg, arrays: dict) -> list[dict]:
+    """A reference ShardedAggregator's state (``SHARDED_PLANES`` as
+    ``[S, R, ...]`` arrays) -> the port mesh's partial state (one dict
+    of row-stacked planes per device group, ``parallel.sharded``).  On
+    a multi-process mesh each process loads its own shards."""
+    from veneur_tpu_torch.parallel import sharded
+    rl = sharded._local_rows(mesh, cfg)
+    s_l = mesh.n_local_shard
+    base = mesh.rank * s_l
+    out = []
+    for dev, plist in mesh.groups:
+        group = {}
+        for name, dtype in SHARDED_PLANES.items():
+            arr = np.asarray(arrays[name], dtype)
+            if arr.shape[0] != mesh.shape[sharded.SHARD]:
+                raise ValueError(
+                    f"{name}: {arr.shape[0]} shards, mesh has "
+                    f"{mesh.shape[sharded.SHARD]}")
+            n = rl[name]
+            blocks = [arr[base + i, j * n:(j + 1) * n] for i, j in plist]
+            group[name] = torch.from_numpy(
+                np.ascontiguousarray(np.concatenate(blocks))).to(dev)
+        out.append(group)
+    return out
+
+
+def sharded_state_to_numpy(mesh, cfg, state: list[dict]) -> dict:
+    """The port mesh's partial state -> the reference's ``[S, R, ...]``
+    arrays (this process's shards on a multi-process mesh)."""
+    from veneur_tpu_torch.parallel import sharded
+    rl = sharded._local_rows(mesh, cfg)
+    s_l, n_series = mesh.n_local_shard, mesh.shape[sharded.SERIES]
+    out = {}
+    for name, dtype in SHARDED_PLANES.items():
+        n = rl[name]
+        rows = []
+        for i in range(s_l):
+            blocks = [None] * n_series
+            for st, (_dev, plist) in zip(state, mesh.groups):
+                for p, (pi, j) in enumerate(plist):
+                    if pi == i:
+                        blocks[j] = st[name][p * n:(p + 1) * n].cpu()
+            rows.append(torch.cat(blocks).numpy())
+        out[name] = np.ascontiguousarray(np.stack(rows), dtype)
+    return out

@@ -1,11 +1,10 @@
-"""YAML configuration: the subset of the reference's keys this port runs.
+"""YAML configuration: the reference's keys, defaults and validation.
 
 Port of ``veneur_tpu/core/config.py``.  Key names are the reference's,
-so one YAML file drives either server.  A key this port does not know
-is refused with an error naming it — never silently ignored, since a
-setting the port would not honour must not look accepted.  The
-reference's ``VENEUR_<KEY>`` environment overrides apply to the keys in
-``_ENV_KEYS``.
+so one YAML file drives either server.  A key neither package knows is
+refused with an error naming it — never silently ignored, since a
+setting the server would not honour must not look accepted.  Every
+key takes the reference's ``VENEUR_<KEY>`` environment override.
 """
 
 from __future__ import annotations
@@ -94,6 +93,18 @@ class Config:
     # to the CPU; the port's server runs where it was asked and raises
     # when the card is missing (parsed, not a fallback)
     accelerator_probe_timeout: str = "60s"
+    # crash and error-level log reports to this Sentry DSN (empty: off)
+    sentry_dsn: str = ""
+    # the mesh global: nonzero runs the table as sharded planes over a
+    # (shard, series) grid of places (every visible card, or the places
+    # the Server is given), this many on the shard axis; the shard
+    # merge runs at the flush (parallel/sharded.py).  0: one table.
+    tpu_mesh_shards: int = 0
+    # the collective import fold: each import cycle's wire stack splits
+    # over the import mesh's places and the partials union with one
+    # slot gather + re-cluster.  "auto" engages iff the import mesh has
+    # more than one place; VENEUR_TPU_COLLECTIVE_IMPORT overrides
+    tpu_collective_import: str = "auto"
     flush_file: str = ""
     flush_file_format: str = "native"
     percentiles: list[float] = field(
@@ -208,6 +219,18 @@ class Config:
     # worker per destination); gRPC forwards only, the HTTP path falls
     # back to one POST
     tpu_sharded_global: bool = False
+    # the collective forward: mesh-peer destinations of the sharded
+    # ring leave the gRPC wire and ride one all_to_all plane exchange a
+    # cycle (parallel/collective_forward.py); "auto" engages iff
+    # tpu_collective_peers names a peer.  Any exchange failure falls
+    # open to the wire, counted; drain wires never take it
+    tpu_collective_forward: str = "auto"
+    # which ring destinations are mesh peers: "addr=process_index,..."
+    tpu_collective_peers: str = ""
+    # the plane schema's rows per class and identity bytes per row;
+    # rows past either are rejected to the wire, never truncated
+    tpu_collective_max_rows: int = 512
+    tpu_collective_key_bytes: int = 192
     # live membership for the sharded ring: poll Consul's health API for
     # passing instances of this service (needs tpu_sharded_global and
     # forward_use_grpc)
@@ -635,87 +658,35 @@ class Config:
                 problems.append(
                     "datadog_exclude_tags_prefix_by_prefix_metric "
                     "entries need a metric_prefix")
+        if str(self.tpu_collective_import).lower() not in (
+                "auto", "on", "off", "1", "0", "true", "false",
+                "yes", "no"):
+            problems.append(
+                "tpu_collective_import must be auto, on or off")
+        if str(self.tpu_collective_forward).lower() not in (
+                "auto", "on", "off", "1", "0", "true", "false",
+                "yes", "no"):
+            problems.append(
+                "tpu_collective_forward must be auto, on or off")
+        if self.tpu_collective_peers:
+            if not self.tpu_sharded_global:
+                problems.append(
+                    "tpu_collective_peers needs tpu_sharded_global "
+                    "(the collective rides the sharded ring split)")
+            if not self.forward_use_grpc:
+                problems.append(
+                    "tpu_collective_peers needs forward_use_grpc "
+                    "(the wire fallback is gRPC-only)")
+            from veneur_tpu_torch.forward.collective import parse_peers
+            try:
+                parse_peers(self.tpu_collective_peers)
+            except ValueError as e:
+                problems.append(str(e))
+        for n in ("tpu_collective_max_rows",
+                  "tpu_collective_key_bytes"):
+            if getattr(self, n) <= 0:
+                problems.append(f"{n} must be positive")
         return problems
-
-
-# keys the reference lets VENEUR_<KEY upper-cased> override, among those
-# the port runs
-_ENV_KEYS = ("tags", "debug", "flush_watchdog_missed_flushes",
-             "synchronize_with_interval", "ssf_listen_addresses",
-             "http_quit", "trace_max_length_bytes",
-             "read_buffer_size_bytes", "num_workers",
-             "percentile_naming", "quantile_interpolation",
-             "omit_empty_hostname", "count_unique_timeseries",
-             "indicator_span_timer_name", "objective_span_timer_name",
-             "span_channel_capacity", "num_span_workers",
-             "debug_ingested_spans", "blackhole_sink",
-             "debug_flushed_metrics", "tpu_warmup", "compile_cache_dir",
-             "accelerator_probe_timeout",
-             "tpu_pipeline", "tpu_multi_reader_fused",
-             "tpu_reader_pin_cores", "tpu_columnar_emit",
-             "tpu_ingest_backend", "tpu_uring_buffers", "http_address",
-             "tls_key", "tls_certificate", "tls_authority_certificate",
-             "forward_grpc_tls", "forward_grpc_tls_ca",
-             "stats_address", "veneur_metrics_scopes",
-             "veneur_metrics_additional_tags", "enable_profiling", "tpu_ledger_strict",
-             "tpu_trace_propagation", "tpu_signal_history",
-             "tpu_flight_dir", "tpu_flight_max_bundles",
-             "tpu_flight_max_bytes", "tpu_flight_cooldown",
-             "tpu_cluster_peers", "tpu_sharded_global",
-             "consul_forward_service_name", "consul_url",
-             "consul_refresh_interval", "tpu_drain_on_shutdown",
-             "tpu_breaker_threshold", "tpu_breaker_cooldown",
-             "tpu_forward_spool", "tpu_forward_spool_max_bytes",
-             "tpu_forward_spool_max_age", "tpu_forward_spool_dir",
-             "tpu_overload", "tpu_overload_tenant_tag",
-             "tpu_overload_tenant_rate", "tpu_overload_tenant_burst",
-             "tpu_overload_max_tenants", "tpu_overload_staging_hi",
-             "tpu_overload_occupancy_hi", "tpu_overload_lag_hi",
-             "tpu_overload_exit_ratio", "tpu_overload_coalesce",
-             "tpu_checkpoint_interval", "tpu_checkpoint_dir",
-             "tpu_arc_handoff", "tags_exclude", "mutex_profile_fraction",
-             "block_profile_rate", "tpu_sink_workers", "datadog_api_key",
-             "datadog_api_hostname", "datadog_flush_max_per_body",
-             "flush_max_per_body", "datadog_metric_name_prefix_drops",
-             "datadog_exclude_tags_prefix_by_prefix_metric",
-             "datadog_span_buffer_size", "ssf_buffer_size",
-             "prometheus_repeater_address", "prometheus_network_type",
-             "aws_s3_bucket", "aws_region", "aws_access_key_id",
-             "aws_secret_access_key", "aws_s3_endpoint", "kafka_broker",
-             "kafka_metric_topic", "kafka_check_topic", "kafka_event_topic",
-             "kafka_span_topic", "kafka_span_serialization_format",
-             "kafka_metric_buffer_bytes", "kafka_metric_buffer_messages",
-             "kafka_metric_buffer_frequency", "kafka_span_buffer_bytes",
-             "kafka_span_buffer_mesages", "kafka_span_buffer_frequency",
-             "kafka_metric_require_acks", "kafka_span_require_acks",
-             "kafka_partitioner", "kafka_retry_max",
-             "kafka_span_sample_rate_percent", "kafka_span_sample_tag",
-             "datadog_trace_api_address", "signalfx_api_key",
-             "signalfx_endpoint_base", "signalfx_endpoint_api",
-             "signalfx_flush_max_per_body", "signalfx_vary_key_by",
-             "signalfx_per_tag_api_keys",
-             "signalfx_dynamic_per_tag_api_keys_enable",
-             "signalfx_dynamic_per_tag_api_keys_refresh_period",
-             "signalfx_hostname_tag", "signalfx_metric_name_prefix_drops",
-             "signalfx_metric_tag_prefix_drops", "splunk_hec_address",
-             "splunk_hec_token", "splunk_span_sample_rate",
-             "splunk_hec_batch_size", "splunk_hec_submission_workers",
-             "splunk_hec_tls_validate_hostname", "splunk_hec_send_timeout",
-             "splunk_hec_ingest_timeout",
-             "splunk_hec_max_connection_lifetime",
-             "splunk_hec_connection_lifetime_jitter", "newrelic_insert_key",
-             "newrelic_account_id", "newrelic_region", "newrelic_event_type",
-             "newrelic_service_check_event_type",
-             "newrelic_trace_observer_url", "newrelic_metric_endpoint",
-             "newrelic_trace_endpoint", "newrelic_common_tags",
-             "xray_address", "xray_sample_percentage",
-             "xray_annotation_tags", "lightstep_access_token",
-             "lightstep_collector_host", "lightstep_maximum_spans",
-             "lightstep_num_clients", "lightstep_reconnect_period",
-             "trace_lightstep_access_token",
-             "trace_lightstep_collector_host",
-             "trace_lightstep_maximum_spans", "trace_lightstep_num_clients",
-             "trace_lightstep_reconnect_period", "falconer_address")
 
 
 def _coerce(cls, name: str, raw: str):
@@ -729,7 +700,10 @@ def _coerce(cls, name: str, raw: str):
     if isinstance(current, float):
         return float(raw)
     if isinstance(current, list):
-        return [x.strip() for x in raw.split(",") if x.strip()]
+        items = [x.strip() for x in raw.split(",") if x.strip()]
+        if current and isinstance(current[0], float):
+            return [float(x) for x in items]
+        return items
     if isinstance(current, dict):
         # "k1:v1,k2:v2"
         out = {}
@@ -744,8 +718,7 @@ def _coerce(cls, name: str, raw: str):
 @dataclass
 class ProxyConfig:
     """veneur-proxy configuration (reference config_proxy.go), with the
-    reference's defaults and validation.  ``sentry_dsn`` alone is not
-    ported and is refused by name."""
+    reference's defaults and validation."""
     debug: bool = False
     http_address: str = ""
     grpc_address: str = ""
@@ -798,6 +771,8 @@ class ProxyConfig:
     # the proxy's signal history, sampled at the discovery-refresh
     # cadence; 0 disables it
     tpu_signal_history: int = 512
+    # crash and error-level log reports to this Sentry DSN (empty: off)
+    sentry_dsn: str = ""
 
     def consul_refresh_interval_seconds(self) -> float:
         return parse_duration(self.consul_refresh_interval)
@@ -858,9 +833,8 @@ def read_config(path: str | None = None, data: dict | None = None,
         if value is not None:
             setattr(cfg, key, value)
     env = os.environ if env is None else env
-    # the proxy's every key takes its override, as in the reference
-    env_keys = _ENV_KEYS if cls is Config else sorted(known)
-    for name in env_keys:
+    # every key takes its override, as in the reference
+    for name in sorted(known):
         env_key = "VENEUR_" + name.upper()
         if env_key in env:
             setattr(cfg, name, _coerce(cls, name, env[env_key]))

@@ -317,7 +317,11 @@ class Overload:
         # this map never saw them); DROPPED rows count as known — their
         # samples are already attributed overflow, not shed
         if freeze and miss.any():
-            known = table.key_index.lookup(kh) != intern.MISSING
+            index = getattr(table, "key_index", None)
+            if index is not None:
+                known = index.lookup(kh) != intern.MISSING
+            else:
+                known = self._known_by_class(pb, sel, miss, table)
         else:
             known = None
         if miss.any():
@@ -460,6 +464,22 @@ class Overload:
                     self._note_shed({(tenant, reason): 1})
                     return False, tenant, reason
         return True, tenant, ""
+
+    def _known_by_class(self, pb, sel, miss, table) -> np.ndarray:
+        """The new-series test for a table without a native key index
+        (the mesh table): each missed line's sample key against its
+        class index, as ``admit_sample`` tests it.  Lines that do not
+        parse count as known (the caller's sweep counts them)."""
+        known = np.ones(len(sel), bool)
+        for j in np.nonzero(miss)[0]:
+            try:
+                s = dsd.parse_line(pb.line(int(sel[j])))
+            except dsd.ParseError:
+                continue
+            idx = self._class_index(table, s.type)
+            known[j] = idx is None or (
+                (s.name, s.type, s.tags, s.scope) in idx.rows)
+        return known
 
     @staticmethod
     def _class_index(table, mtype: str):

@@ -105,6 +105,16 @@ flight recorder's triggers read (``/debug/flight``), and self-telemetry
 own table unless ``stats_address`` is set.  A local stamps its forward
 with the cycle's trace context; a global parents its ``import`` span
 under it, so one interval's tree stitches across the tiers.
+With ``tpu_mesh_shards`` the table is the mesh table
+(``parallel/sharded.py``) over the server's places (a constructor
+argument; default the visible devices of its device type): no pipeline,
+one shard merge at the swap.  With ``tpu_collective_peers`` a sharded
+local's rows for those destinations ride one plane exchange a flush
+(``forward/collective.py``) before the wire split, falling open to the
+wire on any failure, counted; a global folds landed planes under the
+``collective-import`` ledger protocol.  With ``sentry_dsn`` every
+long-lived thread runs under ``_crashguard`` and error-level records of
+the package's loggers go to Sentry.
 ``shutdown`` stops every listener, joins every thread and closes every
 socket and channel.
 """
@@ -255,9 +265,14 @@ class Server:
                  device: "str | torch.device" = "cuda",
                  extra_sinks: list | None = None,
                  extra_span_sinks: list | None = None,
-                 extra_plugins: list | None = None):
+                 extra_plugins: list | None = None,
+                 places: list | None = None):
         self.config = config
         self.device = resolve_device(device)
+        # the places of the mesh global (tpu_mesh_shards) and of the
+        # collective import fold; None: the visible devices of the
+        # device's type
+        self.places = list(places) if places is not None else None
         # the reference's accelerator probe falls back to the CPU; the
         # port runs where it was asked (resolve_device raises without
         # a card), so the key is only read
@@ -265,15 +280,44 @@ class Server:
         if config.compile_cache_dir:
             use_build_dir(config.compile_cache_dir)
         self.interval = config.interval_seconds()
-        self.table = MetricTable(TableConfig(
-            counter_rows=config.tpu_counter_rows,
-            gauge_rows=config.tpu_gauge_rows,
-            histo_rows=config.tpu_histo_rows,
-            set_rows=config.tpu_set_rows,
-            compression=float(config.tpu_compression),
-            histo_slots=config.tpu_histo_slots), device=self.device)
+        if config.tpu_mesh_shards:
+            # the mesh global: sharded planes over a (shard, series)
+            # grid of places; the shard merge runs at the flush
+            from veneur_tpu_torch.parallel import sharded
+            mesh = sharded.make_mesh(
+                self.places if self.places is not None
+                else sharded.default_places(self.device),
+                n_shard=config.tpu_mesh_shards)
+            self.table = sharded.ShardedTable(mesh, sharded.ShardedConfig(
+                rows=config.tpu_histo_rows,
+                set_rows=config.tpu_set_rows,
+                counter_rows=config.tpu_counter_rows,
+                gauge_rows=config.tpu_gauge_rows,
+                compression=float(config.tpu_compression),
+                slots=config.tpu_histo_slots,
+                batch=max(1024, config.tpu_stage_flush_samples)))
+        else:
+            self.table = MetricTable(TableConfig(
+                counter_rows=config.tpu_counter_rows,
+                gauge_rows=config.tpu_gauge_rows,
+                histo_rows=config.tpu_histo_rows,
+                set_rows=config.tpu_set_rows,
+                compression=float(config.tpu_compression),
+                histo_slots=config.tpu_histo_slots,
+                collective_import=str(config.tpu_collective_import)),
+                device=self.device, places=self.places)
         self.is_local = config.is_local()
-        self.pipeline = bool(config.tpu_pipeline)
+        # the pipelined device step needs the single table's detach;
+        # the mesh table steps and flushes synchronously
+        want_pipeline = bool(config.tpu_pipeline)
+        self.pipeline = want_pipeline and hasattr(self.table,
+                                                  "take_staged")
+        if want_pipeline and not self.pipeline:
+            log.warning(
+                "tpu_pipeline is ignored with the mesh-sharded table "
+                "(tpu_mesh_shards=%s): ShardedTable runs its own step "
+                "machinery and flushes synchronously",
+                config.tpu_mesh_shards)
         self.flusher = Flusher(
             is_local=self.is_local,
             percentiles=tuple(config.percentiles),
@@ -288,6 +332,10 @@ class Server:
         self.metric_sinks = list(extra_sinks or [])
         self.span_sinks = list(extra_span_sinks or [])
         self.plugins = list(extra_plugins or [])
+        # the Sentry client and its error-level log handler
+        # (sentry_dsn; built by _build_sinks)
+        self.sentry = None
+        self._sentry_handler = None
         self._build_sinks()
         self.lock = threading.Lock()
         # the counters have a lock of their own: a reader never takes
@@ -382,6 +430,12 @@ class Server:
         self._fwd_refresh_next = 0.0
         self._replayed_credited = 0
         self._draining = False
+        # the collective forward (tpu_collective_forward), built at the
+        # first forward; ``collective_exchange`` is the injectable
+        # exchange (tests set a loopback hub or a failure injector
+        # before the first flush)
+        self._collective_fwd = None
+        self.collective_exchange = None
         # tier byte accounting from the last boundary (None until a
         # tiered flush; always None on a single-tier table)
         self._last_plane_bytes = None
@@ -489,7 +543,7 @@ class Server:
         self._cluster_lock = threading.Lock()
         # the start-up warm-up's seconds, launches and flush tally
         self.warmup: dict | None = None
-        if config.tpu_warmup:
+        if config.tpu_warmup and hasattr(self.table, "take_staged"):
             self._warmup()
 
     def _build_sinks(self) -> None:
@@ -635,6 +689,23 @@ class Server:
                 access_key=c.aws_access_key_id,
                 secret_key=c.aws_secret_access_key,
                 fmt=c.flush_file_format, interval=self.interval))
+        if c.sentry_dsn:
+            # SDK-free DSN client (core/sentry.py), as the reference
+            # initializes it when configured (server.go:357-365), with
+            # the error-level log hook attached once (server.go:391-403)
+            from veneur_tpu_torch.core.sentry import (SentryClient,
+                                                      SentryLogHandler)
+            self.sentry = SentryClient(c.sentry_dsn,
+                                       server_name=c.hostname)
+            # the latest server wins, like the SDK's global hub: drop a
+            # handler an earlier server attached, then add ours;
+            # shutdown removes it again
+            root = logging.getLogger("veneur_tpu_torch")
+            for h in list(root.handlers):
+                if isinstance(h, SentryLogHandler):
+                    root.removeHandler(h)
+            self._sentry_handler = SentryLogHandler(self.sentry)
+            root.addHandler(self._sentry_handler)
 
     def _warmup(self) -> None:
         """Load the native and kernel libraries and take one sample of
@@ -711,7 +782,8 @@ class Server:
             log.warning("unclaimed cloaked listener %r; closing it", name)
             sock.close()
         self._adopted_socks.clear()
-        if self.config.checkpoint_enabled():
+        if (self.config.checkpoint_enabled()
+                and hasattr(self.table, "checkpoint_capture")):
             self._checkpointer = ckpt.Checkpointer(
                 self, self.config.tpu_checkpoint_dir,
                 self.config.checkpoint_interval_seconds(),
@@ -1315,8 +1387,28 @@ class Server:
         with self._stats_lock:
             self.stats[key] = self.stats.get(key, 0) + n
 
+    def _crashguard(self, fn):
+        """Wrap a thread target so a crashing exception is reported to
+        Sentry (with its stack, flushed within the timeout) before it
+        propagates — the reference defers ConsumePanic in every
+        long-lived goroutine (server.go:434,897,994,1040,1376)."""
+        from veneur_tpu_torch.core import sentry as _sentry
+
+        def run(*a, **kw):
+            try:
+                return fn(*a, **kw)
+            except BaseException as e:
+                # consume_panic re-raises; threading.excepthook prints
+                # the traceback.  Not logged through the package logger:
+                # the SentryLogHandler would report it twice.
+                _sentry.consume_panic(self.sentry, self.flusher.hostname,
+                                      e)
+        return run
+
     def _spawn(self, name: str, fn, *args) -> None:
-        t = threading.Thread(target=fn, args=args, name=name, daemon=True)
+        """Start a long-lived thread under ``_crashguard``."""
+        t = threading.Thread(target=self._crashguard(fn), args=args,
+                             name=name, daemon=True)
         t.start()
         self._threads.append(t)
 
@@ -1352,9 +1444,10 @@ class Server:
         """A reader's ReaderShard on the multi-reader fused path, None
         where one reader (``ingest_buffer``) or the split columnar path
         (``tpu_multi_reader_fused: false``) runs."""
-        if (self.config.num_readers > 1 and
+        make = getattr(self.table, "make_reader_shard", None)
+        if (make is not None and self.config.num_readers > 1 and
                 self.config.tpu_multi_reader_fused):
-            return self.table.make_reader_shard()
+            return make()
         return None
 
     def _resolve_ingest_backend(self) -> str:
@@ -1401,7 +1494,8 @@ class Server:
         shard = self._reader_shard()
         backend = self._resolve_ingest_backend()
         if (backend == "uring" and proto == "dogstatsd-udp"
-                and sock.family == socket.AF_INET):
+                and sock.family == socket.AF_INET
+                and hasattr(self.table, "make_reader_shard")):
             # the ring's in-place parse is a shard pass, one reader too
             if self._uring_reader(sock, proto,
                                   shard or self.table.make_reader_shard()):
@@ -1614,7 +1708,8 @@ class Server:
             self._apply_staged(work)
             shard.reset()
             lines = [buf[off:off + ln] for off, ln, _kind in others]
-        elif self.config.num_readers <= 1 and not adm:
+        elif (self.config.num_readers <= 1 and not adm
+              and hasattr(self.table, "ingest_buffer")):
             with self.lock:
                 processed, dropped, others = self.table.ingest_buffer(buf)
                 self.ledger.ingest("dogstatsd", processed=processed,
@@ -1742,6 +1837,11 @@ class Server:
                     "flush watchdog: %.1f intervals without a flush "
                     "(allowed %d); exiting for a supervisor restart",
                     missed, allowed)
+                if self.sentry is not None:
+                    # the log handler queued the fatal event: bound its
+                    # drain as ConsumePanic's Flush does before dying
+                    from veneur_tpu_torch.core.sentry import FLUSH_TIMEOUT
+                    self.sentry.flush(FLUSH_TIMEOUT)
                 os._exit(2)
 
     def flush_once(self) -> FlushResult:
@@ -1949,8 +2049,10 @@ class Server:
                 occupancy=self._occupancy(),
                 flush_lag_ratio=dur_s / max(self.interval, 1e-9),
                 socket_drop_delta=kdrops)
-        with self.lock:
-            self.table.set_pressure_level(ov.pressure.level)
+        setp = getattr(self.table, "set_pressure_level", None)
+        if setp is not None:
+            with self.lock:
+                setp(ov.pressure.level)
 
     def _occupancy(self) -> float:
         """The fullest class index's occupied share."""
@@ -2107,14 +2209,98 @@ class Server:
         self.bump("replay_wires_sent")
         self.bump("replay_items_sent", n_items)
 
+    def _collective_transport(self):
+        """The CollectiveTransport, built at the first use, when the
+        ``tpu_collective_forward`` gate resolves on; None keeps every
+        destination on the wire.  "auto" engages iff
+        ``tpu_collective_peers`` names at least one mesh peer."""
+        gate = str(self.config.tpu_collective_forward).lower()
+        if gate in ("off", "0", "false", "no"):
+            return None
+        peers_spec = self.config.tpu_collective_peers
+        if gate == "auto" and not peers_spec:
+            return None
+        if self._collective_fwd is None:
+            from veneur_tpu_torch.forward.collective import (
+                CollectiveTransport, parse_peers)
+            from veneur_tpu_torch.parallel.collective_forward import \
+                PlaneSchema
+            schema = PlaneSchema(
+                compression=float(self.config.tpu_compression),
+                max_rows=int(self.config.tpu_collective_max_rows),
+                key_bytes=int(self.config.tpu_collective_key_bytes))
+            self._collective_fwd = CollectiveTransport(
+                schema, peers=parse_peers(peers_spec),
+                exchange=self.collective_exchange,
+                deadline=max(self.interval * 0.9, 1.0),
+                on_late=self.apply_collective_blocks)
+        return self._collective_fwd
+
+    def collective_receive_cycle(self, timeout=None) -> tuple:
+        """One receive-side rendezvous: join the mesh's plane exchange
+        with nothing to send and fold whatever lands.  A receiving
+        global drives this in a loop paced by the senders' flushes (the
+        collective blocks until they arrive).  Returns (accepted,
+        dropped)."""
+        coll = self._collective_transport()
+        if coll is None:
+            raise RuntimeError("collective forward is off (gate/peers)")
+        landed = coll.exchange_empty(timeout)
+        return self.apply_collective_blocks(landed)
+
+    def apply_collective_blocks(self, landed) -> tuple:
+        """Fold every non-empty landed plane block into the table — the
+        collective twin of the gRPC import, with its ledger discipline:
+        intake credited under protocol "collective-import", the
+        overflow delta splitting drops into overflow and invalid.
+        Takes the ingest lock per block, so the late-land path may call
+        it off the exchange worker."""
+        from veneur_tpu_torch.parallel import collective_forward as cplanes
+        coll = self._collective_fwd
+        schema = coll.schema
+        total_acc = total_drop = blocks = 0
+        for s in range(landed.shape[0]):
+            block = landed[s]
+            try:
+                counts = cplanes.block_counts(block)
+            except cplanes.PlaneFormatError:
+                self.bump("collective_bad_blocks")
+                continue
+            if not any(counts):
+                continue
+            blocks += 1
+            with self.lock:
+                ov0 = self.table.overflow_total()
+                acc, dropped = cplanes.fold_block(self.table, block,
+                                                  schema)
+                ov = self.table.overflow_total() - ov0
+                self.ledger.ingest(
+                    "collective-import", processed=acc + dropped,
+                    staged=acc, overflow=ov, invalid=dropped - ov)
+                work = self._maybe_device_step_locked()
+            self._apply_staged(work)
+            self.bump("imports_received", acc)
+            self.bump("collective_items_received", acc)
+            self.bump("collective_blocks_received")
+            if dropped:
+                self.bump("metrics_dropped", dropped)
+            total_acc += acc
+            total_drop += dropped
+        if blocks:
+            coll.note_landed(blocks)
+        return total_acc, total_drop
+
     def _forward_sharded(self, fwd: ShardedForwarder, rows, trace_ctx,
                          led, cyc, span) -> None:
         """Split the flush's forward wire by route-key hash across the
         global ring and hand each destination's body to its worker
-        (``veneur_tpu/core/server.py`` ``_forward_sharded``; the port
-        has no collective stage).  The routing counts credit the
-        ledger's split synchronously; wire outcomes land through the
-        workers' callbacks.  A destination whose breaker is open gets
+        (``veneur_tpu/core/server.py`` ``_forward_sharded``).  First the
+        collective stage: rows whose destination is a mesh peer ride the
+        plane exchange (never on a drain flush); an exchange failure
+        falls open, the whole cycle's peer rows joining the wire,
+        counted as ``collective_forward_fallbacks``.  The routing counts
+        credit the ledger's split synchronously; wire outcomes land
+        through the workers' callbacks.  A destination whose breaker is open gets
         its wire spooled without taking a queue slot; a drain flush
         never spools.  The tail waits for this flush's wires until the
         deadline, then sweeps the spool, credits replays since the last
@@ -2129,8 +2315,25 @@ class Server:
                     fwd.refresh()
                 except Exception:
                     log.exception("forward discovery refresh failed")
-        # one ring snapshot per flush
+        # one ring snapshot per flush: the collective grouping and the
+        # wire routing hash against the same membership
         ring = fwd.ring
+        coll = None if self._draining else self._collective_transport()
+        coll_groups: dict[str, list] = {}
+        if coll is not None and rows:
+            from veneur_tpu_torch.forward.shard import row_route_key
+            wire_rows = []
+            for row in rows:
+                dest = ring.get(row_route_key(row))
+                if coll.is_peer(dest):
+                    coll_groups.setdefault(dest, []).append(row)
+                else:
+                    wire_rows.append(row)
+            if coll_groups:
+                rows = wire_rows
+        if coll_groups:
+            rows, coll_groups = self._forward_collective(
+                coll, coll_groups, rows, led, cyc, span)
         data = fwd.serialize(rows)
         routed = None
         try:
@@ -2174,6 +2377,17 @@ class Server:
                 moved = sum(max(0, new_counts.get(m, 0)
                                 - old_counts.get(m, 0))
                             for m in set(new_counts) | set(old_counts))
+            if coll_groups:
+                # the collective rows' moved arcs are the same
+                # rebalance, counted row by row against the old ring
+                from veneur_tpu_torch.forward.shard import row_route_key
+                old_cc: dict[str, int] = {}
+                for g in coll_groups.values():
+                    for row in g:
+                        d = prev_ring.get(row_route_key(row))
+                        old_cc[d] = old_cc.get(d, 0) + 1
+                moved += sum(max(0, len(g) - old_cc.get(d, 0))
+                             for d, g in coll_groups.items())
             if led is not None:
                 self.ledger.credit_reshard(led, epoch, added, removed,
                                            moved)
@@ -2282,6 +2496,48 @@ class Server:
             self._spool_ledger.seal_snapshot(
                 fwd.spool.stats(), seq=led.seq if led is not None else 0)
 
+    def _forward_collective(self, coll, groups: dict, wire_rows: list,
+                            led, cyc, span) -> tuple[list, dict]:
+        """The collective stage of a sharded forward: one plane
+        exchange for the mesh peers' rows.  Returns (the rows left for
+        the wire, the groups the exchange took); on a failure every
+        peer row returns to the wire and the groups come back empty."""
+        ch = None
+        if cyc is not None and span is not None:
+            ch = cyc.child(span, "forward.collective",
+                           {"dests": str(len(groups)),
+                            "rows": str(sum(len(g)
+                                            for g in groups.values()))})
+        try:
+            sent, rejected, landed = coll.send_cycle(groups)
+        except Exception as e:
+            n_back = sum(len(g) for g in groups.values())
+            self.bump("collective_forward_fallbacks")
+            self.bump("collective_fallback_rows", n_back)
+            log.warning("collective forward fell open to the wire "
+                        "(%d rows): %s", n_back, e)
+            if ch is not None:
+                ch.set_error(e)
+                cyc.finish(ch)
+            return (list(wire_rows) +
+                    [r for g in groups.values() for r in g]), {}
+        self.bump("collective_forward_cycles")
+        for dest, n in sent.items():
+            self.bump("collective_forward_rows", n)
+            if led is not None:
+                self.ledger.credit_forward_collective(led, dest, n)
+        if rejected:
+            # schema-capacity rejects ship on the wire this cycle
+            self.bump("collective_rejected_rows", len(rejected))
+            wire_rows = list(wire_rows) + list(rejected)
+        # the planes mesh peers addressed to this node
+        self.apply_collective_blocks(landed)
+        if ch is not None:
+            if rejected:
+                ch.add_tag("rejected", str(len(rejected)))
+            cyc.finish(ch)
+        return wire_rows, groups
+
     def _forward_http(self, rows: list[ForwardRow], trace_ctx=None,
                       led=None) -> None:
         """POST a flush's forward rows to the global's /import (the
@@ -2373,11 +2629,10 @@ class Server:
                     ) -> dict:
         """One row of every internal signal, in the reference's fixed
         schema (``veneur_tpu/core/server.py`` ``_signal_row``): called
-        with no arguments at construction to derive the schema.  A
-        subsystem the port does not run yet (the collective path)
-        samples 0, as do the forward's columns until the
-        sharded forwarder is built and the pressure columns with
-        overload off."""
+        with no arguments at construction to derive the schema.  The
+        collective forward's columns sample 0 until its transport is
+        built, as do the forward's columns until the sharded forwarder
+        is built and the pressure columns with overload off."""
         with self._stats_lock:
             st = dict(self.stats)
         row = {
@@ -2463,13 +2718,19 @@ class Server:
         for key in ("queued_items", "queued_bytes", "spooled_items",
                     "replayed_items", "expired_items", "inflight_items"):
             row[f"spool.{key}"] = sp.get(key, 0)
-        for key in ("forward.collective.cycles",
-                    "forward.collective.rows",
-                    "forward.collective.rejected_rows",
-                    "forward.collective.fallback_cycles",
-                    "forward.collective.landed_blocks",
-                    "forward.collective.items_received"):
-            row[key] = 0
+        # the collective forward (zeros until the transport builds)
+        coll = getattr(self, "_collective_fwd", None)
+        cst = coll.stats() if coll is not None else {}
+        row["forward.collective.cycles"] = cst.get("cycles", 0)
+        row["forward.collective.rows"] = cst.get("sent_rows", 0)
+        row["forward.collective.rejected_rows"] = cst.get(
+            "rejected_rows", 0)
+        row["forward.collective.fallback_cycles"] = cst.get(
+            "fallback_cycles", 0)
+        row["forward.collective.landed_blocks"] = cst.get(
+            "landed_blocks", 0)
+        row["forward.collective.items_received"] = st.get(
+            "collective_items_received", 0)
         # the metric sinks' fan-out workers, summed over the sinks
         fan = (self._fanout.stats()
                if getattr(self, "_fanout", None) is not None else {})
@@ -2534,9 +2795,14 @@ class Server:
         health, per-destination breakers, and the spool (None when off
         or the forwarder never built)."""
         fwd = self._sharded_fwd
+        coll = self._collective_fwd
         return {"discovery": fwd.discovery_stats() if fwd else {},
                 "breakers": fwd.breaker_states() if fwd else {},
-                "spool": fwd.spool_stats() if fwd else None}
+                "spool": fwd.spool_stats() if fwd else None,
+                # the collective forward's cycle, row and fallback
+                # counters, peer map and block schema (None until built)
+                "forward.collective": (coll.stats() if coll is not None
+                                       else None)}
 
     def _scrape_peer(self, addr: str) -> dict:
         url = addr if "://" in addr else f"http://{addr}"
@@ -2808,6 +3074,11 @@ class Server:
         if self._handoff_shipper is not None:
             self._handoff_shipper.close()
             self._handoff_shipper = None
+        if self._sentry_handler is not None:
+            # error logs must not mirror to a closed client
+            logging.getLogger("veneur_tpu_torch").removeHandler(
+                self._sentry_handler)
+            self._sentry_handler = None
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()
@@ -2843,6 +3114,8 @@ class Server:
             self._grpc_client = None
         if self._sharded_fwd is not None:
             self._sharded_fwd.stop()
+        if self._collective_fwd is not None:
+            self._collective_fwd.stop()
         self._stop_profiling()
         self.trace_client.close()
         self.span_worker.stop()
@@ -2860,3 +3133,6 @@ class Server:
         if self._fanout is not None:
             self._fanout.stop()
         self.telemetry.close()
+        if self.sentry is not None:
+            self.sentry.close()
+            self.sentry = None

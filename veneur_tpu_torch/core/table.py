@@ -24,7 +24,9 @@ entry points (``forward/http_import``): counters and gauges join the
 dense accumulators, forwarded stat rows merge into their own plane
 (``histo_import_stats``), register rows max into a host import plane,
 and each wire's centroids stage as one part that the apply folds into
-the digests through the cluster merge (``_wire_digest_step``).
+the digests through the cluster merge (``_wire_digest_step``; with
+``tpu_collective_import`` the wire stack splits over the import mesh's
+places and the partials union in one merge, ``parallel/sharded``).
 
 ``device_step`` ships the staging to the device, and ``swap()`` at the
 interval boundary hands the planes to the flusher and starts fresh
@@ -124,6 +126,23 @@ def _fused_import_mode() -> str:
     return "stack"
 
 
+def _collective_import_mode(cfg_default: str = "auto") -> str:
+    """VENEUR_TPU_COLLECTIVE_IMPORT, the gate of the collective import
+    fold (parallel.sharded.CollectiveWireFold), as the reference reads
+    it.  Unset defers to TableConfig.collective_import.  "auto"
+    resolves at the first apply to ON iff the import mesh has more
+    than one place; "on"/"off" force.  The serial per-wire scan stays
+    available under "off" as the bit-parity oracle."""
+    raw = os.environ.get("VENEUR_TPU_COLLECTIVE_IMPORT", "").lower()
+    if raw == "":
+        raw = str(cfg_default).lower()
+    if raw in ("0", "false", "off", "no"):
+        return "off"
+    if raw in ("1", "true", "on", "yes"):
+        return "on"
+    return "auto"
+
+
 class _Late:
     """Resolves ``module.<name>`` at call time, not wrap time: the
     route tests replace module attributes to spy on which path fired,
@@ -169,6 +188,13 @@ _td_step = {
         "merge_wire_stack_rows")}
 
 
+# the collective import fold (its merges launch the cluster merge
+# kernel on a card)
+_collective_fold_step = observe.instrument(
+    "table.collective_wire_fold",
+    lambda fold, *args: fold(*args))
+
+
 @dataclass
 class TableConfig:
     counter_rows: int = 4096
@@ -184,6 +210,9 @@ class TableConfig:
     # raw set samples fold into a HOST register plane when the plane
     # fits this bound; past it they scatter on the device
     host_set_plane_max_bytes: int = 64 << 20
+    # the collective import fold ("auto" = on iff the import mesh has
+    # more than one place; VENEUR_TPU_COLLECTIVE_IMPORT overrides)
+    collective_import: str = "auto"
 
 
 @dataclass
@@ -440,15 +469,23 @@ class Snapshot:
 
 class MetricTable:
     """The port's metric table.  ``device`` defaults to ``"cuda"``
-    and raises without CUDA unless the caller passes ``"cpu"``."""
+    and raises without CUDA unless the caller passes ``"cpu"``.
+    ``places`` are the collective import fold's places (default: the
+    visible devices of ``device``'s type)."""
 
     _KINDS = ("counter", "gauge", "histo", "hll")
 
     def __init__(self, config: TableConfig | None = None,
-                 device: "str | torch.device" = "cuda"):
+                 device: "str | torch.device" = "cuda", places=None):
         self.device = resolve_device(device)
         self.config = config or TableConfig()
         c = self.config
+        self.places = list(places) if places is not None else None
+        self.collective_import_mode = _collective_import_mode(
+            c.collective_import)
+        # "unset" until the first stacked apply resolves the gate: None
+        # (the serial scan) or the fold object
+        self._collective_fold: object = "unset"
         self.gen = 0
         self.capacity = tdigest.capacity_for(c.compression)
 
@@ -550,7 +587,8 @@ class MetricTable:
         self.superbatch_applies = 0
         # batches by the route they took: histograms (superbatch,
         # plane_f16, plane_f32, spill, ranked, deep_scan, precluster),
-        # wire folds (wire_stack, wire_perwire, wire_flat), sets
+        # wire folds (wire_stack, wire_collective, wire_perwire,
+        # wire_flat), sets
         # (set_plane, set_plane_full, set_pos, set_host_fold,
         # set_import); and bytes handed to the device (a copy on the
         # card)
@@ -1817,6 +1855,25 @@ class MetricTable:
             return "stack" if self.device.type == "cuda" else "legacy"
         return mode
 
+    def _collective_wire_fold(self):
+        """Resolve the collective-import gate once and cache it: a
+        ``parallel.sharded.CollectiveWireFold`` when the fold runs
+        collectively (mode "on", or "auto" with more than one place in
+        the import mesh), else None — the serial scan."""
+        if self._collective_fold == "unset":
+            fold = None
+            mode = self.collective_import_mode
+            if mode != "off":
+                from veneur_tpu_torch.parallel import sharded
+                mesh = sharded.make_import_mesh(
+                    self.places if self.places is not None
+                    else sharded.default_places(self.device))
+                if mode == "on" or mesh.size > 1:
+                    fold = sharded.CollectiveWireFold(
+                        mesh, compression=self.config.compression)
+            self._collective_fold = fold
+        return self._collective_fold
+
     def _wire_digest_step(self, st: _IntervalState,
                           parts: list[tuple]) -> None:
         """Fold a cycle's decoded wire digests — one (rows, means,
@@ -1875,8 +1932,13 @@ class MetricTable:
                                     c.histo_rows))
         self._ensure_fresh(st, "histo")
         if mode == "stack":
-            self._route("wire_stack")
+            fold = self._collective_wire_fold()
             wb = _bucket_len(len(built), wide=True)
+            if fold is not None:
+                # the fold scans equal per-place wire slices: pad the
+                # wire axis to a multiple of the places (padding wires
+                # stay dead, skipped)
+                wb = fold.pad_wires(wb)
             stack_m = np.zeros((wb, mb, K), np.float32)
             stack_w = np.zeros((wb, mb, K), np.float32)
             live = np.zeros(wb, bool)
@@ -1884,11 +1946,18 @@ class MetricTable:
                 stack_m[i, local, rank] = means
                 stack_w[i, local, rank] = wts
                 live[i] = True
-            st.histo_means, st.histo_weights = \
-                _td_step["merge_wire_stack_rows"](
-                    st.histo_means, st.histo_weights, idx_dev,
-                    self._dev(stack_m), self._dev(stack_w), live,
-                    compression=c.compression)
+            if fold is not None:
+                self._route("wire_collective")
+                st.histo_means, st.histo_weights = _collective_fold_step(
+                    fold, st.histo_means, st.histo_weights, idx_dev,
+                    self._dev(stack_m), self._dev(stack_w), live)
+            else:
+                self._route("wire_stack")
+                st.histo_means, st.histo_weights = \
+                    _td_step["merge_wire_stack_rows"](
+                        st.histo_means, st.histo_weights, idx_dev,
+                        self._dev(stack_m), self._dev(stack_w), live,
+                        compression=c.compression)
         else:
             # one wire per call: a one-wire stack (the reference pads it
             # to 8 dead wires, which are skipped either way)

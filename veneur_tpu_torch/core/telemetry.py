@@ -203,6 +203,21 @@ class Telemetry:
         count("veneur.forward.shard.fallback_total",
               self._delta("sharded_forward_fallbacks"),
               ("reason:forward",))
+        # the collective forward: cycles and rows that rode the plane
+        # exchange, rows rejected back onto the wire, cycles that fell
+        # open, and items a global folded off landed planes
+        count("veneur.forward.collective.cycles_total",
+              self._delta("collective_forward_cycles"))
+        count("veneur.forward.collective.rows_total",
+              self._delta("collective_forward_rows"))
+        count("veneur.forward.collective.rejected_rows_total",
+              self._delta("collective_rejected_rows"))
+        count("veneur.forward.collective.fallback_total",
+              self._delta("collective_forward_fallbacks"))
+        count("veneur.forward.collective.fallback_rows_total",
+              self._delta("collective_fallback_rows"))
+        count("veneur.import.collective_items_total",
+              self._delta("collective_items_received"))
         # live reshards, the rows they moved, and rows dropped because
         # a send missed the interval deadline
         count("veneur.forward.shard.reshards_total",
@@ -316,6 +331,14 @@ class Telemetry:
                       sp["queued_bytes"])
         count("veneur.ledger.spool_imbalance_total",
               self._delta("spool_ledger_imbalance"))
+        sentry_client = getattr(self.server, "sentry", None)
+        if sentry_client is not None:
+            # sentry.errors_total: delivered crash and error events
+            # (reference sentry.go:61)
+            self.server.bump("sentry_errors",
+                             sentry_client.errors_total -
+                             self.server.stats.get("sentry_errors", 0))
+            count("sentry.errors_total", self._delta("sentry_errors"))
         fwd_ns = self._delta("forward_duration_ns")
         if fwd_ns:
             timer("veneur.forward.duration_ns", fwd_ns)
