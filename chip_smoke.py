@@ -20,7 +20,15 @@ Run from the root of a checkout.  Phases, one JSON line each:
    reference's 2048 lanes (compression 300: C = 1824 + K = 512;
    compression 500: C = 3032 with unsorted state rows) take the
    kernel's wide route, counted as ``cluster_merge.wide``, with the
-   same checks and times.  After
+   same checks and times.  Rows past one CTA's shared memory take the
+   spill route, counted as ``cluster_merge.spill``, with the same
+   checks (the plain version timed 3 x 3) on inputs made on the card:
+   a mesh flush merge at S = 24 and 32 shards (R = 16384, a zero state
+   of 616 slots, the batch S sorted runs), the collective fold's union
+   over 24 places (R = 4096, a live state), and compression 2500 (C =
+   15,112) at K = 512, its state sorted and not; then the fold's union
+   over 8 places, which one CTA holds, through the wide and the spill
+   route, bit-equal, each timed.  After
    phases 4, 6, 8, 9, 10, 12, 13, 14, 15, 16 and 17 the same check runs
    at every other (R, K) they merged at (the global folds with weighted
    centroids) and at the warm-up's (256, 256); every case reports the
@@ -68,7 +76,7 @@ Run from the root of a checkout.  Phases, one JSON line each:
    and a ``/debug/pprof/device`` capture during a timer burst whose CUDA
    kernels include ``cluster_merge_kernel``;
 6. the global tier at BASELINE config 5's shape (64 locals; the flat
-   shape's fleet cut to its first 32): the locals' wires (each
+   shape's fleet cut to its first 16): the locals' wires (each
    the local-role flush of a table on the card that took a 1/64 share
    of phase 4's timer and set traffic, plus global-only counters,
    gauges and timers; every fourth in the reference's gob schema) built
@@ -79,7 +87,7 @@ Run from the root of a checkout.  Phases, one JSON line each:
    fold, one kernel launch per wire); each held against a CPU global on the
    same bodies and against the exact p99 of every local's samples;
 8. the global tier over gRPC (run right after phase 6): the flat
-   shape's 32 locals' rows also serialized as MetricLists, each wire
+   shape's 16 locals' rows also serialized as MetricLists, each wire
    through ``decode_metric_list`` (the lock-free native decode) and
    ``apply_decoded`` (row and wire-plan caches, vectorized staging),
    ``device_step`` at the staging bound, ``swap`` + flush; two
@@ -106,7 +114,7 @@ Run from the root of a checkout.  Phases, one JSON line each:
    items/s on the columnar route and on the per-item oracle, the
    columnar phase split, every item's destination held to the
    oracle's, 0 fallbacks and a balanced ProxyLedger each pass; (b) phase
-   8's 32 wires over gRPC into a port ``ProxyServer`` in front of two
+   8's 16 wires over gRPC into a port ``ProxyServer`` in front of two
    port globals on the card, a warm interval with the globals' own
    fold and a timed one with phase 8's (flat): every series on one
    global, the union's order-free values bit-equal to phase 8's flush,
@@ -215,7 +223,7 @@ Run from the root of a checkout.  Phases, one JSON line each:
 17. the mesh (run right after phase 12, on phase 8's wires and phase
    6's stacked ones): (a) a mesh global (``tpu_mesh_shards: 4`` on 8
    places of the card: 4 shards x 2 series) at the server's default
-   widths fed the first 16 of phase 8's 32 wires over gRPC and a
+   widths fed phase 8's 16 wires over gRPC and a
    DogStatsD cut (2,048 timer series of 16 samples, as many counters
    and gauges, 4,096 set members into phase 8's set series) through the
    columnar parse, one flush: its one update launch at (65,536, 512)
@@ -235,7 +243,14 @@ Run from the root of a checkout.  Phases, one JSON line each:
    in-process reduction, and a sharded local whose only ring
    destination is its own process as a collective peer, its interval
    through the plane exchange's loopback, the table that folds it
-   bit-equal to the same rows over the gRPC wire;
+   bit-equal to the same rows over the gRPC wire; (e) past one CTA's
+   shared memory: a mesh global of 24 shards x 1 series on 24 places of
+   the card, the first 8 of (a)'s wires over gRPC, one flush whose
+   merge at (16,384, 24 x 616) takes the spill route, held to a CPU
+   mesh global of the same shape (order-free values bit for bit, sums
+   exact, percentiles within rtol 2e-3 / atol 1e-3) and its p99 to
+   exact; and the collective import fold over 24 places against the
+   serial scan on (b)'s wires (mass equal, the union spilled);
 7. the chain: a global (HTTP and gRPC listeners) and three locals (one
    per /import schema, one forwarding over gRPC) as server processes on
    the card: the global flushes the JAX chain's ``lat.99percentile``
@@ -249,7 +264,9 @@ Run from the root of a checkout.  Phases, one JSON line each:
     ``routing_tiers``, phase 13's as ``crash_riding``, phase 14's as
     ``span_plane``, phase 15's as ``ingest_edge``, phase 16's as
     ``sinks``, phase 17's as ``mesh``; F2's wide shapes as
-    ``wide``), then the last line
+    ``wide``; the spill route, ``cluster_merge_spill_kernel``, as a
+    second entry ``cluster_merge.spill`` with phase 17 (e)'s launches
+    and shapes and phase 2's spill cases), then the last line
     ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero before the last
@@ -459,18 +476,20 @@ class MergeRecorder:
                 for (r, k), c in sorted(self.shapes.items())]
 
 
+def merge_kw(compression: float) -> dict:
+    """The k-scale arguments of ``cluster_merge`` at a compression."""
+    from veneur_tpu_torch.ops import tdigest
+    return dict(delta=tdigest._SCALE_MULT * compression,
+                tail_coeff=tdigest._TAIL_MULT * compression,
+                tail_q0=tdigest._TAIL_Q0, tail_qmin=tdigest._TAIL_QMIN)
+
+
 def phase_kernel(dev: str = "cuda", cases=KERNEL_CASES,
                  compression: float = 100.0) -> dict:
     import torch
-    from veneur_tpu_torch.ops import cluster_merge as cm
-    from veneur_tpu_torch.ops import segment, tdigest
+    from veneur_tpu_torch.ops import tdigest
     cap = tdigest.capacity_for(compression)
-    tiny = torch.finfo(torch.float32).tiny
-    kw = dict(delta=tdigest._SCALE_MULT * compression,
-              tail_coeff=tdigest._TAIL_MULT * compression,
-              tail_q0=tdigest._TAIL_Q0, tail_qmin=tdigest._TAIL_QMIN)
     rng = np.random.default_rng(7)
-    qs = torch.tensor(QS, dtype=torch.float32, device=dev)
     out = {}
     for label, rows, k, sorted_state, weighted in cases:
         case = list(random_case(rng, rows, cap, k, weighted))
@@ -481,67 +500,97 @@ def phase_kernel(dev: str = "cuda", cases=KERNEL_CASES,
         if label.endswith("_subnormal"):
             case = with_subnormals(case)
         a = [torch.from_numpy(x).to(dev) for x in case]
-        km, kwt = cm.cluster_merge(*a, **kw)
-        pm, pwt = cm.cluster_merge_plain(*a, **kw)
-        torch.cuda.synchronize()
-        # the mass the merge keeps: subnormal weights read as empty
-        total = (segment.ftz(a[1]).double().sum(1) +
-                 segment.ftz(a[3]).double().sum(1))
-        for name, t in (("means", km), ("weights", kwt)):
-            check(not bool(((t.abs() < tiny) & (t != 0)).any()),
-                  f"{label}: the kernel wrote a subnormal {name} slot")
-        mass_k = float(((kwt.double().sum(1) - total).abs() /
-                        total.clamp(min=1e-30)).max())
-        mass_p = float(((pwt.double().sum(1) - total).abs() /
-                        total.clamp(min=1e-30)).max())
-        check(mass_k <= 1e-6, f"{label}: kernel mass rel err {mass_k}")
-        check(mass_p <= 1e-6, f"{label}: plain mass rel err {mass_p}")
-        check(packing_ok(km, kwt), f"{label}: kernel packing contract")
-        check(packing_ok(pm, pwt), f"{label}: plain packing contract")
-        qk = tdigest.quantile(km, kwt, qs)
-        qp = tdigest.quantile(pm, pwt, qs)
-        # rows with no weight at all read NaN in both
-        both = ~torch.isnan(qp)
-        check(torch.equal(torch.isnan(qk), ~both),
-              f"{label}: kernel and plain differ in empty rows")
-        viol = float(((qk - qp).abs() - (1e-3 + 2e-3 * qp.abs()))[both]
-                     .max())
-        check(viol <= 0, f"{label}: quantiles outside rtol 2e-3/atol "
-                         f"1e-3 (excess {viol})")
-        max_abs = float((qk - qp).abs()[both].max())
-        # the row and quantile of the largest gap, with both values
-        gap = torch.where(both, (qk - qp).abs(), torch.zeros_like(qk))
-        row, qi = divmod(int(gap.argmax()), len(QS))
-        ms = cuda_ms(lambda: cm.cluster_merge(*a, **kw))
-        plain_ms = cuda_ms(lambda: cm.cluster_merge_plain(*a, **kw))
-        n = 1 << (cap + k - 1).bit_length()
-        keys = torch.where(a[1] > 0, a[0], torch.full_like(a[0], math.inf))
+        out[label] = hold_to_plain(label, a, compression, sorted_state,
+                                   weighted)
+        del a
+    return out
+
+
+def hold_to_plain(label: str, a: list, compression: float,
+                  sorted_state: bool, weighted: bool,
+                  plain_runs: int = 10, sort_context: bool = True) -> dict:
+    """One phase 2 case: ``cluster_merge`` on the four planes ``a``
+    against ``cluster_merge_plain`` on the same planes (mass, packing,
+    no subnormal written, quantiles within rtol 2e-3 / atol 1e-3, NaN
+    rows agreeing), then both timed with CUDA events (median of 10 x 10
+    launches; the plain version's ``plain_runs`` x ``plain_runs``) and
+    the bound.  ``sort_context`` also times torch's sort of the same
+    keys, for context."""
+    import torch
+    from veneur_tpu_torch.ops import cluster_merge as cm
+    from veneur_tpu_torch.ops import segment, tdigest
+    dev = a[0].device
+    rows, cap = a[0].shape
+    k = a[2].shape[1]
+    tiny = torch.finfo(torch.float32).tiny
+    kw = merge_kw(compression)
+    qs = torch.tensor(QS, dtype=torch.float32, device=dev)
+    km, kwt = cm.cluster_merge(*a, **kw)
+    pm, pwt = cm.cluster_merge_plain(*a, **kw)
+    torch.cuda.synchronize()
+    # the mass the merge keeps: subnormal weights read as empty
+    total = (segment.ftz(a[1]).double().sum(1) +
+             segment.ftz(a[3]).double().sum(1))
+    for name, t in (("means", km), ("weights", kwt)):
+        check(not bool(((t.abs() < tiny) & (t != 0)).any()),
+              f"{label}: the kernel wrote a subnormal {name} slot")
+    mass_k = float(((kwt.double().sum(1) - total).abs() /
+                    total.clamp(min=1e-30)).max())
+    mass_p = float(((pwt.double().sum(1) - total).abs() /
+                    total.clamp(min=1e-30)).max())
+    check(mass_k <= 1e-6, f"{label}: kernel mass rel err {mass_k}")
+    check(mass_p <= 1e-6, f"{label}: plain mass rel err {mass_p}")
+    check(packing_ok(km, kwt), f"{label}: kernel packing contract")
+    check(packing_ok(pm, pwt), f"{label}: plain packing contract")
+    qk = tdigest.quantile(km, kwt, qs)
+    qp = tdigest.quantile(pm, pwt, qs)
+    # rows with no weight at all read NaN in both
+    both = ~torch.isnan(qp)
+    check(torch.equal(torch.isnan(qk), ~both),
+          f"{label}: kernel and plain differ in empty rows")
+    viol = float(((qk - qp).abs() - (1e-3 + 2e-3 * qp.abs()))[both]
+                 .max())
+    check(viol <= 0, f"{label}: quantiles outside rtol 2e-3/atol "
+                     f"1e-3 (excess {viol})")
+    max_abs = float((qk - qp).abs()[both].max())
+    # the row and quantile of the largest gap, with both values
+    gap = torch.where(both, (qk - qp).abs(), torch.zeros_like(qk))
+    row, qi = divmod(int(gap.argmax()), len(QS))
+    ms = cuda_ms(lambda: cm.cluster_merge(*a, **kw))
+    plain_ms = cuda_ms(lambda: cm.cluster_merge_plain(*a, **kw),
+                       runs=plain_runs, reps=plain_runs)
+    n = 1 << (cap + k - 1).bit_length()
+    sort_ms = None
+    if sort_context:
+        keys = torch.where(a[1] > 0, a[0],
+                           torch.full_like(a[0], math.inf))
         keys = torch.cat([keys, torch.full((rows, n - cap), math.inf,
                                            device=dev)], dim=1)
         sort_ms = cuda_ms(lambda: torch.sort(keys, dim=1))
-        bound, by = merge_bound_ms(rows, cap, k, sorted_state)
-        res = {"phase": "kernel_vs_plain", "case": label, "rows": rows,
-               "cap": cap, "k": k, "route": cm.route(cap, k),
-               "sorted_state": sorted_state,
-               "weighted_batch": weighted,
-               "mass_rel_err_kernel": mass_k,
-               "mass_rel_err_plain": mass_p,
-               "quantile_max_abs_err": max_abs,
-               "largest_gap": {"row": row, "q": QS[qi],
-                               "kernel": float(qk[row, qi]),
-                               "plain": float(qp[row, qi])}, "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-               "bound_share": bound / ms,
-               "torch_sort_ms": sort_ms, "sort_n": n, "library_ms": None,
-               "launch": cm.occupancy(cap, k),
-               "library_note": "no single PyTorch call computes the "
-                               "whole merge; torch_sort_ms is the sort "
-                               "of the same (R, sort_n) keys, for "
-                               "context"}
-        emit(res)
-        out[label] = res
-        del a, km, kwt, pm, pwt, keys
-    return out
+        del keys
+    bound, by = merge_bound_ms(rows, cap, k, sorted_state)
+    res = {"phase": "kernel_vs_plain", "case": label, "rows": rows,
+           "cap": cap, "k": k, "route": cm.route(cap, k),
+           "sorted_state": sorted_state,
+           "weighted_batch": weighted,
+           "mass_rel_err_kernel": mass_k,
+           "mass_rel_err_plain": mass_p,
+           "quantile_max_abs_err": max_abs,
+           "largest_gap": {"row": row, "q": QS[qi],
+                           "kernel": float(qk[row, qi]),
+                           "plain": float(qp[row, qi])}, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+           "bound_share": bound / ms,
+           "torch_sort_ms": sort_ms, "sort_n": n, "library_ms": None,
+           "plain_timing": f"median of {plain_runs} x {plain_runs}",
+           "launch": cm.occupancy(cap, k),
+           "library_note": "no single PyTorch call computes the "
+                           "whole merge; torch_sort_ms is the sort "
+                           "of the same (R, sort_n) keys, for "
+                           "context"}
+    emit(res)
+    del km, kwt, pm, pwt
+    return res
 
 
 # F2's shapes, past the reference's 2048-lane bound: compression 300
@@ -573,6 +622,152 @@ def phase_wide_merge(dev: str = "cuda") -> dict:
               after.get("cluster_merge.wide", 0) >
               before.get("cluster_merge.wide", 0),
               f"{case[0]}: the merge did not take the wide route")
+    return out
+
+
+# The spill route's shapes, past one CTA's shared memory (row_bytes
+# over the card's limit): a mesh global's flush merge at S = 24 and 32
+# shards (zero state, the batch S shards' sorted runs), the collective
+# import fold's union over 24 places (a live state), and compression
+# 2500 (C = 15,112) at the deep plane's K = 512, its state sorted and
+# not.  (label, rows, compression, state "zero" or "live", batch width
+# K, sorted runs side by side in the batch (0: unit samples), state
+# rows sorted)
+SPILL_CASES = (("spill_mesh_s24", 16384, 100.0, "zero", 24 * 616, 24, True),
+               ("spill_mesh_s32", 16384, 100.0, "zero", 32 * 616, 32, True),
+               ("spill_fold_p24_live", 4096, 100.0, "live", 24 * 616, 24,
+                True),
+               ("spill_c2500_k512", 16384, 2500.0, "live", 512, 0, True),
+               ("spill_c2500_k512_unsorted_state", 16384, 2500.0, "live",
+                512, 0, False))
+# a width one CTA holds, through the wide and the spill route: the
+# collective fold's union over phase 17 (b)'s 8 places (its batch past
+# the register sort, so the two routes' long sorts meet)
+SPILL_TWIN = ("wide_vs_spill_fold_p8_live", 4096, 100.0, "live", 8 * 616, 8,
+              True)
+# the plain version of wide work (rows x (C + K) past 16,384 x 1,232)
+# takes 20-150 ms a call: timed 3 x 3
+SPILL_PLAIN_RUNS = 3
+
+
+def plain_runs_for(rows: int, cap: int, k: int) -> int:
+    return 10 if rows * (cap + k) <= 16384 * 1232 else SPILL_PLAIN_RUNS
+
+
+def device_digests(gen, rows: int, cap: int, dev: str,
+                   zero: bool = False) -> list:
+    """Packed, mean-sorted digest rows up to half full (random_case's
+    state, made on the device), or all-empty rows."""
+    import torch
+    if zero:
+        z = torch.zeros((rows, cap), device=dev)
+        return [z, z.clone()]
+    occ = torch.randint(0, cap // 2 + 1, (rows, 1), generator=gen,
+                        device=dev)
+    live = torch.arange(cap, device=dev)[None, :] < occ
+    m = torch.randn((rows, cap), generator=gen, device=dev) * 40 + 200
+    m = torch.sort(torch.where(live, m, torch.full_like(m, math.inf)),
+                   dim=1)[0]
+    w = torch.randint(1, 60, (rows, cap), generator=gen,
+                      device=dev).float()
+    return [torch.where(live, m, torch.zeros_like(m)),
+            torch.where(live, w, torch.zeros_like(w))]
+
+
+def device_case(case, dev: str) -> list:
+    """A SPILL_CASES-shaped entry's four planes, made on the device
+    from a seed (host generation at these widths would take longer than
+    the merges): a batch of ``runs`` packed, sorted weighted digests of
+    K / runs slots side by side, as a mesh's gathered shards or a
+    fold's places arrive, or of unit samples."""
+    import torch
+    from veneur_tpu_torch.ops import tdigest
+    label, rows, compression, state, k, runs, sorted_state = case
+    cap = tdigest.capacity_for(compression)
+    gen = torch.Generator(device=dev).manual_seed(len(label) * 1009)
+    digests = device_digests(gen, rows, cap, dev, zero=state == "zero")
+    if runs:
+        parts = [device_digests(gen, rows, k // runs, dev)
+                 for _ in range(runs)]
+        bm = torch.cat([r[0] for r in parts], dim=1)
+        bw = torch.cat([r[1] for r in parts], dim=1)
+    else:
+        bw = (torch.rand((rows, k), generator=gen, device=dev)
+              < 0.8).float()
+        bm = torch.randn((rows, k), generator=gen, device=dev) * 40 + 200
+        bm = torch.where(bw > 0, bm, torch.zeros_like(bm))
+    if not sorted_state:
+        perm = torch.argsort(torch.rand((rows, cap), generator=gen,
+                                        device=dev), dim=1)
+        digests = [x.gather(1, perm) for x in digests]
+    return [digests[0].contiguous(), digests[1].contiguous(), bm, bw]
+
+
+def phase_device_cases(cases, dev: str = "cuda") -> dict:
+    """Phase 2 on device-made inputs (``device_case``): each case held
+    to ``cluster_merge_plain`` and timed as every phase 2 case is, the
+    plain version of wide work 3 x 3."""
+    import torch
+    out = {}
+    for case in cases:
+        label, _, compression, _, _, runs, sorted_state = case
+        a = device_case(case, dev)
+        out[label] = hold_to_plain(
+            label, a, compression, sorted_state, runs > 0,
+            plain_runs=plain_runs_for(a[0].shape[0], a[0].shape[1],
+                                      a[2].shape[1]))
+        del a
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_spill_merge(dev: str = "cuda") -> dict:
+    """The spill route in phase 2: rows past one CTA's shared memory go
+    through ``cluster_merge``'s dispatch to the kernel's spill route,
+    counted as ``cluster_merge.spill`` and on no other route, each held
+    to ``cluster_merge_plain`` as every phase 2 case is; then a width
+    one CTA holds through both the wide and the spill route (the
+    private launch entry), bit-equal, each timed."""
+    import torch
+    from veneur_tpu_torch.observe import REGISTRY
+    from veneur_tpu_torch.ops import cluster_merge as cm
+    out = {}
+    for case in SPILL_CASES:
+        label, _, compression, _, _, runs, sorted_state = case
+        a = device_case(case, dev)
+        cap, k = a[0].shape[1], a[2].shape[1]
+        check(cm.route(cap, k) == "spill", f"route({cap}, {k})")
+        before = REGISTRY.launches()
+        out[label] = hold_to_plain(label, a, compression, sorted_state,
+                                   runs > 0, plain_runs=SPILL_PLAIN_RUNS,
+                                   sort_context=False)
+        after = REGISTRY.launches()
+        check(all(after.get(n, 0) == before.get(n, 0)
+                  for n in ("cluster_merge", "cluster_merge.wide")) and
+              after.get("cluster_merge.spill", 0) >
+              before.get("cluster_merge.spill", 0),
+              f"{label}: the merge did not take the spill route alone")
+        del a
+        torch.cuda.empty_cache()
+    label, rows, compression, *_ = SPILL_TWIN
+    a = device_case(SPILL_TWIN, dev)
+    cap, k = a[0].shape[1], a[2].shape[1]
+    check(cm.route(cap, k) == "wide", f"route({cap}, {k})")
+    kw = merge_kw(compression)
+    wide = cm._launch("wide", *a, **kw)
+    spill = cm._launch("spill", *a, **kw)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(wide, spill)),
+          f"{label}: the wide and spill routes differ")
+    res = {"phase": "kernel_vs_plain", "case": label, "rows": rows,
+           "cap": cap, "k": k, "bit_equal": True,
+           "wide_ms": cuda_ms(lambda: cm._launch("wide", *a, **kw)),
+           "spill_ms": cuda_ms(lambda: cm._launch("spill", *a, **kw)),
+           "bound_ms": merge_bound_ms(rows, cap, k)[0],
+           "row_bytes": cm.row_bytes(cap, k),
+           "max_dyn_bytes": cm.max_dyn_bytes()}
+    emit(res)
+    out[label] = res
     return out
 
 
@@ -5595,6 +5790,12 @@ MESH_STAGE = 1 << 22
 # (c): the loopback forward's series, inside the plane schema's default
 # 512 rows a class
 LOOP_SERIES = 256
+# (e): a mesh global past one CTA's shared memory (S >= 20 shards of 616
+# slots), 24 shards x 1 series on 24 places of the card, fed the first 8
+# of (a)'s 16 wires (a depth cut); and the collective import fold over
+# 24 places
+SPILL_SHARDS = 24
+SPILL_WIRES = 8
 
 
 class FakeDSN:
@@ -5659,11 +5860,12 @@ def mesh_text(n_series: int, seed: int = 17,
     return [dgrams[lo:lo + 160] for lo in range(0, len(dgrams), 160)]
 
 
-def mesh_server(dev: str, sizes: dict, **over):
+def mesh_server(dev: str, sizes: dict, shards: int = MESH_SHARDS,
+                places: int = MESH_PLACES, **over):
     from veneur_tpu_torch.core.config import read_config
     from veneur_tpu_torch.core.server import Server
     cfg = {"hostname": "mesh", "interval": "120s",
-           "tpu_mesh_shards": MESH_SHARDS,
+           "tpu_mesh_shards": shards,
            "tpu_counter_rows": sizes["counter_rows"],
            "tpu_gauge_rows": sizes["gauge_rows"],
            "tpu_histo_rows": sizes["histo_rows"],
@@ -5673,7 +5875,7 @@ def mesh_server(dev: str, sizes: dict, **over):
            "aggregates": list(FLUSH_KW["aggregates"]),
            "grpc_listen_addresses": ["tcp://127.0.0.1:0"], **over}
     srv = Server(read_config(data=cfg, env={}), device=dev,
-                 places=[dev] * MESH_PLACES)
+                 places=[dev] * places)
     srv.start()
     return srv
 
@@ -5829,6 +6031,118 @@ def mesh_global(grpc_in: dict, dev: str, scale: int,
     finally:
         card.shutdown()
         cpu.shutdown()
+    return out
+
+
+def mesh_global_spill(grpc_in: dict, dev: str, scale: int) -> dict:
+    """(e) a mesh global of 24 shards x 1 series on 24 places of the
+    card at the default widths, fed phase 8's first wires over gRPC:
+    its flush merge at (R, 24 x 616) takes the kernel's spill route (it
+    raised before the route existed).  Held to a CPU mesh global of the
+    same shape on the same input: order-free values bit for bit, sums
+    exact, percentiles within rtol 2e-3 / atol 1e-3; the p99 against
+    exact."""
+    import torch
+    from veneur_tpu_torch.observe import REGISTRY
+    from veneur_tpu_torch.ops import cluster_merge as cm
+    from veneur_tpu_torch.ops import tdigest
+    sizes = table_sizes(scale)
+    wires = grpc_in["wires"][:SPILL_WIRES]
+    texts = grpc_in["texts"][:SPILL_WIRES]
+    cap = tdigest.capacity_for(100.0)
+    flush = (sizes["histo_rows"], SPILL_SHARDS * cap)
+    out = {"shards": SPILL_SHARDS, "places": SPILL_SHARDS,
+           "wires": len(wires), "items": sum(w["items"] for w in wires),
+           "centroids": sum(w["centroids"] for w in wires),
+           "flush_merge": list(flush),
+           "flush_merge_route": cm.route(cap, flush[1])}
+    if dev == "cuda":
+        check(out["flush_merge_route"] == "spill",
+              f"route{flush}: {out['flush_merge_route']}")
+    card = mesh_server(dev, sizes, SPILL_SHARDS, SPILL_SHARDS)
+    cpu = mesh_server("cpu", sizes, SPILL_SHARDS, SPILL_SHARDS)
+    got = {}
+    try:
+        check(card.table.mesh.shape == {"shard": SPILL_SHARDS,
+                                        "series": 1},
+              f"the card server's mesh {card.table.mesh.shape}")
+        for name, srv in (("card", card), ("cpu", cpu)):
+            with MergeRecorder() as rec:
+                fed = feed_mesh(srv, wires, [])
+                t0 = time.perf_counter()
+                res = srv.flush_once()
+                if name == "card" and dev == "cuda":
+                    torch.cuda.synchronize()
+                fed["flush_s"] = time.perf_counter() - t0
+                spills = REGISTRY.launches().get("cluster_merge.spill", 0)
+            if name == "card":
+                out["cluster_merge_launches"] = rec.launches
+                out["spill_launches"] = spills
+                out["merge_shapes"] = rec.table()
+            led = srv.ledger.last()
+            check(led is not None and led.sealed and led.balanced,
+                  f"{name}: the 24-shard interval's ledger record")
+            got[name] = res.metrics
+            out[name] = fed
+    finally:
+        card.shutdown()
+        cpu.shutdown()
+    out["vs_cpu"] = compare_flush(got["card"], got["cpu"], sums_exact=True)
+    rel = p99_errors(got["card"], texts)
+    out["p99_rel_err_median"] = float(np.median(rel))
+    out["p99_rel_err_max"] = float(rel.max())
+    check(out["p99_rel_err_median"] <= 0.01, "24 shards: median p99 "
+                                             "error > 1%")
+    shapes = {(m["rows"], m["k"]) for m in out["merge_shapes"]}
+    check(flush in shapes, f"24-shard merge shapes {sorted(shapes)}")
+    if dev == "cuda":
+        check(out["spill_launches"] >= 1, "the 24-shard flush merge did "
+                                          "not launch the spill route")
+    return out
+
+
+def collective_import_spill(stack_in: dict, dev: str, scale: int,
+                            sync) -> dict:
+    """(e) the collective import fold over 24 places against the serial
+    scan on phase 6's stacked wires: the digests' mass equal, both held
+    to the exact p99, the fold's union at (R, 24 x 616) on the spill
+    route."""
+    from veneur_tpu_torch.core.table import MetricTable, TableConfig
+    from veneur_tpu_torch.observe import REGISTRY
+    sizes = table_sizes(scale)
+    out = {"wires": len(stack_in["wires"]), "places": SPILL_SHARDS}
+    shapes: dict = {}
+    launches = spills = 0
+    for mode in ("on", "off"):
+        t = MetricTable(TableConfig(**sizes), device=dev,
+                        places=[dev] * SPILL_SHARDS)
+        t.fused_import_mode = "stack"
+        t.collective_import_mode = mode
+        with MergeRecorder() as rec:
+            res, mass, routes, fold_s = fold_interval(
+                t, stack_in["wires"], sync)
+            spills += REGISTRY.launches().get("cluster_merge.spill", 0)
+        launches += rec.launches
+        for m in rec.table():
+            key = (m["rows"], m["k"])
+            shapes[key] = shapes.get(key, 0) + m["calls"]
+        rel = p99_errors(res.metrics, stack_in["texts"])
+        out[mode] = {"mass": mass, "routes": routes, "fold_s": fold_s,
+                     "p99_rel_err_median": float(np.median(rel))}
+        check(out[mode]["p99_rel_err_median"] <= 0.01,
+              f"24-place fold {mode}: median p99 error > 1%")
+    check(out["on"]["routes"].get("wire_collective") == 1 and
+          out["off"]["routes"].get("wire_stack") == 1,
+          f"fold routes {out['on']['routes']} / {out['off']['routes']}")
+    check(out["on"]["mass"] == out["off"]["mass"] > 0,
+          "the 24-place fold did not conserve the digests' mass")
+    if dev == "cuda":
+        check(spills >= 1, "the 24-place union did not launch the spill "
+                           "route")
+    out["cluster_merge_launches"] = launches
+    out["spill_launches"] = spills
+    out["merge_shapes"] = [{"rows": r, "k": k, "calls": c}
+                           for (r, k), c in sorted(shapes.items())]
     return out
 
 
@@ -6090,37 +6404,62 @@ def _forwarded(metric_name: str, names: set) -> bool:
             metric_name.rsplit(".", 1)[0] in names)
 
 
+MESH_LEGS = ("global", "collective_import", "loopback", "global_spill",
+             "collective_import_spill")
+# the state a mesh leg's union of gathered digests merges into: the
+# mesh flush merge's fresh planes, the collective fold's table rows
+UNION_STATE = {"global": "zero", "global_spill": "zero",
+               "collective_import": "live",
+               "collective_import_spill": "live"}
+
+
 def mesh_shapes(mesh: dict) -> dict:
     """Phase 17's merge shapes by leg, for the kernels line."""
-    return {leg: mesh[leg]["merge_shapes"]
-            for leg in ("global", "collective_import", "loopback")}
+    return {leg: mesh[leg]["merge_shapes"] for leg in MESH_LEGS}
 
 
 def mesh_cases(mesh: dict, timed=()) -> tuple:
-    """Phase 2's re-check of phase 17's shapes: the mesh global's and
-    the collective fold's merges take weighted centroids, the loopback
-    local's its unit samples."""
-    cases = recorded_cases(mesh["global"]["merge_shapes"], weighted=True,
-                           timed=timed)
-    cases += recorded_cases(mesh["collective_import"]["merge_shapes"],
-                            weighted=True, timed=tuple(timed) + cases)
-    cases += recorded_cases(mesh["loopback"]["merge_shapes"],
-                            timed=tuple(timed) + cases)
+    """Phase 2's re-check of every shape phase 17 merged at that neither
+    ``timed`` (recorded_cases' labels) nor SPILL_CASES holds, as
+    ``device_case`` entries: a union of S gathered digests (K = S x 616)
+    takes S sorted runs side by side into its leg's state, the other
+    mesh merges (update and fold steps) one weighted sorted batch, the
+    loopback local's its unit samples."""
+    # (rows, K, runs): a host case's weighted batch is one run
+    done = {(r, k, int(w)) for _, r, k, _, w in timed}
+    done |= {(r, k, runs) for _, r, _, _, k, runs, _ in SPILL_CASES}
+    cases = ()
+    for leg in MESH_LEGS:
+        for m in mesh[leg]["merge_shapes"]:
+            rows, k = m["rows"], m["k"]
+            if leg == "loopback":
+                state, runs = "live", 0
+            elif k % 616 == 0 and k >= 2 * 616:
+                state, runs = UNION_STATE[leg], k // 616
+            else:
+                state, runs = "live", 1
+            if (rows, k, runs) in done:
+                continue
+            done.add((rows, k, runs))
+            tag = f"_runs{runs}" if runs > 1 else "_weighted" * runs
+            cases += ((f"mesh_r{rows}_k{k}{tag}", rows, 100.0, state, k,
+                       runs, True),)
     return cases
 
 
 def mesh_only() -> int:
     """``--mesh-only``: the build, phase 17 on 16 wires of phase 6's
     flat shape and 8 of its stacked one (no CPU reference for those),
-    and phase 2 at phase 17's shapes — the quick way to rehearse the
-    mesh on the card.  Prints no result line."""
+    and phase 2 at phase 17's shapes and the spill route's — the quick
+    way to rehearse the mesh on the card.  Prints no result line."""
     phase_env()
     phase_build()
     glob = phase_global(n_wires=MESH_WIRES, intervals=1, stack_wires=8,
                         profiled=False, cpu_reference=False,
                         keep_stack=True)
     mesh = phase_mesh(glob.pop("grpc_input"), glob.pop("stack_input"))
-    phase_kernel(cases=mesh_cases(mesh))
+    phase_device_cases(mesh_cases(mesh))
+    phase_spill_merge()
     return 0
 
 
@@ -6147,14 +6486,22 @@ def phase_mesh(grpc_in: dict, stack_in: dict, dev: str = "cuda",
     out["collective_import"] = collective_import(stack_in, dev, scale,
                                                  sync)
     out["loopback"] = loopback_forward(dev, scale)
+    t_spill = time.perf_counter()
+    out["global_spill"] = mesh_global_spill(grpc_in, dev, scale)
+    out["collective_import_spill"] = collective_import_spill(
+        stack_in, dev, scale, sync)
+    out["spill_legs_s"] = time.perf_counter() - t_spill
     out["cluster_merge_launches"] = sum(
-        out[k]["cluster_merge_launches"]
-        for k in ("global", "collective_import", "loopback"))
+        out[k]["cluster_merge_launches"] for k in MESH_LEGS)
+    out["spill_launches"] = sum(
+        out[k]["spill_launches"]
+        for k in ("global_spill", "collective_import_spill"))
     out["seconds"] = time.perf_counter() - t_phase
     out["cut"] = (f"the first {MESH_WIRES} of phase 8's "
                   f"{len(grpc_in['wires'])} wires "
                   f"and 2,048 DogStatsD series into one interval; phase "
-                  f"6's stacked wires for the collective fold")
+                  f"6's stacked wires for the collective fold; (e) the "
+                  f"first {SPILL_WIRES} wires, no DogStatsD")
     emit({k: v for k, v in out.items()})
     return out
 
@@ -6186,15 +6533,16 @@ def main() -> int:
     phase_build()
     kern = phase_kernel()
     wide = phase_wide_merge()
+    spill = phase_spill_merge()
     phase_entry()
     phase_f1()
     table = phase_table()
     readers = phase_readers(table)
     del table["bufs"], table["exact_p99"], table["metrics"]
-    # one timed flat interval (no profiled one) of half the locals (the
-    # first 32 of 64), and an eighth of the stacked shape's wires, keep
-    # the whole script, phases 13-17 included, inside 1,200 s
-    glob = phase_global(n_wires=N_WIRES // 2, intervals=1,
+    # one timed flat interval (no profiled one) of a quarter of the
+    # locals (the first 16 of 64), and an eighth of the stacked shape's
+    # wires, keep the whole script, phases 13-17 included, inside 1,200 s
+    glob = phase_global(n_wires=N_WIRES // 4, intervals=1,
                         stack_wires=N_WIRES // 8, profiled=False,
                         keep_stack=True)
     grpc_in = glob.pop("grpc_input")
@@ -6235,8 +6583,10 @@ def main() -> int:
     cases += recorded_cases(edge["weighted_shapes"], weighted=True,
                             timed=cases)
     cases += recorded_cases(sinks["merge_shapes"], timed=cases)
-    cases += mesh_cases(mesh, cases)
     kern.update(phase_kernel(cases=cases))
+    # phase 17's, on inputs made on the device (its unions' batches are
+    # S sorted runs; its stacked update step holds 393,216 rows)
+    kern.update(phase_device_cases(mesh_cases(mesh, cases)))
     phase_server()
     phase_chain()
 
@@ -6270,22 +6620,49 @@ def main() -> int:
                                           edge["weighted_shapes"]},
                       "sinks": sinks["merge_shapes"],
                       "mesh": mesh_shapes(mesh)}
+    # the spill route is its own __global__ (cluster_merge_spill_kernel)
+    # in the same source: its line reports phase 17 (e)'s launches and
+    # the case of (e)'s flush merge
+    total = sum(v if isinstance(v, int) else sum(v.values())
+                for v in by_path.values())
+    spilled = mesh["spill_launches"]
+    check(spilled >= 1, "no spill-route launch on the main path")
+    sp = spill["spill_mesh_s24"]
+    keys = ("rows", "cap", "k", "ms", "plain_ms", "bound_ms",
+            "quantile_max_abs_err")
     emit({"kernels": [{
         "name": "cluster_merge", "route": "cuda",
         "source": "veneur_tpu_torch/csrc/cluster_merge.cu",
         "replaces": "veneur_tpu/ops/pallas_merge.py:192",
-        "launches": sum(v if isinstance(v, int) else sum(v.values())
-                        for v in by_path.values()),
+        "launches": total - spilled,
+        "launches_by_route": {"cluster_merge and cluster_merge.wide":
+                              total - spilled,
+                              "cluster_merge.spill": spilled},
         "launches_by_path": by_path,
         "merge_shapes_by_path": shapes_by_path,
         "max_abs_err": k["quantile_max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None,
         "rows": k["rows"], "k": k["k"],
-        "wide": {label: {key: r[key] for key in
-                         ("rows", "cap", "k", "ms", "plain_ms", "bound_ms",
-                          "quantile_max_abs_err")}
-                 for label, r in wide.items()}}]})
+        "wide": {label: {key: r[key] for key in keys}
+                 for label, r in wide.items()}}, {
+        "name": "cluster_merge.spill", "route": "cuda",
+        "source": "veneur_tpu_torch/csrc/cluster_merge.cu",
+        "replaces": "veneur_tpu/ops/pallas_merge.py:192",
+        "launches": spilled,
+        "launches_by_path": {
+            leg: mesh[leg]["spill_launches"]
+            for leg in ("global_spill", "collective_import_spill")},
+        "merge_shapes_by_path": {
+            leg: mesh[leg]["merge_shapes"]
+            for leg in ("global_spill", "collective_import_spill")},
+        "max_abs_err": sp["quantile_max_abs_err"], "ms": sp["ms"],
+        "plain_ms": sp["plain_ms"], "bound_ms": sp["bound_ms"],
+        "bound_by": sp["bound_by"], "library_ms": None,
+        "rows": sp["rows"], "k": sp["k"],
+        "spill": {label: ({key: r[key] for key in keys} if "ms" in r
+                          else r)
+                  for label, r in spill.items()}}]})
     check("jax" not in sys.modules, "something imported jax")
     check(not any(m.startswith("veneur_tpu.") for m in sys.modules),
           "something imported the JAX package")

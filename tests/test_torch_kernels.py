@@ -223,7 +223,8 @@ def test_kernel_strided_batch_and_bound():
     """Column slices of a wider plane go in without a copy; widths past
     the reference's 2048-lane bound launch the kernel on its wide route
     (F2), counted as ``cluster_merge.wide``, and a row past one CTA's
-    shared memory raises by name."""
+    shared memory on its spill route, counted as
+    ``cluster_merge.spill``."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU "
                     "mode")
@@ -252,8 +253,13 @@ def test_kernel_strided_batch_and_bound():
         launches.get("cluster_merge.wide", 0) + 1
     huge = torch.zeros((1, 40000), device="cuda")
     assert not cluster_merge.fits(40000, 40000)
-    with pytest.raises(ValueError, match="shared memory"):
-        cluster_merge.cluster_merge(huge, huge, huge, huge, **_scale(comp))
+    spills = observe.REGISTRY.launches().get("cluster_merge.spill", 0)
+    om, ow = cluster_merge.cluster_merge(huge, huge, huge, huge,
+                                         **_scale(comp))
+    pm, pw = cluster_merge.cluster_merge_plain(huge, huge, huge, huge,
+                                               **_scale(comp))
+    assert torch.equal(om, pm) and torch.equal(ow, pw)
+    assert observe.REGISTRY.launches()["cluster_merge.spill"] == spills + 1
 
 
 def test_plain_merge_flushes_subnormals_as_jax_pallas():

@@ -181,6 +181,10 @@ class FlushResult:
     row_accounting: dict = field(default_factory=lambda: {
         "staged_rows": 0, "emitted_rows": 0, "forwarded_rows": 0,
         "overlap_rows": 0, "retained_rows": 0})
+    # a sharded forward's rows by destination (``tpu_sharded_global``:
+    # the wire split plus the collective stage's); ``forwarded_rows``
+    # above is their scalar total
+    forward_split: dict = field(default_factory=dict)
 
     def account_rows(self, staged: int = 0, emitted: int = 0,
                      forwarded: int = 0, overlap: int = 0,
@@ -191,6 +195,14 @@ class FlushResult:
         acct["forwarded_rows"] += int(forwarded)
         acct["overlap_rows"] += int(overlap)
         acct["retained_rows"] += int(retained)
+
+    def account_forward_split(self, split: dict) -> None:
+        """Fold one sharded forward's {destination: rows} into the
+        result (from the forward stage, after ``account_rows`` counted
+        the total)."""
+        for dest, n in split.items():
+            self.forward_split[dest] = (
+                self.forward_split.get(dest, 0) + int(n))
 
     def metric_count(self) -> int:
         return len(self.metrics) + (len(self.frame)

@@ -1908,6 +1908,9 @@ class Server:
             # and the signal row
             self.ledger.credit_tiers(led, snap.tiers.movements)
             self._last_plane_bytes = snap.tiers.plane_bytes
+        # the interval's reads are done (forward rows hold copies): the
+        # host set plane goes back to the table's pool
+        snap.release()
         self.last_flush = time.monotonic()
         self.bump("flushes")
         ts = int(time.time())
@@ -1966,8 +1969,10 @@ class Server:
                 def traced_forward(rows):
                     with cyc.stage("forward") as sp:
                         sp.add_tag("rows", str(len(rows)))
-                        self._forward(rows, cyc.wire_context(sp), led,
-                                      cyc, sp)
+                        split = self._forward(rows, cyc.wire_context(sp),
+                                              led, cyc, sp)
+                        if split:
+                            res.account_forward_split(split)
                 submit("forward", traced_forward, res.forward)
             submit("spans", self.span_worker.flush)
             # the sinks, plugins, forward, handoff and span flush are
@@ -2133,14 +2138,15 @@ class Server:
             log.exception("sink flush failed")
 
     def _forward(self, rows: list[ForwardRow], trace_ctx, led, cyc=None,
-                 span=None) -> None:
+                 span=None) -> dict | None:
         """Ship a flush's mergeable state upstream, over gRPC or HTTP
         (flusher.go:82-99); ``trace_ctx`` is the forward stage span's
         (trace_id, span_id), stamped on the wire unless
         ``tpu_trace_propagation`` is off.  ``cyc``/``span`` are the flush
         cycle and its forward span: the sharded path hangs one child
-        span per destination off it.  A failure here never aborts the
-        flush."""
+        span per destination off it.  Returns the rows by destination
+        when the sharded router ran, else None.  A failure here never
+        aborts the flush."""
         t0 = time.monotonic_ns()
         if not self.config.tpu_trace_propagation:
             trace_ctx = None
@@ -2148,11 +2154,10 @@ class Server:
             if self.config.forward_use_grpc:
                 fwd = self._sharded_forwarder()
                 if fwd is not None:
-                    self._forward_sharded(fwd, rows, trace_ctx, led, cyc,
-                                          span)
-                else:
-                    self._forward_grpc(rows, trace_ctx, led)
-                return
+                    return self._forward_sharded(fwd, rows, trace_ctx,
+                                                 led, cyc, span)
+                self._forward_grpc(rows, trace_ctx, led)
+                return None
             if self.config.tpu_sharded_global:
                 # the split rides MetricList wires: the HTTP path falls
                 # back to one POST
@@ -2167,6 +2172,7 @@ class Server:
         finally:
             self.bump("forward_duration_ns", time.monotonic_ns() - t0)
             self.bump("forward_post_metrics", len(rows))
+        return None
 
     def _sharded_forwarder(self) -> ShardedForwarder | None:
         """The ShardedForwarder, built at the first forward, when
@@ -2291,7 +2297,7 @@ class Server:
         return total_acc, total_drop
 
     def _forward_sharded(self, fwd: ShardedForwarder, rows, trace_ctx,
-                         led, cyc, span) -> None:
+                         led, cyc, span) -> dict:
         """Split the flush's forward wire by route-key hash across the
         global ring and hand each destination's body to its worker
         (``veneur_tpu/core/server.py`` ``_forward_sharded``).  First the
@@ -2304,7 +2310,8 @@ class Server:
         its wire spooled without taking a queue slot; a drain flush
         never spools.  The tail waits for this flush's wires until the
         deadline, then sweeps the spool, credits replays since the last
-        flush and seals a spool-ledger snapshot."""
+        flush and seals a spool-ledger snapshot.  Returns the rows
+        handed to each destination (its worker, or the exchange)."""
         # throttled discovery poll, so a scale-out reshards the ring
         # before this flush routes (keep-last-good on failure)
         if self._fwd_refresh_interval > 0 and not self._draining:
@@ -2331,8 +2338,9 @@ class Server:
                     wire_rows.append(row)
             if coll_groups:
                 rows = wire_rows
+        coll_split: dict[str, int] = {}
         if coll_groups:
-            rows, coll_groups = self._forward_collective(
+            rows, coll_groups, coll_split = self._forward_collective(
                 coll, coll_groups, rows, led, cyc, span)
         data = fwd.serialize(rows)
         routed = None
@@ -2399,6 +2407,7 @@ class Server:
         if self._draining:
             budget = max(self.interval, 5.0)
         deadline = time.monotonic() + budget
+        split: dict[str, int] = {}
         done: list[threading.Event] = []
         for dest, body, n in batches:
             if not self._draining and fwd.should_spool(dest):
@@ -2466,6 +2475,7 @@ class Server:
                 if self._draining:
                     self.bump("drain_wires_sent")
                     self.bump("drain_items_sent", n)
+                split[dest] = split.get(dest, 0) + n
                 done.append(landed)
                 if led is not None:
                     self.ledger.credit_forward_split(led, dest, n)
@@ -2495,13 +2505,17 @@ class Server:
                     self.ledger.credit_spool_outcome(led, replayed=delta)
             self._spool_ledger.seal_snapshot(
                 fwd.spool.stats(), seq=led.seq if led is not None else 0)
+        for dest, n in coll_split.items():
+            split[dest] = split.get(dest, 0) + n
+        return split
 
     def _forward_collective(self, coll, groups: dict, wire_rows: list,
-                            led, cyc, span) -> tuple[list, dict]:
+                            led, cyc, span) -> tuple[list, dict, dict]:
         """The collective stage of a sharded forward: one plane
         exchange for the mesh peers' rows.  Returns (the rows left for
-        the wire, the groups the exchange took); on a failure every
-        peer row returns to the wire and the groups come back empty."""
+        the wire, the groups the exchange took, the rows it sent by
+        destination); on a failure every peer row returns to the wire
+        and the groups and counts come back empty."""
         ch = None
         if cyc is not None and span is not None:
             ch = cyc.child(span, "forward.collective",
@@ -2520,7 +2534,7 @@ class Server:
                 ch.set_error(e)
                 cyc.finish(ch)
             return (list(wire_rows) +
-                    [r for g in groups.values() for r in g]), {}
+                    [r for g in groups.values() for r in g]), {}, {}
         self.bump("collective_forward_cycles")
         for dest, n in sent.items():
             self.bump("collective_forward_rows", n)
@@ -2536,7 +2550,7 @@ class Server:
             if rejected:
                 ch.add_tag("rejected", str(len(rejected)))
             cyc.finish(ch)
-        return wire_rows, groups
+        return wire_rows, groups, dict(sent)
 
     def _forward_http(self, rows: list[ForwardRow], trace_ctx=None,
                       led=None) -> None:

@@ -439,6 +439,9 @@ class Snapshot:
     hll_host_inv: np.ndarray | None = None
     overflow: dict[str, int] = field(default_factory=dict)
     ingested: int = 0
+    # set by swap(): hands the host set plane back to the table's reuse
+    # pool (``release``)
+    recycle: Any = None
     # tiered tables: the interval's tier view (tiers.TierSnapshot): the
     # frozen (tier, slot) assignments its data was routed under and the
     # compact-tier stores.  None for an untiered table.
@@ -465,6 +468,32 @@ class Snapshot:
             return hll.estimate_from_stats(self.hll_host_ez,
                                            self.hll_host_inv)
         return hll.estimate_np(self.hll_host_plane)
+
+    def release(self) -> None:
+        """Return the host set plane to the owning table's pool once
+        every read of it is done (a recycled plane is cleared instead
+        of faulted in anew next interval).  The plane and its
+        statistics are invalid afterwards."""
+        if self.recycle is not None and self.hll_host_plane is not None:
+            plane, self.hll_host_plane = self.hll_host_plane, None
+            self.hll_host_ez = None
+            self.hll_host_inv = None
+            self.recycle(plane)
+
+    def set_registers(self) -> np.ndarray:
+        """The interval's effective HLL registers as a host array: the
+        host-folded plane unioned with any device register state
+        (imports), read back only when the device plane was touched.  A
+        tiered interval materializes the row-space dense plane (a
+        parity view, O(rows x 16 KiB): for tests and small tables)."""
+        if self.tiers is not None:
+            return self.tiers.materialize_registers(self)
+        if self.host_only_sets:
+            return self.hll_host_plane
+        regs = self.hll_regs.cpu().numpy()
+        if self.hll_host_plane is not None:
+            regs = np.maximum(regs, self.hll_host_plane)
+        return regs
 
 
 class MetricTable:
@@ -512,6 +541,8 @@ class MetricTable:
 
         # counters and gauges stage as DENSE per-row host buffers (f64
         # counter accumulator: one f32 round-off at ship time)
+        # released snapshots' host set planes, cleared for reuse
+        self._plane_pool: list[np.ndarray] = []
         self._counter_dense = np.zeros(c.counter_rows, np.float64)
         self._gauge_dense = np.zeros(c.gauge_rows, np.float32)
         self._gauge_mask = np.zeros(c.gauge_rows, np.uint8)
@@ -1733,7 +1764,8 @@ class MetricTable:
     def _ensure_host_plane(self, st: _IntervalState) -> None:
         if st.hll_host_plane is None:
             pool = self._set_pool_rows
-            st.hll_host_plane = np.zeros((pool, hll.M), np.uint8)
+            st.hll_host_plane = (self._plane_pool.pop() if self._plane_pool
+                                 else np.zeros((pool, hll.M), np.uint8))
             # all-zero rows: every register counts in ez and adds 2^0
             # to the inverse-power sum
             st.hll_host_ez = np.full(pool, hll.M, np.int32)
@@ -2374,8 +2406,18 @@ class MetricTable:
             hll_host_inv=st.hll_host_inv,
             overflow=pend.overflow,
             ingested=pend.ingested,
+            recycle=self._recycle_plane,
             tiers=snap_tiers,
         )
+
+    def _recycle_plane(self, plane: np.ndarray) -> None:
+        """Take a released snapshot's host set plane back, cleared (on
+        the releasing flush thread, off the ingest path).  At most four
+        are kept: more in flight is a leak, not a pool."""
+        if (len(self._plane_pool) < 4 and
+                plane.shape == (self._set_pool_rows, hll.M)):
+            plane.fill(0)
+            self._plane_pool.append(plane)
 
     def _tier_boundary(self, pend: _PendingSwap, st: _IntervalState):
         """End-of-interval promotions and demotions, and the interval's

@@ -27,7 +27,7 @@
 // bound: a wider row takes more shared memory (16 bytes a lane, ~37 KB
 // at compression 300's C + K = 1824 + 512), up to the card's per-CTA
 // opt-in limit (~227 KB on an H100, C + K near 12,000), which
-// cluster_merge_fits reports.
+// cluster_merge_max_dyn reports; a row past it takes the spill route.
 //
 // - Loads: cp.async copies the whole row into shared memory at once,
 //   16 bytes at a time where the row pointers allow, 4 otherwise.  A
@@ -66,6 +66,34 @@
 //   the stores are coalesced.  Each run's mean is clamped to its
 //   [first, last] key so that f32 rounding of sum(w m) / sum(w) cannot
 //   step past a neighbour's mean.  Every block scan takes one barrier.
+//
+// Rounding.  The library is built with -fmad=false: no multiply and add
+// is contracted into one fused operation, so the k-scale, the scans and
+// the cluster sums round as the plain version's separate operations do,
+// and every route below (three instances of merge_row) gives one row
+// the same bits.  nvcc contracts the same source differently in each
+// instance otherwise, and a cluster boundary an ulp decides then falls
+// on either side in the odd row.
+//
+// The spill route.  A row wider than one CTA's opt-in shared memory
+// (past C + K near 12,000 on an H100: a mesh flush merge of 20 or more
+// shards, a collective import fold over 20 or more places, compression
+// past ~2,000) runs the same body, merge_row, over a scratch slice in
+// global memory: cluster_merge_spill_kernel, a grid of (SMs x CTAs
+// resident a SM) CTAs of 128 threads, each looping over rows and
+// reusing its own slice of the scratch the wrapper allocates (grid x
+// the row's floats).  Only the Scratch struct and one tile of kRegSort
+// sort composites stay in shared memory.  The row arrives by plain
+// coalesced copies (cp.async cannot target global memory); every
+// exchange goes through __syncthreads(), which orders the block's
+// global writes as it does its shared ones.  The register sorts take
+// the tile as their exchange buffer; a segment past them runs the same
+// bitonic network on (key bits, column) composites, but every run of
+// steps whose partners lie within one tile runs on the tile in shared
+// memory, so only strides of kRegSort and more go through global memory
+// (sort_long_tiled).  The sort's result, and so the merge, is the wide
+// route's bit for bit.  Its bound is the same bytes; what keeps it above
+// is the row's round trips to L2 and device memory.
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -391,6 +419,38 @@ __device__ void sort_keys(float* key, float* wt, int width, int top,
   __syncthreads();
 }
 
+// A slot's sort composite: order-preserving key bits, then its column.
+__device__ __forceinline__ unsigned long long composite(const float* key,
+                                                        const float* wt,
+                                                        int top, int g) {
+  const float k = g < top ? key_of(key, wt, g) : INFINITY;
+  return (static_cast<unsigned long long>(order_bits(k)) << 32) |
+         static_cast<unsigned>(g);
+}
+
+// One step (stage k, stride j) of the bitonic network over xbuf[0, n),
+// then a barrier.  `base` is xbuf[0]'s column in the whole segment (a
+// tile's offset), which sets each pair's direction.
+__device__ __forceinline__ void bitonic_step(unsigned long long* xbuf,
+                                             int n, int base, int k,
+                                             int j) {
+  for (int i = threadIdx.x; i < (n >> 1); i += kThreads) {
+    const int a = ((i & ~(j - 1)) << 1) | (i & (j - 1));  // bit j clear
+    const unsigned long long x = xbuf[a];
+    const unsigned long long y = xbuf[a | j];
+    if ((x > y) == (((base + a) & k) == 0)) {
+      xbuf[a] = y;
+      xbuf[a | j] = x;
+    }
+  }
+  __syncthreads();
+}
+
+// The end of a long sort: the weight's bits replace each sorted
+// composite's column, then keys and weights go back in place.
+__device__ void finish_long(float* key, float* wt, int width,
+                            unsigned long long* xbuf);
+
 // Stable ascending sort of key/wt[0, width) in place for a segment
 // past the register network (top > kRegSort): the same bitonic network
 // on (key bits, column) composites in shared memory (xbuf holds N =
@@ -400,25 +460,53 @@ __device__ void sort_long(float* key, float* wt, int width, int top,
   int n = kRegSort;
   while (n < top) n <<= 1;
   for (int g = threadIdx.x; g < n; g += kThreads) {
-    const float k = g < top ? key_of(key, wt, g) : INFINITY;
-    xbuf[g] = (static_cast<unsigned long long>(order_bits(k)) << 32) |
-              static_cast<unsigned>(g);
+    xbuf[g] = composite(key, wt, top, g);
   }
   __syncthreads();
   for (int k = 2; k <= n; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < (n >> 1); i += kThreads) {
-        const int a = ((i & ~(j - 1)) << 1) | (i & (j - 1));  // bit j clear
-        const unsigned long long x = xbuf[a];
-        const unsigned long long y = xbuf[a | j];
-        if ((x > y) == ((a & k) == 0)) {
-          xbuf[a] = y;
-          xbuf[a | j] = x;
-        }
-      }
+    for (int j = k >> 1; j > 0; j >>= 1) bitonic_step(xbuf, n, 0, k, j);
+  }
+  finish_long(key, wt, width, xbuf);
+}
+
+// sort_long for the spill route, whose xbuf lies in global memory: the
+// same network, but each run of steps with strides under kRegSort runs
+// on one tile of kRegSort composites in shared memory (loaded, stepped,
+// stored back), so a stage of the network touches global memory once
+// per stride of kRegSort or more, plus once for its tile pass.  The
+// network and so the sorted composites are sort_long's.
+__device__ void sort_long_tiled(float* key, float* wt, int width, int top,
+                                unsigned long long* xbuf,
+                                unsigned long long* tile) {
+  constexpr int T = kRegSort;
+  int n = T;
+  while (n < top) n <<= 1;
+  for (int b = 0; b < n; b += T) {  // stages 2..T inside each tile
+    for (int l = threadIdx.x; l < T; l += kThreads) {
+      tile[l] = composite(key, wt, top, b + l);
+    }
+    __syncthreads();
+    for (int k = 2; k <= T; k <<= 1) {
+      for (int j = k >> 1; j > 0; j >>= 1) bitonic_step(tile, T, b, k, j);
+    }
+    for (int l = threadIdx.x; l < T; l += kThreads) xbuf[b + l] = tile[l];
+    __syncthreads();
+  }
+  for (int k = 2 * T; k <= n; k <<= 1) {
+    for (int j = k >> 1; j >= T; j >>= 1) bitonic_step(xbuf, n, 0, k, j);
+    for (int b = 0; b < n; b += T) {
+      for (int l = threadIdx.x; l < T; l += kThreads) tile[l] = xbuf[b + l];
+      __syncthreads();
+      for (int j = T >> 1; j > 0; j >>= 1) bitonic_step(tile, T, b, k, j);
+      for (int l = threadIdx.x; l < T; l += kThreads) xbuf[b + l] = tile[l];
       __syncthreads();
     }
   }
+  finish_long(key, wt, width, xbuf);
+}
+
+__device__ void finish_long(float* key, float* wt, int width,
+                            unsigned long long* xbuf) {
   // the weight's bits replace the column, then both go back in place
   for (int g = threadIdx.x; g < width; g += kThreads) {
     const unsigned long long v = xbuf[g];
@@ -435,14 +523,25 @@ __device__ void sort_long(float* key, float* wt, int width, int top,
 }
 
 // Sort a row that failed the check, by bare keys where its live
-// weights are all equal, else by (key, column) composites.
+// weights are all equal, else by (key, column) composites.  On the
+// spill route (kSpill) xbuf lies in global memory: the register sorts
+// exchange through the shared `tile` instead, and a long segment takes
+// sort_long_tiled.
+template <bool kSpill>
 __device__ void sort_row(float* key, float* wt, int width,
-                         const RowStat& st, void* xbuf) {
-  float* fx = static_cast<float*>(xbuf);
-  unsigned long long* cx = static_cast<unsigned long long*>(xbuf);
+                         const RowStat& st, void* xbuf,
+                         unsigned long long* tile) {
+  void* ex = kSpill ? static_cast<void*>(tile) : xbuf;
+  float* fx = static_cast<float*>(ex);
+  unsigned long long* cx = static_cast<unsigned long long*>(ex);
   const int top = st.top;
   if (top > kRegSort) {
-    sort_long(key, wt, width, top, cx);
+    if (kSpill) {
+      sort_long_tiled(key, wt, width, top,
+                      static_cast<unsigned long long*>(xbuf), tile);
+    } else {
+      sort_long(key, wt, width, top, cx);
+    }
   } else if (st.wmin == st.wmax) {
     const float w0 = __int_as_float(st.wmin);
     if (top <= kThreads) {
@@ -487,12 +586,14 @@ __device__ void zero_row(float* om, float* ow, int cap) {
 }
 
 // The merge of one row whose state (sm, sw) and batch (bm, bw) lie in
-// shared memory, as they arrived; results go to om / ow.  mkey / mw
-// hold the merged row.  A row that fails the sortedness check is sorted
-// in place (empty slots then hold +inf); the sort's exchange buffer
-// borrows the merged arrays, and the cluster ids borrow sm once the
-// merge has read it.  The caller has run init_stat and waited for the
-// row's copies, then synchronised the block.
+// shared memory (on the spill route, kSpill: in the CTA's global
+// scratch), as they arrived; results go to om / ow.  mkey / mw hold the
+// merged row.  A row that fails the sortedness check is sorted in place
+// (empty slots then hold +inf); the sort's exchange buffer borrows the
+// merged arrays (and the spill route's shared `tile`), and the cluster
+// ids borrow sm once the merge has read it.  The caller has run
+// init_stat and waited for the row's copies, then synchronised the
+// block.
 struct Scratch {
   float wsum[kWarps];  // one buffer per block scan
   int idmax[kWarps];
@@ -500,10 +601,12 @@ struct Scratch {
   RowStat stat[2];     // state, batch
 };
 
+template <bool kSpill>
 __device__ void merge_row(float* sm, float* sw, float* bm, float* bw,
-                          float* mkey, float* mw, Scratch& sc, float* om,
-                          float* ow, int cap, int k_in, float scale,
-                          float k0, float tail_coeff, float tail_q0,
+                          float* mkey, float* mw, Scratch& sc,
+                          unsigned long long* tile, float* om, float* ow,
+                          int cap, int k_in, float scale, float k0,
+                          float tail_coeff, float tail_q0,
                           float tail_qmin) {
   const int tid = threadIdx.x;
   const RowStat& ss = sc.stat[0];
@@ -523,8 +626,8 @@ __device__ void merge_row(float* sm, float* sw, float* bm, float* bw,
   }
 
   // sort only what is not already packed and sorted
-  if (ss.unsorted) sort_row(sm, sw, cap, ss, mkey);
-  if (bs.unsorted) sort_row(bm, bw, k_in, bs, mkey);
+  if (ss.unsorted) sort_row<kSpill>(sm, sw, cap, ss, mkey, tile);
+  if (bs.unsorted) sort_row<kSpill>(bm, bw, k_in, bs, mkey, tile);
 
   // merge by rank; live elements are [0, ls) and [0, lb), keyed by
   // their means
@@ -653,9 +756,64 @@ __global__ void __launch_bounds__(kThreads, 8) cluster_merge_kernel(
   init_stat(sc.stat);
   cp_async_wait_all();
   __syncthreads();
-  merge_row(sm, sw, sm + cp, sw + cp, smem + 2 * wa, smem + 2 * wa + wm,
-            sc, out_m + row * cap, out_w + row * cap, cap, k_in, scale,
-            k0, tail_coeff, tail_q0, tail_qmin);
+  merge_row<false>(sm, sw, sm + cp, sw + cp, smem + 2 * wa,
+                   smem + 2 * wa + wm, sc, nullptr, out_m + row * cap,
+                   out_w + row * cap, cap, k_in, scale, k0, tail_coeff,
+                   tail_q0, tail_qmin);
+}
+
+// Copy one row into the CTA's global scratch: float4 where both sides
+// allow, floats otherwise.
+__device__ void copy_row_plain(const float* m, const float* w, int width,
+                               float* dm, float* dw) {
+  const int tid = threadIdx.x;
+  int done = 0;
+  if (aligned16(m) && aligned16(w) && aligned16(dm) && aligned16(dw)) {
+    const int n4 = width >> 2;
+    for (int v = tid; v < n4; v += kThreads) {
+      reinterpret_cast<float4*>(dm)[v] =
+          reinterpret_cast<const float4*>(m)[v];
+      reinterpret_cast<float4*>(dw)[v] =
+          reinterpret_cast<const float4*>(w)[v];
+    }
+    done = n4 << 2;
+  }
+  for (int i = done + tid; i < width; i += kThreads) {
+    dm[i] = m[i];
+    dw[i] = w[i];
+  }
+}
+
+// The spill route: the grid's CTAs loop over rows; CTA b works in
+// scratch[b * ld_scratch, ...), laid out as the wide route's shared
+// memory (layout()), and keeps only Scratch and one sort tile in shared
+// memory.
+__global__ void __launch_bounds__(kThreads, 8) cluster_merge_spill_kernel(
+    const float* __restrict__ means, const float* __restrict__ weights,
+    long long ld_state, const float* __restrict__ new_means,
+    const float* __restrict__ new_weights, long long ld_batch,
+    float* __restrict__ out_m, float* __restrict__ out_w, int rows,
+    int cap, int k_in, int wa, int wm, float* scratch,
+    long long ld_scratch, float scale, float k0, float tail_coeff,
+    float tail_q0, float tail_qmin) {
+  __shared__ __align__(16) unsigned long long tile[kRegSort];
+  __shared__ Scratch sc;
+  const int cp = (cap + 3) & ~3;
+  float* sm = scratch + blockIdx.x * ld_scratch;
+  float* sw = sm + wa;
+  for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
+    copy_row_plain(means + row * ld_state, weights + row * ld_state, cap,
+                   sm, sw);
+    copy_row_plain(new_means + row * ld_batch,
+                   new_weights + row * ld_batch, k_in, sm + cp, sw + cp);
+    init_stat(sc.stat);
+    __syncthreads();
+    merge_row<true>(sm, sw, sm + cp, sw + cp, sm + 2 * wa,
+                    sm + 2 * wa + wm, sc, tile, out_m + row * cap,
+                    out_w + row * cap, cap, k_in, scale, k0, tail_coeff,
+                    tail_q0, tail_qmin);
+    __syncthreads();  // the next row reuses the slice and sc
+  }
 }
 
 // Shared-memory layout of one row: wa floats for each of the row's
@@ -702,19 +860,69 @@ cudaError_t setup_shared(int* max_dyn) {
   return rc;
 }
 
-}  // namespace
-
-// 1 when a row of (cap, k_in) fits one CTA's shared memory on the
-// current card, 0 when it does not, -1 on error.
-extern "C" int cluster_merge_fits(int cap, int k_in) {
-  int max_dyn = 0;
-  if (setup_shared(&max_dyn) != cudaSuccess) return -1;
-  return layout(cap, k_in).bytes() <= (size_t)max_dyn ? 1 : 0;
+// CTAs of the spill kernel resident on one SM, and the card's SMs.
+cudaError_t spill_residency(int* per_sm, int* sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (!e) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+  if (!e) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, cluster_merge_spill_kernel, kThreads, 0);
+  return e;
 }
 
-// Launch one merge on `stream`.  `n` is the caller's power-of-two bound
-// on cap + k_in.  Returns cudaGetLastError() (0 = ok); a row too wide
-// for shared memory (cluster_merge_fits) is cudaErrorInvalidValue.
+}  // namespace
+
+// The dynamic shared memory one CTA may take on the current card (the
+// wide route's limit: the opt-in limit less the kernel's static
+// shared memory), -1 on error.
+extern "C" int cluster_merge_max_dyn() {
+  int max_dyn = 0;
+  if (setup_shared(&max_dyn) != cudaSuccess) return -1;
+  return max_dyn;
+}
+
+// The spill route's grid for `rows` rows: every CTA the card holds at
+// once, at most one a row; -1 on error.  The caller allocates that many
+// scratch slices of layout(cap, k_in).bytes().
+extern "C" int cluster_merge_spill_grid(int rows) {
+  int per_sm = 0, sms = 0;
+  if (spill_residency(&per_sm, &sms) != cudaSuccess || per_sm < 1) {
+    return -1;
+  }
+  const long long all = (long long)per_sm * sms;
+  return (int)(rows < all ? (rows > 0 ? rows : 1) : all);
+}
+
+// Launch one merge on the spill route on `stream`: `grid` CTAs (from
+// cluster_merge_spill_grid), each on its own slice of `scratch`, at
+// least layout(cap, k_in).bytes() a slice, `ld_scratch` floats apart.
+// Returns cudaGetLastError() (0 = ok).
+extern "C" int cluster_merge_launch_spill(
+    const float* means, const float* weights, long long ld_state,
+    const float* new_means, const float* new_weights, long long ld_batch,
+    float* out_m, float* out_w, int rows, int cap, int k_in, int n,
+    float* scratch, int grid, long long ld_scratch, float scale, float k0,
+    float tail_coeff, float tail_q0, float tail_qmin, void* stream) {
+  const Layout l = layout(cap, k_in);
+  if (n < cap + k_in || (n & (n - 1)) != 0 || cap < 1 || grid < 1 ||
+      ld_scratch < (long long)(2 * l.wa + 2 * l.wm) ||
+      (ld_scratch & 3) != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (rows == 0) return 0;
+  cluster_merge_spill_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      means, weights, ld_state, new_means, new_weights, ld_batch, out_m,
+      out_w, rows, cap, k_in, l.wa, l.wm, scratch, ld_scratch, scale, k0,
+      tail_coeff, tail_q0, tail_qmin);
+  return (int)cudaGetLastError();
+}
+
+// Launch one merge on `stream` with the row in shared memory (the
+// kernel and wide routes).  `n` is the caller's power-of-two bound on
+// cap + k_in.  Returns cudaGetLastError() (0 = ok); a row too wide for
+// shared memory (layout().bytes() over cluster_merge_max_dyn) is
+// cudaErrorInvalidValue: it takes cluster_merge_launch_spill.
 extern "C" int cluster_merge_launch(
     const float* means, const float* weights, long long ld_state,
     const float* new_means, const float* new_weights, long long ld_batch,
@@ -738,17 +946,20 @@ extern "C" int cluster_merge_launch(
 }
 
 // Rows (CTAs) resident on one SM at this shape, and the CTA's threads
-// and dynamic shared memory, for the record; -1 on error.
+// and the row's bytes (layout(): dynamic shared memory on the kernel's
+// own routes, a global scratch slice on the spill route, whose CTAs
+// these then are), for the record; -1 on error.
 extern "C" int cluster_merge_occupancy(int cap, int k_in, int* threads,
                                        int* smem_bytes) {
   const Layout l = layout(cap, k_in);
-  int per_sm = 0, max_dyn = 0;
-  if (setup_shared(&max_dyn) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, cluster_merge_kernel, kThreads, l.bytes()) !=
-          cudaSuccess) {
-    return -1;
-  }
+  int per_sm = 0, max_dyn = 0, sms = 0;
+  if (setup_shared(&max_dyn) != cudaSuccess) return -1;
+  const cudaError_t e =
+      l.bytes() <= (size_t)max_dyn
+          ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &per_sm, cluster_merge_kernel, kThreads, l.bytes())
+          : spill_residency(&per_sm, &sms);
+  if (e != cudaSuccess) return -1;
   *threads = kThreads;
   *smem_bytes = (int)l.bytes();
   return per_sm;

@@ -13,13 +13,17 @@ ids clipped to the capacity, weighted per-cluster means).
   (``csrc/cluster_merge.cu``, built with nvcc for sm_90a on first use
   and loaded with ctypes) or raises; for a CPU tensor it runs
   ``cluster_merge_plain``.  A failed build or launch raises: there is
-  no fallback from one to the other.  ``route`` names the kernel's two
-  routes by the reference's own rule (``supported``: its table runs the
-  Pallas kernel inside 2048 lanes and its XLA merge past them): a
-  ``"wide"`` merge launches the same kernel with a wider row in shared
-  memory and, for a segment past the register sort, a shared-memory
-  sort.  A row too wide for one CTA's shared memory (``fits``; past
-  C + K near 12,000 on an H100) raises by name.
+  no fallback from one to the other.  ``route`` names the kernel's
+  three routes.  The reference's own rule (``supported``: its table
+  runs the Pallas kernel inside 2048 lanes and its XLA merge past them)
+  picks ``"kernel"``; past it a ``"wide"`` merge launches the same
+  kernel with a wider row in shared memory and, for a segment past the
+  register sort, a shared-memory sort; a row past one CTA's shared
+  memory (``fits``: ``row_bytes`` against the card's limit, C + K near
+  12,000 on an H100) takes ``"spill"``: the same body over a scratch
+  slice in global memory that the wrapper allocates, one per CTA of a
+  grid that loops over the rows.  No width is refused but by device
+  memory.
 - ``cluster_merge_plain`` is the reference's scatter path in PyTorch:
   the CPU tests hold it against JAX, and the card holds the kernel
   against it.
@@ -29,8 +33,9 @@ four planes and as they write the two results, as the reference's merge
 does under XLA (a subnormal weight is no weight).
 
 Launches are counted once, in the device-cost registry, by route
-(``LAUNCH_NAMES``: ``cluster_merge`` and ``cluster_merge.wide``, shown
-in ``/debug/vars``); ``launch_count`` sums them, so a run can show that
+(``LAUNCH_NAMES``: ``cluster_merge``, ``cluster_merge.wide`` and
+``cluster_merge.spill``, shown in ``/debug/vars``); ``launch_count``
+sums them, so a run can show that
 its merges went through the kernel.  ``occupancy`` reports the kernel's
 launch shape on the current card.  Every merge notes the bytes it moves
 (``merge_bytes``) to the device-cost registry, the estimate of the step
@@ -61,9 +66,21 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "cluster_merge.cu"
 BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+# no contracted multiply-adds: every route rounds each product and sum
+# as the plain version does, so two routes on one row agree bit for bit
+# (nvcc would contract the same source differently in each instance)
+BUILD_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false")
 
 # the registry's launch counter of each route
-LAUNCH_NAMES = {"kernel": "cluster_merge", "wide": "cluster_merge.wide"}
+LAUNCH_NAMES = {"kernel": "cluster_merge", "wide": "cluster_merge.wide",
+                "spill": "cluster_merge.spill"}
+
+# An H100's dynamic shared memory for one CTA of the kernel: its
+# 232,448-byte opt-in limit less the kernel's 96 bytes of static shared
+# memory, its ``Scratch`` (what ``max_dyn_bytes`` reads on that card).
+# ``route`` and ``fits`` answer for this card where there is none to ask.
+H100_MAX_DYN = 232_448 - 96
+_THREADS = 128      # the kernel's CTA (kThreads)
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -88,12 +105,27 @@ def supported(cap: int, batch_width: int) -> bool:
     return _pow2_at_least(cap + batch_width) <= MAX_WIDTH
 
 
+def row_bytes(cap: int, batch_width: int) -> int:
+    """Bytes of one row's working set, the C source's
+    ``layout(cap, k_in).bytes()``: the row as it arrives (``wa`` floats
+    each for means and weights: the state, then the batch from ``cap``
+    rounded up to 4) and the merged row (``wm`` floats each, at least
+    the widest sort's composites)."""
+    wa = (((cap + 3) & ~3) + batch_width + 3) & ~3
+    sort_n = _THREADS
+    while sort_n < cap or sort_n < batch_width:
+        sort_n <<= 1
+    return (2 * wa + 2 * max(wa, sort_n)) * 4
+
+
 def route(cap: int, batch_width: int) -> str:
     """The kernel's route for a merge of a ``cap``-slot state with a
     ``batch_width`` batch: ``"kernel"`` where the reference runs its
-    Pallas kernel (``supported``), ``"wide"`` where it runs its XLA
-    merge."""
-    return "kernel" if supported(cap, batch_width) else "wide"
+    Pallas kernel (``supported``); past it ``"wide"`` while the row
+    fits one CTA's shared memory (``fits``), else ``"spill"``."""
+    if supported(cap, batch_width):
+        return "kernel"
+    return "wide" if fits(cap, batch_width) else "spill"
 
 
 def launch_count() -> int:
@@ -124,7 +156,7 @@ def build(verbose: bool = False) -> Path:
     the library's name carries a hash of the source) and return the
     library's path.  Raises if nvcc fails."""
     src = SOURCE.read_bytes()
-    tag = hashlib.sha1(src + " ".join(ARCH_FLAGS).encode()).hexdigest()[:12]
+    tag = hashlib.sha1(src + " ".join(BUILD_FLAGS).encode()).hexdigest()[:12]
     out = BUILD_DIR / f"libcluster_merge-{tag}.so"
     if out.exists():
         REGISTRY.add_cache_hit()
@@ -132,7 +164,7 @@ def build(verbose: bool = False) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.monotonic_ns()
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+    cmd = [_nvcc(), *BUILD_FLAGS, "-shared",
            "-Xcompiler", "-fPIC", "-o", str(tmp), str(SOURCE)]
     if verbose:
         cmd.insert(1, "-Xptxas=-v")
@@ -158,9 +190,15 @@ def bind(path) -> ctypes.CDLL:
     fn = lib.cluster_merge_launch
     fn.argtypes = [p, p, ll, p, p, ll, p, p, i, i, i, i, f, f, f, f, f, p]
     fn.restype = i
-    fits = lib.cluster_merge_fits
-    fits.argtypes = [i, i]
-    fits.restype = i
+    lib.cluster_merge_max_dyn.argtypes = []
+    lib.cluster_merge_max_dyn.restype = i
+    grid = lib.cluster_merge_spill_grid
+    grid.argtypes = [i]
+    grid.restype = i
+    spill = lib.cluster_merge_launch_spill
+    spill.argtypes = [p, p, ll, p, p, ll, p, p, i, i, i, i, p, i, ll, f,
+                      f, f, f, f, p]
+    spill.restype = i
     occ = lib.cluster_merge_occupancy
     occ.argtypes = [i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
     occ.restype = i
@@ -184,8 +222,10 @@ def load() -> ctypes.CDLL:
 
 def occupancy(cap: int, batch_width: int) -> dict:
     """The kernel's launch shape at (cap, batch width) on the current
-    card: threads and dynamic shared memory per row, and how many rows
-    (CTAs) one SM holds at once."""
+    card: threads and the row's bytes (``row_bytes``: dynamic shared
+    memory, or on the spill route a global scratch slice), and how many
+    CTAs one SM holds at once (on the spill route, the spill kernel's,
+    each looping over rows)."""
     threads = ctypes.c_int()
     smem = ctypes.c_int()
     per_sm = _load().cluster_merge_occupancy(
@@ -196,13 +236,23 @@ def occupancy(cap: int, batch_width: int) -> dict:
             "rows_per_sm": per_sm}
 
 
-def fits(cap: int, batch_width: int) -> bool:
-    """Whether a (cap, batch width) row fits one CTA's shared memory on
-    the current card (the kernel's only width limit)."""
-    rc = _load().cluster_merge_fits(cap, batch_width)
-    if rc < 0:
+def max_dyn_bytes() -> int:
+    """The dynamic shared memory one CTA of the kernel may take on the
+    current card (its opt-in limit less the kernel's static shared
+    memory)."""
+    n = _load().cluster_merge_max_dyn()
+    if n < 0:
         raise RuntimeError("cluster_merge shared-memory query failed")
-    return rc == 1
+    return n
+
+
+def fits(cap: int, batch_width: int) -> bool:
+    """Whether a (cap, batch width) row fits one CTA's shared memory
+    (the current card's limit, or ``H100_MAX_DYN`` without a card): the
+    line between the wide and the spill routes."""
+    limit = (max_dyn_bytes() if torch.cuda.is_available()
+             else H100_MAX_DYN)
+    return row_bytes(cap, batch_width) <= limit
 
 
 def _k_scale(q: torch.Tensor, delta: float, tail_coeff: float,
@@ -289,9 +339,8 @@ def cluster_merge(means: torch.Tensor, weights: torch.Tensor,
     """Merge f32[R, K] incoming centroids into f32[R, C] digests.
 
     CPU tensors take the plain version.  CUDA tensors launch the
-    kernel on the current stream, on the route ``route`` names; a row
-    too wide for one CTA's shared memory raises ValueError, a failed
-    build or launch raises RuntimeError."""
+    kernel on the current stream, on the route ``route`` names; a
+    failed build or launch raises RuntimeError."""
     kw = dict(delta=delta, tail_coeff=tail_coeff, tail_q0=tail_q0,
               tail_qmin=tail_qmin)
     dev = means.device
@@ -302,6 +351,19 @@ def cluster_merge(means: torch.Tensor, weights: torch.Tensor,
                                    new_weights, **kw)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    way = route(means.shape[1], new_means.shape[1])
+    return _launch(way, means, weights, new_means, new_weights, **kw)
+
+
+def _launch(way: str, means: torch.Tensor, weights: torch.Tensor,
+            new_means: torch.Tensor, new_weights: torch.Tensor, *,
+            delta: float, tail_coeff: float, tail_q0: float,
+            tail_qmin: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel on route ``way`` on CUDA tensors and count
+    the launch under its name.  ``cluster_merge`` takes the route
+    ``route`` names; a check may run one row width through two routes
+    (a row that fits one CTA runs on the spill route as well)."""
+    dev = means.device
     num_rows, cap = means.shape
     k_in = new_means.shape[1]
     for name, t, width in (("means", means, cap),
@@ -315,26 +377,38 @@ def cluster_merge(means: torch.Tensor, weights: torch.Tensor,
     if means.stride() != weights.stride() or \
             new_means.stride() != new_weights.stride():
         raise ValueError("means and weights must share strides")
-    way = route(cap, k_in)
+    if way not in LAUNCH_NAMES:
+        raise ValueError(f"unknown route {way!r}")
     n = _pow2_at_least(cap + k_in)
     lib = _load()
-    if way == "wide" and not fits(cap, k_in):
-        raise ValueError(f"merge width {cap}+{k_in} exceeds one CTA's "
-                         f"shared memory on {dev}")
     out_m = torch.empty((num_rows, cap), dtype=torch.float32, device=dev)
     out_w = torch.empty((num_rows, cap), dtype=torch.float32, device=dev)
-    scale, k0 = _kernel_constants(**kw)
+    scale, k0 = _kernel_constants(delta, tail_coeff, tail_q0, tail_qmin)
+    tail = (scale, k0, float(tail_coeff), float(tail_q0),
+            float(tail_qmin))
+    planes = (means.data_ptr(), weights.data_ptr(),
+              means.stride(0) if num_rows else cap,
+              new_means.data_ptr(), new_weights.data_ptr(),
+              new_means.stride(0) if num_rows else k_in,
+              out_m.data_ptr(), out_w.data_ptr(), num_rows, cap, k_in, n)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.cluster_merge_launch(
-            means.data_ptr(), weights.data_ptr(),
-            means.stride(0) if num_rows else cap,
-            new_means.data_ptr(), new_weights.data_ptr(),
-            new_means.stride(0) if num_rows else k_in,
-            out_m.data_ptr(), out_w.data_ptr(),
-            num_rows, cap, k_in, n, scale, k0, float(tail_coeff),
-            float(tail_q0), float(tail_qmin), stream)
+        if way == "spill":
+            grid = lib.cluster_merge_spill_grid(num_rows)
+            if grid < 1:
+                raise RuntimeError("cluster_merge spill grid query failed")
+            # one slice of the row's working set per CTA, allocated on
+            # the caller's stream (the caching allocator reuses it only
+            # after this launch on that stream)
+            ld = row_bytes(cap, k_in) // 4
+            scratch = torch.empty((grid, ld), dtype=torch.float32,
+                                  device=dev)
+            rc = lib.cluster_merge_launch_spill(
+                *planes, scratch.data_ptr(), grid, ld, *tail, stream)
+        else:
+            rc = lib.cluster_merge_launch(*planes, *tail, stream)
     if rc != 0:
-        raise RuntimeError(f"cluster_merge launch failed: CUDA error {rc}")
+        raise RuntimeError(f"cluster_merge launch failed on the {way} "
+                           f"route: CUDA error {rc}")
     REGISTRY.note_launch(LAUNCH_NAMES[way])
     return out_m, out_w

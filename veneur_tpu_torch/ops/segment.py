@@ -88,6 +88,18 @@ def gauge_update(state: torch.Tensor, row_ids: torch.Tensor,
     return torch.where(has_sample, values[winner.clamp(0, n - 1)], state)
 
 
+def merge_counter(state: torch.Tensor, row_ids: torch.Tensor,
+                  totals: torch.Tensor) -> torch.Tensor:
+    """Global-tier merge of forwarded counter totals (reference
+    samplers/samplers.go:208 ``Counter.Merge`` is ``+=``).  Pad rows
+    (out of range) are dropped; the f32 addends sum in f64 and round
+    once, as ``counter_update``'s do."""
+    live = _live(row_ids, state.shape[0])
+    return ftz(ftz(state).double().index_add(
+        0, row_ids[live].long(),
+        ftz(totals[live]).double()).to(torch.float32))
+
+
 def merge_histo_stats(stats: torch.Tensor, row_ids: torch.Tensor,
                       incoming: torch.Tensor) -> torch.Tensor:
     """Merge (weight, min, max, sum, rsum) rows into the table.  The

@@ -121,6 +121,42 @@ def densify(row_ids: torch.Tensor, values: torch.Tensor,
     return _scatter_dense(sid, rank, sval, swt, num_rows, slots)
 
 
+def add_samples(means, weights, row_ids, values, sample_weights,
+                slots: int = 256,
+                compression: float = DEFAULT_COMPRESSION):
+    """Flat-sample ingest: densify, then one cluster merge (the
+    batched MergingDigest.Add over a tick's samples).  Samples past
+    ``slots`` in a row and padding entries (``row_id == num_rows``) are
+    dropped."""
+    dv, dw = densify(row_ids, values, sample_weights, means.shape[0],
+                     slots)
+    return _merge_impl(means, weights, dv, dw, compression)
+
+
+def add_samples_unit(means, weights, row_ids, values, slots: int = 256,
+                     compression: float = DEFAULT_COMPRESSION):
+    """add_samples with unit sample weights.  Padding entries MUST use
+    ``row_id == num_rows``: densify drops them, so their weight never
+    lands."""
+    dv, dw = densify(row_ids, values, torch.ones_like(values),
+                     means.shape[0], slots)
+    return _merge_impl(means, weights, dv, dw, compression)
+
+
+def merge_digests(means, weights, other_means, other_weights,
+                  compression: float = DEFAULT_COMPRESSION):
+    """Row-aligned union of two digest tables (the global tier's
+    merge).  Both inputs stay valid: the merge returns new planes."""
+    return _merge_impl(means, weights, other_means, other_weights,
+                       compression)
+
+
+def total_weight(weights: torch.Tensor) -> torch.Tensor:
+    """Each row's weight mass, f32[R] (f32 subnormals read as zero,
+    as under XLA)."""
+    return segment.ftz(weights).sum(dim=1)
+
+
 def _scatter_dense(row_ids: torch.Tensor, ranks: torch.Tensor,
                    values: torch.Tensor, weights: torch.Tensor | None,
                    num_rows: int, slots: int
@@ -495,6 +531,44 @@ def _quantile_interp(means, weights, qs, mins, maxs):
                                    torch.full_like(est, math.nan)))
 
 
+def _nan_rows(means: torch.Tensor) -> torch.Tensor:
+    return torch.full((means.shape[0],), math.nan, dtype=torch.float32,
+                      device=means.device)
+
+
+def cdf(means: torch.Tensor, weights: torch.Tensor, xs,
+        mins: torch.Tensor | None = None,
+        maxs: torch.Tensor | None = None) -> torch.Tensor:
+    """Fraction of weight below each value -> f32[R, X], on the same
+    value-space uniform-centroid model as the reference quantile walk
+    (its inverse map; reference tdigest/merging_digest.go:266 ``CDF``).
+    Outside the anchors exactly 0 or 1; empty rows NaN."""
+    mins = _nan_rows(means) if mins is None else mins
+    maxs = _nan_rows(means) if maxs is None else maxs
+    means, weights, mins, maxs = (segment.ftz(t) for t in
+                                  (means, weights, mins, maxs))
+    xs = torch.as_tensor(xs, dtype=torch.float32, device=means.device)
+    m, w, cum, lb, ub, nvalid, total = _bounds(means, weights, mins, maxs)
+    last = (nvalid - 1).clamp(min=0)[:, None]
+    x = xs[None, :]
+    # the first centroid whose upper bound exceeds x
+    ub_masked = torch.where(w > 0, ub, torch.full_like(ub, math.inf))
+    idx = (ub_masked[:, None, :] <= x[:, :, None]).sum(dim=-1)
+    idx = torch.minimum(idx, last)
+    w_i = w.gather(1, idx)
+    cum_before = (cum - w).gather(1, idx)
+    lb_i = lb.gather(1, idx)
+    span = ub.gather(1, idx) - lb_i
+    frac = torch.where(span > 0, (x - lb_i) / span.clamp(min=_EPS),
+                       torch.ones_like(span)).clamp(0.0, 1.0)
+    out = (cum_before + w_i * frac) / total.clamp(min=_EPS)
+    out = torch.where(x <= lb[:, :1], torch.zeros_like(out), out)
+    out = torch.where(x >= ub.gather(1, last), torch.ones_like(out), out)
+    return segment.ftz(torch.where(nvalid[:, None] > 0,
+                                   out.clamp(0.0, 1.0),
+                                   torch.full_like(out, math.nan)))
+
+
 def quantile(means: torch.Tensor, weights: torch.Tensor,
              qs: torch.Tensor, mins: torch.Tensor | None = None,
              maxs: torch.Tensor | None = None,
@@ -502,10 +576,8 @@ def quantile(means: torch.Tensor, weights: torch.Tensor,
     """Estimate quantiles for every row -> f32[R, Q] ("interp": the
     flush readout; "reference": the Go digest's walk).  Empty rows ->
     NaN."""
-    nan = torch.full((means.shape[0],), math.nan, dtype=torch.float32,
-                     device=means.device)
-    mins = nan if mins is None else mins
-    maxs = nan if maxs is None else maxs
+    mins = _nan_rows(means) if mins is None else mins
+    maxs = _nan_rows(means) if maxs is None else maxs
     qs = torch.as_tensor(qs, dtype=torch.float32, device=means.device)
     if method == "reference":
         return _quantile(means, weights, qs, mins, maxs)

@@ -297,3 +297,11 @@ def parse_line(line: bytes):
     if line.startswith(b"_sc|"):
         return parse_service_check(line)
     return parse_metric(line)
+
+
+def split_packet(packet: bytes):
+    """Newline-split a datagram, skipping empty lines (reference
+    SplitBytes, samplers/split_bytes.go:16)."""
+    for line in packet.split(b"\n"):
+        if line:
+            yield line

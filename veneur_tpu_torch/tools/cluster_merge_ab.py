@@ -176,7 +176,7 @@ def build(name: str):
     cm.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     src.write_text(variant_source(name))
     out = src.with_suffix(".so")
-    cmd = [cm._nvcc(), *cm.ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+    cmd = [cm._nvcc(), *cm.BUILD_FLAGS, "-shared",
            "-Xcompiler", "-fPIC", "-o", str(out), str(src)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
