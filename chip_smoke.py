@@ -28,7 +28,12 @@ Run from the root of a checkout.  Phases, one JSON line each:
    over 24 places (R = 4096, a live state), and compression 2500 (C =
    15,112) at K = 512, its state sorted and not; then the fold's union
    over 8 places, which one CTA holds, through the wide and the spill
-   route, bit-equal, each timed.  After
+   route, bit-equal, each timed.  Every case whose batch is sorted runs
+   side by side (the spill cases, phase 17's unions, and two tie-heavy
+   cases of integer means, empty shards, zero, subnormal and NaN keys)
+   also runs with the long sort in place of the runs merge
+   (``max_runs=0``): bit-equal, both timed beside the bound, and on the
+   spill route the rows merged in global memory counted.  After
    phases 4, 6, 8, 9, 10, 12, 13, 14, 15, 16 and 17 the same check runs
    at every other (R, K) they merged at (the global folds with weighted
    centroids) and at the warm-up's (256, 256); every case reports the
@@ -648,6 +653,15 @@ SPILL_TWIN = ("wide_vs_spill_fold_p8_live", 4096, 100.0, "live", 8 * 616, 8,
 # the plain version of wide work (rows x (C + K) past 16,384 x 1,232)
 # takes 20-150 ms a call: timed 3 x 3
 SPILL_PLAIN_RUNS = 3
+# tie-heavy runs (``device_digests(ties=True)``, ``with_odd_keys``): a
+# mesh flush merge of 32 shards on the spill route (its full rows past
+# the shared-memory room merge in global memory) and the collective
+# fold's union over 8 places on the wide route; rows 0 and 1 carry the
+# NaN keys and are held to the long sort only
+RUNS_TIE_CASES = (("spill_mesh_s32_ties", 4096, 100.0, "zero", 32 * 616,
+                   32, True),
+                  ("wide_fold_p8_ties_live", 4096, 100.0, "live", 8 * 616,
+                   8, True))
 
 
 def plain_runs_for(rows: int, cap: int, k: int) -> int:
@@ -655,17 +669,26 @@ def plain_runs_for(rows: int, cap: int, k: int) -> int:
 
 
 def device_digests(gen, rows: int, cap: int, dev: str,
-                   zero: bool = False) -> list:
+                   zero: bool = False, ties: bool = False) -> list:
     """Packed, mean-sorted digest rows up to half full (random_case's
-    state, made on the device), or all-empty rows."""
+    state, made on the device), or all-empty rows.  ``ties``: integer
+    means (a DogStatsD timer's milliseconds: equal means within and
+    across digests), a fifth of the digests empty and every eighth row's
+    digests full."""
     import torch
     if zero:
         z = torch.zeros((rows, cap), device=dev)
         return [z, z.clone()]
     occ = torch.randint(0, cap // 2 + 1, (rows, 1), generator=gen,
                         device=dev)
+    if ties:
+        occ = torch.where(torch.rand((rows, 1), generator=gen,
+                                     device=dev) < 0.2, 0, occ)
+        occ[7::8] = cap
     live = torch.arange(cap, device=dev)[None, :] < occ
     m = torch.randn((rows, cap), generator=gen, device=dev) * 40 + 200
+    if ties:
+        m = torch.round(m)
     m = torch.sort(torch.where(live, m, torch.full_like(m, math.inf)),
                    dim=1)[0]
     w = torch.randint(1, 60, (rows, cap), generator=gen,
@@ -674,23 +697,54 @@ def device_digests(gen, rows: int, cap: int, dev: str,
             torch.where(live, w, torch.zeros_like(w))]
 
 
+def with_odd_keys(bm, bw, runs: int) -> None:
+    """A tie case's odd keys, in place, each where its run stays sorted
+    in key bits: in every fifth row a zero, a negative zero, and
+    subnormal keys and weights at the runs' first slots; row 0 a
+    negative NaN key first in its fourth run, row 1 a positive NaN
+    key last in its first run (the kernel reads a NaN mean as +inf, the
+    plain version keeps NaN: neither row is held to it)."""
+    import torch
+    width = bm.shape[1] // runs
+    first = torch.arange(runs, device=bm.device) * width
+    live = bw[:, first] > 0
+    for j, v in enumerate((0.0, -0.0, 1e-40, -1e-40)):
+        col = first[j::4]
+        sel = live[::5, j::4]
+        bm[::5, col] = torch.where(sel, torch.tensor(v, device=bm.device),
+                                   bm[::5, col])
+    bw[::5, first[1::3]] = torch.where(live[::5, 1::3],
+                                       torch.tensor(1e-40, device=bw.device),
+                                       bw[::5, first[1::3]])
+    nan = torch.tensor([-4194304, 2143289344], dtype=torch.int32,
+                       device=bm.device).view(torch.float32)  # -, + NaN
+    bm[0, first[3]], bw[0, first[3]] = nan[0], 5.0
+    n = int((bw[1, :width] > 0).sum())
+    bm[1, max(n - 1, 0)], bw[1, max(n - 1, 0)] = nan[1], 5.0
+
+
 def device_case(case, dev: str) -> list:
     """A SPILL_CASES-shaped entry's four planes, made on the device
     from a seed (host generation at these widths would take longer than
     the merges): a batch of ``runs`` packed, sorted weighted digests of
     K / runs slots side by side, as a mesh's gathered shards or a
-    fold's places arrive, or of unit samples."""
+    fold's places arrive, or of unit samples.  A label with ``_ties``
+    takes ``device_digests``' tie-heavy runs and ``with_odd_keys``."""
     import torch
     from veneur_tpu_torch.ops import tdigest
     label, rows, compression, state, k, runs, sorted_state = case
     cap = tdigest.capacity_for(compression)
     gen = torch.Generator(device=dev).manual_seed(len(label) * 1009)
-    digests = device_digests(gen, rows, cap, dev, zero=state == "zero")
+    ties = "_ties" in label
+    digests = device_digests(gen, rows, cap, dev, zero=state == "zero",
+                             ties=ties)
     if runs:
-        parts = [device_digests(gen, rows, k // runs, dev)
+        parts = [device_digests(gen, rows, k // runs, dev, ties=ties)
                  for _ in range(runs)]
         bm = torch.cat([r[0] for r in parts], dim=1)
         bw = torch.cat([r[1] for r in parts], dim=1)
+        if ties:
+            with_odd_keys(bm, bw, runs)
     else:
         bw = (torch.rand((rows, k), generator=gen, device=dev)
               < 0.8).float()
@@ -703,10 +757,48 @@ def device_case(case, dev: str) -> list:
     return [digests[0].contiguous(), digests[1].contiguous(), bm, bw]
 
 
+def runs_twin(label: str, a: list, compression: float) -> dict:
+    """A batch of sorted runs through its route twice: merged by rank
+    (``cluster_merge``'s ``MAX_RUNS``) and with the long sort in its
+    place (``max_runs=0``), equal bit for bit; both timed beside the
+    bound (the long sort 3 x 3 on the spill route), and there the rows
+    that did not fit on chip counted."""
+    import torch
+    from veneur_tpu_torch.ops import cluster_merge as cm
+    rows, cap = a[0].shape
+    k = a[2].shape[1]
+    way = cm.route(cap, k)
+    kw = merge_kw(compression)
+    spilled = torch.zeros(1, dtype=torch.int32, device=a[0].device)
+    runs = cm._launch(way, *a, **kw,
+                      spilled=spilled if way == "spill" else None)
+    long_sort = cm._launch(way, *a, **kw, max_runs=0)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+              for x, y in zip(runs, long_sort)),
+          f"{label}: the runs merge and the long sort differ")
+    n = SPILL_PLAIN_RUNS if way == "spill" else 10
+    res = {"phase": "runs_vs_long_sort", "case": label, "rows": rows,
+           "cap": cap, "k": k, "route": way, "bit_equal": True,
+           "runs_ms": cuda_ms(lambda: cm._launch(way, *a, **kw)),
+           "long_sort_ms": cuda_ms(
+               lambda: cm._launch(way, *a, **kw, max_runs=0), runs=n,
+               reps=n),
+           "long_sort_timing": f"median of {n} x {n}",
+           "bound_ms": merge_bound_ms(rows, cap, k)[0]}
+    if way == "spill":
+        res["rows_in_global_memory"] = int(spilled)
+        res["spill_room"] = cm.spill_room()
+    emit(res)
+    del runs, long_sort
+    return res
+
+
 def phase_device_cases(cases, dev: str = "cuda") -> dict:
     """Phase 2 on device-made inputs (``device_case``): each case held
     to ``cluster_merge_plain`` and timed as every phase 2 case is, the
-    plain version of wide work 3 x 3."""
+    plain version of wide work 3 x 3; a union of sorted runs also
+    against the long sort (``runs_twin``)."""
     import torch
     out = {}
     for case in cases:
@@ -716,6 +808,8 @@ def phase_device_cases(cases, dev: str = "cuda") -> dict:
             label, a, compression, sorted_state, runs > 0,
             plain_runs=plain_runs_for(a[0].shape[0], a[0].shape[1],
                                       a[2].shape[1]))
+        if runs > 1:
+            out[label]["runs_twin"] = runs_twin(label, a, compression)
         del a
         torch.cuda.empty_cache()
     return out
@@ -725,7 +819,9 @@ def phase_spill_merge(dev: str = "cuda") -> dict:
     """The spill route in phase 2: rows past one CTA's shared memory go
     through ``cluster_merge``'s dispatch to the kernel's spill route,
     counted as ``cluster_merge.spill`` and on no other route, each held
-    to ``cluster_merge_plain`` as every phase 2 case is; then a width
+    to ``cluster_merge_plain`` as every phase 2 case is, a batch of
+    sorted runs also against the long sort (``runs_twin``); the
+    tie-heavy runs cases (``RUNS_TIE_CASES``) likewise; then a width
     one CTA holds through both the wide and the spill route (the
     private launch entry), bit-equal, each timed."""
     import torch
@@ -747,6 +843,18 @@ def phase_spill_merge(dev: str = "cuda") -> dict:
               after.get("cluster_merge.spill", 0) >
               before.get("cluster_merge.spill", 0),
               f"{label}: the merge did not take the spill route alone")
+        if runs > 1:
+            out[label]["runs_twin"] = runs_twin(label, a, compression)
+        del a
+        torch.cuda.empty_cache()
+    for case in RUNS_TIE_CASES:
+        label, _, compression, _, _, runs, sorted_state = case
+        a = device_case(case, dev)
+        out[label] = hold_to_plain(label, [x[2:] for x in a], compression,
+                                   sorted_state, True,
+                                   plain_runs=SPILL_PLAIN_RUNS,
+                                   sort_context=False)
+        out[label]["runs_twin"] = runs_twin(label, a, compression)
         del a
         torch.cuda.empty_cache()
     label, rows, compression, *_ = SPILL_TWIN
@@ -765,7 +873,8 @@ def phase_spill_merge(dev: str = "cuda") -> dict:
            "spill_ms": cuda_ms(lambda: cm._launch("spill", *a, **kw)),
            "bound_ms": merge_bound_ms(rows, cap, k)[0],
            "row_bytes": cm.row_bytes(cap, k),
-           "max_dyn_bytes": cm.max_dyn_bytes()}
+           "max_dyn_bytes": cm.max_dyn_bytes(),
+           "spill_room": cm.spill_room()}
     emit(res)
     out[label] = res
     return out
@@ -6662,7 +6771,13 @@ def main() -> int:
         "rows": sp["rows"], "k": sp["k"],
         "spill": {label: ({key: r[key] for key in keys} if "ms" in r
                           else r)
-                  for label, r in spill.items()}}]})
+                  for label, r in spill.items()},
+        "runs_vs_long_sort": {
+            label: {key: r["runs_twin"][key]
+                    for key in ("route", "runs_ms", "long_sort_ms",
+                                "bound_ms")}
+            for label, r in {**spill, **kern}.items()
+            if "runs_twin" in r}}]})
     check("jax" not in sys.modules, "something imported jax")
     check(not any(m.startswith("veneur_tpu.") for m in sys.modules),
           "something imported the JAX package")

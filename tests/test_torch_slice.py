@@ -914,12 +914,19 @@ mesh.shutdown()
 coll = MetricTable(TableConfig(histo_rows=8, collective_import="on"),
                    device="cpu", places=["cpu"] * 2)
 assert coll._collective_wire_fold().n_shard == 2
-left = [t.name for t in threading.enumerate()
-        if t.name.startswith(("proxy-dest-", "discovery-refresh",
-                              "checkpointer", "sink-flush-",
-                              "flush-pool", "collective-exchange-",
-                              "sentry"))
-        and t.is_alive()]
+def left_threads():
+    return [t.name for t in threading.enumerate()
+            if t.name.startswith(("proxy-dest-", "discovery-refresh",
+                                  "checkpointer", "sink-flush-",
+                                  "flush-pool", "collective-exchange-",
+                                  "sentry"))
+            and t.is_alive()]
+# shutdown stops the flush pool without waiting: its idle workers take
+# the wake-up and end a moment later
+deadline = time.monotonic() + 10
+while left_threads() and time.monotonic() < deadline:
+    time.sleep(0.01)
+left = left_threads()
 assert not left, left
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib",

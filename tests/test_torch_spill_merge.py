@@ -3,7 +3,8 @@
 A merge row takes ``row_bytes(C, K)`` of working set.  Where that fits
 one CTA's dynamic shared memory the kernel holds the row there (the
 ``kernel`` and ``wide`` routes); past it, on the ``spill`` route, the
-same body runs over a scratch slice in global memory (counted as
+same body runs on the row's live slots compacted into shared memory, or
+over a scratch slice in global memory where they do not fit (counted as
 ``cluster_merge.spill``).  The reference never refuses a width: past
 its Pallas bound it takes its XLA sort + scatter merge.  So on the CPU
 the port is held to the JAX package where the spill route's widths

@@ -1,12 +1,16 @@
 """Count the slots whose t-digest cluster id differs from the XLA
 merge's, for the port's k and for the Pallas kernel's, over the
 generators ``chip_smoke.py`` phase 2 runs (its five cases from
-``default_rng(7)``, in order) and three weighted (forwarded-wire) cases.
+``default_rng(7)``, in order), four weighted (forwarded-wire) cases
+and compression 2500's (C = 15,112) unit batch, where the reference
+has no Pallas kernel (its count is null) and the XLA k's own flips
+against the same k in float64 stand beside the port's.
 
     JAX_PLATFORMS=cpu python tests/ulp_flip_counts.py
 
 Runs on the CPU; prints one JSON line a case:
-``{"case", "rows", "k", "live_slots", "port_vs_xla", "pallas_vs_xla"}``.
+``{"case", "rows", "k", "live_slots", "port_vs_xla", "pallas_vs_xla",
+"port_vs_f64", "xla_vs_f64"}``.
 The ids are ``floor(k)`` of each live slot of the sorted union under one
 shared order and q (``test_torch_kernels._flip_counts``); the test
 ``test_port_flips_no_more_clusters_than_the_pallas_kernel`` holds the
@@ -41,18 +45,25 @@ def main() -> None:
             case[1] = np.take_along_axis(case[1], perm, 1)
         if label.endswith("_subnormal"):
             case = chip_smoke.with_subnormals(case)
-        cases.append((label, rows, k, case))
-    for seed, rows, k in ((2, 6144, 48), (0, 6144, 48), (0, 16384, 512)):
+        cases.append((label, rows, k, case, 100.0))
+    for seed, rows, k in ((2, 6144, 48), (0, 6144, 48), (0, 16384, 512),
+                          (0, 4096, 8)):
         cases.append((f"weighted_rng{seed}", rows, k, chip_smoke.random_case(
-            np.random.default_rng(seed), rows, cap, k, weighted=True)))
-    for label, rows, k, case in cases:
-        ww, (it, ix, ip) = _flip_counts(case)
+            np.random.default_rng(seed), rows, cap, k, weighted=True), 100.0))
+    c2500 = tdigest.capacity_for(2500.0)
+    cases.append(("c2500_unit_rng7", 1024, 512, chip_smoke.random_case(
+        np.random.default_rng(7), 1024, c2500, 512), 2500.0))
+    for label, rows, k, case, comp in cases:
+        ww, (it, ix, ip, ie), _ = _flip_counts(case, comp)
         live = ww > 0
         print(json.dumps({
             "case": label, "rows": rows, "k": k,
             "live_slots": int(live.sum()),
             "port_vs_xla": int(((it != ix) & live).sum()),
-            "pallas_vs_xla": int(((ip != ix) & live).sum())}), flush=True)
+            "pallas_vs_xla": (None if ip is None else
+                              int(((ip != ix) & live).sum())),
+            "port_vs_f64": int(((it != ie) & live).sum()),
+            "xla_vs_f64": int(((ix != ie) & live).sum())}), flush=True)
 
 
 if __name__ == "__main__":

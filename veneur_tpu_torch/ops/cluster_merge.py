@@ -18,12 +18,15 @@ ids clipped to the capacity, weighted per-cluster means).
   runs the Pallas kernel inside 2048 lanes and its XLA merge past them)
   picks ``"kernel"``; past it a ``"wide"`` merge launches the same
   kernel with a wider row in shared memory and, for a segment past the
-  register sort, a shared-memory sort; a row past one CTA's shared
-  memory (``fits``: ``row_bytes`` against the card's limit, C + K near
-  12,000 on an H100) takes ``"spill"``: the same body over a scratch
-  slice in global memory that the wrapper allocates, one per CTA of a
-  grid that loops over the rows.  No width is refused but by device
-  memory.
+  register sort, a merge of its sorted runs (at most ``MAX_RUNS``) or
+  a shared-memory sort; a row past one CTA's shared memory (``fits``:
+  ``row_bytes`` against the card's limit, C + K near 12,000 on an H100)
+  takes ``"spill"``: a grid that loops over the rows, each row's live
+  slots compacted into shared memory and merged by the same body there,
+  then a second grid for the rows whose live slots do not fit
+  (``spill_room``), each merged over a scratch slice in global memory
+  that the wrapper allocates, one per CTA.  No width is refused but by
+  device memory.
 - ``cluster_merge_plain`` is the reference's scatter path in PyTorch:
   the CPU tests hold it against JAX, and the card holds the kernel
   against it.
@@ -60,6 +63,10 @@ from veneur_tpu_torch.observe.devicecost import REGISTRY
 from veneur_tpu_torch.ops.segment import ftz
 
 MAX_WIDTH = 2048    # the TPU kernel's pow2 width bound (``supported``)
+# the most sorted runs a segment past the register sort merges instead of
+# sorting (kMaxRuns in the C source): a mesh flush merge or a collective
+# fold's union arrives as one run a shard or place
+MAX_RUNS = 64
 _EPS = 1e-30
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -68,8 +75,11 @@ BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # no contracted multiply-adds: every route rounds each product and sum
 # as the plain version does, so two routes on one row agree bit for bit
-# (nvcc would contract the same source differently in each instance)
-BUILD_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false")
+# (nvcc would contract the same source differently in each instance);
+# the three kernels' optimisation runs on every core (the same code, in
+# about half the time on an H100 machine's eight cores)
+BUILD_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false",
+               "-split-compile=0")
 
 # the registry's launch counter of each route
 LAUNCH_NAMES = {"kernel": "cluster_merge", "wide": "cluster_merge.wide",
@@ -188,16 +198,19 @@ def bind(path) -> ctypes.CDLL:
     i = ctypes.c_int
     ll = ctypes.c_longlong
     fn = lib.cluster_merge_launch
-    fn.argtypes = [p, p, ll, p, p, ll, p, p, i, i, i, i, f, f, f, f, f, p]
+    fn.argtypes = [p, p, ll, p, p, ll, p, p, i, i, i, i, i, f, f, f, f, f,
+                   p]
     fn.restype = i
     lib.cluster_merge_max_dyn.argtypes = []
     lib.cluster_merge_max_dyn.restype = i
+    lib.cluster_merge_spill_room.argtypes = []
+    lib.cluster_merge_spill_room.restype = i
     grid = lib.cluster_merge_spill_grid
     grid.argtypes = [i]
     grid.restype = i
     spill = lib.cluster_merge_launch_spill
-    spill.argtypes = [p, p, ll, p, p, ll, p, p, i, i, i, i, p, i, ll, f,
-                      f, f, f, f, p]
+    spill.argtypes = [p, p, ll, p, p, ll, p, p, i, i, i, i, p, i, ll, p, p,
+                      i, f, f, f, f, f, p]
     spill.restype = i
     occ = lib.cluster_merge_occupancy
     occ.argtypes = [i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
@@ -243,6 +256,16 @@ def max_dyn_bytes() -> int:
     n = _load().cluster_merge_max_dyn()
     if n < 0:
         raise RuntimeError("cluster_merge shared-memory query failed")
+    return n
+
+
+def spill_room() -> int:
+    """Live slots one row may hold on chip on the spill route on the
+    current card (its CTA's dynamic shared memory, 16 bytes a slot); a
+    row with more merges in global memory."""
+    n = _load().cluster_merge_spill_room()
+    if n < 0:
+        raise RuntimeError("cluster_merge spill shared-memory query failed")
     return n
 
 
@@ -358,11 +381,23 @@ def cluster_merge(means: torch.Tensor, weights: torch.Tensor,
 def _launch(way: str, means: torch.Tensor, weights: torch.Tensor,
             new_means: torch.Tensor, new_weights: torch.Tensor, *,
             delta: float, tail_coeff: float, tail_q0: float,
-            tail_qmin: float) -> tuple[torch.Tensor, torch.Tensor]:
+            tail_qmin: float, max_runs: int = MAX_RUNS,
+            spilled: torch.Tensor | None = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel on route ``way`` on CUDA tensors and count
     the launch under its name.  ``cluster_merge`` takes the route
-    ``route`` names; a check may run one row width through two routes
-    (a row that fits one CTA runs on the spill route as well)."""
+    ``route`` names and ``MAX_RUNS``; a check may run one row width
+    through two routes (a row that fits one CTA runs on the spill route
+    as well), or with ``max_runs=0``, the long sort in place of every
+    runs merge (the same bits).  ``spilled``, an int32 CUDA tensor of
+    one element, gains the spill route's rows merged in global memory
+    (its second pass)."""
+    if not 0 <= max_runs <= MAX_RUNS:
+        raise ValueError(f"max_runs {max_runs} outside 0..{MAX_RUNS}")
+    if spilled is not None and (spilled.dtype != torch.int32 or
+                                spilled.numel() != 1 or
+                                spilled.device != means.device):
+        raise ValueError("spilled must be one int32 on the planes' device")
     dev = means.device
     num_rows, cap = means.shape
     k_in = new_means.shape[1]
@@ -397,16 +432,22 @@ def _launch(way: str, means: torch.Tensor, weights: torch.Tensor,
             grid = lib.cluster_merge_spill_grid(num_rows)
             if grid < 1:
                 raise RuntimeError("cluster_merge spill grid query failed")
-            # one slice of the row's working set per CTA, allocated on
-            # the caller's stream (the caching allocator reuses it only
+            # one slice of the row's working set per CTA of the second
+            # pass, and the list of rows it merges, allocated on the
+            # caller's stream (the caching allocator reuses them only
             # after this launch on that stream)
             ld = row_bytes(cap, k_in) // 4
             scratch = torch.empty((grid, ld), dtype=torch.float32,
                                   device=dev)
+            deferred = torch.empty(num_rows, dtype=torch.int32, device=dev)
+            count = torch.zeros(1, dtype=torch.int32, device=dev)
             rc = lib.cluster_merge_launch_spill(
-                *planes, scratch.data_ptr(), grid, ld, *tail, stream)
+                *planes, scratch.data_ptr(), grid, ld, deferred.data_ptr(),
+                count.data_ptr(), max_runs, *tail, stream)
+            if spilled is not None and rc == 0:
+                spilled += count
         else:
-            rc = lib.cluster_merge_launch(*planes, *tail, stream)
+            rc = lib.cluster_merge_launch(*planes, max_runs, *tail, stream)
     if rc != 0:
         raise RuntimeError(f"cluster_merge launch failed on the {way} "
                            f"route: CUDA error {rc}")
