@@ -638,6 +638,76 @@ def test_import_server_concurrent_senders(grpc_global):
         f"cc.{i}": float((i + 1) * n_threads * per) for i in range(20)}
 
 
+_IMPORT_SPANS = ("import.decode", "import.lock_wait", "import.apply",
+                 "import.hll")
+
+
+def test_import_spans_on_the_flush_record(grpc_global):
+    """N wires, then a flush: the record's ``span_ns`` holds the wires'
+    decode, lock wait, apply and, as they carry sets, the set loop
+    inside the apply, and the flush's ``flush.materialize``;
+    ``h2d.bytes`` is the device-cost registry's copied bytes over the
+    interval and its flush: the table's and the flush's own (the host
+    set plane); /debug/flushes serves both."""
+    srv, chan, cap = grpc_global
+    srv.flush_once()
+    h2d0 = srv.table.h2d_bytes
+    reg0 = srv.device_costs.totals()["h2d_bytes_total"]
+    for w in _wires(3, seed=4):
+        _send_metrics(srv, w)
+    srv.flush_once()
+    rec = srv.flush_ring.records()[-1]
+    assert srv.ledger.last().received["grpc-import"] > 0
+    assert all(rec.span_ns[k] > 0 for k in _IMPORT_SPANS)
+    assert rec.span_ns["import.hll"] <= rec.span_ns["import.apply"]
+    assert rec.span_ns["flush.materialize"] > 0
+    h2d = rec.counts["h2d.bytes"]
+    assert h2d == srv.device_costs.totals()["h2d_bytes_total"] - reg0
+    assert h2d >= srv.table.h2d_bytes - h2d0 > 0
+    base = f"http://127.0.0.1:{srv.http_port}/debug/flushes"
+    with urllib.request.urlopen(base + "?n=1", timeout=10) as r:
+        (last,) = json.loads(r.read())
+    assert last["span_ns"] == rec.span_ns
+    assert last["counts"] == rec.counts
+
+
+def test_wire_after_the_swap_lands_in_the_next_record(grpc_global):
+    """A wire applied once the flush's snapshot lock round has passed
+    (here: from inside the swap's second half) has its spans on the
+    next flush's record, where its ledger credit is, and on no other."""
+    srv, chan, cap = grpc_global
+    early = _wire([("early.a", 1.0), ("early.b", 2.0)])
+    late = _wire([("late.a", 3.0)])
+    _send_metrics(srv, early)
+    complete = srv.table.complete_swap
+    sent = []
+
+    def complete_then_send(pend):
+        if not sent:
+            t = threading.Thread(target=_send_metrics, args=(srv, late))
+            t.start()
+            t.join(timeout=30)
+            sent.append(not t.is_alive())
+        return complete(pend)
+
+    srv.table.complete_swap = complete_then_send
+    try:
+        srv.flush_once()
+    finally:
+        srv.table.complete_swap = complete
+    assert sent == [True]
+    first = srv.flush_ring.records()[-1]
+    assert first.span_ns["import.apply"] > 0
+    assert srv.ledger.last().received == {"grpc-import": 2}
+    srv.flush_once()
+    second = srv.flush_ring.records()[-1]
+    assert second.span_ns["import.apply"] > 0
+    assert srv.ledger.last().received["grpc-import"] == 1
+    srv.flush_once()
+    third = srv.flush_ring.records()[-1]
+    assert not any(k.startswith("import.") for k in third.span_ns)
+
+
 def test_local_global_chain_over_grpc():
     """A port local (UDP in, ``forward_use_grpc``) forwards to a port
     global's gRPC listener: the global flushes the percentile the JAX

@@ -15,6 +15,7 @@ throughout: these records are integer and string bookkeeping.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import threading
 
@@ -148,11 +149,185 @@ def test_flush_ring_as_reference():
                                 stages={"snapshot": i, "dispatch": 2 * i},
                                 readback_bytes=100 * i, trace_id=7 + i)
             ring.append(r)
-        return (json.loads(ring.to_json()), json.loads(ring.to_json(2)),
-                ring.stage_summary())
+        return json.loads(ring.to_json()), json.loads(ring.to_json(2))
     out = _both(run)
     assert out["torch"] == out["jax"]
     assert [r["seq"] for r in out["torch"][0]] == [3, 4, 5]
+
+
+def test_default_flush_record_has_no_span_keys():
+    """The host-span fields appear only when set: a default record's
+    JSON is the reference's."""
+    ref = jobs.FlushRecord(seq=3, trace_id=9).to_dict()
+    assert observe.FlushRecord(seq=3, trace_id=9).to_dict() == ref
+    rec = observe.FlushRecord(seq=3, trace_id=9, span_ns={"gc": 5},
+                              counts={"h2d.bytes": 8})
+    assert rec.to_dict() == dict(ref, span_ns={"gc": 5},
+                                 counts={"h2d.bytes": 8})
+
+
+def _cycle_record(tr, body):
+    """One cycle of ``tr`` that takes the open interval, after
+    ``body(cycle)``; returns its record."""
+    with tr.cycle() as cyc:
+        with cyc.stage("snapshot"):
+            cyc.take_interval()
+        body(cyc)
+    return tr.ring.records()[-1]
+
+
+def _tracer(registry=None):
+    return observe.FlushTracer(
+        ttrace.Client(ttrace.ChannelBackend(lambda s: None)),
+        observe.FlushRing(),
+        registry=registry or observe.DeviceCostRegistry())
+
+
+def test_gc_spans_in_their_interval():
+    """A collection inside an interval is time on the ``gc`` span of the
+    record that closes it; after ``stop_gc_spans`` none is recorded."""
+    import gc
+    tr = _tracer()
+    tr.start_gc_spans()
+    try:
+        gc.collect()
+        rec = _cycle_record(tr, lambda cyc: None)
+    finally:
+        tr.stop_gc_spans()
+    assert rec.span_ns["gc"] > 0
+    gc.collect()
+    rec = _cycle_record(tr, lambda cyc: None)
+    assert "gc" not in rec.span_ns
+
+
+def test_host_spans_bounded_and_late_adds_move_on():
+    """An interval's totals sum its adds, and the cycle's own
+    ``flush.materialize`` joins them on the record; an add to an
+    interval already taken lands in the one open.  A record holds one
+    total a span name, however many adds."""
+    tr = _tracer()
+    held = tr.interval
+    for _ in range(5000):
+        held.add({"x": 2})
+
+    def body(cyc):
+        with cyc.host_span("materialize"):
+            pass
+    rec = _cycle_record(tr, body)
+    assert rec.span_ns["x"] == 10000
+    assert rec.span_ns["flush.materialize"] > 0
+    assert set(rec.span_ns) == {"x", "flush.materialize"}
+    held.add({"late": 7})
+    rec = _cycle_record(tr, lambda cyc: None)
+    assert rec.span_ns == {"late": 7}
+
+
+def test_flush_record_h2d_bytes_is_the_registry_delta():
+    """``counts["h2d.bytes"]`` is the registry's host-to-device bytes
+    since the previous cycle: the copies noted before a launch, on any
+    thread; a cycle with none has no ``counts``."""
+    reg = observe.DeviceCostRegistry()
+    step = reg.instrument("t.step", lambda x: x + 1)
+    tr = _tracer(reg)
+
+    def copy(n):
+        reg.note_h2d(n)
+        step(torch.zeros(2))
+    copy(100)
+    t = threading.Thread(target=copy, args=(28,))
+    t.start()
+    t.join()
+    rec = _cycle_record(tr, lambda cyc: copy(8))
+    assert rec.counts == {"h2d.bytes": 136}
+    assert "counts" not in _cycle_record(tr, lambda cyc: None).to_dict()
+    copy(4)
+    assert _cycle_record(tr, lambda cyc: None).counts == {"h2d.bytes": 4}
+
+
+def test_host_spans_concurrent_adds_and_swaps():
+    """Writers on more threads than cores add while a flusher swaps
+    intervals: every add lands on exactly one record."""
+    import os
+    import sys
+    tr = _tracer()
+    n_threads, per = 2 * (os.cpu_count() or 2), 400
+    stop = threading.Event()
+    recs = []
+
+    def writer():
+        for _ in range(per):
+            tr.interval.add({"w": 1})
+
+    def flusher():
+        while not stop.is_set():
+            recs.append(_cycle_record(tr, lambda cyc: None))
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        f = threading.Thread(target=flusher)
+        f.start()
+        ws = [threading.Thread(target=writer) for _ in range(n_threads)]
+        for t in ws:
+            t.start()
+        for t in ws:
+            t.join(timeout=60)
+        stop.set()
+        f.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not f.is_alive() and not any(t.is_alive() for t in ws)
+    recs.append(_cycle_record(tr, lambda cyc: None))
+    assert sum(r.span_ns.get("w", 0) for r in recs) == n_threads * per
+
+
+def test_flush_stages_on_the_profiler_trace(tmp_path):
+    """Under a ``torch.profiler`` (CPU), each flush stage and
+    ``flush.materialize`` is a ``record_function`` range in the
+    exported trace: on the wall clock inside the record's flush, and
+    as long as the record's stage and span times to within 1 ms;
+    without a profiler no range is opened."""
+    from torch.profiler import ProfilerActivity, profile
+    from veneur_tpu_torch.core.config import read_config
+    from veneur_tpu_torch.core.server import Server
+    srv = Server(read_config(data={
+        "statsd_listen_addresses": [], "interval": "300s",
+        "hostname": "prof", "tpu_counter_rows": 64, "tpu_gauge_rows": 64,
+        "tpu_histo_rows": 64, "tpu_set_rows": 8}), device="cpu")
+    try:
+        srv.handle_packet(b"p.a:1|c\np.t:3|ms")
+        srv.flush_once()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            srv.handle_packet(b"p.a:2|c\np.t:4|ms")
+            srv.flush_once()
+        rec = srv.flush_ring.records()[-1]
+    finally:
+        srv.shutdown()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    doc = json.loads(path.read_text())
+    base = int(doc["baseTimeNanoseconds"])
+    got: dict = {}
+    for e in doc["traceEvents"]:
+        if (e.get("cat") == "user_annotation"
+                and e.get("name", "").startswith("flush.")):
+            t0 = base + round(float(e["ts"]) * 1e3)
+            got.setdefault(e["name"], []).append(
+                (t0, round(float(e["dur"]) * 1e3)))
+    want = {f"flush.{k}": v for k, v in rec.stages.items()
+            if k not in ("device_dispatch", "readback_sync")}
+    want["flush.materialize"] = rec.span_ns["flush.materialize"]
+    assert {"flush.snapshot", "flush.swap_apply", "flush.dispatch",
+            "flush.host_emit", "flush.sink_flush",
+            "flush.materialize"} <= set(want)
+    assert set(got) == set(want)
+    start = round(rec.start_unix * 1e9)
+    for name, ns in want.items():
+        assert abs(sum(d for _, d in got[name]) - ns) < 1_000_000, name
+        for t0, d in got[name]:
+            assert start - 1_000_000 < t0, name
+            assert t0 + d < start + rec.duration_ns + 1_000_000, name
+    assert isinstance(tracer.profiled("x"), contextlib.nullcontext)
 
 
 def test_trace_index_as_reference():

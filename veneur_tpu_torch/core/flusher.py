@@ -137,6 +137,16 @@ _union_host_plane = observe.instrument("flusher.hll_union_host_plane",
                                        hll.union)
 
 
+def _host_to(dev: torch.device, data) -> torch.Tensor:
+    """Host ``data`` (an array or a list) as a tensor on ``dev``; a copy
+    onto a card is noted in the device-cost registry's ``h2d_bytes``,
+    as the table's copies are (a flush record's ``h2d.bytes``)."""
+    t = torch.as_tensor(data)
+    if dev.type != "cpu":
+        observe.REGISTRY.note_h2d(t.numel() * t.element_size())
+    return t.to(dev)
+
+
 def _percentile_suffix(p: float, naming: str = "precise") -> str:
     """``.50percentile`` for 0.5; sub-percent quantiles keep their
     digits (``.999percentile``), the default "precise" naming.
@@ -325,7 +335,7 @@ class Flusher:
             if len(rows) * 2 >= plane.shape[0]:
                 devs[key] = plane
                 return
-            idx = torch.as_tensor(rows, device=plane.device)
+            idx = _host_to(plane.device, rows)
             devs[key + "_g"] = _gather_rows(plane, idx)
             expand.append((key + "_g", key, rows, tuple(plane.shape)))
 
@@ -349,7 +359,7 @@ class Flusher:
                 not self.is_local or "median" in self.aggregates or
                 any(snap.histo_meta[r].scope == dsd.SCOPE_LOCAL
                     for r in histo_rows))
-            qs = torch.tensor(all_pcts, dtype=torch.float32, device=dev)
+            qs = _host_to(dev, np.asarray(all_pcts, np.float32))
             stats, imp, means, weights = (
                 t.to(dev) for t in (snap.histo_stats,
                                     snap.histo_import_stats,
@@ -361,7 +371,7 @@ class Flusher:
                     snap, histo_rows, all_pcts, need_q, qs,
                     (stats, imp, means, weights), devs, pre, expand)
             elif len(histo_rows) * 2 < R:
-                idx = torch.as_tensor(histo_rows, device=dev)
+                idx = _host_to(dev, histo_rows)
                 if need_q:
                     st_g, comb_g, qvals_g = _histo_readout_rows(
                         stats, imp, means, weights, qs, idx,
@@ -392,7 +402,7 @@ class Flusher:
                                             always=True)]
                 pre["histo_fwd"] = fwd
                 if fwd:
-                    idx = torch.as_tensor(fwd, device=dev)
+                    idx = _host_to(dev, fwd)
                     devs["fwd_means"] = _gather_rows(means, idx)
                     devs["fwd_weights"] = _gather_rows(weights, idx)
 
@@ -432,7 +442,7 @@ class Flusher:
                         snap.hll_host_plane).to(dev))
                 if fwd:
                     devs["fwd_regs"] = _gather_rows(
-                        regs, torch.as_tensor(fwd, device=dev))
+                        regs, _host_to(dev, fwd))
                 if need_est:
                     devs["ests"] = hll.estimate(regs)
         return devs, pre, expand
@@ -454,7 +464,7 @@ class Flusher:
         R = stats.shape[0]
         shape5 = (R, segment.HISTO_STAT_COLS)
         if len(histo_rows) * 2 < R:
-            idx = torch.as_tensor(histo_rows, device=dev)
+            idx = _host_to(dev, histo_rows)
             st_g = _gather_rows(stats, idx)
             devs["stats_g"] = st_g
             devs["comb_g"] = _combine_stats(st_g, _gather_rows(imp, idx))
@@ -470,9 +480,8 @@ class Flusher:
             if len(wrows):
                 devs["qvals_w"] = _histo_quantiles_slots(
                     stats, imp, means, weights, qs,
-                    torch.as_tensor(wrows, device=dev),
-                    torch.as_tensor(ti.histo_slot[wrows].astype(np.int64),
-                                    device=dev),
+                    _host_to(dev, wrows),
+                    _host_to(dev, ti.histo_slot[wrows].astype(np.int64)),
                     method=self.quantile_interpolation)
                 expand.append(("qvals_w", "qvals", wrows,
                                (R, len(all_pcts))))
@@ -496,8 +505,7 @@ class Flusher:
         fwide = ti.histo_tier[np.asarray(fwd, np.int64)] != 0
         wf = np.asarray(fwd, np.int64)[fwide]
         if len(wf):
-            sidx = torch.as_tensor(ti.histo_slot[wf].astype(np.int64),
-                                   device=dev)
+            sidx = _host_to(dev, ti.histo_slot[wf].astype(np.int64))
             devs["fwd_means_w"] = _gather_rows(means, sidx)
             devs["fwd_weights_w"] = _gather_rows(weights, sidx)
 
@@ -560,8 +568,8 @@ class Flusher:
             mn[:len(sel)] = comb[rr, segment.STAT_MIN]
             mx[:len(sel)] = comb[rr, segment.STAT_MAX]
             cq = _quantile_fn(self.quantile_interpolation)(
-                *(torch.from_numpy(a).to(dev) for a in (cm, cw)), qs,
-                *(torch.from_numpy(a).to(dev) for a in (mn, mx)))
+                *(_host_to(dev, a) for a in (cm, cw)), qs,
+                *(_host_to(dev, a) for a in (mn, mx)))
             out[sel] = cq.cpu().numpy()[:len(sel)]
             lo = hi
         return out

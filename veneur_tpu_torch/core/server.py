@@ -409,6 +409,9 @@ class Server:
         self.flush_tracer = observe.FlushTracer(
             self.trace_client, self.flush_ring,
             registry=self.device_costs, index=self.trace_index)
+        # the collector's time from here to shutdown, on each flush
+        # record's span_ns["gc"] (/debug/flushes)
+        self.flush_tracer.start_gc_spans()
         # the sample-conservation ledger: ingest sites credit under
         # self.lock, the interval closes in the swap's lock round and
         # seals after the sinks (/debug/ledger)
@@ -1896,6 +1899,8 @@ class Server:
                     table_staged=swapped.ingested,
                     table_overflow=swapped.overflow,
                     kernel_drops=kdrops)
+                # the interval's host spans close with its ledger record
+                cyc.take_interval()
         if self.pipeline:
             with cyc.stage("swap_apply"):
                 snap = self.table.complete_swap(pend)
@@ -2033,7 +2038,10 @@ class Server:
         except Exception:
             log.exception("self-telemetry emission failed")
         if res.frame is not None:
-            res.metrics = res.frame.materialize() + res.metrics
+            # the return value's metric objects: the record's
+            # span_ns["flush.materialize"]
+            with cyc.host_span("materialize"):
+                res.metrics = res.frame.materialize() + res.metrics
             res.frame = None
         return res
 
@@ -3131,6 +3139,7 @@ class Server:
         if self._collective_fwd is not None:
             self._collective_fwd.stop()
         self._stop_profiling()
+        self.flush_tracer.stop_gc_spans()
         self.trace_client.close()
         self.span_worker.stop()
         if self.flight is not None:

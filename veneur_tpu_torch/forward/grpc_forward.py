@@ -25,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import logging
 import threading
+import time
 from concurrent import futures
 
 import grpc
@@ -535,12 +536,13 @@ def _resolve_rows(table: MetricTable, data: bytes,
     return rows
 
 
-def apply_decoded(table: MetricTable, data: bytes,
-                  cols: dict) -> tuple[int, int]:
+def apply_decoded(table: MetricTable, data: bytes, cols: dict,
+                  span_ns: dict | None = None) -> tuple[int, int]:
     """The locked half: resolve rows through the caches and stage every
     value with vectorized batch appliers.  Value-level validity
     (finiteness, the HLL codec) is checked on every wire; only series
-    identity is cached.  Returns (accepted, dropped)."""
+    identity is cached.  ``span_ns`` (span name -> ns) gets the per-item
+    set loop's time as ``import.hll``.  Returns (accepted, dropped)."""
     nm = cols["n"]
     if nm == 0:
         return 0, 0
@@ -643,7 +645,9 @@ def apply_decoded(table: MetricTable, data: bytes,
 
     # sets: the HLL codec decode stays per item (value-level); row
     # resolution is cached
-    for i in np.nonzero(valid & (kind == 4))[0]:
+    sels = np.nonzero(valid & (kind == 4))[0]
+    t0 = time.monotonic_ns()
+    for i in sels:
         ho, hl = int(cols["hll_off"][i]), int(cols["hll_len"][i])
         try:
             regs = hll_codec.decode(data[ho:ho + hl])
@@ -652,6 +656,8 @@ def apply_decoded(table: MetricTable, data: bytes,
         except (ValueError, hll_codec.HLLCodecError) as e:
             log.warning("dropping bad gRPC import item: %s", e)
             dropped += 1
+    if span_ns is not None and len(sels):
+        span_ns["import.hll"] = time.monotonic_ns() - t0
     return accepted, dropped
 
 
@@ -739,22 +745,38 @@ class ImportServer:
         suffixed by the wire's flag; a recovery id seen before is
         counted deduped and never merged), and a wire carrying a trace
         context records the ``import`` span under the sender's forward
-        span."""
+        span.
+
+        The wire's host spans go to the interval whose ledger record
+        credits it (the one open when it took ``core.lock``), and so to
+        the ``span_ns`` of the flush record that closes it
+        (``/debug/flushes``): ``import.decode`` (outside the lock),
+        ``import.lock_wait`` (asking for the lock to holding it),
+        ``import.apply`` (held) and ``import.hll`` (the apply's per-item
+        set decode), each summed over the interval's wires."""
         core = self._core
         flags = decode_metadata(context.invocation_metadata())
         flagged = any(flags[k] for k in ("drain", "replay", "recovery",
                                          "handoff"))
+        t0 = time.monotonic_ns()
         cols = decode_metric_list(request)
+        span_ns = {"import.decode": time.monotonic_ns() - t0}
+        interval = None
 
         def apply():
             if cols is None:
                 return apply_metric_list(
                     core.table, forward_pb2.MetricList.FromString(request))
-            return apply_decoded(core.table, request, cols)
+            return apply_decoded(core.table, request, cols, span_ns)
         try:
+            t0 = time.monotonic_ns()
             with core.lock:
+                t1 = time.monotonic_ns()
+                interval = core.flush_tracer.interval
                 acc, dropped, deduped = core.apply_import_locked(
                     "grpc-import", flags, apply)
+                span_ns["import.lock_wait"] = t1 - t0
+                span_ns["import.apply"] = time.monotonic_ns() - t1
                 work = (None if deduped
                         else core._maybe_device_step_locked())
             if deduped:
@@ -772,6 +794,8 @@ class ImportServer:
             core.bump("import_errors")
             context.abort(grpc.StatusCode.INVALID_ARGUMENT,
                           f"malformed MetricList: {e}")
+        finally:
+            (interval or core.flush_tracer.interval).add(span_ns)
         return empty_pb2.Empty()
 
     def _send_span(self, request, context):

@@ -13,7 +13,9 @@ veneur traces its own flushes (flusher.go:29
     bytes, tallies) in a bounded ring, served at ``/debug/flushes``.
 ``tracer``     — the flush cycle's nested SSF span tree (snapshot ->
     dispatch -> device wait -> host emit -> sink flush -> forward),
-    emitted through the server's own loopback trace client.
+    emitted through the server's own loopback trace client, and the
+    interval's host span totals (the gRPC import's, the collector's,
+    the flush's return-value build), kept on its flush record.
 ``profiler``   — on-demand ``torch.profiler`` captures for
     ``/debug/pprof/device?seconds=N``.
 ``ledger``     — per-interval sample-conservation ledger: every hot

@@ -7,6 +7,13 @@ times, readback bytes, emit/forward counts, the interval's tally, and
 the compile delta.  The last 128 live in a ``FlushRing`` served as
 JSON at ``/debug/flushes`` — the evidence an operator (or a perf PR)
 reads to attribute a slow interval to a STAGE instead of a total.
+
+The port's records also carry the closed interval's host spans
+(``observe/tracer.py``): ``span_ns`` (span name -> total ns:
+``import.decode``, ``import.lock_wait``, ``import.apply``,
+``import.hll``, ``gc``, ``flush.materialize``) and ``counts``
+(``h2d.bytes``).  Each appears in the JSON only when set, so a record
+without them reads as the reference's.
 """
 
 from __future__ import annotations
@@ -35,18 +42,26 @@ class FlushRecord:
     # trace id of the cycle's span tree — the /debug/flushes ->
     # /debug/trace/<id> link (string in JSON: ids are 63-bit)
     trace_id: int = 0
+    # the closed interval's host spans (name -> total ns) and counts
+    span_ns: dict[str, int] = field(default_factory=dict)
+    counts: dict[str, int] = field(default_factory=dict)
 
     def to_dict(self) -> dict:
-        return {"seq": self.seq, "start_unix": self.start_unix,
-                "duration_ns": self.duration_ns,
-                "stages_ns": dict(self.stages),
-                "readback_bytes": self.readback_bytes,
-                "metrics_emitted": self.metrics_emitted,
-                "forward_rows": self.forward_rows,
-                "tally": dict(self.tally),
-                "compiles": self.compiles,
-                "error": self.error,
-                "trace_id": str(self.trace_id)}
+        d = {"seq": self.seq, "start_unix": self.start_unix,
+             "duration_ns": self.duration_ns,
+             "stages_ns": dict(self.stages),
+             "readback_bytes": self.readback_bytes,
+             "metrics_emitted": self.metrics_emitted,
+             "forward_rows": self.forward_rows,
+             "tally": dict(self.tally),
+             "compiles": self.compiles,
+             "error": self.error,
+             "trace_id": str(self.trace_id)}
+        if self.span_ns:
+            d["span_ns"] = dict(self.span_ns)
+        if self.counts:
+            d["counts"] = dict(self.counts)
+        return d
 
 
 class FlushRing:
@@ -79,24 +94,3 @@ class FlushRing:
             recs = recs[-limit:]
         return json.dumps([r.to_dict() for r in recs],
                           indent=1).encode()
-
-    def stage_summary(self) -> dict:
-        """Aggregate per-stage timings across the retained records —
-        what bench.py stamps into its artifacts so the perf
-        trajectory attributes a regression to a stage."""
-        recs = self.records()
-        out: dict = {"cycles": len(recs)}
-        if not recs:
-            return out
-        stages: dict[str, list[int]] = {}
-        for r in recs:
-            for name, ns in r.stages.items():
-                stages.setdefault(name, []).append(ns)
-        out["stages_ns"] = {
-            name: {"mean": int(sum(v) / len(v)), "max": max(v),
-                   "last": v[-1], "count": len(v)}
-            for name, v in stages.items()}
-        out["readback_bytes_mean"] = int(
-            sum(r.readback_bytes for r in recs) / len(recs))
-        out["compiles_total"] = sum(r.compiles for r in recs)
-        return out

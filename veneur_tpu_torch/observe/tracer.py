@@ -31,16 +31,89 @@ cycle also fills a ``FlushRecord`` for the ``/debug/flushes`` ring.
 ``NULL_CYCLE`` is the no-tracer stand-in for direct ``Flusher.flush``
 callers (tests, benches): stages are free, but readback accounting
 still reaches the device-cost registry.
+
+Host spans.  Besides the stage tree, the tracer keeps the open
+interval's host span totals (``HostSpans``: span name -> ns), which any
+thread adds to: the gRPC import's ``import.decode``, ``import.lock_wait``,
+``import.apply`` and ``import.hll`` (summed over its wires, thread time)
+and the collector's ``gc`` (every collection, ``start_gc_spans``).  The
+flush takes the interval in its snapshot lock round
+(``FlushCycle.take_interval``), the round the ledger closes it in, and
+when the cycle ends writes it onto its ``FlushRecord`` as ``span_ns``,
+with the cycle's own ``flush.materialize`` (``FlushCycle.host_span``),
+and ``counts["h2d.bytes"]``, the registry's host-to-device bytes since
+the previous cycle.  ``/debug/flushes`` serves both.  While a
+``torch.profiler`` runs, each stage and ``flush.materialize`` also open
+a ``record_function`` named ``flush.<name>``, so the flush's stages name
+its stretches of the device trace (whose clock is the wall clock).
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
 import time
+import weakref
+
+import torch
 
 from veneur_tpu_torch.observe.devicecost import REGISTRY
 from veneur_tpu_torch.observe.flushring import FlushRecord, FlushRing
+
+
+def profiled(name: str):
+    """``torch.profiler.record_function(name)`` while a profiler runs in
+    this process, so the range lands in its trace; otherwise a no-op
+    that costs one attribute read."""
+    if getattr(torch.autograd.profiler, "_is_profiler_enabled", False):
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
+
+
+def _add(into: dict, items) -> None:
+    for k, v in items:
+        into[k] = into.get(k, 0) + v
+
+
+class HostSpans:
+    """One interval's host span totals (name -> ns); any thread adds to
+    it.  The flush that closes the interval closes it; an add after
+    that lands in the tracer's interval then open (or is dropped
+    without a tracer)."""
+
+    def __init__(self, tracer: "FlushTracer | None" = None):
+        self._tracer = tracer
+        self._lock = threading.Lock()
+        self._closed = False
+        self.span_ns: dict[str, int] = {}
+
+    def add(self, span_ns: dict) -> None:
+        with self._lock:
+            if not self._closed:
+                _add(self.span_ns, span_ns.items())
+                return
+        if self._tracer is not None:
+            self._tracer.interval.add(span_ns)
+
+    def close(self) -> dict:
+        """No more adds; returns the totals."""
+        with self._lock:
+            self._closed = True
+            return self.span_ns
+
+
+class _GcHook:
+    """The ``gc.callbacks`` entry of one tracer, holding it weakly: a
+    server never shut down leaves only this no-op behind."""
+
+    def __init__(self, tracer: "FlushTracer"):
+        self._ref = weakref.ref(tracer)
+
+    def __call__(self, phase: str, info: dict) -> None:
+        tr = self._ref()
+        if tr is not None:
+            tr._on_gc(phase)
 
 
 class _NullSpan:
@@ -84,13 +157,16 @@ NULL_CYCLE = NullCycle()
 
 class FlushCycle:
     def __init__(self, root, client, record: FlushRecord, registry,
-                 index=None):
+                 index=None, tracer: "FlushTracer | None" = None):
         self.root = root
         self._client = client
         self.record = record
         self._registry = registry
         self._index = index
         self._lock = threading.Lock()
+        self._tracer = tracer
+        # the interval this cycle closes (``take_interval``)
+        self.interval: HostSpans | None = None
 
     def wire_context(self, span=None) -> tuple[int, int]:
         """(trace_id, span_id) to stamp onto a forward wire so the
@@ -112,7 +188,8 @@ class FlushCycle:
         sp.add_tag("veneur.internal", "true")
         t0 = time.monotonic_ns()
         try:
-            yield sp
+            with profiled(f"flush.{name}"):
+                yield sp
         except BaseException as e:
             sp.set_error(e)
             raise
@@ -127,6 +204,34 @@ class FlushCycle:
             sp.finish(self._client)
             if self._index is not None:
                 self._index.add(sp.proto)
+
+    @contextlib.contextmanager
+    def host_span(self, name: str):
+        """Time host work inside the cycle that is not a stage (no SSF
+        span, no ``stages`` entry) into the record's
+        ``span_ns["flush.<name>"]``."""
+        t0 = time.monotonic_ns()
+        try:
+            with profiled(f"flush.{name}"):
+                yield
+        finally:
+            dt = time.monotonic_ns() - t0
+            with self._lock:
+                _add(self.record.span_ns, ((f"flush.{name}", dt),))
+
+    def take_interval(self) -> None:
+        """Close the open interval's host spans onto this cycle's
+        record; called in the lock round that closes the ledger's
+        interval, so a wire's spans land with its ledger credit."""
+        if self._tracer is not None:
+            self.interval = self._tracer.swap_interval()
+
+    def close(self) -> None:
+        """Add the taken interval's span totals to the record."""
+        if self.interval is not None:
+            totals = self.interval.close()
+            with self._lock:
+                _add(self.record.span_ns, totals.items())
 
     def child(self, parent, name: str, tags=None):
         """A live child span under ``parent`` (a stage span), for
@@ -162,6 +267,47 @@ class FlushTracer:
         self.registry = registry or REGISTRY
         self.service = service
         self.index = index
+        self._interval_lock = threading.Lock()
+        # the open interval's host spans (swapped out by each flush)
+        self.interval = HostSpans(self)
+        # the collector's ns in all and at the last swap: the gc
+        # callback writes them and takes no lock (it may run on a
+        # thread that holds one)
+        self._gc_hook: _GcHook | None = None
+        self._gc_t0 = 0
+        self._gc_ns = 0
+        self._gc_taken = 0
+        # the registry's host-to-device bytes at the last cycle's end
+        self._h2d_seen = self.registry.totals()["h2d_bytes_total"]
+
+    def swap_interval(self) -> HostSpans:
+        """Open a new interval; return the one it replaces, with the
+        collector's ns since the last swap as its ``gc``."""
+        with self._interval_lock:
+            old, self.interval = self.interval, HostSpans(self)
+            now = self._gc_ns
+            ns, self._gc_taken = now - self._gc_taken, now
+        if ns:
+            old.add({"gc": ns})
+        return old
+
+    def start_gc_spans(self) -> None:
+        """Time every cyclic collection of the interpreter into the
+        interval's ``gc`` span."""
+        if self._gc_hook is None:
+            self._gc_hook = _GcHook(self)
+            gc.callbacks.append(self._gc_hook)
+
+    def stop_gc_spans(self) -> None:
+        if self._gc_hook is not None:
+            gc.callbacks.remove(self._gc_hook)
+            self._gc_hook = None
+
+    def _on_gc(self, phase: str) -> None:
+        if phase == "start":
+            self._gc_t0 = time.monotonic_ns()
+        else:
+            self._gc_ns += time.monotonic_ns() - self._gc_t0
 
     @contextlib.contextmanager
     def cycle(self):
@@ -175,7 +321,7 @@ class FlushTracer:
                     tags={"veneur.internal": "true"})
         record.trace_id = root.trace_id
         cyc = FlushCycle(root, self.client, record, self.registry,
-                         index=self.index)
+                         index=self.index, tracer=self)
         compiles0 = self.registry.totals()["compile_total"]
         t0 = time.monotonic_ns()
         try:
@@ -186,8 +332,13 @@ class FlushTracer:
             raise
         finally:
             record.duration_ns = time.monotonic_ns() - t0
-            record.compiles = (self.registry.totals()["compile_total"]
-                               - compiles0)
+            totals = self.registry.totals()
+            record.compiles = totals["compile_total"] - compiles0
+            h2d = totals["h2d_bytes_total"]
+            if h2d != self._h2d_seen:
+                record.counts["h2d.bytes"] = h2d - self._h2d_seen
+                self._h2d_seen = h2d
+            cyc.close()
             root.add_tag("flush.seq", str(record.seq))
             root.finish(self.client)
             if self.index is not None:
