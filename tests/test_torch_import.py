@@ -676,3 +676,148 @@ def test_import_subnormals_flush_as_jax(path):
     assert tm[("ic", ())].value == 0.0
     assert tm[("ig", ())].value == float(np.float32(1e-40))
     assert tm[("h1.99percentile", ())].value == 0.0
+
+
+# ---- the gRPC import's native HLL sketch fold -----------------------------
+
+def _codec_apply(table, data: bytes) -> tuple[int, int]:
+    """The per-item oracle of ``apply_decoded``'s set fold: every set
+    item through ``hll_codec.decode`` and ``import_set_at``."""
+    from veneur_tpu_torch.forward import grpc_forward as gf
+    cols = gf.decode_metric_list(data)
+    rows = gf._resolve_rows(table, data, cols)
+    acc = drop = 0
+    for i in range(cols["n"]):
+        ho, hl = int(cols["hll_off"][i]), int(cols["hll_len"][i])
+        if rows[i] < 0:
+            drop += 1
+            continue
+        try:
+            table.import_set_at(int(rows[i]),
+                                hll_codec.decode(data[ho:ho + hl]))
+            acc += 1
+        except ValueError:
+            drop += 1
+    return acc, drop
+
+
+def _fold_cases():
+    from tests import hll_sketches as hs
+    rng = np.random.default_rng(21)
+
+    def regs(hi=16):
+        return rng.integers(0, hi, hll.M)
+
+    keys = hs.sparse_keys([f"u{i}".encode() for i in range(300)])
+    bad = hs.malformed(rng)
+    return {
+        "dense_b0": [("d0", hs.dense(regs())), ("d1", hs.dense(regs(4)))],
+        "dense_base": [("d0", hs.dense(regs(), b=7)),
+                       ("d1", hs.dense(regs(), b=250)),
+                       ("d2", hs.dense(np.full(hll.M, 15), b=255))],
+        "sparse_tmpset": [("s0", hs.sparse(keys[:40], []))],
+        "sparse_list": [("s0", hs.sparse([], keys[:200]))],
+        "sparse_both": [("s0", hs.sparse(keys[::2], keys[1::2])),
+                        ("s1", hs.sparse([], []))],
+        "repeated_row": [("r", hs.dense(regs(), b=3)),
+                         ("r", hs.sparse(keys[:50], keys[50:])),
+                         ("other", hs.dense(regs())),
+                         ("r", hs.dense(regs(), b=1))],
+        "mixed": [("a", hs.dense(regs())), ("b", hs.sparse(keys[:9], [])),
+                  ("c", bad["short"]), ("a", hs.sparse([], keys)),
+                  ("d", hs.dense(regs(), form=2))],
+        "malformed": [(f"bad.{k}", v) for k, v in bad.items()] +
+                     [("good", hs.dense(regs()))],
+        "form_byte": [("f2", hs.dense(regs(), b=4, form=2)),
+                      ("f255", hs.dense(regs(), form=255)),
+                      ("f2short", hs.dense(regs(), form=2)[:-3])],
+    }
+
+
+_FOLD_CASES = _fold_cases()
+
+
+@pytest.mark.parametrize("case", sorted(_FOLD_CASES))
+def test_grpc_set_fold_matches_codec_path(case):
+    """``apply_decoded``'s native set fold against the per-item codec
+    path on the same wire, twice over (the second wire folds onto the
+    first; its sketches classified in the apply, as a caller of
+    ``decode_metric_list`` alone has them): the same import plane
+    bytes, touched flags, row generations, staged and ingested counts,
+    and (accepted, dropped); a malformed sketch's row stays untouched,
+    and each wire's ``counts`` split its sketches native / codec."""
+    from tests import hll_sketches as hs
+    from veneur_tpu_torch.forward import grpc_forward as gf
+    items = _FOLD_CASES[case]
+    wire = hs.set_wire(items)
+    cfg = TableConfig(**dict(_GLOBAL, set_rows=64))
+    fast = MetricTable(cfg, device="cpu")
+    slow = MetricTable(cfg, device="cpu")
+    n_bad = sum(1 for _, sk in items if _codec_raises(sk))
+    assert "hll" not in gf.decode_metric_list(wire)
+    for decode in (gf.decode_import, gf.decode_metric_list):
+        counts = {}
+        got = gf.apply_decoded(fast, wire, decode(wire), counts=counts)
+        assert got == _codec_apply(slow, wire)
+        assert got == (len(items) - n_bad, n_bad)
+        assert counts == {"import.hll_native": len(items) - n_bad,
+                          "import.hll_codec": n_bad}
+    np.testing.assert_array_equal(fast._set_import_plane,
+                                  slow._set_import_plane)
+    np.testing.assert_array_equal(fast._set_import_touched,
+                                  slow._set_import_touched)
+    np.testing.assert_array_equal(fast.set_idx.touched, slow.set_idx.touched)
+    np.testing.assert_array_equal(fast.set_idx.last_gen,
+                                  slow.set_idx.last_gen)
+    assert fast._staged_n == slow._staged_n
+    assert fast._interval_ingested == slow._interval_ingested
+    for name in {n for n, sk in items if _codec_raises(sk)}:
+        if all(_codec_raises(sk) for n, sk in items if n == name):
+            row = fast.import_set_row(name, ())
+            assert not fast._set_import_touched[row]
+            assert not fast._set_import_plane[row].any()
+
+
+def _codec_raises(sk: bytes) -> bool:
+    try:
+        hll_codec.decode(sk)
+    except ValueError:
+        return True
+    return False
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_grpc_set_import_matches_jax(seed):
+    """gRPC wires whose set items carry dense (several bases), sparse
+    and malformed sketches next to a local's real forward rows, into a
+    port global and a JAX global: the same (accepted, dropped) per
+    wire, then the same flush, set cardinalities exactly."""
+    from tests import hll_sketches as hs
+    from veneur_tpu.forward import grpc_forward as jgf
+    from veneur_tpu_torch.forward import grpc_forward as gf
+    rng = np.random.default_rng(seed)
+    keys = hs.sparse_keys([f"x{i}".encode() for i in range(500)])
+    bad = hs.malformed(rng)
+    sets = [("sd", hs.dense(rng.integers(0, 12, hll.M), b=2)),
+            ("ss", hs.sparse(keys[::3], keys[1::3])),
+            ("sd", hs.sparse([], keys[2::3])),
+            ("st", hs.sparse(keys[:30], []))]
+    sizes = dict(_GLOBAL, set_rows=32)
+    jt = JTable(JConfig(**sizes))
+    tt = MetricTable(TableConfig(**sizes), device="cpu")
+    names = sorted(bad)
+    for w in range(3):
+        tr, _ = _local_flush(_local_lines(rng))
+        wire = gf.rows_to_metric_list(tr.forward).SerializeToString()
+        extra = sets + [(f"bad.{k}", bad[k]) for k in names[w::3]]
+        wire += hs.set_wire([extra[i] for i in rng.permutation(len(extra))])
+        got = gf.apply_metric_list_bytes(tt, wire)
+        assert got == jgf.apply_metric_list_bytes(jt, wire)
+        assert got[1] == len(names[w::3])
+    jr, tr = _global_flush(jt, True), _global_flush(tt, False)
+    _assert_same_flush(tr.metrics, jr.metrics)
+    vals = {m.name: m.value for m in tr.metrics}
+    assert {"sd", "ss", "st", "users0", "gset"} <= vals.keys()
+    assert min(vals[k] for k in ("sd", "ss", "st")) > 0
+    # a refused sketch's series resolved its row and holds nothing
+    assert all(v == 0 for k, v in vals.items() if k.startswith("bad."))

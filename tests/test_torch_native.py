@@ -860,3 +860,154 @@ def test_uring_parse_ingest_matches_jax_table():
         d + b"\n" for d in dgrams[:-1])
     assert any(c[2] for _m, c, _h, _p, _hc in outs), "slow-path lines"
     _assert_same_staging(tt, jt)
+
+
+# ---- the gRPC import's HLL sketch classify and fold -------------------
+
+_PAGE = 4096
+
+
+class _Guarded:
+    """A writable byte region between two PROT_NONE pages, so a native
+    read one byte outside it faults."""
+
+    def __init__(self, size: int):
+        import mmap
+        self.pages = -(-size // _PAGE)
+        self.mm = mmap.mmap(-1, (self.pages + 2) * _PAGE)
+        self._libc = ctypes.CDLL(None, use_errno=True)
+        self._libc.mprotect.argtypes = [ctypes.c_void_p, ctypes.c_size_t,
+                                        ctypes.c_int]
+        self.buf = np.frombuffer(self.mm, np.uint8)
+        self.base = self.buf.ctypes.data
+        for page in (0, self.pages + 1):
+            assert self._libc.mprotect(self.base + page * _PAGE, _PAGE,
+                                       0) == 0  # PROT_NONE
+
+    def place(self, data: bytes, at_end: bool) -> tuple[np.ndarray, int]:
+        """The usable region as an array, with ``data`` written flush
+        against its start or its end guard; returns (region, offset)."""
+        region = self.buf[_PAGE:(self.pages + 1) * _PAGE]
+        off = len(region) - len(data) if at_end else 0
+        region[off:off + len(data)] = np.frombuffer(data, np.uint8)
+        return region, off
+
+    def close(self):
+        """Guards back to read-write; the map goes with its last view."""
+        for page in (0, self.pages + 1):
+            self._libc.mprotect(self.base + page * _PAGE, _PAGE, 3)
+
+
+def _mutants(rng, n: int) -> list[bytes]:
+    """Seeded random sketches, valid and not: dense with random bases
+    and form bytes, sparse with random splits, and byte mutations of
+    both (truncations, one byte short among them, flipped bytes,
+    rewritten header and count words)."""
+    from tests import hll_sketches as hs
+    out = []
+    for i in range(n):
+        if i % 2:
+            keys = hs.sparse_keys([f"k{i}.{j}".encode()
+                                   for j in range(rng.integers(0, 400))])
+            cut = int(rng.integers(0, len(keys) + 1))
+            sk = bytearray(hs.sparse(keys[:cut], keys[cut:]))
+        else:
+            sk = bytearray(hs.dense(rng.integers(0, 16, hll.M),
+                                    b=int(rng.integers(0, 256)),
+                                    form=int(rng.choice([0, 0, 2, 255]))))
+        how = rng.integers(0, 6)
+        if how == 1 and len(sk):
+            sk = sk[:rng.integers(0, len(sk))]
+        elif how == 5 and len(sk):
+            sk = sk[:-1]  # one byte short: the edge of every bound
+        elif how == 2:
+            for p in rng.integers(0, len(sk), rng.integers(1, 4)):
+                sk[p] = rng.integers(0, 256)
+        elif how == 3 and len(sk) >= 8:
+            p = int(rng.integers(1, 4))
+            sk[p] = int(rng.choice([0, 1, 13, 14, 15, 255]))
+        elif how == 4 and len(sk) >= 8:
+            p = 4 * int(rng.integers(1, max(2, min(len(sk) // 4, 12))))
+            word = int(rng.choice([0, 1, 2, 0x2000, 0xFFFFFFFF,
+                                   rng.integers(0, 1 << 32)]))
+            sk[p:p + 4] = word.to_bytes(4, "big")
+        out.append(bytes(sk))
+    out += [bytes(rng.integers(0, 256, int(k), np.uint8))
+            for k in rng.integers(0, 64, 8)]
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_hll_classify_and_fold_against_codec(seed):
+    """vtpu_hll_classify and vtpu_hll_fold on seeded sketches and byte
+    mutations of them, each flush against a PROT_NONE page on either
+    side (a read outside ``[off, off + len)`` faults): the verdict is
+    the codec's (accepted iff ``hll_codec.decode`` returns), and an
+    accepted sketch's registers, folded into a zero row and into a
+    random one, equal the codec's decode and its max with that row."""
+    from veneur_tpu_torch.forward import hll_codec
+    rng = np.random.default_rng(seed)
+    sketches = _mutants(rng, 120)
+    guard = _Guarded(max(len(s) for s in sketches) + 16)
+    kind = np.full(1, 4, np.uint8)
+    verdicts = []
+    try:
+        for sk in sketches:
+            try:
+                want = hll_codec.decode(sk)
+            except ValueError:
+                want = None
+            verdicts.append(want is not None)
+            for at_end in (False, True):
+                region, off = guard.place(sk, at_end)
+                c = native.hll_classify(region, kind, [off], [len(sk)])
+                assert (c.status[0] != native.HLL_CODEC) == (
+                    want is not None), sk[:16]
+                if want is None:
+                    continue
+                assert c.status[0] == (native.HLL_SPARSE if sk[3] == 1
+                                       else native.HLL_DENSE)
+                plane = np.zeros((2, hll.M), np.uint8)
+                plane[1] = rng.integers(0, 80, hll.M)
+                base = plane[1].copy()
+                assert native.hll_fold(region, c, [0, 0], [0, 1],
+                                       plane) == 2
+                np.testing.assert_array_equal(plane[0], want)
+                np.testing.assert_array_equal(plane[1],
+                                              np.maximum(base, want))
+    finally:
+        guard.close()
+    assert 20 < sum(verdicts) < len(verdicts) - 20
+
+
+def test_hll_classify_wire_columns():
+    """Many items in one call: non-set kinds skip, out-of-buffer spans
+    go to the codec, sparse pairs of several sketches sit at their own
+    starts (the call repeats once the pairs outgrow its first guess),
+    and a codec item or a row outside the plane is never folded."""
+    from tests import hll_sketches as hs
+    rng = np.random.default_rng(4)
+    keys = hs.sparse_keys([f"w{i}".encode() for i in range(600)])
+    parts = [hs.sparse(keys[:50], keys[50:300]), hs.dense(
+        rng.integers(0, 16, hll.M), b=9), b"\x01\x0e", hs.sparse([],
+                                                            keys[300:])]
+    buf = np.frombuffer(b"".join(parts), np.uint8)
+    offs = np.cumsum([0] + [len(p) for p in parts[:-1]])
+    lens = [len(p) for p in parts]
+    kind = np.array([4, 4, 4, 4, 1, 4], np.uint8)
+    c = native.hll_classify(buf, kind, list(offs) + [0, len(buf) - 4],
+                            lens + [0, 8])
+    assert list(c.status) == [native.HLL_SPARSE, native.HLL_DENSE,
+                              native.HLL_CODEC, native.HLL_SPARSE,
+                              native.HLL_SKIP, native.HLL_CODEC]
+    assert list(c.pair_cnt[[0, 3]]) == [300, len(keys) - 300]
+    assert c.pair_start[3] == 300 and len(c.pairs) == len(keys)
+    plane = np.zeros((3, hll.M), np.uint8)
+    assert native.hll_fold(buf, c, [0, 1, 2, 3], [0, 1, 2, 5],
+                           plane) == 2
+    from veneur_tpu_torch.forward import hll_codec
+    np.testing.assert_array_equal(plane[0], hll_codec.decode(parts[0]))
+    np.testing.assert_array_equal(plane[1], hll_codec.decode(parts[1]))
+    assert not plane[2].any()
+    with pytest.raises(ValueError):
+        native.hll_fold(buf, c, [6], [0], plane)

@@ -685,3 +685,75 @@ def test_device_profile_names_the_merge_kernel(tmp_path):
         names = {ev.get("name", "") for ev in json.load(f)["traceEvents"]
                  if ev.get("cat") == "kernel"}
     assert any("cluster_merge_kernel" in n for n in names), sorted(names)
+
+
+def _portbench_reader(name: str):
+    """``read(ctx)`` of ``portbench/metrics/<name>.py``."""
+    import importlib.util
+    import pathlib
+    path = (pathlib.Path(__file__).resolve().parent.parent / "portbench" /
+            "metrics" / f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"pb_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.read
+
+
+def test_import_sketch_counts_on_the_flush_record():
+    """A gRPC global's flush record counts the interval's sketches the
+    native pass folded and those handed to the codec
+    (``counts["import.hll_native"]`` / ``["import.hll_codec"]``, beside
+    ``h2d.bytes``; /debug/flushes serves them), and
+    ``portbench/metrics/import_hll_native_share.py`` reads 100 over a
+    dense-only window, under 100 once a malformed sketch came, and
+    None over records without the counts."""
+    import types
+    import urllib.request
+
+    import numpy as np
+
+    from tests import hll_sketches as hs
+    from veneur_tpu_torch.core.config import read_config
+    from veneur_tpu_torch.core.server import Server
+    from veneur_tpu_torch.forward import grpc_forward as gf
+    rng = np.random.default_rng(8)
+    srv = Server(read_config(data=dict(
+        tpu_counter_rows=64, tpu_gauge_rows=64, tpu_histo_rows=64,
+        tpu_set_rows=8, interval="60s", hostname="h",
+        grpc_listen_addresses=["tcp://127.0.0.1:0"],
+        http_address="127.0.0.1:0")), device="cpu")
+    srv.start()
+    client = gf.ForwardClient(f"127.0.0.1:{srv.grpc_ports[0]}")
+    share = _portbench_reader("import_hll_native_share")
+    try:
+        srv.flush_once()
+        dense = [(f"s{i}", hs.dense(rng.integers(0, 16, 1 << 14), b=i))
+                 for i in range(3)]
+        for _ in range(2):
+            client.send_wire(hs.set_wire(dense))
+        srv.flush_once()
+        first = srv.flush_ring.records()[-1]
+        assert first.counts["import.hll_native"] == 6
+        assert first.counts["import.hll_codec"] == 0
+        assert first.counts["h2d.bytes"] > 0
+        url = f"http://127.0.0.1:{srv.http_port}/debug/flushes?n=1"
+        with urllib.request.urlopen(url, timeout=10) as r:
+            (last,) = json.loads(r.read())
+        assert last["counts"] == first.counts
+        assert share(types.SimpleNamespace(flush_records=[first])) == 100.0
+        client.send_wire(hs.set_wire(dense[:1] + [("bad", b"\x01\x0e")]))
+        srv.flush_once()
+        second = srv.flush_ring.records()[-1]
+        assert {k: second.counts[k] for k in
+                ("import.hll_native", "import.hll_codec")} == {
+            "import.hll_native": 1, "import.hll_codec": 1}
+        got = share(types.SimpleNamespace(flush_records=[first, second]))
+        assert got == pytest.approx(100.0 * 7 / 8)
+        srv.flush_once()
+        third = srv.flush_ring.records()[-1]
+        assert not any(k.startswith("import.") for k in third.counts)
+        assert share(types.SimpleNamespace(
+            flush_records=[third, observe.FlushRecord()])) is None
+    finally:
+        client.close()
+        srv.shutdown()

@@ -486,3 +486,47 @@ def test_pressure_freeze_on_the_mesh_table():
             jsrv.handle_packet_batch(pkts, parser)
     finally:
         jsrv.shutdown()
+
+
+def test_mesh_grpc_set_import_matches_single_table():
+    """gRPC wires of dense (several bases), sparse and malformed HLL
+    sketches, more than one 64-sketch scratch plane's worth and a row
+    repeated across its boundary, into a mesh global
+    (``ShardedTable.import_set_sketches``) and a single-table one: the
+    same (accepted, dropped) per wire and the same flushed set
+    cardinalities, a refused sketch's series empty."""
+    from tests import hll_sketches as hs
+    from veneur_tpu_torch.forward import grpc_forward as gf
+    rng = np.random.default_rng(23)
+    keys = hs.sparse_keys([f"k{i}".encode() for i in range(400)])
+    bad = hs.malformed(rng)
+    items = []
+    for i in range(72):
+        if i % 3 == 0:
+            sk = hs.sparse(keys[i:i + 20], keys[i + 20::5])
+        else:
+            sk = hs.dense(rng.integers(0, 12, hs.M), b=i % 5)
+        items.append((f"s{i % 67}", sk))
+    items += [(f"bad.{k}", v) for k, v in sorted(bad.items())]
+    wires = [hs.set_wire([items[i] for i in rng.permutation(len(items))])
+             for _ in range(2)]
+    base = {"interval": "600s", "tpu_histo_rows": 64, "tpu_set_rows": 128,
+            "tpu_counter_rows": 64, "tpu_gauge_rows": 64}
+    got, applied = {}, {}
+    for name, cfg, kw in (
+            ("mesh", dict(base, tpu_mesh_shards=2), {"places": ["cpu"] * 4}),
+            ("single", base, {})):
+        srv = Server(read_config(data=cfg), device="cpu", **kw)
+        try:
+            assert isinstance(srv.table, ShardedTable) == (name == "mesh")
+            applied[name] = [gf.apply_metric_list_bytes(srv.table, w)
+                             for w in wires]
+            res = srv.flush_once()
+            got[name] = {m.name: m.value for m in res.metrics}
+        finally:
+            srv.shutdown()
+    assert applied["mesh"] == applied["single"] == [(72, len(bad))] * 2
+    assert got["mesh"] == got["single"]
+    assert all(got["mesh"][f"s{i}"] > 0 for i in range(67))
+    assert all(v == 0 for k, v in got["mesh"].items()
+               if k.startswith("bad."))

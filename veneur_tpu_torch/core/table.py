@@ -1054,23 +1054,40 @@ class MetricTable:
         self._gauge_dirty = True
         self._note_staged(len(rows))
 
+    def _import_plane(self) -> np.ndarray:
+        if self._set_import_plane is None:
+            c = self.config
+            self._set_import_plane = np.zeros((c.set_rows, hll.M),
+                                              np.uint8)
+            self._set_import_touched = np.zeros(c.set_rows, bool)
+        return self._set_import_plane
+
     def import_set_at(self, row: int, regs: np.ndarray) -> None:
         """Max one register row into the host import plane (Set.Merge,
         samplers/samplers.go:423) for a resolved row."""
         regs = np.asarray(regs, np.uint8)
         if regs.shape != (hll.M,):
             raise ValueError(f"bad register plane shape {regs.shape}")
-        if self._set_import_plane is None:
-            c = self.config
-            self._set_import_plane = np.zeros((c.set_rows, hll.M),
-                                              np.uint8)
-            self._set_import_touched = np.zeros(c.set_rows, bool)
-        prow = self._set_import_plane[row]
+        prow = self._import_plane()[row]
         np.maximum(prow, regs, out=prow)
         self._set_import_touched[row] = True
         self.set_idx.touched[row] = True
         self.set_idx.last_gen[row] = self.gen
         self._note_staged(1)
+
+    def import_set_sketches(self, buf: np.ndarray, sk, items: np.ndarray,
+                            rows: np.ndarray) -> int:
+        """``import_set_at`` for a wire's classified sketches at once:
+        one native byte-max pass of ``items`` (``native.Sketches`` of
+        the wire bytes ``buf``, each dense or sparse) into resolved
+        ``rows``, then the bookkeeping per wire.  Returns the sketches
+        folded."""
+        n = native.hll_fold(buf, sk, items, rows, self._import_plane())
+        self._set_import_touched[rows] = True
+        self.set_idx.touched[rows] = True
+        self.set_idx.last_gen[rows] = self.gen
+        self._note_staged(n)
+        return n
 
     def import_counter(self, name: str, tags: tuple[str, ...],
                        value: float) -> bool:

@@ -15,6 +15,10 @@ item's identity (``vtpu_metriclist_keyhash``) without touching the
 table, so a handler runs it outside the server's lock;
 ``apply_decoded`` then resolves rows through the table's row and
 wire-plan caches and stages every value with vectorized batch appliers.
+The import's ``decode_import`` also classifies the set items' HLL
+sketches (and decodes the sparse ones) outside the lock, and
+``apply_decoded`` folds them into the import plane in one native pass
+under it; only sketches the codec must judge go item by item.
 The per-item protobuf path (``apply_metric_list``) runs only for a
 wire the native walker calls malformed, for its per-item isolation,
 and serves the tests as the columnar path's oracle.
@@ -412,6 +416,25 @@ def decode_metric_list(data: bytes) -> dict | None:
     return cols
 
 
+def _classify_sets(data: bytes, cols: dict) -> native.Sketches:
+    nm = cols["n"]
+    return native.hll_classify(
+        np.frombuffer(data, np.uint8), cols["kind"][:nm],
+        cols["hll_off"][:nm], cols["hll_len"][:nm])
+
+
+def decode_import(data: bytes) -> dict | None:
+    """The import's lock-free half: ``decode_metric_list`` plus, where
+    the wire has set items, their HLL sketches classified and the
+    sparse ones decoded (``cols["hll"]``, a ``native.Sketches``) for
+    ``apply_decoded``'s fold.  The proxy router decodes with
+    ``decode_metric_list`` alone."""
+    cols = decode_metric_list(data)
+    if cols is not None and (cols["kind"][:cols["n"]] == 4).any():
+        cols["hll"] = _classify_sets(data, cols)
+    return cols
+
+
 _WIRE_PLAN_CACHE_MAX = 256
 
 
@@ -537,12 +560,17 @@ def _resolve_rows(table: MetricTable, data: bytes,
 
 
 def apply_decoded(table: MetricTable, data: bytes, cols: dict,
-                  span_ns: dict | None = None) -> tuple[int, int]:
+                  span_ns: dict | None = None,
+                  counts: dict | None = None) -> tuple[int, int]:
     """The locked half: resolve rows through the caches and stage every
     value with vectorized batch appliers.  Value-level validity
     (finiteness, the HLL codec) is checked on every wire; only series
-    identity is cached.  ``span_ns`` (span name -> ns) gets the per-item
-    set loop's time as ``import.hll``.  Returns (accepted, dropped)."""
+    identity is cached.  ``cols`` comes from ``decode_import`` (from
+    ``decode_metric_list`` alone, the sketches are classified here).
+    ``span_ns`` (span name -> ns) gets the set fold's time as
+    ``import.hll``, and ``counts`` the sketches folded natively and
+    handed to the codec as ``import.hll_native`` / ``import.hll_codec``.
+    Returns (accepted, dropped)."""
     nm = cols["n"]
     if nm == 0:
         return 0, 0
@@ -643,11 +671,23 @@ def apply_decoded(table: MetricTable, data: bytes, cols: dict,
                 rep_rows[live], cm[live], cw[live])
             accepted += int(ok_h.sum())
 
-    # sets: the HLL codec decode stays per item (value-level); row
-    # resolution is cached
+    # sets: every sketch the lock-free classifier accepted folds in one
+    # native pass; the rest go through the codec one by one, which
+    # drops them (or folds one it accepts after all)
     sels = np.nonzero(valid & (kind == 4))[0]
+    if not len(sels):
+        return accepted, dropped
     t0 = time.monotonic_ns()
-    for i in sels:
+    sk = cols.get("hll") or _classify_sets(data, cols)
+    fast = sk.status[sels] != native.HLL_CODEC
+    n_native = 0
+    if fast.any():
+        n_native = table.import_set_sketches(
+            np.frombuffer(data, np.uint8), sk, sels[fast],
+            rows[sels[fast]])
+        accepted += n_native
+    slow = sels[~fast]
+    for i in slow:
         ho, hl = int(cols["hll_off"][i]), int(cols["hll_len"][i])
         try:
             regs = hll_codec.decode(data[ho:ho + hl])
@@ -656,8 +696,11 @@ def apply_decoded(table: MetricTable, data: bytes, cols: dict,
         except (ValueError, hll_codec.HLLCodecError) as e:
             log.warning("dropping bad gRPC import item: %s", e)
             dropped += 1
-    if span_ns is not None and len(sels):
+    if span_ns is not None:
         span_ns["import.hll"] = time.monotonic_ns() - t0
+    if counts is not None:
+        counts["import.hll_native"] = n_native
+        counts["import.hll_codec"] = len(slow)
     return accepted, dropped
 
 
@@ -668,7 +711,7 @@ def apply_metric_list_bytes(table: MetricTable,
     around its lock).  A wire the native walker calls malformed takes
     the per-item protobuf path, which isolates bad items or raises
     ``DecodeError``."""
-    cols = decode_metric_list(data)
+    cols = decode_import(data)
     if cols is None:
         return apply_metric_list(table,
                                  forward_pb2.MetricList.FromString(data))
@@ -752,22 +795,25 @@ class ImportServer:
         the ``span_ns`` of the flush record that closes it
         (``/debug/flushes``): ``import.decode`` (outside the lock),
         ``import.lock_wait`` (asking for the lock to holding it),
-        ``import.apply`` (held) and ``import.hll`` (the apply's per-item
-        set decode), each summed over the interval's wires."""
+        ``import.apply`` (held) and ``import.hll`` (the apply's set
+        fold), each summed over the interval's wires, and the record's
+        ``counts``: ``import.hll_native`` and ``import.hll_codec``."""
         core = self._core
         flags = decode_metadata(context.invocation_metadata())
         flagged = any(flags[k] for k in ("drain", "replay", "recovery",
                                          "handoff"))
         t0 = time.monotonic_ns()
-        cols = decode_metric_list(request)
+        cols = decode_import(request)
         span_ns = {"import.decode": time.monotonic_ns() - t0}
+        counts = {}
         interval = None
 
         def apply():
             if cols is None:
                 return apply_metric_list(
                     core.table, forward_pb2.MetricList.FromString(request))
-            return apply_decoded(core.table, request, cols, span_ns)
+            return apply_decoded(core.table, request, cols, span_ns,
+                                 counts)
         try:
             t0 = time.monotonic_ns()
             with core.lock:
@@ -795,7 +841,7 @@ class ImportServer:
             context.abort(grpc.StatusCode.INVALID_ARGUMENT,
                           f"malformed MetricList: {e}")
         finally:
-            (interval or core.flush_tracer.interval).add(span_ns)
+            (interval or core.flush_tracer.interval).add(span_ns, counts)
         return empty_pb2.Empty()
 
     def _send_span(self, request, context):

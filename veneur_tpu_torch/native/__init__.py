@@ -1,6 +1,7 @@
 """The port's native (C++) host library: parse, ingest, the recvmmsg
 drain and the io_uring ring (``uring.py``), rank, planes, the
-reference-schema /import value decode and the gRPC MetricList decode.
+reference-schema /import value decode, the gRPC MetricList decode and
+the HLL sketch classify and fold of its set items.
 
 ``dsd_parse.cpp`` beside this file is the port's own copy of the entries
 it runs from the reference package's native parser.  ``load()`` compiles
@@ -25,6 +26,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 
@@ -190,6 +192,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         i64p, i32p,
         i64p, i32p,
         u64p]
+    lib.vtpu_hll_classify.restype = i64
+    lib.vtpu_hll_classify.argtypes = [
+        u8p, i64, i64, u8p, i64p, i32p, u8p, i64p, i32p, i32p, i64]
+    lib.vtpu_hll_fold.restype = i64
+    lib.vtpu_hll_fold.argtypes = [
+        u8p, i64p, u8p, i64p, i32p, i32p, i64p, i64p, i64, u8p, i64]
     lib.vtpu_metriclist_spans.restype = i64
     lib.vtpu_metriclist_spans.argtypes = [
         u8p, i64, i64, i64p, i64p, i64p]
@@ -343,6 +351,74 @@ def tier_split(rows, tier: np.ndarray, slot: np.ndarray
         ptr(slot, ctypes.c_int32), ptr(out_idx, ctypes.c_int32),
         ptr(out_rows, ctypes.c_int32)))
     return out_idx[:nw], out_rows[:nw], out_idx[nw:]
+
+
+# HLL sketch forms of a wire's items (vtpu_hll_classify)
+HLL_SKIP, HLL_DENSE, HLL_SPARSE, HLL_CODEC = 0, 1, 2, 3
+_HLL_M = 1 << 14
+
+
+class Sketches(NamedTuple):
+    """One wire's classified HLL sketches: each item's byte offset
+    ``off`` into the wire and form ``status`` (``HLL_*``), and the
+    sparse sketches' ``(register << 8) | rank`` pairs at
+    ``pairs[pair_start:pair_start + pair_cnt]``."""
+    off: np.ndarray
+    status: np.ndarray
+    pair_start: np.ndarray
+    pair_cnt: np.ndarray
+    pairs: np.ndarray
+
+
+def hll_classify(buf: np.ndarray, kind, off, length) -> Sketches:
+    """Classify the set items' (``kind`` 4) sketch bytes
+    ``buf[off:off + length]``: ``HLL_DENSE`` and ``HLL_SPARSE`` where
+    ``forward.hll_codec.decode`` would accept the sketch, the sparse
+    ones decoded to pairs; ``HLL_CODEC`` for the rest
+    (vtpu_hll_classify, one more call when the pairs outgrow the
+    first guess)."""
+    kind = _arr(kind, np.uint8)
+    off = _arr(off, np.int64)
+    length = _arr(length, np.int32)
+    n = len(kind)
+    status = np.empty(n, np.uint8)
+    pair_start = np.empty(n, np.int64)
+    pair_cnt = np.empty(n, np.int32)
+    pairs = np.empty(0, np.int32)
+    lib = load()
+    while True:
+        need = int(lib.vtpu_hll_classify(
+            ptr(buf, ctypes.c_uint8), len(buf), n,
+            ptr(kind, ctypes.c_uint8), ptr(off, ctypes.c_int64),
+            ptr(length, ctypes.c_int32), ptr(status, ctypes.c_uint8),
+            ptr(pair_start, ctypes.c_int64), ptr(pair_cnt, ctypes.c_int32),
+            ptr(pairs, ctypes.c_int32), len(pairs)))
+        if need <= len(pairs):
+            return Sketches(off, status, pair_start, pair_cnt, pairs)
+        pairs = np.empty(need, np.int32)
+
+
+def hll_fold(buf: np.ndarray, sk: Sketches, items, dest,
+             plane: np.ndarray) -> int:
+    """Byte-max the classified sketches of ``items`` into rows ``dest``
+    of a u8[R, 16384] register plane, in place, in order (vtpu_hll_fold;
+    items the codec must see and rows outside the plane are skipped).
+    Returns the sketches folded."""
+    items = _arr(items, np.int64)
+    dest = _arr(dest, np.int64)
+    if plane.dtype != np.uint8 or plane.ndim != 2 or \
+            plane.shape[1] != _HLL_M:
+        raise ValueError(f"bad register plane {plane.dtype} {plane.shape}")
+    if len(items) != len(dest):
+        raise ValueError("items and dest differ in length")
+    if len(items) and (items.min() < 0 or items.max() >= len(sk.status)):
+        raise ValueError("item index outside the wire")
+    return int(load().vtpu_hll_fold(
+        ptr(buf, ctypes.c_uint8), ptr(sk.off, ctypes.c_int64),
+        ptr(sk.status, ctypes.c_uint8), ptr(sk.pair_start, ctypes.c_int64),
+        ptr(sk.pair_cnt, ctypes.c_int32), ptr(sk.pairs, ctypes.c_int32),
+        ptr(items, ctypes.c_int64), ptr(dest, ctypes.c_int64), len(items),
+        ptr(plane, ctypes.c_uint8), plane.shape[0]))
 
 
 # ---- plain versions (tests only) ------------------------------------

@@ -19,7 +19,8 @@
 // vtpu_metriclist_keyhash).  Everything
 // kept is byte for byte the reference's, so identity hashes stay
 // bit-identical to utils/hashing.key_hash64 and member hashes to
-// utils/hashing.hash64.
+// utils/hashing.hash64.  The port's own addition is the gRPC import's
+// HLL sketch classify and fold (vtpu_hll_classify, vtpu_hll_fold).
 //
 // Role: the hot loop of the reference's ingest
 // (server.go:1240 ReadMetricSocket -> samplers/parser.go:298
@@ -2165,6 +2166,189 @@ void vtpu_proxy_keyhash(const uint8_t* buf, int64_t nm,
     }
     out_hash[i] = fmix64(h);
   }
+}
+
+// ---- HLL sketches of a MetricList wire ------------------------------
+// The gRPC import folds a wire's axiomhq/hyperloglog sketches
+// (SetValue.hyper_log_log, forward/hll_codec.py is the oracle) into the
+// table's host import plane in two calls: vtpu_hll_classify outside the
+// ingest lock names each set item's form and decodes sparse sketches
+// into (register, rank) pairs; vtpu_hll_fold under it byte-maxes every
+// accepted sketch into its plane row.  A sketch the classifier refuses
+// is left to the codec, so a malformed one never reaches the plane.
+//
+//   [version][p][b][sparse?]
+//   dense:  [m/2 be32][m/2 bytes: even register in the high nibble,
+//           register = nibble + b mod 256]
+//   sparse: [tmpset_n be32][tmpset be32...][list_count be32]
+//           [list_last be32][varbytes_n be32][varbytes: little 7-bit
+//           varint deltas of the sorted encoded hashes]
+
+static constexpr int32_t kHllP = 14;
+static constexpr int32_t kHllM = 1 << kHllP;
+static constexpr int32_t kHllPP = 25;
+enum : uint8_t { kHllSkip = 0, kHllDense = 1, kHllSparse = 2,
+                 kHllCodec = 3 };
+
+static inline uint32_t load_be32(const uint8_t* p) {
+  return ((uint32_t)p[0] << 24) | ((uint32_t)p[1] << 16) |
+         ((uint32_t)p[2] << 8) | (uint32_t)p[3];
+}
+
+// An encoded sparse hash as a (register << 8 | rank) pair
+// (sparse.go:25 decodeHash at p = 14, pp = 25); false for the zero
+// hash word the codec refuses.
+static inline bool hll_sparse_pair(uint32_t k, int32_t* out) {
+  uint32_t idx, rank;
+  if (k & 1) {
+    rank = ((k >> 1) & 0x3F) + kHllPP - kHllP;
+    idx = (k >> (32 - kHllP)) & (kHllM - 1);
+  } else {
+    idx = (k >> (kHllPP - kHllP + 1)) & (kHllM - 1);
+    const uint32_t w = k << (32 - kHllPP + kHllP - 1);
+    if (w == 0) return false;
+    rank = (uint32_t)__builtin_clz(w) + 1;
+  }
+  *out = (int32_t)((idx << 8) | rank);
+  return true;
+}
+
+// One sparse sketch's pairs into pairs[np..] while they fit under cap;
+// returns the pair count, or -1 where the codec would raise.
+static int64_t hll_sparse_decode(const uint8_t* d, int64_t len,
+                                 int32_t* pairs, int64_t np,
+                                 int64_t cap) {
+  if (len < 8) return -1;
+  const int64_t tn = load_be32(d + 4);
+  const int64_t end = 8 + 4 * tn;
+  if (len < end + 12) return -1;
+  const int64_t count = load_be32(d + end);
+  const int64_t vb_n = load_be32(d + end + 8);
+  if (len - (end + 12) < vb_n) return -1;
+  int64_t got = 0;
+  int32_t pr;
+  for (int64_t j = 0; j < tn; j++, got++) {
+    if (!hll_sparse_pair(load_be32(d + 8 + 4 * j), &pr)) return -1;
+    if (np + got < cap) pairs[np + got] = pr;
+  }
+  const uint8_t* vb = d + end + 12;
+  uint32_t last = 0;
+  int64_t i = 0;
+  for (int64_t c = 0; c < count; c++, got++) {
+    uint32_t x = 0;
+    int shift = 0;
+    for (;;) {
+      if (i >= vb_n) return -1;
+      const uint8_t byte = vb[i++];
+      // bits past 32 vanish in the codec's sum mod 2^32
+      if (shift < 32) {
+        x |= (uint32_t)(byte & 0x7F) << shift;
+        shift += 7;
+      }
+      if (!(byte & 0x80)) break;
+    }
+    last += x;
+    if (!hll_sparse_pair(last, &pr)) return -1;
+    if (np + got < cap) pairs[np + got] = pr;
+  }
+  return got;
+}
+
+// Classify each set item (kind 4) of a decoded wire: status kHllDense
+// (p = 14, size m/2, whole), kHllSparse (flag 1, tmpset and list decode
+// whole, no zero hash word) with its pairs at pair_start/pair_cnt, or
+// kHllCodec; other kinds kHllSkip.  Pairs are written while they fit
+// under pairs_cap; returns the pairs needed, so a call whose return
+// passes pairs_cap is repeated with room for them.
+int64_t vtpu_hll_classify(const uint8_t* buf, int64_t n, int64_t nm,
+                          const uint8_t* kind, const int64_t* hll_off,
+                          const int32_t* hll_len, uint8_t* status,
+                          int64_t* pair_start, int32_t* pair_cnt,
+                          int32_t* pairs, int64_t pairs_cap) {
+  int64_t np = 0;
+  for (int64_t i = 0; i < nm; i++) {
+    pair_start[i] = np;
+    pair_cnt[i] = 0;
+    if (kind[i] != 4) {
+      status[i] = kHllSkip;
+      continue;
+    }
+    const int64_t off = hll_off[i], len = hll_len[i];
+    status[i] = kHllCodec;
+    if (off < 0 || len < 4 || len > n - off) continue;
+    const uint8_t* d = buf + off;
+    if (d[1] != kHllP) continue;
+    if (d[3] == 1) {
+      const int64_t got = hll_sparse_decode(d, len, pairs, np, pairs_cap);
+      if (got < 0) continue;
+      status[i] = kHllSparse;
+      pair_cnt[i] = (int32_t)got;
+      np += got;
+    } else if (len >= 8 + kHllM / 2 && load_be32(d + 4) == kHllM / 2) {
+      status[i] = kHllDense;
+    }
+  }
+  return np;
+}
+
+// One dense sketch's registers byte-maxed into a plane row.
+static void hll_fold_dense(const uint8_t* packed, uint8_t b,
+                           uint8_t* row) {
+  int32_t q = 0;
+#if defined(__x86_64__)
+  const __m128i lo_mask = _mm_set1_epi8(0x0F);
+  const __m128i base = _mm_set1_epi8((char)b);
+  for (; q + 16 <= kHllM / 2; q += 16) {
+    const __m128i x =
+        _mm_loadu_si128(reinterpret_cast<const __m128i*>(packed + q));
+    const __m128i hi = _mm_add_epi8(
+        _mm_and_si128(_mm_srli_epi16(x, 4), lo_mask), base);
+    const __m128i lo = _mm_add_epi8(_mm_and_si128(x, lo_mask), base);
+    __m128i* dst = reinterpret_cast<__m128i*>(row + 2 * q);
+    _mm_storeu_si128(dst, _mm_max_epu8(_mm_loadu_si128(dst),
+                                       _mm_unpacklo_epi8(hi, lo)));
+    _mm_storeu_si128(dst + 1, _mm_max_epu8(_mm_loadu_si128(dst + 1),
+                                           _mm_unpackhi_epi8(hi, lo)));
+  }
+#endif
+  for (; q < kHllM / 2; q++) {
+    const uint8_t hi = (uint8_t)((packed[q] >> 4) + b);
+    const uint8_t lo = (uint8_t)((packed[q] & 0x0F) + b);
+    if (row[2 * q] < hi) row[2 * q] = hi;
+    if (row[2 * q + 1] < lo) row[2 * q + 1] = lo;
+  }
+}
+
+// Fold the classified sketches of items[0..k) into plane rows
+// dest[0..k) of an (n_rows, m) u8 plane by byte max, in order; items
+// not classified dense or sparse and rows outside the plane are
+// skipped.  Returns the sketches folded.
+int64_t vtpu_hll_fold(const uint8_t* buf, const int64_t* hll_off,
+                      const uint8_t* status, const int64_t* pair_start,
+                      const int32_t* pair_cnt, const int32_t* pairs,
+                      const int64_t* items, const int64_t* dest,
+                      int64_t k, uint8_t* plane, int64_t n_rows) {
+  int64_t folded = 0;
+  for (int64_t j = 0; j < k; j++) {
+    const int64_t i = items[j], r = dest[j];
+    if (r < 0 || r >= n_rows) continue;
+    uint8_t* row = plane + r * kHllM;
+    if (status[i] == kHllDense) {
+      const uint8_t* d = buf + hll_off[i];
+      hll_fold_dense(d + 8, d[2], row);
+    } else if (status[i] == kHllSparse) {
+      const int32_t* p = pairs + pair_start[i];
+      for (int32_t q = 0; q < pair_cnt[i]; q++) {
+        const uint8_t rank = (uint8_t)(p[q] & 0xFF);
+        uint8_t* reg = row + (p[q] >> 8);
+        if (*reg < rank) *reg = rank;
+      }
+    } else {
+      continue;
+    }
+    folded++;
+  }
+  return folded;
 }
 
 // ---- io_uring ingest exports ---------------------------------------

@@ -12,8 +12,10 @@ The port's records also carry the closed interval's host spans
 (``observe/tracer.py``): ``span_ns`` (span name -> total ns:
 ``import.decode``, ``import.lock_wait``, ``import.apply``,
 ``import.hll``, ``gc``, ``flush.materialize``) and ``counts``
-(``h2d.bytes``).  Each appears in the JSON only when set, so a record
-without them reads as the reference's.
+(``h2d.bytes``; ``import.hll_native`` and ``import.hll_codec``, the
+interval's sketches folded natively and handed to the codec).  Each
+appears in the JSON only when set, so a record without them reads as
+the reference's.
 """
 
 from __future__ import annotations

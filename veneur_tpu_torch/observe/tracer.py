@@ -36,13 +36,14 @@ Host spans.  Besides the stage tree, the tracer keeps the open
 interval's host span totals (``HostSpans``: span name -> ns), which any
 thread adds to: the gRPC import's ``import.decode``, ``import.lock_wait``,
 ``import.apply`` and ``import.hll`` (summed over its wires, thread time)
-and the collector's ``gc`` (every collection, ``start_gc_spans``).  The
-flush takes the interval in its snapshot lock round
+and the collector's ``gc`` (every collection, ``start_gc_spans``), and
+its counts: the import's ``import.hll_native`` and ``import.hll_codec``.
+The flush takes the interval in its snapshot lock round
 (``FlushCycle.take_interval``), the round the ledger closes it in, and
-when the cycle ends writes it onto its ``FlushRecord`` as ``span_ns``,
-with the cycle's own ``flush.materialize`` (``FlushCycle.host_span``),
-and ``counts["h2d.bytes"]``, the registry's host-to-device bytes since
-the previous cycle.  ``/debug/flushes`` serves both.  While a
+when the cycle ends writes it onto its ``FlushRecord`` as ``span_ns``
+and ``counts``, with the cycle's own ``flush.materialize``
+(``FlushCycle.host_span``) and ``counts["h2d.bytes"]``, the registry's
+host-to-device bytes since the previous cycle.  ``/debug/flushes`` serves both.  While a
 ``torch.profiler`` runs, each stage and ``flush.materialize`` also open
 a ``record_function`` named ``flush.<name>``, so the flush's stages name
 its stretches of the device trace (whose clock is the wall clock).
@@ -77,30 +78,33 @@ def _add(into: dict, items) -> None:
 
 
 class HostSpans:
-    """One interval's host span totals (name -> ns); any thread adds to
-    it.  The flush that closes the interval closes it; an add after
-    that lands in the tracer's interval then open (or is dropped
-    without a tracer)."""
+    """One interval's host span totals (name -> ns) and counts (name ->
+    n); any thread adds to them.  The flush that closes the interval
+    closes it; an add after that lands in the tracer's interval then
+    open (or is dropped without a tracer)."""
 
     def __init__(self, tracer: "FlushTracer | None" = None):
         self._tracer = tracer
         self._lock = threading.Lock()
         self._closed = False
         self.span_ns: dict[str, int] = {}
+        self.counts: dict[str, int] = {}
 
-    def add(self, span_ns: dict) -> None:
+    def add(self, span_ns: dict, counts: dict | None = None) -> None:
         with self._lock:
             if not self._closed:
                 _add(self.span_ns, span_ns.items())
+                if counts:
+                    _add(self.counts, counts.items())
                 return
         if self._tracer is not None:
-            self._tracer.interval.add(span_ns)
+            self._tracer.interval.add(span_ns, counts)
 
-    def close(self) -> dict:
-        """No more adds; returns the totals."""
+    def close(self) -> tuple[dict, dict]:
+        """No more adds; returns the span totals and the counts."""
         with self._lock:
             self._closed = True
-            return self.span_ns
+            return self.span_ns, self.counts
 
 
 class _GcHook:
@@ -229,9 +233,10 @@ class FlushCycle:
     def close(self) -> None:
         """Add the taken interval's span totals to the record."""
         if self.interval is not None:
-            totals = self.interval.close()
+            totals, counts = self.interval.close()
             with self._lock:
                 _add(self.record.span_ns, totals.items())
+                _add(self.record.counts, counts.items())
 
     def child(self, parent, name: str, tags=None):
         """A live child span under ``parent`` (a stage span), for

@@ -46,7 +46,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from veneur_tpu_torch import observe, resolve_device
+from veneur_tpu_torch import native, observe, resolve_device
 from veneur_tpu_torch.ops import hll as hll_ops
 from veneur_tpu_torch.ops import segment, tdigest
 from veneur_tpu_torch.ops.segment import (HISTO_STAT_COLS, STAT_MAX,
@@ -979,6 +979,22 @@ class ShardedTable:
         self.set_idx.last_gen[row] = self.gen
         self._staged_n += max(1, len(nz))
         self._interval_ingested += 1
+
+    def import_set_sketches(self, buf, sk, items, rows) -> int:
+        """The wire's classified sketches decoded natively, 64 to a
+        scratch plane, then staged row by row as ``import_set_at``
+        stages them (each row's nonzero registers on the next shard)."""
+        step = 64
+        regs = np.empty((min(len(items), step), hll_ops.M), np.uint8)
+        n = 0
+        for s in range(0, len(items), step):
+            its, rs = items[s:s + step], rows[s:s + step]
+            part = regs[:len(its)]
+            part.fill(0)
+            n += native.hll_fold(buf, sk, its, np.arange(len(its)), part)
+            for row, r in zip(rs.tolist(), part):
+                self.import_set_at(row, r)
+        return n
 
     def import_counter(self, name, tags, value) -> bool:
         row = self.import_counter_row(name, tags)
